@@ -1,0 +1,125 @@
+"""Artifact registry: N loaded ``Program``\\ s keyed by name; port of
+``repro/serve/registry.py``.
+
+A serving process loads each artifact once and registers it under a
+unique name. Engines stay per model: they live on each ``Program``,
+keyed on the resolved :class:`~repro_torch.core.execution.ExecutionSpec`,
+so two models never share an engine and re-resolving a runner reuses
+the same one. ``register``/``load`` take ``precompile=`` (a
+``BatchPolicy`` or iterable of batch buckets, with ``timesteps=``) and
+warm every serving shape before the model takes its first request.
+The reference's sharded runners and deprecated kwargs are not ported.
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import TYPE_CHECKING
+
+from repro_torch.core.execution import ExecutionSpec, as_spec
+from repro_torch.core.program import Program
+
+if TYPE_CHECKING:                          # pragma: no cover
+    from repro_torch.serve.batcher import BatchPolicy
+
+
+class ProgramRegistry:
+    """Name -> loaded :class:`~repro_torch.core.program.Program`."""
+
+    def __init__(self):
+        self._programs: dict[str, Program] = {}
+        self._policies: dict[str, "BatchPolicy"] = {}
+
+    # -- registration -------------------------------------------------------
+
+    def register(self, name: str, program: Program, *, precompile=None,
+                 timesteps: int | None = None,
+                 spec: ExecutionSpec | None = None,
+                 verify: bool = False,
+                 policy: "BatchPolicy | None" = None) -> Program:
+        """Register a loaded program; duplicate names are rejected.
+
+        ``precompile=`` warms the given batch buckets (``timesteps``
+        fixing the T axis) for ``spec`` at insert time. ``policy=``
+        attaches the model's serving ``BatchPolicy``. ``verify=True``
+        needs the static verifier, which is not ported yet.
+        """
+        if not name:
+            raise ValueError("model name must be non-empty")
+        if name in self._programs:
+            raise ValueError(f"model {name!r} already registered; "
+                             "unregister it first to replace")
+        if verify:
+            raise NotImplementedError(
+                "register(verify=True) needs the static verifier, which "
+                "the port does not have yet (ROADMAP Queue A item 5)")
+        if precompile is not None:
+            if timesteps is None:
+                raise ValueError("register(precompile=...) needs timesteps= "
+                                 "to fix the T axis of the warmed shapes")
+            program.precompile(precompile, timesteps, spec)
+        self._programs[name] = program
+        if policy is not None:
+            self._policies[name] = policy
+        return program
+
+    def load(self, name: str, path: str | Path, *, precompile=None,
+             timesteps: int | None = None,
+             spec: ExecutionSpec | None = None,
+             verify: bool = False,
+             policy: "BatchPolicy | None" = None) -> Program:
+        """``Program.load`` an artifact and register it under ``name``."""
+        return self.register(name, Program.load(path),
+                             precompile=precompile, timesteps=timesteps,
+                             spec=spec, verify=verify, policy=policy)
+
+    def unregister(self, name: str) -> Program:
+        if name not in self._programs:
+            raise KeyError(f"model {name!r} not registered")
+        self._policies.pop(name, None)
+        return self._programs.pop(name)
+
+    def policy(self, name: str) -> "BatchPolicy | None":
+        """The serving policy registered with the model, if any."""
+        self.get(name)                     # KeyError on unknown names
+        return self._policies.get(name)
+
+    # -- lookup -------------------------------------------------------------
+
+    def get(self, name: str) -> Program:
+        try:
+            return self._programs[name]
+        except KeyError:
+            raise KeyError(f"model {name!r} not registered; have "
+                           f"{self.names()}") from None
+
+    def names(self) -> tuple[str, ...]:
+        return tuple(sorted(self._programs))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._programs
+
+    def __len__(self) -> int:
+        return len(self._programs)
+
+    # -- per-model runners --------------------------------------------------
+
+    def runner(self, name: str, spec: ExecutionSpec | None = None):
+        """The model's batch-callable: ``[b, T, n_in] -> (s, v, stats)``.
+
+        Resolves to the program's owned engine for ``spec``; the
+        returned callable carries a ``precompile(buckets, timesteps)``
+        hook (``Program.run``'s owner has one) for warming.
+        """
+        program = self.get(name)
+        if spec is None:
+            return program.run              # default-spec bound method
+        spec = as_spec(spec)
+
+        def call(ext):
+            return program.run(ext, spec)
+
+        def precompile(batch_sizes, timesteps):
+            return program.precompile(batch_sizes, timesteps, spec)
+
+        call.precompile = precompile
+        return call
