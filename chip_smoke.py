@@ -9,22 +9,39 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together) and print ptxas' report;
-3. each kernel against its plain torch version on the card, bit-exact
-   (``torch.equal``, tolerance 0): ``fused_step`` on int8 (910 x 126)
-   and int16 (1020 x 320) planes at B in {1, 3, 8, 17} with negative
-   potentials and recurrent inputs, ``lif_update_int`` at
-   leak_shift in {1, 2, 4}; each case timed (per call on the card's
-   clock, the host's enqueue time, the card's time alone with the
-   enqueue hidden) beside its plain version's, one PyTorch library call's and
-   the card's bound; then each kernel's record at the serving shape on
-   the SHD-scale artifact's own plane;
+3. each kernel against its plain torch version on the card:
+   ``fused_step`` on int8 (910 x 126) and int16 (1020 x 320) planes at
+   B in {1, 3, 8, 17} with negative potentials and recurrent inputs,
+   ``lif_update_int`` at leak_shift in {1, 2, 4}, the float
+   ``lif_update`` at alpha in {0.25, 0.03125, 0.5} with a non-zero
+   reset and potentials sitting on the threshold, all bit-exact
+   (``torch.equal``, tolerance 0) in and out of place; ``spike_accum``
+   on float32, bf16 and int32 at the shapes of ``tests/test_kernels.py``
+   and of the SHD and MNIST nets, float32 within rtol = atol = 1e-5,
+   bf16 within rtol 2e-2 / atol 1e-2 (another summation order than
+   ``torch.matmul``; TF32 off), int32 and an all-zero-but-one tile
+   exact. Cases are timed (per call on the card's clock, the host's
+   enqueue time, the card's time alone with the enqueue hidden) beside
+   the plain version's, one PyTorch library call's and the card's
+   bound; then each kernel's record at the shape its path gives it;
 4. the golden artifacts (``tests/golden``), all three tiers on the
    card, against their recorded outputs;
 5. serve 32 seeded Poisson requests (T = 100) of the SHD-scale artifact
    through ``ProgramRegistry`` and ``MicroBatcher`` in measured mode,
    once on the default ``"fused"`` tier and once on ``"lif"``, each run
    with the launch counts set to 0 just before and read just after, and
-   every request's outputs checked against the ``"reference"`` tier.
+   every request's outputs checked against the ``"reference"`` tier;
+6. train the paper's SHD SRNN (``SHD_CONFIG``, 700-300-20 recurrent,
+   T = 100) at full width for 5 steps at B = 32 with
+   ``repro_torch.snn.train.train`` and score it with ``evaluate``, then
+   the MNIST SFNN (784-116-10, T = 10, rate-coded) the same way at
+   B = 64, the launch counts set to 0 just before and read just after:
+   exactly T x 3 (SHD; T x 2 MNIST) ``spike_accum`` and T x 2
+   ``lif_update`` per forward, none in the backward. The first SHD step
+   is also run on the CPU through the plain versions from the same
+   params and batch, and held to it: loss within relative
+   ``LOSS_RTOL``, at most ``SPIKE_FLIP_FRAC`` of hidden and output
+   spikes differing, gradients within relative norm ``GRAD_RTOL``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -47,9 +64,22 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 INT_OPS_PER_S = 1979e12          # H100 SXM int8 tensor-core peak: the
 #                                  card's top integer rate, so ops / it is
 #                                  a lower bound for any integer work
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor-core dense peak
+F32_OPS_PER_S = 67e12            # H100 SXM float32 peak outside the tensor
+#                                  cores: TF32 would not hold the float32
+#                                  tolerance, so this is the top rate for
+#                                  float32 work done as float32
 TIMESTEPS = 100
 N_REQUESTS = 32
 SERVE_BATCH = 8
+TRAIN_STEPS = 5
+SHD_BATCH, MNIST_BATCH = 32, 64
+# the training path on the card against the plain versions on the CPU;
+# measured on an H100 at 700 W: loss 6.9e-8, no spike differing,
+# gradients 1.8e-7 (PERF.md, PR 12)
+LOSS_RTOL = 1e-5                 # relative difference of the first loss
+SPIKE_FLIP_FRAC = 1e-4           # share of hidden/output spikes differing
+GRAD_RTOL = 1e-3                 # |g_card - g_cpu| / |g_cpu| per plane
 
 
 class SmokeFailure(RuntimeError):
@@ -118,8 +148,9 @@ def device_us(fn, iters: int = 50, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT_OPS_PER_S
+def bound_ms(n_bytes: int, n_ops: int,
+             ops_per_s: float = INT_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
@@ -127,6 +158,11 @@ def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
 def max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()
                if a.numel() else 0)
+
+
+def max_err_f(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max().item()
+                 if a.numel() else 0.0)
 
 
 def phase_card() -> str:
@@ -210,6 +246,54 @@ def time_lif(v, cur, p) -> dict:
     # operations per element (shift, two adds, compare, select)
     rec["bound_ms"], rec["bound_by"] = bound_ms(4 * v.numel() * 4,
                                                 5 * v.numel())
+    return rec
+
+
+def time_spike_accum(s, w) -> dict:
+    """``spike_accum``'s times beside its plain version's, one
+    ``torch.matmul`` of the same dtype and the card's bound."""
+    from repro_torch.kernels.spike_accum import spike_accum, spike_accum_ref
+    b, n_post = s.shape[0], w.shape[1]
+    rec = {
+        "ms": median_ms(lambda: spike_accum(s, w)),
+        "host_us": host_us(lambda: spike_accum(s, w)),
+        "device_us": device_us(lambda: spike_accum(s, w)),
+        "plain_ms": median_ms(lambda: spike_accum_ref(s, w)),
+        "library_ms": (median_ms(lambda: torch.matmul(s, w))
+                       if s.is_floating_point() else None),
+    }
+    # bytes: the W rows of the pre neurons that fired in some batch row
+    # (a dead row is never needed), the spikes, the output written;
+    # operations: a multiply and an add per (spike, post neuron) pair
+    rows_fired = int((s != 0).any(0).sum().item())
+    nnz = int((s != 0).sum().item())
+    rate = {torch.float32: F32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S,
+            torch.int32: INT_OPS_PER_S}[s.dtype]
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        rows_fired * n_post * w.element_size() + s.numel() * s.element_size()
+        + b * n_post * 4, 2 * nnz * n_post, rate)
+    return rec
+
+
+def time_lif_float(v, cur, p) -> dict:
+    """The float ``lif_update``'s times (out of place, as training calls
+    it) beside its plain version's and the card's bound; no single
+    PyTorch call computes the LIF step."""
+    from repro_torch.kernels.lif_update import lif_update, lif_update_ref
+    kw = dict(alpha=p.alpha, v_th=p.v_threshold, v_reset=p.v_reset)
+    rec = {
+        "ms": median_ms(lambda: lif_update(v, cur, **kw)),
+        "host_us": host_us(lambda: lif_update(v, cur, **kw)),
+        "device_us": device_us(lambda: lif_update(v, cur, **kw)),
+        "plain_ms": median_ms(lambda: lif_update_ref(v, cur, p.alpha,
+                                                     p.v_threshold,
+                                                     p.v_reset)),
+        "library_ms": None,
+    }
+    # v and current read, v and spikes written; a multiply, an add, a
+    # compare and two selects per element
+    rec["bound_ms"], rec["bound_by"] = bound_ms(4 * v.numel() * 4,
+                                                5 * v.numel(), F32_OPS_PER_S)
     return rec
 
 
@@ -305,6 +389,292 @@ def phase_kernels(dev: torch.device) -> dict:
     return recs
 
 
+def phase_snn_kernels(dev: torch.device) -> dict:
+    """``spike_accum`` and the float ``lif_update`` against their plain
+    versions, with times; then each one's record at the SHD training
+    shape, on the synthetic SHD data and ``init_params`` weights."""
+    from repro_torch.data import synthetic_shd
+    from repro_torch.kernels.lif_update import lif_update, lif_update_ref
+    from repro_torch.kernels.spike_accum import spike_accum, spike_accum_ref
+    from repro_torch.snn.lif import LIFParams
+    from repro_torch.snn.models import SHD_CONFIG, init_params, masked_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 yardsticks
+    rng = np.random.default_rng(2)
+    err = {"spike_accum": 0.0, "lif_update": 0.0}
+    tol = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+           torch.bfloat16: dict(rtol=2e-2, atol=1e-2)}
+    groups = {"test_kernels": ([(1, 7, 5), (3, 128, 128), (5, 300, 70),
+                                (8, 513, 257), (16, 1024, 116),
+                                (2, 784, 116)], 0.25),
+              "SHD": ([(32, 700, 300), (32, 300, 300), (32, 300, 20)], 0.08),
+              "MNIST": ([(64, 784, 116), (64, 116, 10)], 0.2)}
+    for group, (cases, rate) in groups.items():
+        for b, n_pre, n_post in cases:
+            s_np = rng.random((b, n_pre)) < rate
+            w_f = rng.standard_normal((n_pre, n_post)).astype(np.float32)
+            w_i = rng.integers(-7, 8, (n_pre, n_post)).astype(np.int32)
+            for dt in (torch.float32, torch.bfloat16, torch.int32):
+                s = torch.from_numpy(s_np).to(dev, dt)
+                w = torch.from_numpy(w_i if dt == torch.int32 else w_f
+                                     ).to(dev, dt)
+                got, want = spike_accum(s, w), spike_accum_ref(s, w)
+                torch.cuda.synchronize()
+                e = max_err_f(got, want)
+                err["spike_accum"] = max(err["spike_accum"], e)
+                what = f"spike_accum {dt} {b}x{n_pre}x{n_post}"
+                expect(got.dtype == want.dtype and got.shape == want.shape,
+                       f"{what}: {got.dtype} {tuple(got.shape)}")
+                expect(torch.equal(got, want) if dt == torch.int32
+                       else torch.allclose(got, want, **tol[dt]),
+                       f"{what}: differs from spike_accum_ref "
+                       f"(max |err| {e})")
+        print(f"spike_accum {group} shapes {cases} (spike rate {rate}): "
+              f"float32 and bf16 within tolerance, int32 exact; max |err| "
+              f"so far {err['spike_accum']:.3g}")
+    for dt in (torch.float32, torch.int32):     # one live tile, then none
+        s = torch.zeros((8, 512), device=dev, dtype=dt)
+        s[0, 300] = 1
+        w = torch.from_numpy(rng.integers(-7, 8, (512, 128))).to(dev, dt) \
+            if dt == torch.int32 else torch.randn((512, 128), device=dev)
+        got = spike_accum(s, w)
+        torch.cuda.synchronize()
+        expect(torch.equal(got[0], w[300].to(got.dtype))
+               and not got[1:].any(), f"zero tiles {dt}: not exact")
+        expect(not spike_accum(torch.zeros_like(s), w).any(),
+               f"all-zero spikes {dt}: not exact zeros")
+    print("spike_accum all-zero-but-one tile and all-zero spikes: exact")
+
+    for shape in ((32, 300), (64, 116), (7,), (13, 300)):
+        for alpha in (0.25, 0.03125, 0.5):
+            v = torch.randn(shape, device=dev)
+            cur = torch.randn(shape, device=dev) * 2.0
+            # half the neurons sit on the threshold: a contracted FMA
+            # would round some of them to the other side
+            on = torch.rand(shape, device=dev) < 0.5
+            cur = torch.where(on, 1.0 - (1.0 - alpha) * v, cur)
+            for reset in (0.0, -0.25):
+                p = LIFParams(alpha, 1.0, reset)
+                want = lif_update_ref(v, cur, alpha, 1.0, reset)
+                got = lif_update(v, cur, alpha=alpha, v_th=1.0, v_reset=reset)
+                v_i = v.clone()                          # the in-place form
+                lif_update(v_i, cur, alpha=alpha, v_th=1.0, v_reset=reset,
+                           out=(v_i, torch.empty_like(v_i)))
+                torch.cuda.synchronize()
+                for what, a, r in (("v", got[0], want[0]),
+                                   ("spikes", got[1], want[1]),
+                                   ("v in place", v_i, want[0])):
+                    e = max_err_f(a, r)
+                    err["lif_update"] = max(err["lif_update"], e)
+                    expect(torch.equal(a, r), f"lif_update {shape} "
+                           f"alpha={alpha} reset={reset}: {what} differs "
+                           f"(max |err| {e})")
+            print(f"lif_update {shape} alpha={alpha} reset 0 and -0.25: "
+                  f"bit-exact (spike rate {want[1].mean().item():.3f})")
+        print_times("times", time_lif_float(v, cur, p))
+
+    # each kernel's record: SHD layer 0 at B = 32, its input spikes at
+    # t = 50 of the synthetic set and its masked init_params weights
+    xtr = synthetic_shd(n_train=SHD_BATCH, n_test=1, seed=0)[0]
+    w = {k: v.to(dev) for k, v in masked_weights(
+        init_params(SHD_CONFIG, torch.Generator().manual_seed(0)),
+        SHD_CONFIG).items()}
+    s0 = torch.from_numpy(xtr[:, 50, :]).to(dev, torch.float32)
+    hidden = (torch.rand((SHD_BATCH, 300), device=dev) < 0.05).float()
+    for what, s, wk in (("300x300", hidden, w["wr0"]),
+                        ("300x20", hidden, w["w1"])):
+        print_times(f"spike_accum B={SHD_BATCH} {what} (spike rate "
+                    f"{s.mean().item():.3f})", time_spike_accum(s, wk))
+    p = SHD_CONFIG.lif
+    v = torch.randn((SHD_BATCH, 300), device=dev) * 0.5
+    cur = spike_accum(s0, w["w0"])
+    recs = {"spike_accum": time_spike_accum(s0, w["w0"]),
+            "lif_update": time_lif_float(v, cur, p)}
+    for name, rec in recs.items():
+        print_times(f"{name} record, SHD layer 0 at B={SHD_BATCH}", rec)
+        rec["max_abs_err"] = err[name]
+    return recs
+
+
+def first_step(params, x, y, cfg) -> dict:
+    """One training step's forward and gradients: the loss, every
+    layer's spikes, the gradients, the launches (spike_accum,
+    lif_update) and the seconds (each part ended by a sync on the card)
+    of the forward and of the backward."""
+    from repro_torch.kernels.lif_update import lif_update
+    from repro_torch.kernels.spike_accum import spike_accum
+    from repro_torch.snn.models import is_mask, layer_spikes
+    from repro_torch.snn.train import spike_count_loss
+
+    def mark():
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return (spike_accum.launches, lif_update.launches), time.perf_counter()
+
+    trained = {k: v.detach().requires_grad_() for k, v in params.items()
+               if not is_mask(k)}
+    c0, t0 = mark()
+    trains = layer_spikes({**params, **trained}, x, cfg)
+    loss = spike_count_loss(trains[-1].sum(0), y)
+    c1, t1 = mark()
+    grads = torch.autograd.grad(loss, list(trained.values()))
+    c2, t2 = mark()
+    return {"loss": loss.item(), "trains": [t.detach() for t in trains],
+            "grads": dict(zip(trained, grads)),
+            "fwd_launches": tuple(b - a for a, b in zip(c0, c1)),
+            "bwd_launches": tuple(b - a for a, b in zip(c1, c2)),
+            "fwd_s": t1 - t0, "bwd_s": t2 - t1}
+
+
+def step_breakdown(params, x, y, cfg) -> None:
+    """Where a warm SHD step's time goes: the forward and the backward on
+    the host's clock, then one step under ``torch.profiler``: the card's
+    time by kernel and its busy share of the unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    first_step(params, x, y, cfg)                  # warm
+    warm = first_step(params, x, y, cfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        first_step(params, x, y, cfg)
+    by_name = {}                # the card's own events: kernels, copies
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(by_name.values()) / 1e3
+    step_ms = (warm["fwd_s"] + warm["bwd_s"]) * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"train SHD warm step (forward + backward, no optimizer): "
+          f"forward {warm['fwd_s'] * 1e3:.2f} ms, backward "
+          f"{warm['bwd_s'] * 1e3:.2f} ms; card time under the profiler "
+          f"{busy_ms:.2f} ms, "
+          + (f"busy {busy_ms / step_ms:.3f} of the unprofiled step"
+             if busy_ms else "not measured (no device events)"))
+    for name, us in top:
+        print(f"  {us / 1e3:8.3f} ms  {name[:90]}")
+
+
+def phase_train(dev: torch.device) -> dict[str, int]:
+    """Train and score the SHD SRNN and the MNIST SFNN on the card; hold
+    the first SHD step against the plain versions on the CPU; return
+    each kernel's launches in the counted runs."""
+    from repro_torch.data import (mnist_batches, shd_batches,
+                                  synthetic_mnist, synthetic_shd)
+    from repro_torch.kernels.lif_update import lif_update
+    from repro_torch.kernels.spike_accum import spike_accum
+    from repro_torch.snn.models import MNIST_CONFIG, SHD_CONFIG, init_params
+    from repro_torch.snn.train import evaluate, train
+
+    cfg, t_steps = SHD_CONFIG, SHD_CONFIG.timesteps
+    t0 = time.perf_counter()
+    xtr, ytr, xte, yte = synthetic_shd(n_train=2 * SHD_BATCH,
+                                       n_test=SHD_BATCH,
+                                       timesteps=t_steps, seed=0)
+    print(f"train SHD: synthetic set {xtr.shape} + {xte.shape} in "
+          f"{time.perf_counter() - t0:.2f} s, input spike rate "
+          f"{xtr.mean():.4f}")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    x_np, y_np = next(shd_batches(xtr, ytr, SHD_BATCH, seed=0))
+    x, y = torch.from_numpy(x_np), torch.from_numpy(y_np).long()
+    per_fwd = (t_steps * 3, t_steps * 2)        # 2 planes + 1 recurrent; 2 LIF
+
+    card_params = {k: v.to(dev) for k, v in params.items()}
+    card = first_step(card_params, x.to(dev), y.to(dev), cfg)
+    cpu = first_step(params, x, y, cfg)
+    expect(card["fwd_launches"] == per_fwd, f"SHD forward launched "
+           f"{card['fwd_launches']} (spike_accum, lif_update), want {per_fwd}")
+    expect(card["bwd_launches"] == (0, 0),
+           f"SHD backward launched {card['bwd_launches']}")
+    expect(cpu["fwd_launches"] == cpu["bwd_launches"] == (0, 0),
+           "the CPU step launched a kernel")
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    flips = [float((a.cpu() != b).float().mean())
+             for a, b in zip(card["trains"], cpu["trains"])]
+    grad_rel = {k: float((card["grads"][k].cpu() - g).norm() / g.norm())
+                for k, g in cpu["grads"].items()}
+    print(f"train SHD first step, card vs plain versions on the CPU: loss "
+          f"{card['loss']:.6f} vs {cpu['loss']:.6f} (relative "
+          f"{loss_rel:.3g}, limit {LOSS_RTOL}); spikes differing hidden "
+          f"{flips[0]:.3g} output {flips[1]:.3g} (limit {SPIKE_FLIP_FRAC}); "
+          f"gradient relative norms "
+          f"{', '.join(f'{k} {e:.3g}' for k, e in grad_rel.items())} "
+          f"(limit {GRAD_RTOL}); hidden spike rate "
+          f"{cpu['trains'][0].mean().item():.4f}; launches per forward "
+          f"{card['fwd_launches']}, backward {card['bwd_launches']}; "
+          f"forward + backward {card['fwd_s'] + card['bwd_s']:.3f} s on the "
+          f"card (first step), {cpu['fwd_s'] + cpu['bwd_s']:.3f} s on the "
+          f"CPU")
+    expect(np.isfinite(card["loss"]) and loss_rel <= LOSS_RTOL,
+           f"SHD first loss differs: relative {loss_rel}")
+    expect(max(flips) <= SPIKE_FLIP_FRAC, f"SHD spikes differ: {flips}")
+    expect(max(grad_rel.values()) <= GRAD_RTOL,
+           f"SHD gradients differ: {grad_rel}")
+
+    step_breakdown(card_params, x.to(dev), y.to(dev), cfg)
+
+    spike_accum.launches = lif_update.launches = 0
+    res = train(cfg, shd_batches(xtr, ytr, SHD_BATCH, seed=0), TRAIN_STEPS,
+                lr=1e-3, encode=False, params=params)
+    trained = (spike_accum.launches, lif_update.launches)
+    acc = evaluate(res.params, cfg, xte, yte, encode=False)
+    shd = (spike_accum.launches, lif_update.launches)
+    expect(trained == tuple(TRAIN_STEPS * n for n in per_fwd),
+           f"SHD training launched {trained}, want {TRAIN_STEPS} x {per_fwd}"
+           f" (forward only: the backward launches none)")
+    expect(shd == tuple((TRAIN_STEPS + 1) * n for n in per_fwd),
+           f"SHD training + evaluate launched {shd}")
+    expect(all(np.isfinite(res.loss_history))
+           and all(bool(v.isfinite().all()) for v in res.params.values())
+           and all(v.is_cuda for v in res.params.values()),
+           "SHD training: non-finite loss or params, or params off the card")
+    expect(abs(res.loss_history[0] - card["loss"])
+           <= LOSS_RTOL * abs(card["loss"]),
+           f"SHD training's first loss {res.loss_history[0]} != "
+           f"{card['loss']}")
+    print(f"train SHD {cfg.layer_sizes} recurrent T={t_steps} B={SHD_BATCH}:"
+          f" {TRAIN_STEPS} steps, {res.wall_seconds / TRAIN_STEPS * 1e3:.1f} "
+          f"ms per step (host clock, each step ends in a sync), forward "
+          f"launches per step spike_accum {per_fwd[0]} lif_update "
+          f"{per_fwd[1]}, losses {[round(v, 4) for v in res.loss_history]}; "
+          f"evaluate on {len(xte)} test samples: accuracy {acc:.3f} after "
+          f"{TRAIN_STEPS} steps (not a claim: five steps train nothing)")
+
+    cfg, t_steps = MNIST_CONFIG, MNIST_CONFIG.timesteps
+    t0 = time.perf_counter()
+    xtr, ytr, xte, yte = synthetic_mnist(n_train=2 * MNIST_BATCH,
+                                         n_test=MNIST_BATCH, seed=0)
+    print(f"train MNIST: synthetic set {xtr.shape} + {xte.shape} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    per_fwd = (t_steps * 2, t_steps * 2)
+    res = train(cfg, mnist_batches(xtr, ytr, MNIST_BATCH, seed=0),
+                TRAIN_STEPS, lr=1e-3, seed=0, encode=True)
+    trained = tuple(a - b for a, b in zip((spike_accum.launches,
+                                           lif_update.launches), shd))
+    acc = evaluate(res.params, cfg, xte, yte, encode=True)
+    launches = {"spike_accum": spike_accum.launches,
+                "lif_update": lif_update.launches}
+    mnist = tuple(a - b for a, b in zip(launches.values(), shd))
+    expect(trained == tuple(TRAIN_STEPS * n for n in per_fwd),
+           f"MNIST training launched {trained}, want {TRAIN_STEPS} x "
+           f"{per_fwd}")
+    expect(mnist == tuple((TRAIN_STEPS + 1) * n for n in per_fwd),
+           f"MNIST training + evaluate launched {mnist}")
+    expect(all(np.isfinite(res.loss_history)), "MNIST: non-finite loss")
+    print(f"train MNIST {cfg.layer_sizes} T={t_steps} B={MNIST_BATCH} "
+          f"rate-coded: {TRAIN_STEPS} steps, "
+          f"{res.wall_seconds / TRAIN_STEPS * 1e3:.1f} ms per step, forward "
+          f"launches per step spike_accum {per_fwd[0]} lif_update "
+          f"{per_fwd[1]}, losses {[round(v, 4) for v in res.loss_history]}; "
+          f"evaluate on {len(xte)} test images: accuracy {acc:.3f} (not a "
+          f"claim)")
+    print(f"training phase launches (SHD + MNIST, train + evaluate): "
+          f"{launches}")
+    return launches
+
+
 def phase_golden() -> None:
     from repro_torch.core import ExecutionSpec, Program
     for name in ("tiny", "shd"):
@@ -389,13 +759,19 @@ def main() -> int:
     smi = phase_card()
     phase_build()
     recs = phase_kernels(dev)
+    recs.update(phase_snn_kernels(dev))
     phase_golden()
     launches = phase_serve()
+    launches.update(phase_train(dev))
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                        "src/repro/kernels/fused_step.py:122"),
         "lif_update_int": ("src/repro_torch/kernels/csrc/lif_update.cu",
                            "src/repro/kernels/lif_update.py:76"),
+        "spike_accum": ("src/repro_torch/kernels/csrc/spike_accum.cu",
+                        "src/repro/kernels/spike_accum.py:33"),
+        "lif_update": ("src/repro_torch/kernels/csrc/lif_update.cu",
+                       "src/repro/kernels/lif_update.py:58"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

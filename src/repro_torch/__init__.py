@@ -4,10 +4,14 @@ The package mirrors ``src/repro/`` file for file; each module's
 docstring names the reference module it ports. It imports ``torch``
 and ``numpy`` only, never ``jax`` and nothing of ``repro``.
 
-This slice carries the deployed main path: ``core.program.Program``
+Two paths are ported. The deployed main path: ``core.program.Program``
 loads a compiled npz v1 artifact, ``core.engine_torch.TorchMappedEngine``
 runs it through the hand-written CUDA kernels of ``kernels/`` (the
 ``"fused"`` and ``"lif"`` tiers) or plain torch (``"reference"``), and
-``serve/`` micro-batches requests onto it. Entry points run on the card
-unless the caller passes ``device="cpu"``.
+``serve/`` micro-batches requests onto it. The training side:
+``snn.train`` trains the paper's SNNs by BPTT (``snn.models``,
+``optimizer``) on the datasets of ``data/``, every forward timestep
+through the ``spike_accum`` and float ``lif_update`` kernels, and
+``snn.quantize`` makes the integer network. Entry points run on the
+card unless the caller passes ``device="cpu"``.
 """

@@ -58,18 +58,28 @@ class ExecutionSpec:
         the device to default) and no CUDA device is present. Idempotent.
         """
         kernel = self.kernel if self.kernel is not None else "fused"
-        dev = torch.device("cuda" if self.device is None else self.device)
-        if dev.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "no CUDA device is present; pass "
-                    "ExecutionSpec(device=\"cpu\") to run on the CPU")
-            if dev.index is None:
-                dev = torch.device("cuda", torch.cuda.current_device())
-        elif dev.type != "cpu":
-            raise ValueError(f"device {self.device!r}: the port runs on "
-                             f"'cuda' or 'cpu'")
-        return dataclasses.replace(self, kernel=kernel, device=str(dev))
+        return dataclasses.replace(self, kernel=kernel,
+                                   device=str(resolve_device(self.device)))
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """Where an entry point of the port runs: ``None`` is the card.
+
+    Raises ``RuntimeError``, naming ``device="cpu"``, when the device is
+    the card (or left to default) and no CUDA device is present; a CUDA
+    device without an index gets the current one.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is present; pass "
+                               "device=\"cpu\" to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device {device!r}: the port runs on 'cuda' or "
+                         f"'cpu'")
+    return dev
 
 
 def as_spec(spec: "ExecutionSpec | str | None",

@@ -1,10 +1,22 @@
 """Port of :mod:`repro.kernels`: hand-written CUDA kernels for Hopper.
 
-* ``fused_step``  — one whole timestep (``csrc/fused_step.cu``);
-* ``lif_update``  — the int32 Neuron Unit (``csrc/lif_update.cu``);
-* ``_build``      — nvcc build at first use, ctypes binding.
+* ``fused_step``   — one whole timestep (``csrc/fused_step.cu``);
+* ``lif_update``   — the LIF Neuron Unit, float32 (``lif_update``) and
+  int32 (``lif_update_int``) (``csrc/lif_update.cu``);
+* ``spike_accum``  — ``I = S @ W`` with the spike-tile skip
+  (``csrc/spike_accum.cu``);
+* ``_build``       — nvcc build at first use, ctypes binding.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 torch version (``*_ref``, same module) for CPU tensors; nothing builds
-at import.
+at import. As in :mod:`repro.kernels`, the package attributes
+``lif_update`` and ``spike_accum`` are the functions; import the
+modules as ``from repro_torch.kernels.spike_accum import ...``.
 """
+from repro_torch.kernels.lif_update import (lif_update, lif_update_int,
+                                            lif_update_int_ref,
+                                            lif_update_ref)
+from repro_torch.kernels.spike_accum import spike_accum, spike_accum_ref
+
+__all__ = ["lif_update", "lif_update_int", "lif_update_int_ref",
+           "lif_update_ref", "spike_accum", "spike_accum_ref"]

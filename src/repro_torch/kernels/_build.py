@@ -26,12 +26,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     "suprasnn_fused_step": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P),
-    "suprasnn_lif_update_int": (_P, _P, _P, _P, ctypes.c_longlong, _I, _I,
-                                _I, _P),
+    "suprasnn_lif_update_int": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "suprasnn_lif_update": (_P, _P, _P, _P, _L, _F, _F, _F, _P),
+    "suprasnn_spike_accum": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

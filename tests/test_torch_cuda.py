@@ -8,7 +8,9 @@ JAX package, so it also runs on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Every comparison is bit-exact: tolerance 0.
+Every comparison is bit-exact (tolerance 0) but float ``spike_accum``,
+which sums in another order than ``torch.matmul``: float32 within
+rtol = atol = 1e-5, bf16 within rtol 2e-2 / atol 1e-2 (TF32 off).
 """
 from pathlib import Path
 
@@ -18,8 +20,13 @@ import torch
 
 from repro_torch.core import ExecutionSpec, Program
 from repro_torch.kernels.fused_step import fused_step, fused_step_ref
-from repro_torch.kernels.lif_update import lif_update_int, lif_update_int_ref
+from repro_torch.kernels.lif_update import (lif_update, lif_update_int,
+                                            lif_update_int_ref,
+                                            lif_update_ref)
+from repro_torch.kernels.spike_accum import spike_accum, spike_accum_ref
 from repro_torch.snn.lif import LIFIntParams
+from repro_torch.snn.models import SHD_CONFIG, init_params
+from repro_torch.snn.train import loss_and_grads
 from torch_parity import assert_same_run, cuda_device, to_torch  # noqa: F401
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +96,77 @@ def test_engine_on_card_reproduces_golden(cuda_device, name, tier):
     grew = (fused_step.launches - counts[0], lif_update_int.launches - counts[1])
     assert grew == {"fused": (steps, 0), "lif": (0, steps),
                     "reference": (0, 0)}[tier]
+
+
+@pytest.mark.parametrize("shape", [(1, 7, 5), (8, 513, 257), (32, 700, 300),
+                                   (32, 300, 20), (64, 784, 116)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_spike_accum_kernel(cuda_device, shape, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, n_pre, n_post = shape
+    rng = np.random.default_rng(n_pre)
+    s = torch.from_numpy(rng.random((b, n_pre)) < 0.1).to(cuda_device, dtype)
+    w = (rng.integers(-7, 8, (n_pre, n_post)) if dtype == torch.int32
+         else rng.standard_normal((n_pre, n_post)).astype(np.float32))
+    w = torch.from_numpy(w).to(cuda_device, dtype)
+    want = spike_accum_ref(s, w)
+    before = spike_accum.launches
+    got = spike_accum(s, w)
+    torch.cuda.synchronize()
+    assert spike_accum.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == torch.int32:
+        assert torch.equal(got, want)
+    else:
+        tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+               else dict(rtol=2e-2, atol=1e-2))
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_spike_accum_zero_tiles_exact(cuda_device):
+    s = torch.zeros((8, 512), device=cuda_device)
+    s[0, 300] = 1.0
+    w = torch.randn((512, 128), device=cuda_device)
+    got = spike_accum(s, w)
+    assert torch.equal(got[0], w[300]) and not got[1:].any()
+    assert not spike_accum(torch.zeros_like(s), w).any()
+
+
+@pytest.mark.parametrize("shape", [(7,), (32, 300), (13, 300)])
+@pytest.mark.parametrize("alpha", [0.25, 0.03125, 0.5])
+def test_lif_update_kernel(cuda_device, shape, alpha):
+    g = torch.Generator(device=cuda_device).manual_seed(len(shape))
+    v = torch.randn(shape, device=cuda_device, generator=g)
+    cur = torch.randn(shape, device=cuda_device, generator=g) * 2.0
+    on = torch.rand(shape, device=cuda_device, generator=g) < 0.5
+    cur = torch.where(on, 1.0 - (1.0 - alpha) * v, cur)    # on the threshold
+    want = lif_update_ref(v, cur, alpha, 1.0, -0.25)
+    before = lif_update.launches
+    got = lif_update(v, cur, alpha=alpha, v_th=1.0, v_reset=-0.25)
+    s_out = torch.empty_like(v)
+    v_i = v.clone()
+    got_i = lif_update(v_i, cur, alpha=alpha, v_th=1.0, v_reset=-0.25,
+                       out=(v_i, s_out))
+    torch.cuda.synchronize()
+    assert lif_update.launches == before + 2 and got_i[0] is v_i
+    for a, b in zip(got + got_i, want + want):
+        assert torch.equal(a, b)
+
+
+def test_shd_train_step_launches_kernels(cuda_device):
+    """One full-width SHD step: every forward timestep goes through the
+    kernels (3 spike_accum, 2 lif_update), the backward through none."""
+    cfg = SHD_CONFIG
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((cfg.timesteps, 32, 700)) < 0.07
+                         ).to(cuda_device, torch.float32)
+    y = torch.from_numpy(rng.integers(0, 20, 32)).to(cuda_device)
+    before = (spike_accum.launches, lif_update.launches)
+    loss, counts, grads = loss_and_grads(params, x, y, cfg)
+    torch.cuda.synchronize()
+    grew = (spike_accum.launches - before[0], lif_update.launches - before[1])
+    assert grew == (cfg.timesteps * 3, cfg.timesteps * 2)
+    assert torch.isfinite(loss) and sorted(grads) == ["w0", "w1", "wr0"]
+    assert all(bool(g.isfinite().all()) for g in grads.values())
