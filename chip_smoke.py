@@ -20,10 +20,15 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    and of the SHD and MNIST nets, float32 within rtol = atol = 1e-5,
    bf16 within rtol 2e-2 / atol 1e-2 (another summation order than
    ``torch.matmul``; TF32 off), int32 and an all-zero-but-one tile
-   exact. Cases are timed (per call on the card's clock, the host's
-   enqueue time, the card's time alone with the enqueue hidden) beside
-   the plain version's, one PyTorch library call's and the card's
-   bound; then each kernel's record at the shape its path gives it;
+   exact; ``wkv6`` and ``ssd`` on float32 and bf16 inputs with a non-zero
+   initial state at the shapes of ``tests/test_wkv6_kernel.py`` and
+   ``tests/test_ssd_kernel.py``, ragged lengths (37, 129) and the
+   prefill shapes of rwkv6-3b and zamba2-7b, against their
+   token-by-token plain versions within ``recurrence_tol``. Cases are
+   timed (per call on the card's clock, the host's enqueue time, the
+   card's time alone with the enqueue hidden) beside the plain
+   version's, one PyTorch library call's and the card's bound; then each
+   kernel's record at the shape its path gives it;
 4. the golden artifacts (``tests/golden``), all three tiers on the
    card, against their recorded outputs;
 5. serve 32 seeded Poisson requests (T = 100) of the SHD-scale artifact
@@ -42,6 +47,20 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    params and batch, and held to it: loss within relative
    ``LOSS_RTOL``, at most ``SPIKE_FLIP_FRAC`` of hidden and output
    spikes differing, gradients within relative norm ``GRAD_RTOL``.
+7. serve the language models at their full published widths on random
+   seeded weights made on the card (``init_model``): rwkv6-3b at B = 8
+   and zamba2-7b at B = 4 (the first freed before the second is made),
+   each prefilling 1024-token seeded prompts through
+   ``make_prefill_step``, growing the cache and decoding 32 tokens
+   greedily through ``make_serve_step``, the launch counts set to 0 just
+   before and read just after: exactly one ``wkv6`` (rwkv6-3b) or
+   ``ssd`` (zamba2-7b) per layer in the prefill, none in the decode. Each
+   layer of the kernel prefill (its output and every state leaf) and the
+   last-position logits are held to the chunked einsum path on the same
+   input within ``LM_TOL``; the whole prefill is also run through the
+   chunked path and its divergence and the share of greedy tokens
+   agreeing are reported; prefill and decode times, tokens/s, peak
+   memory and the card's time by kernel are printed.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -80,6 +99,32 @@ SHD_BATCH, MNIST_BATCH = 32, 64
 LOSS_RTOL = 1e-5                 # relative difference of the first loss
 SPIKE_FLIP_FRAC = 1e-4           # share of hidden/output spikes differing
 GRAD_RTOL = 1e-3                 # |g_card - g_cpu| / |g_cpu| per plane
+
+
+def recurrence_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
+    """The state-space kernels against their token-by-token plain
+    versions. Both run the recurrence in order but sum over the state in
+    another order: in float32 each output errs by a few ulps of the
+    largest terms, not of itself, so the absolute part scales with the
+    largest output (with a model's decay near 1 the state sums ~400
+    tokens and y reaches ~500: two float32 orders differ by 3e-4 there).
+    bf16 inputs round y to bf16 after those sums (one ulp is 2^-7)."""
+    if dtype == torch.float32:
+        return dict(rtol=1e-4, atol=1e-5 * max(1.0, want.abs().max().item()))
+    return dict(rtol=5e-2, atol=5e-2)
+# LM serving (phase 7): (arch, batch); prompt and generated tokens
+LM_RUNS = (("rwkv6-3b", 8), ("zamba2-7b", 4))
+LM_PROMPT, LM_GEN = 1024, 32
+# each layer of the kernel prefill against the chunked path on the same
+# input (its output and every state leaf), and the last-position logits:
+# the bound the JAX package holds its own prefill to (tests/test_lm_archs.py);
+# the two differ by bf16 roundings (y of each recurrence leaves two
+# differently ordered float32 sums through a bf16 rounding). Not the
+# whole prefill against the whole chunked prefill: a randomly initialised
+# model at full depth amplifies such a difference layer by layer until
+# two bf16 runs decorrelate (the drift of the recurrent state by layer is
+# printed); that divergence is reported, not gated
+LM_TOL = dict(rtol=5e-2, atol=5e-2)
 
 
 class SmokeFailure(RuntimeError):
@@ -477,7 +522,7 @@ def phase_snn_kernels(dev: torch.device) -> dict:
     # t = 50 of the synthetic set and its masked init_params weights
     xtr = synthetic_shd(n_train=SHD_BATCH, n_test=1, seed=0)[0]
     w = {k: v.to(dev) for k, v in masked_weights(
-        init_params(SHD_CONFIG, torch.Generator().manual_seed(0)),
+        init_params(SHD_CONFIG, torch.Generator().manual_seed(0), dev),
         SHD_CONFIG).items()}
     s0 = torch.from_numpy(xtr[:, 50, :]).to(dev, torch.float32)
     hidden = (torch.rand((SHD_BATCH, 300), device=dev) < 0.05).float()
@@ -493,6 +538,122 @@ def phase_snn_kernels(dev: torch.device) -> dict:
     for name, rec in recs.items():
         print_times(f"{name} record, SHD layer 0 at B={SHD_BATCH}", rec)
         rec["max_abs_err"] = err[name]
+    return recs
+
+
+def ssm_inputs(kind: str, shape: tuple, dtype, dev, seed: int,
+               model_decay: bool = False) -> tuple:
+    """Seeded inputs of ``wkv6`` ((b, s, h, n): r, k, v, w_log, u,
+    state0) or ``ssd`` ((b, s, h, p, n): x, dt, a_log, b, c, state0),
+    with a non-zero initial state. ``model_decay``: the decays an
+    initialised model gives (w_log near -exp(-6); a_log = log(1..H))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*sz):
+        return torch.randn(sz, device=dev, generator=g)
+
+    if kind == "wkv6":
+        b, s, h, n = shape
+        w = -torch.exp(rnd(b, s, h, n) * 0.5 - (6.0 if model_decay else 1.0))
+        return (*(rnd(b, s, h, n).to(dtype) for _ in range(3)), w,
+                rnd(h, n) * 0.1, rnd(b, h, n, n) * 0.1)
+    b, s, h, p, n = shape
+    return (rnd(b, s, h, p).to(dtype),
+            torch.nn.functional.softplus(rnd(b, s, h)),
+            torch.log(torch.arange(1, h + 1, device=dev,
+                                   dtype=torch.float32)),
+            rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype),
+            rnd(b, h, p, n) * 0.1)
+
+
+def time_ssm(kind: str, args: tuple) -> dict:
+    """``wkv6``'s or ``ssd``'s times beside its plain version's (one
+    Python loop over the tokens, a few ms per hundred tokens, so timed
+    over few calls) and the card's bound; no single PyTorch call computes
+    either recurrence."""
+    from repro_torch.kernels.ref import ssd_ref, wkv6_ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    fn, ref = (wkv6, wkv6_ref) if kind == "wkv6" else (ssd, ssd_ref)
+    rec = {"ms": median_ms(lambda: fn(*args), iters=20, repeats=5),
+           "host_us": host_us(lambda: fn(*args), iters=50),
+           "device_us": device_us(lambda: fn(*args), iters=20),
+           "plain_ms": median_ms(lambda: ref(*args), iters=1, repeats=3),
+           "library_ms": None}
+    if kind == "wkv6":
+        # bytes: r, k, v read and y written in their dtype, w_log read in
+        # float32, u once, the state read and written; operations per
+        # token and head: y = r S (2 N^2), S = diag(e^w) S + k v^T (3 N^2)
+        r, w = args[0], args[3]
+        b, s, h, n = r.shape
+        n_bytes = (4 * r.numel() * r.element_size() + w.numel() * 4
+                   + h * n * 4 + 2 * b * h * n * n * 4)
+        n_ops = b * s * h * 5 * n * n
+    else:
+        # bytes: x read and y written in their dtype, dt, b and c read
+        # once (b and c are shared by the heads), the state read and
+        # written; operations per token and head: the update (3 P N) and
+        # y = S c (2 P N)
+        x, dt, bm = args[0], args[1], args[3]
+        b, s, h, p = x.shape
+        n = bm.shape[-1]
+        n_bytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
+                   + 2 * bm.numel() * bm.element_size() + h * 4
+                   + 2 * b * h * p * n * 4)
+        n_ops = b * s * h * 5 * p * n
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_ops, F32_OPS_PER_S)
+    return rec
+
+
+def phase_ssm_kernels(dev: torch.device) -> dict:
+    """``wkv6`` and ``ssd`` against ``wkv6_ref`` / ``ssd_ref`` on the
+    card, float32 and bf16, with a non-zero initial state and ragged
+    sequence lengths; then each one's record at the prefill shape of its
+    model (rwkv6-3b: B = 8, S = 1024, H = 40, N = 64; zamba2-7b: B = 4,
+    S = 1024, H = 112, P = N = 64), bf16 as the model runs it."""
+    from repro_torch.kernels.ref import ssd_ref, wkv6_ref
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+
+    paths = {"wkv6": (8, LM_PROMPT, 40, 64),
+             "ssd": (4, LM_PROMPT, 112, 64, 64)}
+    shapes = {"wkv6": [(1, 8, 1, 8), (2, 37, 3, 8), (2, 64, 2, 16),
+                       (1, 129, 4, 32), paths["wkv6"]],
+              "ssd": [(1, 8, 1, 4, 8), (2, 29, 3, 4, 8), (1, 64, 2, 16, 16),
+                      (2, 37, 3, 64, 64), (1, 129, 2, 128, 32),
+                      paths["ssd"]]}
+    err = {"wkv6": 0.0, "ssd": 0.0}
+    for kind, fn, ref in (("wkv6", wkv6, wkv6_ref), ("ssd", ssd, ssd_ref)):
+        for i, shape in enumerate(shapes[kind]):
+            for dt in (torch.float32, torch.bfloat16):
+                args = ssm_inputs(kind, shape, dt, dev, seed=i,
+                                  model_decay=shape == paths[kind])
+                got, want = fn(*args), ref(*args)
+                torch.cuda.synchronize()
+                what = f"{kind} {dt} {shape}"
+                expect(got[0].dtype == dt and got[1].dtype == torch.float32
+                       and all(g.shape == w.shape for g, w in zip(got, want)),
+                       f"{what}: {[(g.dtype, tuple(g.shape)) for g in got]}")
+                for name, g, w in zip(("y", "state"), got, want):
+                    e = max_err_f(g, w)
+                    err[kind] = max(err[kind], e)
+                    expect(torch.allclose(g.float(), w.float(),
+                                          **recurrence_tol(dt, w)),
+                           f"{what}: {name} differs from {kind}_ref (max "
+                           f"|err| {e})")
+            print(f"{kind} {shape}: float32 and bf16 within recurrence_tol "
+                  f"of {kind}_ref (non-zero initial state); max |err| so "
+                  f"far {err[kind]:.3g}")
+    print(f"comparison launches (not counted below): wkv6 {wkv6.launches}, "
+          f"ssd {ssd.launches}")
+    recs = {}
+    for kind in ("wkv6", "ssd"):
+        args = ssm_inputs(kind, paths[kind], torch.bfloat16, dev, seed=99,
+                          model_decay=True)
+        recs[kind] = time_ssm(kind, args)
+        recs[kind]["max_abs_err"] = err[kind]
+        print_times(f"{kind} record, bf16 {paths[kind]} (the prefill shape)",
+                    recs[kind])
     return recs
 
 
@@ -576,7 +737,7 @@ def phase_train(dev: torch.device) -> dict[str, int]:
     print(f"train SHD: synthetic set {xtr.shape} + {xte.shape} in "
           f"{time.perf_counter() - t0:.2f} s, input spike rate "
           f"{xtr.mean():.4f}")
-    params = init_params(cfg, torch.Generator().manual_seed(0))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     x_np, y_np = next(shd_batches(xtr, ytr, SHD_BATCH, seed=0))
     x, y = torch.from_numpy(x_np), torch.from_numpy(y_np).long()
     per_fwd = (t_steps * 3, t_steps * 2)        # 2 planes + 1 recurrent; 2 LIF
@@ -675,6 +836,238 @@ def phase_train(dev: torch.device) -> dict[str, int]:
     return launches
 
 
+def counters() -> dict:
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.lif_update import lif_update, lif_update_int
+    from repro_torch.kernels.spike_accum import spike_accum
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+    return {"fused_step": fused_step, "lif_update_int": lif_update_int,
+            "lif_update": lif_update, "spike_accum": spike_accum,
+            "wkv6": wkv6, "ssd": ssd}
+
+
+def leaves(tree: dict, path: str = "") -> list:
+    """(path, tensor) for every leaf of a nested dict of tensors."""
+    out = []
+    for k, v in tree.items():
+        out += (leaves(v, f"{path}/{k}") if isinstance(v, dict)
+                else [(f"{path}/{k}", v)])
+    return out
+
+
+def decode(serve, params, logits, state, batch: int) -> tuple[list, float]:
+    """Greedy decode of LM_GEN tokens; returns them and the seconds."""
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    toks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_GEN):
+        tok, state = serve(params, tok.reshape(batch, 1), state)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    return toks, time.perf_counter() - t0
+
+
+def layerwise_prefill(params, cfg, batch_in) -> tuple[dict, torch.Tensor,
+                                                     torch.Tensor]:
+    """One more kernel prefill in which every recurrent layer also runs
+    through the chunked path on the same input (the kernel side carries
+    on). Returns, per leaf (the layer's output and each state leaf), the
+    largest |err| over the layers and whether every layer was within
+    LM_TOL; the prefill's last-position logits; and those of the last
+    layer's chunked output."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv as RW
+    from repro_torch.train.steps import make_prefill_step
+
+    mod, attr = (RW, "rwkv_block") if cfg.family == "ssm" \
+        else (M2, "mamba2_block")
+    block = getattr(mod, attr)
+    worst, last = {}, {}
+
+    def both(p, x, cfg, state, single_step=False, kernels=True):
+        out, st = block(p, x, cfg, state, single_step, kernels=True)
+        out_c, st_c = block(p, x, cfg, state, single_step, kernels=False)
+        for k, a, b in [("out", out, out_c)] + [(k, st[k], st_c[k])
+                                               for k in st]:
+            e, ok = worst.get(k, (0.0, True))
+            worst[k] = (max(e, max_err_f(a, b)),
+                        ok and torch.allclose(a.float(), b.float(), **LM_TOL))
+        last["x"] = out_c
+        return out, st
+
+    setattr(mod, attr, both)
+    try:
+        logits, _ = make_prefill_step(cfg)(params, batch_in)
+    finally:
+        setattr(mod, attr, block)
+    x = L.apply_norm(params["final_norm"], last["x"][:, -1:], cfg.norm_eps)
+    return worst, logits, M.unembed_hidden(params, cfg, x)
+
+
+def device_breakdown(fn, host_s: float) -> str:
+    """The card's time under ``torch.profiler`` for one call of ``fn``,
+    by kernel (top 5) and its busy share of ``host_s``, the unprofiled
+    call's host-clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.key] = by_name.get(e.key, 0.0) + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(by_name.values()) / 1e3
+    if not busy_ms:
+        return "card time not measured (no device events)"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (f"card busy {busy_ms:.2f} ms, {busy_ms / (host_s * 1e3):.3f} of "
+            f"the unprofiled {host_s * 1e3:.2f} ms; top: " + "; ".join(
+                f"{us / 1e3:.3f} ms {name[:70]}" for name, us in top))
+
+
+def serve_lm(name: str, batch: int, dev: torch.device) -> int:
+    """Serve one full-width LM: prefill LM_PROMPT tokens of ``batch``
+    seeded prompts, grow the cache, decode LM_GEN tokens greedily; the
+    counts set to 0 just before and read just after. Then hold every
+    layer of the kernel prefill to the chunked path on the same input
+    (``layerwise_prefill``), run the whole prefill through the chunked
+    path (its divergence and greedy tokens reported, not gated: a
+    randomly initialised model at this depth amplifies a one-ulp
+    difference layer by layer) and break the times down. Returns the
+    kernel's launches in the counted run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_config(name)
+    kernel = "wkv6" if cfg.family == "ssm" else "ssd"
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in leaves(params))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, LM_PROMPT))).to(dev)
+    batch_in = {"tokens": prompts}
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    capacity = LM_PROMPT + LM_GEN
+
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    logits, st_kernel = prefill(params, batch_in)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    at_prefill = {k: f.launches for k, f in fns.items()}
+    state = _grow_cache(cfg, st_kernel, batch, capacity, dev)
+    toks, t_decode = decode(serve, params, logits, state, batch)
+    at_decode = {k: f.launches for k, f in fns.items()}
+    want = {k: (cfg.n_layers if k == kernel else 0) for k in fns}
+    expect(at_prefill == want, f"{name} prefill launched {at_prefill}, want "
+           f"{want}")
+    expect(at_decode == at_prefill, f"{name} decode launched "
+           f"{ {k: at_decode[k] - at_prefill[k] for k in fns} }")
+    expect(all(bool(t.isfinite().all()) for t in (logits, *toks))
+           and all(((t >= 0) & (t < cfg.vocab_size)).all() for t in toks),
+           f"{name}: non-finite logits or tokens out of range")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, batch_in)                 # warm: not counted, timed
+    torch.cuda.synchronize()
+    t_prefill_warm = time.perf_counter() - t0
+
+    worst, logits_k, logits_c = layerwise_prefill(params, cfg, batch_in)
+    worst["last logits"] = (max_err_f(logits_k, logits_c), torch.allclose(
+        logits_k, logits_c, **LM_TOL))
+    expect(torch.equal(logits_k, logits), f"{name}: the checked prefill's "
+           f"logits differ from the served prefill's")
+    print(f"{name} every layer of the kernel prefill vs the chunked path on "
+          f"the same input (limit rtol = atol = {LM_TOL['rtol']}, largest "
+          f"over {cfg.n_layers} layers): " + ", ".join(
+              f"{k} max |err| {e:.3g}{'' if ok else ' FAIL'}"
+              for k, (e, ok) in worst.items()))
+    expect(all(ok for _, ok in worst.values()),
+           f"{name}: a layer of the kernel prefill differs from the chunked "
+           f"path")
+
+    t0 = time.perf_counter()
+    plain, st_plain = make_prefill_step(cfg, kernels=False)(params, batch_in)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    expect(fns[kernel].launches == cfg.n_layers * 3,
+           f"{name}: the chunked prefill launched {kernel}")
+    got, ref = dict(leaves(st_kernel)), dict(leaves(st_plain))
+    expect(got.keys() == ref.keys() and all(
+        got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
+        for k in got), f"{name}: the two prefills' states differ in layout")
+    plain_state = _grow_cache(cfg, st_plain, batch, capacity, dev)
+    plain_toks, _ = decode(serve, params, plain, plain_state, batch)
+    agree = float((torch.stack(toks) == torch.stack(plain_toks))
+                  .float().mean())
+    # how the two whole prefills drift apart with depth: the recurrent
+    # state of layer i is a function of that layer's input alone
+    rec = "/rwkv/wkv" if cfg.family == "ssm" else "/mamba/ssm"
+    drift = {i: float((got[rec][i] - ref[rec][i]).norm() / ref[rec][i].norm())
+             for i in sorted({min(j, cfg.n_layers - 1) for j in (
+                 0, 1, 2, cfg.n_layers // 4, cfg.n_layers // 2,
+                 3 * cfg.n_layers // 4, cfg.n_layers - 1)})}
+    print(f"{name} whole kernel prefill vs whole chunked prefill (not "
+          f"gated): logits max |err| {max_err_f(logits, plain):.3g}, "
+          + ", ".join(f"{k} {max_err_f(g, ref[k]):.3g}"
+                      for k, g in got.items())
+          + f"; {rec} relative difference by layer "
+          + ", ".join(f"{i}: {d:.2g}" for i, d in drift.items())
+          + f"; greedy tokens agreeing {agree:.3f}")
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"serve {name} (full width, {n_params / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers) B={batch} prompt {LM_PROMPT} gen "
+          f"{LM_GEN}: init {t_init:.2f} s on the card; prefill "
+          f"{t_prefill * 1e3:.1f} ms (first), {t_prefill_warm * 1e3:.1f} ms "
+          f"(warm), chunked prefill {t_plain * 1e3:.1f} ms; decode "
+          f"{t_decode / LM_GEN * 1e3:.2f} ms per token step "
+          f"({LM_GEN * batch / t_decode:.1f} tokens/s); launches: prefill "
+          f"{at_prefill[kernel]} {kernel}, decode 0; max memory allocated "
+          f"{mem / 2**30:.2f} GiB")
+    print(f"  first sequence: {torch.stack(toks)[:16, 0].tolist()}")
+
+    print(f"  {name} warm prefill: " + device_breakdown(
+        lambda: prefill(params, batch_in), t_prefill_warm))
+    state = _grow_cache(cfg, st_kernel, batch, capacity, dev)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    serve(params, tok, state)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(params, tok, state)
+    torch.cuda.synchronize()
+    print(f"  {name} one decode step: " + device_breakdown(
+        lambda: serve(params, tok, state), time.perf_counter() - t0))
+    return at_prefill[kernel]
+
+
+def phase_lm(dev: torch.device) -> dict[str, int]:
+    """Serve rwkv6-3b, then zamba2-7b (the first freed before the second
+    is made); return each kernel's launches in its model's counted run."""
+    launches = {}
+    for name, batch in LM_RUNS:
+        n = serve_lm(name, batch, dev)
+        launches["wkv6" if name.startswith("rwkv") else "ssd"] = n
+        torch.cuda.empty_cache()
+    return launches
+
+
 def phase_golden() -> None:
     from repro_torch.core import ExecutionSpec, Program
     for name in ("tiny", "shd"):
@@ -754,15 +1147,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this runs on the card",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = phase_card()
     phase_build()
     recs = phase_kernels(dev)
     recs.update(phase_snn_kernels(dev))
+    recs.update(phase_ssm_kernels(dev))
     phase_golden()
     launches = phase_serve()
     launches.update(phase_train(dev))
+    launches.update(phase_lm(dev))
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                        "src/repro/kernels/fused_step.py:122"),
@@ -772,6 +1168,10 @@ def main() -> int:
                         "src/repro/kernels/spike_accum.py:33"),
         "lif_update": ("src/repro_torch/kernels/csrc/lif_update.cu",
                        "src/repro/kernels/lif_update.py:58"),
+        "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                 "src/repro/kernels/wkv6.py:40"),
+        "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+                "src/repro/kernels/ssd.py:28"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -782,6 +1182,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(f"card: {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

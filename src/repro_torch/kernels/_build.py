@@ -35,6 +35,8 @@ SIGNATURES = {
     "suprasnn_lif_update_int": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "suprasnn_lif_update": (_P, _P, _P, _P, _L, _F, _F, _F, _P),
     "suprasnn_spike_accum": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "suprasnn_wkv6": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "suprasnn_ssd": (_P,) * 8 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

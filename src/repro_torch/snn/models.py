@@ -56,11 +56,18 @@ def is_mask(name: str) -> bool:
 
 
 def init_params(cfg: SNNConfig, generator: torch.Generator,
-                device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
+                device: torch.device | str | None = None
+                ) -> dict[str, torch.Tensor]:
     """Weights and fixed binary sparsity masks (pruned BEFORE training),
     drawn as the reference draws them (normal / sqrt(fan_in), x3 for the
     feed-forward planes; uniform >= sparsity for the masks, no recurrent
-    self-loops) from ``generator``, a CPU ``torch.Generator``."""
+    self-loops) from ``generator``, a CPU ``torch.Generator``, then moved
+    to ``device`` (``None``: the card; see
+    :func:`~repro_torch.core.execution.resolve_device`)."""
+    # imported here: repro_torch.core imports the kernels, which import
+    # snn.lif, and this package's __init__ imports this module
+    from repro_torch.core.execution import resolve_device
+    device = resolve_device(device)
     params: dict[str, torch.Tensor] = {}
     for i in range(cfg.n_layers):
         fan_in, fan_out = cfg.layer_sizes[i], cfg.layer_sizes[i + 1]
@@ -82,10 +89,11 @@ def init_params(cfg: SNNConfig, generator: torch.Generator,
 
 
 def params_from_numpy(np_params: dict, cfg: SNNConfig,
-                      device: torch.device | str = "cpu"
+                      device: torch.device | str | None = None
                       ) -> dict[str, torch.Tensor]:
     """Carry the JAX package's params (``{k: np.asarray(v)}``) across:
-    float32 tensors on ``device``, every key and shape checked."""
+    float32 tensors on ``device`` (``None``: the card), every key and
+    shape checked."""
     want = param_shapes(cfg)
     if set(np_params) != set(want):
         raise ValueError(f"params keys {sorted(np_params)} != "
@@ -95,8 +103,10 @@ def params_from_numpy(np_params: dict, cfg: SNNConfig,
         a = np.asarray(np_params[k])
         if a.shape != shape:
             raise ValueError(f"{k} shape {a.shape} != {shape}")
-        out[k] = torch.from_numpy(np.array(a, np.float32)).to(device)
-    return out
+        out[k] = torch.from_numpy(np.array(a, np.float32))
+    from repro_torch.core.execution import resolve_device
+    device = resolve_device(device)
+    return {k: v.to(device) for k, v in out.items()}
 
 
 def masked_weights(params: dict[str, torch.Tensor], cfg: SNNConfig

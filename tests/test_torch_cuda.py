@@ -10,7 +10,12 @@ JAX package, so it also runs on a machine that has only torch:
 
 Every comparison is bit-exact (tolerance 0) but float ``spike_accum``,
 which sums in another order than ``torch.matmul``: float32 within
-rtol = atol = 1e-5, bf16 within rtol 2e-2 / atol 1e-2 (TF32 off).
+rtol = atol = 1e-5, bf16 within rtol 2e-2 / atol 1e-2 (TF32 off); and
+``wkv6`` / ``ssd`` against their token-by-token plain versions: float32
+within rtol 1e-4 and atol 1e-5 of the largest output (both sequential,
+the sums over the state in another order, so the error scales with the
+largest terms), bf16 inputs within 5e-2 (y rounded to bf16 after
+float32 sums in another order), as ``chip_smoke.recurrence_tol``.
 """
 from pathlib import Path
 
@@ -23,7 +28,10 @@ from repro_torch.kernels.fused_step import fused_step, fused_step_ref
 from repro_torch.kernels.lif_update import (lif_update, lif_update_int,
                                             lif_update_int_ref,
                                             lif_update_ref)
+from repro_torch.kernels.ref import ssd_ref, wkv6_ref
 from repro_torch.kernels.spike_accum import spike_accum, spike_accum_ref
+from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.snn.lif import LIFIntParams
 from repro_torch.snn.models import SHD_CONFIG, init_params
 from repro_torch.snn.train import loss_and_grads
@@ -170,3 +178,88 @@ def test_shd_train_step_launches_kernels(cuda_device):
     assert grew == (cfg.timesteps * 3, cfg.timesteps * 2)
     assert torch.isfinite(loss) and sorted(grads) == ["w0", "w1", "wr0"]
     assert all(bool(g.isfinite().all()) for g in grads.values())
+
+
+def _recurrence_tol(dtype, want):
+    if dtype == torch.float32:
+        return dict(rtol=1e-4, atol=1e-5 * max(1.0, want.abs().max().item()))
+    return dict(rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 1, 8), (2, 37, 3, 8),
+                                   (2, 64, 2, 16), (1, 129, 4, 32),
+                                   (2, 100, 5, 64), (1, 1024, 3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel(cuda_device, shape, dtype):
+    b, s, h, n = shape
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    rnd = lambda *sz: torch.randn(sz, device=cuda_device, generator=g)
+    r, k, v = (rnd(b, s, h, n).to(dtype) for _ in range(3))
+    # S = 1024 takes a model's decay, near 1 (w0 = -6): a long memory
+    w = -torch.exp(rnd(b, s, h, n) * 0.5 - 6.0) if s == 1024 \
+        else -torch.exp(rnd(b, s, h, n) - 1.0)
+    u = rnd(h, n) * 0.1
+    st = rnd(b, h, n, n)                           # a non-zero state
+    want = wkv6_ref(r, k, v, w, u, st)
+    before = wkv6.launches
+    got = wkv6(r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    assert wkv6.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.float(), e.float(),
+                                   **_recurrence_tol(dtype, e))
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 1, 4, 8), (2, 29, 3, 4, 8),
+                                   (1, 64, 2, 16, 16), (2, 129, 3, 64, 64),
+                                   (1, 37, 2, 128, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel(cuda_device, shape, dtype):
+    b, s, h, p, n = shape
+    g = torch.Generator(device=cuda_device).manual_seed(s)
+    rnd = lambda *sz: torch.randn(sz, device=cuda_device, generator=g)
+    x = rnd(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    a_log = torch.log(torch.arange(1, h + 1, device=cuda_device,
+                                   dtype=torch.float32))
+    bm, cm = rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype)
+    st = rnd(b, h, p, n)                           # a non-zero state
+    want = ssd_ref(x, dt, a_log, bm, cm, st)
+    before = ssd.launches
+    got = ssd(x, dt, a_log, bm, cm, st)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a.float(), e.float(),
+                                   **_recurrence_tol(dtype, e))
+
+
+@pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-7b"])
+def test_lm_prefill_launches_one_kernel_per_layer(cuda_device, name):
+    """A reduced model's prefill on the card goes through the kernels,
+    one launch per layer, and agrees with the chunked path; its decode
+    launches none."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+
+    cfg = get_reduced(name)
+    params = M.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda_device)
+    kernel = wkv6 if cfg.family == "ssm" else ssd
+    before = kernel.launches
+    logits, st = M.prefill(params, cfg, tokens)
+    assert kernel.launches == before + cfg.n_layers
+    plain, st_plain = M.prefill(params, cfg, tokens, kernels=False)
+    assert kernel.launches == before + cfg.n_layers
+    torch.testing.assert_close(logits, plain, rtol=5e-2, atol=5e-2)
+    st = _grow_cache(cfg, st, 2, 44, cuda_device)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    lg, _ = M.decode_step(params, cfg, tok, st)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + cfg.n_layers
+    assert bool(lg.isfinite().all())

@@ -3,7 +3,8 @@
 A subprocess with ``jax`` and ``repro`` blocked in ``sys.modules``
 imports every module of ``repro_torch``; more subprocesses import each
 package that takes part in an import cycle first (the kernel modules
-import ``snn.lif``, and ``snn`` launches the kernels). An AST scan checks
+import ``snn.lif``, and ``snn`` launches the kernels; ``kernels.ref``
+loops ``models.mamba2.ssd_step``, and the models launch the kernels). An AST scan checks
 every import statement of the package and of ``chip_smoke.py``.
 ``chip_smoke.py`` must fail, and print no result, without a CUDA card
 and outside the repo.
@@ -53,19 +54,26 @@ def test_every_module_imports_without_jax():
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 30       # the slices' modules
+    assert int(out.stdout.split()[-1]) >= 45       # the slices' modules
 
 
 @pytest.mark.parametrize("first", ["repro_torch.kernels",
                                    "repro_torch.kernels.spike_accum",
                                    "repro_torch.snn", "repro_torch.snn.train",
-                                   "repro_torch.core"])
+                                   "repro_torch.core", "repro_torch.kernels.ref",
+                                   "repro_torch.kernels.ssd",
+                                   "repro_torch.models.mamba2",
+                                   "repro_torch.models.model",
+                                   "repro_torch.launch.serve"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
-            "from repro_torch.kernels import lif_update, spike_accum\n"
+            "from repro_torch.kernels import lif_update, spike_accum, ssd\n"
+            "from repro_torch.kernels.ref import ssd_ref, wkv6_ref\n"
+            "from repro_torch.models.model import prefill\n"
             "assert callable(forward) and callable(quantize)\n"
-            "assert callable(lif_update) and callable(spike_accum)\n")
+            "assert callable(lif_update) and callable(spike_accum)\n"
+            "assert callable(ssd) and callable(prefill)\n")
     out = subprocess.run([sys.executable, "-c", code],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)

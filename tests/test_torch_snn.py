@@ -119,7 +119,7 @@ def _port_replay(params, spikes, cfg):
 @pytest.mark.parametrize("delayed", [True, False])
 def test_forward_matches_reference(net, delayed):
     jcfg, cfg, np_params, spikes, _ = _setup(net, delayed)
-    params = params_from_numpy(np_params, cfg)
+    params = params_from_numpy(np_params, cfg, "cpu")
     want = _jax_replay(np_params, spikes, jcfg)
     counts_ref, out_ref = jax_forward({k: jnp.asarray(v) for k, v in
                                        np_params.items()},
@@ -161,7 +161,7 @@ def test_train_step_loss_and_grads_match_reference(net):
 
     loss_ref, grads_ref = jax.value_and_grad(loss_fn)(
         {k: jnp.asarray(v) for k, v in np_params.items()})
-    params = params_from_numpy(np_params, cfg)
+    params = params_from_numpy(np_params, cfg, "cpu")
     loss, counts, grads = loss_and_grads(params, torch.from_numpy(spikes),
                                          torch.from_numpy(labels), cfg)
     assert sorted(grads) == sorted(k for k in np_params
@@ -204,7 +204,7 @@ def test_train_from_carried_params_on_cpu():
             yield spikes, labels
 
     res = train(cfg, data(), 3, lr=1e-2, encode=False, device="cpu",
-                params=params_from_numpy(np_params, cfg))
+                params=params_from_numpy(np_params, cfg, "cpu"))
     assert len(res.loss_history) == 3 and res.wall_seconds > 0
     np.testing.assert_allclose(res.loss_history[0], float(loss_ref),
                                rtol=1e-4)
@@ -224,7 +224,7 @@ def test_evaluate_scores_as_the_reference():
                             jnp.asarray(xs.transpose(1, 0, 2), jnp.float32),
                             jcfg)
     want = float((np.asarray(counts).argmax(-1) == ys).mean())
-    got = evaluate(params_from_numpy(np_params, cfg), cfg, xs, ys,
+    got = evaluate(params_from_numpy(np_params, cfg, "cpu"), cfg, xs, ys,
                    encode=False, batch=3, device="cpu")
     assert got == want
 
@@ -235,7 +235,7 @@ def test_quantize_matches_reference():
         want = ref_snn.quantize({k: jnp.asarray(v) for k, v in
                                  np_params.items()}, jcfg,
                                 ref_snn.QuantConfig(bits, 12))
-        got = quantize(params_from_numpy(np_params, cfg), cfg,
+        got = quantize(params_from_numpy(np_params, cfg, "cpu"), cfg,
                        QuantConfig(bits, 12))
         assert got.scale == want.scale and tuple(got.lif) == tuple(want.lif)
         assert got.layer_sizes == want.layer_sizes
@@ -254,7 +254,7 @@ def test_configs_and_init_match_reference():
                       (SHD_CONFIG, ref_snn.SHD_CONFIG)):
         assert dataclasses.astuple(mine) == dataclasses.astuple(ref)
     cfg = dataclasses.replace(SHD_CONFIG, layer_sizes=(70, 30, 2))
-    p = init_params(cfg, torch.Generator().manual_seed(0))
+    p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ref = ref_snn.init_params(
         ref_snn.SNNConfig(layer_sizes=(70, 30, 2), recurrent=True,
                           sparsity=cfg.sparsity), jax.random.PRNGKey(0))
@@ -264,12 +264,12 @@ def test_configs_and_init_match_reference():
     assert float(p["maskr0"].diagonal().abs().sum()) == 0.0     # no self-loops
     assert abs(float(p["mask0"].mean()) - (1 - cfg.sparsity)) < 0.03
     assert torch.equal(p["w0"], init_params(
-        cfg, torch.Generator().manual_seed(0))["w0"])
+        cfg, torch.Generator().manual_seed(0), "cpu")["w0"])
 
 
 def test_module_holds_weights_as_parameters_and_masks_as_buffers():
     _, cfg, np_params, spikes, _ = _setup("recurrent")
-    params = params_from_numpy(np_params, cfg)
+    params = params_from_numpy(np_params, cfg, "cpu")
     model = SNN(cfg, params)
     assert sorted(n for n, _ in model.named_parameters()) == ["w0", "w1",
                                                               "wr0"]
@@ -280,9 +280,10 @@ def test_module_holds_weights_as_parameters_and_masks_as_buffers():
     assert torch.equal(counts, want[0]) and torch.equal(out, want[1])
     with pytest.raises(ValueError, match="keys"):
         params_from_numpy({k: v for k, v in np_params.items()
-                           if k != "wr0"}, cfg)
+                           if k != "wr0"}, cfg, "cpu")
     with pytest.raises(ValueError, match="shape"):
-        params_from_numpy({**np_params, "w1": np_params["w1"][:3]}, cfg)
+        params_from_numpy({**np_params, "w1": np_params["w1"][:3]}, cfg,
+                          "cpu")
 
 
 def test_rate_encode_statistics_and_loss():
@@ -311,4 +312,9 @@ def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         train(cfg, data(), 1, lr=1e-3, encode=False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        evaluate(params_from_numpy(np_params, cfg), cfg, spikes[0], labels)
+        evaluate(params_from_numpy(np_params, cfg, "cpu"), cfg, spikes[0],
+                 labels)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        params_from_numpy(np_params, cfg)
