@@ -10,8 +10,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    one process per source, started together) and print ptxas' report;
 3. each kernel against its plain torch version on the card:
-   ``fused_step`` on int8 (910 x 126) and int16 (1020 x 320) planes at
-   B in {1, 3, 8, 17} with negative potentials and recurrent inputs,
+   ``fused_step`` on int8 (910 x 126), int16 and int32 (1020 x 320)
+   planes at B in {1, 3, 8, 9, 17, 64} with negative potentials and
+   recurrent inputs, with 0/1 and with non-binary external spikes
+   (``ODD_SPIKES``), each twice (repeatability),
    ``lif_update_int`` at leak_shift in {1, 2, 4}, the float
    ``lif_update`` at alpha in {0.25, 0.03125, 0.5} with a non-zero
    reset and potentials sitting on the threshold, all bit-exact
@@ -20,13 +22,16 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    and of the SHD and MNIST nets, float32 within rtol = atol = 1e-5,
    bf16 within rtol 2e-2 / atol 1e-2 (another summation order than
    ``torch.matmul``; TF32 off), int32 and an all-zero-but-one tile
-   exact; ``wkv6`` and ``ssd`` on float32 and bf16 inputs with a non-zero
-   initial state at the shapes of ``tests/test_wkv6_kernel.py`` and
+   exact, every case repeated bit for bit, float32 also with non-binary
+   spikes and with weights the bf16 split cannot hold; ``wkv6`` and
+   ``ssd`` on float32 and bf16 inputs with a non-zero initial state at
+   the shapes of ``tests/test_wkv6_kernel.py`` and
    ``tests/test_ssd_kernel.py``, ragged lengths (37, 129) and the
    prefill shapes of rwkv6-3b and zamba2-7b, against their
    token-by-token plain versions within ``recurrence_tol``. Cases are
    timed (per call on the card's clock, the host's enqueue time, the
-   card's time alone with the enqueue hidden) beside the plain
+   card's time alone with the enqueue hidden; for ``fused_step`` and
+   ``spike_accum`` also their unchecked launch path) beside the plain
    version's, one PyTorch library call's and the card's bound; then each
    kernel's record at the shape its path gives it;
 4. the golden artifacts (``tests/golden``), all three tiers on the
@@ -35,7 +40,8 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    through ``ProgramRegistry`` and ``MicroBatcher`` in measured mode,
    once on the default ``"fused"`` tier and once on ``"lif"``, each run
    with the launch counts set to 0 just before and read just after, and
-   every request's outputs checked against the ``"reference"`` tier;
+   every request's outputs checked against the ``"reference"`` tier,
+   then each tier's engine time per timestep at B = 8;
 6. train the paper's SHD SRNN (``SHD_CONFIG``, 700-300-20 recurrent,
    T = 100) at full width for 5 steps at B = 32 with
    ``repro_torch.snn.train.train`` and score it with ``evaluate``, then
@@ -89,6 +95,8 @@ F32_OPS_PER_S = 67e12            # H100 SXM float32 peak outside the tensor
 #                                  tolerance, so this is the top rate for
 #                                  float32 work done as float32
 TIMESTEPS = 100
+FUSED_BATCHES = (1, 3, 8, 9, 17, 64)
+ODD_SPIKES = (2, -1, 300, 2 ** 20)   # external spike values outside {0, 1}
 N_REQUESTS = 32
 SERVE_BATCH = 8
 TRAIN_STEPS = 5
@@ -237,24 +245,33 @@ def phase_build() -> None:
 def time_fused(ext, prev, v, w, p) -> dict:
     """``fused_step``'s times on these inputs beside its plain version's,
     a float32 ``torch.matmul`` of the contraction alone (exact: every
-    sum is below 2**24) and the card's bound."""
-    from repro_torch.kernels.fused_step import fused_step, fused_step_ref
+    sum is below 2**24) and the card's bound. The public call gets the
+    plane packed once, as the engine holds it; ``engine_*`` times the
+    engine's unchecked launch (``fused_launcher``) on the same buffers."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
+                                                fused_step_ref, pack_plane)
     b, n_int = v.shape
     s_all = torch.cat([ext, prev], 1)
     s_f, w_f = s_all.float(), w.float()
+    packed = pack_plane(w)
     v_k = v.clone()
     s_out = torch.empty_like(v)
     pkt_out = torch.empty((b,), dtype=torch.int32, device=v.device)
+
+    def call():
+        fused_step(ext, prev, v_k, packed, p, spikes_out=s_out,
+                   pkt_out=pkt_out)
+
+    launch = fused_launcher(packed, p, ext.shape[1])
+    ptrs = (ext.data_ptr(), prev.data_ptr(), v_k.data_ptr(), s_out.data_ptr(),
+            pkt_out.data_ptr(), b, _build.stream_handle(v.device))
     rec = {
-        "ms": median_ms(lambda: fused_step(ext, prev, v_k, w, p,
-                                           spikes_out=s_out,
-                                           pkt_out=pkt_out)),
-        "host_us": host_us(lambda: fused_step(ext, prev, v_k, w, p,
-                                              spikes_out=s_out,
-                                              pkt_out=pkt_out)),
-        "device_us": device_us(lambda: fused_step(ext, prev, v_k, w, p,
-                                                  spikes_out=s_out,
-                                                  pkt_out=pkt_out)),
+        "ms": median_ms(call),
+        "host_us": host_us(call),
+        "device_us": device_us(call),
+        "engine_ms": median_ms(lambda: launch(*ptrs)),
+        "engine_host_us": host_us(lambda: launch(*ptrs)),
         "plain_ms": median_ms(lambda: fused_step_ref(ext, prev, v, w, p)),
         "library_ms": median_ms(lambda: torch.matmul(s_f, w_f)),
     }
@@ -296,13 +313,23 @@ def time_lif(v, cur, p) -> dict:
 
 def time_spike_accum(s, w) -> dict:
     """``spike_accum``'s times beside its plain version's, one
-    ``torch.matmul`` of the same dtype and the card's bound."""
-    from repro_torch.kernels.spike_accum import spike_accum, spike_accum_ref
+    ``torch.matmul`` of the same dtype and the card's bound;
+    ``engine_*`` times its unchecked launch (``launch_spike_accum``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.spike_accum import (launch_spike_accum,
+                                                 spike_accum,
+                                                 spike_accum_ref)
     b, n_post = s.shape[0], w.shape[1]
+    out = spike_accum(s, w)
+    stream = _build.stream_handle(s.device)
     rec = {
         "ms": median_ms(lambda: spike_accum(s, w)),
         "host_us": host_us(lambda: spike_accum(s, w)),
         "device_us": device_us(lambda: spike_accum(s, w)),
+        "engine_ms": median_ms(lambda: launch_spike_accum(s, w, out,
+                                                          stream)),
+        "engine_host_us": host_us(lambda: launch_spike_accum(s, w, out,
+                                                             stream)),
         "plain_ms": median_ms(lambda: spike_accum_ref(s, w)),
         "library_ms": (median_ms(lambda: torch.matmul(s, w))
                        if s.is_floating_point() else None),
@@ -345,9 +372,12 @@ def time_lif_float(v, cur, p) -> dict:
 def print_times(what: str, rec: dict) -> None:
     lib = ("n/a" if rec["library_ms"] is None
            else f"{rec['library_ms'] * 1e3:.2f} us")
+    lean = (f", unchecked launch {rec['engine_ms'] * 1e3:.2f} us (host "
+            f"{rec['engine_host_us']:.2f} us/call)" if "engine_ms" in rec
+            else "")
     print(f"  {what}: kernel {rec['ms'] * 1e3:.2f} us (host "
           f"{rec['host_us']:.2f} us/call, device {rec['device_us']:.2f} "
-          f"us/launch), plain "
+          f"us/launch){lean}, plain "
           f"{rec['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
           f"{rec['bound_ms'] * 1e3:.4f} us ({rec['bound_by']})")
 
@@ -369,30 +399,44 @@ def phase_kernels(dev: torch.device) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
     planes = {"int8 910x126": (784, 126, torch.int8, 127),
-              "int16 1020x320": (700, 320, torch.int16, 1000)}
+              "int16 1020x320": (700, 320, torch.int16, 1000),
+              "int32 1020x320": (700, 320, torch.int32, 100_000)}
     err = {"fused_step": 0, "lif_update_int": 0}
     for name, (n_ext, n_int, wdt, wmax) in planes.items():
         w = t(rng.integers(-wmax - 1, wmax + 1, (n_ext + n_int, n_int)), wdt)
-        for i, b in enumerate((1, 3, 8, 17)):
+        for i, b in enumerate(FUSED_BATCHES):
             p = LIFIntParams(leak_shift=(1, 2, 4)[i % 3],
-                             v_threshold=(15, 40, 0, -3)[i],
-                             v_reset=(0, -5, 0, 2)[i])
+                             v_threshold=(15, 40, 0, 7, -3, 20)[i],
+                             v_reset=(0, -5, 0, 1, 2, -1)[i])
             ext = t(rng.random((b, n_ext)) < 0.15)
             prev = t(rng.random((b, n_int)) < 0.35)   # recurrent input
             v0 = t(rng.integers(-3000, 3000, (b, n_int)))
-            v_r, s_r, pkt_r = fused_step_ref(ext, prev, v0, w, p)
-            v_k = v0.clone()
-            _, s_k, pkt_k = fused_step(ext, prev, v_k, w, p)
-            torch.cuda.synchronize()
-            for what, a, r in (("v", v_k, v_r), ("spikes", s_k, s_r),
-                               ("packets", pkt_k, pkt_r)):
-                e = max_err(a, r)
-                err["fused_step"] = max(err["fused_step"], e)
-                expect(torch.equal(a, r), f"fused_step {name} B={b}: {what} "
-                       f"differs from fused_step_ref (max |err| {e})")
-            print(f"fused_step {name} B={b} {p}: bit-exact "
-                  f"(spike rate {s_k.float().mean().item():.3f})")
-            print_times("times", time_fused(ext, prev, v0, w, p))
+            # external spikes are any int32: the K-steps holding one of
+            # these take the kernel's exact CUDA-core products
+            odd = torch.from_numpy(rng.choice(ODD_SPIKES, (b, n_ext))).to(
+                dev, torch.int32)
+            ext_odd = torch.where(t(rng.random((b, n_ext)) < 0.05) != 0,
+                                  odd, ext)
+            for kind, e_in in (("0/1", ext), ("non-binary", ext_odd)):
+                v_r, s_r, pkt_r = fused_step_ref(e_in, prev, v0, w, p)
+                runs = []
+                for _ in range(2):                 # twice: repeatability
+                    v_k = v0.clone()
+                    runs.append((v_k, *fused_step(e_in, prev, v_k, w, p)[1:]))
+                torch.cuda.synchronize()
+                for got in runs:
+                    for what, a, r in zip(("v", "spikes", "packets"), got,
+                                          (v_r, s_r, pkt_r)):
+                        e = max_err(a, r)
+                        err["fused_step"] = max(err["fused_step"], e)
+                        expect(torch.equal(a, r), f"fused_step {name} B={b} "
+                               f"{kind} spikes: {what} differs from "
+                               f"fused_step_ref (max |err| {e})")
+            print(f"fused_step {name} B={b} {p}: bit-exact with 0/1 and "
+                  f"non-binary external spikes, twice each (spike rate "
+                  f"{s_r.float().mean().item():.3f})")
+            if name != "int32 1020x320" or b == SERVE_BATCH:
+                print_times("times", time_fused(ext, prev, v0, w, p))
     for shape in ((8, 320), (17, 126), (320,)):
         for ls in (1, 2, 4):
             p = LIFIntParams(leak_shift=ls, v_threshold=20, v_reset=-4)
@@ -453,7 +497,8 @@ def phase_snn_kernels(dev: torch.device) -> dict:
                                 (8, 513, 257), (16, 1024, 116),
                                 (2, 784, 116)], 0.25),
               "SHD": ([(32, 700, 300), (32, 300, 300), (32, 300, 20)], 0.08),
-              "MNIST": ([(64, 784, 116), (64, 116, 10)], 0.2)}
+              "MNIST": ([(64, 784, 116), (64, 116, 10)], 0.2),
+              "long pre axis": ([(3, 2049, 33)], 0.1)}
     for group, (cases, rate) in groups.items():
         for b, n_pre, n_post in cases:
             s_np = rng.random((b, n_pre)) < rate
@@ -464,7 +509,10 @@ def phase_snn_kernels(dev: torch.device) -> dict:
                 w = torch.from_numpy(w_i if dt == torch.int32 else w_f
                                      ).to(dev, dt)
                 got, want = spike_accum(s, w), spike_accum_ref(s, w)
+                again = spike_accum(s, w)
                 torch.cuda.synchronize()
+                expect(torch.equal(got, again), f"spike_accum {dt} {b}x"
+                       f"{n_pre}x{n_post}: two calls differ")
                 e = max_err_f(got, want)
                 err["spike_accum"] = max(err["spike_accum"], e)
                 what = f"spike_accum {dt} {b}x{n_pre}x{n_post}"
@@ -475,8 +523,31 @@ def phase_snn_kernels(dev: torch.device) -> dict:
                        f"{what}: differs from spike_accum_ref "
                        f"(max |err| {e})")
         print(f"spike_accum {group} shapes {cases} (spike rate {rate}): "
-              f"float32 and bf16 within tolerance, int32 exact; max |err| "
-              f"so far {err['spike_accum']:.3g}")
+              f"float32 and bf16 within tolerance, int32 exact, each "
+              f"repeated bit for bit; max |err| so far "
+              f"{err['spike_accum']:.3g}")
+    # float32 K-steps the bf16 split cannot hold take FFMA products:
+    # spikes outside {0, 1}, weights below 2^-100
+    for case in ("non-binary spikes", "weights below 2^-100"):
+        s = (torch.from_numpy(rng.random((32, 700)) < 0.1)).to(dev,
+                                                              torch.float32)
+        w = torch.from_numpy(rng.standard_normal((700, 300)).astype(
+            np.float32)).to(dev)
+        if case == "non-binary spikes":
+            s = s * torch.from_numpy(rng.choice([0.5, -2.0, 3.0], s.shape)
+                                     ).to(dev, torch.float32)
+        else:
+            w[::5] *= 2.0 ** -110
+        got, again, want = spike_accum(s, w), spike_accum(s, w), \
+            spike_accum_ref(s, w)
+        torch.cuda.synchronize()
+        e = max_err_f(got, want)
+        err["spike_accum"] = max(err["spike_accum"], e)
+        expect(torch.equal(got, again)
+               and torch.allclose(got, want, **tol[torch.float32]),
+               f"spike_accum float32 {case}: max |err| {e}, or not repeated")
+        print(f"spike_accum float32 32x700x300 with {case}: within "
+              f"tolerance (max |err| {e:.3g}), repeated bit for bit")
     for dt in (torch.float32, torch.int32):     # one live tile, then none
         s = torch.zeros((8, 512), device=dev, dtype=dt)
         s[0, 300] = 1
@@ -1137,6 +1208,15 @@ def phase_serve() -> dict[str, int]:
               f"(simulated arrivals, measured service); wall {wall:.3f} s; "
               f"outputs match the reference tier")
         launches[kernel] = counts[kernel]
+        # the engine's time per timestep at the serving batch, warm: a
+        # run ends in the copy of its outputs to the host
+        runner(requests[:SERVE_BATCH])
+        t0 = time.perf_counter()
+        for _ in range(5):
+            runner(requests[:SERVE_BATCH])
+        per_step = (time.perf_counter() - t0) / (5 * TIMESTEPS)
+        print(f"serve {tier}: engine run B={SERVE_BATCH} T={TIMESTEPS} "
+              f"(warm, 5 runs): {per_step * 1e6:.2f} us per timestep")
     return launches
 
 

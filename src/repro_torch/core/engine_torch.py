@@ -24,6 +24,10 @@ buffer whose slice ``t-1`` is step ``t``'s ``s_prev`` (so a step never
 writes the plane it reads, the recurrent race the reference avoids by
 concatenating), ``v`` is updated in place, and the results are copied
 back once at the end. The fused tier launches one kernel per timestep.
+On the card it packs the plane for the kernel once, at build, and the
+step loop launches through ``fused_launcher`` with no per-step checks,
+views or stream lookups: each step's pointers are offsets into the
+contiguous ``[T, B, ·]`` buffers.
 """
 from __future__ import annotations
 
@@ -34,7 +38,9 @@ from repro_torch.core.engine import packet_stats
 from repro_torch.core.execution import ExecutionSpec, as_spec
 from repro_torch.core.graph import SNNGraph
 from repro_torch.core.scheduling import LoweredProgram, OpTables, lower_tables
-from repro_torch.kernels.fused_step import fused_step, pack_dense
+from repro_torch.kernels import _build
+from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
+                                            pack_dense, pack_plane)
 from repro_torch.kernels.lif_update import lif_update_int
 from repro_torch.snn.lif import LIFIntParams, lif_step_int
 
@@ -85,8 +91,13 @@ class TorchMappedEngine:
                         else lower_tables(g, tables))
         self.lif: LIFIntParams = g.lif
         lw, dev = self.lowered, self.device
+        self._launch = None
         if self.spec.kernel == "fused":
             self._weight = torch.from_numpy(pack_dense(lw).weight).to(dev)
+            if dev.type == "cuda":      # packed and checked once, here
+                self._weight = pack_plane(self._weight)
+                self._launch = fused_launcher(self._weight, self.lif,
+                                              lw.n_inputs)
         else:
             self._op_pre = torch.from_numpy(lw.op_pre.astype(np.int64)).to(dev)
             self._op_post = torch.from_numpy(
@@ -117,6 +128,27 @@ class TorchMappedEngine:
             v_next, s = lif_step_int(v, current, self.lif)
             v.copy_(v_next)
             s_out.copy_(s)
+
+    def _run_fused(self, ext_d: torch.Tensor, s_prev: torch.Tensor,
+                   v: torch.Tensor, spikes: torch.Tensor,
+                   pkts: torch.Tensor) -> None:
+        """The fused tier's step loop on the card. The buffers were made
+        by ``run`` (contiguous int32 on the device, ``[T, B, ·]``), which
+        is their check; step ``t`` reads ``ext_d[t]`` and ``spikes[t-1]``
+        and writes ``spikes[t]`` and ``pkts[t]`` at pointer offsets."""
+        t_steps, b, n_in = ext_d.shape
+        n_int = v.shape[1]
+        launch, dev = self._launch, self.device
+        ext0, sp0, pk0 = ext_d.data_ptr(), spikes.data_ptr(), pkts.data_ptr()
+        d_ext, d_sp, d_pk = b * n_in * 4, b * n_int * 4, b * 4
+        v_p, prev = v.data_ptr(), s_prev.data_ptr()
+        with _build.on_device(dev):
+            stream = _build.stream_handle(dev)
+            for t in range(t_steps):
+                out = sp0 + t * d_sp
+                launch(ext0 + t * d_ext, prev, v_p, out, pk0 + t * d_pk, b,
+                       stream)
+                prev = out
 
     # -- warm-up ------------------------------------------------------------
 
@@ -158,9 +190,13 @@ class TorchMappedEngine:
         pkts = torch.empty((t_steps, b), dtype=torch.int32, device=dev)
         v = torch.zeros((b, lw.n_internal), dtype=torch.int32, device=dev)
         s_prev = torch.zeros_like(v)
-        for t in range(t_steps):
-            self._step(ext_d[t], s_prev, v, spikes[t], pkts[t])
-            s_prev = spikes[t]
+        if self._launch is not None:
+            if b and lw.n_internal:
+                self._run_fused(ext_d, s_prev, v, spikes, pkts)
+        else:
+            for t in range(t_steps):
+                self._step(ext_d[t], s_prev, v, spikes[t], pkts[t])
+                s_prev = spikes[t]
         return finalize_outputs(spikes.cpu().numpy().transpose(1, 0, 2),
                                 v.cpu().numpy(), pkts.cpu().numpy().T,
                                 squeeze)

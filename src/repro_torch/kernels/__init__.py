@@ -8,6 +8,8 @@
 * ``wkv6``         — the RWKV-6 WKV recurrence (``csrc/wkv6.cu``);
 * ``ssd``          — the Mamba-2 SSD recurrence (``csrc/ssd.cu``);
 * ``ref``          — the plain token-by-token versions of those two;
+* ``contract``     — the host side of ``csrc/contract_sm90.cuh``, the
+  cluster design ``fused_step`` and ``spike_accum`` share;
 * ``_build``       — nvcc build at first use, ctypes binding.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain

@@ -10,6 +10,7 @@ unchanged one loads the library already built.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +19,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -30,8 +33,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
-    "suprasnn_fused_step": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P),
+    "suprasnn_fused_step": (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 7 + (_P,),
     "suprasnn_lif_update_int": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "suprasnn_lif_update": (_P, _P, _P, _P, _L, _F, _F, _F, _P),
     "suprasnn_spike_accum": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -60,7 +62,7 @@ def sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library for the current sources lives once built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):      # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsuprasnn_kernels_{h.hexdigest()[:16]}.so"
@@ -122,3 +124,17 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without
+    making a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` unless it is already current."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

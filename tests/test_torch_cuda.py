@@ -24,12 +24,16 @@ import pytest
 import torch
 
 from repro_torch.core import ExecutionSpec, Program
-from repro_torch.kernels.fused_step import fused_step, fused_step_ref
+from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
+                                            fused_step_emulated,
+                                            fused_step_ref, pack_plane)
 from repro_torch.kernels.lif_update import (lif_update, lif_update_int,
                                             lif_update_int_ref,
                                             lif_update_ref)
 from repro_torch.kernels.ref import ssd_ref, wkv6_ref
-from repro_torch.kernels.spike_accum import spike_accum, spike_accum_ref
+from repro_torch.kernels.spike_accum import (spike_accum,
+                                             spike_accum_emulated,
+                                             spike_accum_ref)
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.snn.lif import LIFIntParams
@@ -40,20 +44,32 @@ from torch_parity import assert_same_run, cuda_device, to_torch  # noqa: F401
 pytestmark = pytest.mark.cuda
 
 GOLDEN = Path(__file__).parent / "golden"
-PARAMS = {1: (1, 15, 0), 3: (2, 40, -5), 8: (4, 0, 0), 17: (1, -3, 2)}
+PARAMS = {1: (1, 15, 0), 3: (2, 40, -5), 8: (4, 0, 0), 9: (2, 7, 1),
+          17: (1, -3, 2), 64: (4, 20, -1)}
+PLANES = [(784, 126, np.int8, 127), (700, 320, np.int16, 1000),
+          (37, 29, np.int32, 100_000), (700, 320, np.int32, 100_000),
+          (2000, 64, np.int16, 30_000)]         # 65 K-steps: 3 chunks a rank
+ODD_SPIKES = [2, -1, 300, 2 ** 20]
 
 
-@pytest.mark.parametrize("plane", [(784, 126, np.int8, 127),
-                                   (700, 320, np.int16, 1000),
-                                   (37, 29, np.int32, 100_000)])
-@pytest.mark.parametrize("b", sorted(PARAMS))
-def test_fused_step_kernel(cuda_device, plane, b):
+def _fused_case(plane, b, nonbinary, seed=None):
     n_ext, n_int, dtype, wmax = plane
-    rng = np.random.default_rng(b)
+    rng = np.random.default_rng(b if seed is None else seed)
     w = rng.integers(-wmax - 1, wmax + 1, (n_ext + n_int, n_int)).astype(dtype)
-    ext = rng.random((b, n_ext)) < 0.15
+    ext = (rng.random((b, n_ext)) < 0.15).astype(np.int32)
+    if nonbinary:                               # external spikes are any int
+        odd = rng.random(ext.shape) < 0.05
+        ext = np.where(odd, rng.choice(ODD_SPIKES, ext.shape), ext)
     prev = rng.random((b, n_int)) < 0.35            # recurrent input
     v = rng.integers(-3000, 3000, (b, n_int))
+    return ext, prev, v, w
+
+
+@pytest.mark.parametrize("nonbinary", [False, True])
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("b", sorted(PARAMS))
+def test_fused_step_kernel(cuda_device, plane, b, nonbinary):
+    ext, prev, v, w = _fused_case(plane, b, nonbinary)
     p = LIFIntParams(*PARAMS[b])
     want = fused_step_ref(to_torch(ext), to_torch(prev), to_torch(v),
                           torch.from_numpy(w), p)
@@ -69,6 +85,36 @@ def test_fused_step_kernel(cuda_device, plane, b):
     with pytest.raises(ValueError, match="alias"):
         fused_step(to_torch(ext, dev), s, to_torch(v, dev),
                    torch.from_numpy(w).to(dev), p, spikes_out=s)
+
+
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("b", [8, 17, 64])
+def test_fused_step_kernel_matches_emulation(cuda_device, plane, b):
+    """The kernel, given the packed plane, and the unchecked launcher the
+    engine uses are bit-exact with the CPU emulation of the kernel's
+    decomposition; two launches give equal results."""
+    ext, prev, v, w = _fused_case(plane, b, nonbinary=True, seed=b + 100)
+    p = LIFIntParams(*PARAMS[b])
+    want = fused_step_emulated(to_torch(ext), to_torch(prev), to_torch(v),
+                               pack_plane(torch.from_numpy(w)), p)
+    dev = cuda_device
+    packed = pack_plane(torch.from_numpy(w).to(dev))
+    args = [to_torch(a, dev) for a in (ext, prev)]
+    runs = []
+    for _ in range(2):
+        v_k = to_torch(v, dev)
+        runs.append(fused_step(*args, v_k, packed, p))
+    v_l = to_torch(v, dev)
+    s_l = torch.empty_like(v_l)
+    pkt_l = torch.empty((b,), dtype=torch.int32, device=dev)
+    launch = fused_launcher(packed, p, ext.shape[1])
+    launch(args[0].data_ptr(), args[1].data_ptr(), v_l.data_ptr(),
+           s_l.data_ptr(), pkt_l.data_ptr(), b,
+           torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    for got in runs + [(v_l, s_l, pkt_l)]:
+        for g, wnt in zip(got, want):
+            assert torch.equal(g.cpu(), wnt)
 
 
 @pytest.mark.parametrize("shape", [(320,), (8, 320), (17, 126)])
@@ -107,7 +153,9 @@ def test_engine_on_card_reproduces_golden(cuda_device, name, tier):
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 5), (8, 513, 257), (32, 700, 300),
-                                   (32, 300, 20), (64, 784, 116)])
+                                   (32, 300, 300), (32, 300, 20),
+                                   (64, 784, 116), (64, 116, 10),
+                                   (3, 2049, 33)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32])
 def test_spike_accum_kernel(cuda_device, shape, dtype):
@@ -130,6 +178,37 @@ def test_spike_accum_kernel(cuda_device, shape, dtype):
         tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
                else dict(rtol=2e-2, atol=1e-2))
         torch.testing.assert_close(got, want, **tol)
+
+
+@pytest.mark.parametrize("case", ["binary", "non_binary", "unsplittable"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_spike_accum_kernel_repeats(cuda_device, dtype, case):
+    """Two launches give equal results (no atomics touch a sum), within
+    tolerance of the plain version and of the CPU emulation of the
+    kernel's schedule, also where the bf16 split cannot hold the float32
+    product: spikes outside {0, 1}, weights below 2^-100."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    s = (rng.random((32, 700)) < 0.1).astype(np.float32)
+    w = (rng.integers(-7, 8, (700, 300)) if dtype == torch.int32
+         else rng.standard_normal((700, 300))).astype(np.float32)
+    if case == "non_binary":
+        s[s > 0] = rng.choice([0.5, -2.0, 3.0], int((s > 0).sum()))
+    elif case == "unsplittable" and dtype == torch.float32:
+        w[::5] *= np.float32(2.0 ** -110)
+    s_t, w_t = (torch.from_numpy(a).to(dtype) for a in (s, w))
+    got = [spike_accum(s_t.to(cuda_device), w_t.to(cuda_device))
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    for want in (spike_accum_ref(s_t, w_t), spike_accum_emulated(s_t, w_t)):
+        if dtype == torch.int32:
+            assert torch.equal(got[0].cpu(), want)
+        else:
+            tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+                   else dict(rtol=2e-2, atol=1e-2))
+            torch.testing.assert_close(got[0].cpu(), want, **tol)
 
 
 def test_spike_accum_zero_tiles_exact(cuda_device):
