@@ -26,9 +26,12 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    spikes and with weights the bf16 split cannot hold; ``wkv6`` and
    ``ssd`` on float32 and bf16 inputs with a non-zero initial state at
    the shapes of ``tests/test_wkv6_kernel.py`` and
-   ``tests/test_ssd_kernel.py``, ragged lengths (37, 129) and the
-   prefill shapes of rwkv6-3b and zamba2-7b, against their
-   token-by-token plain versions within ``recurrence_tol``. Cases are
+   ``tests/test_ssd_kernel.py``, one token, a chunk's sub-chunk
+   boundaries (16, 17), ragged lengths (37, 129), strong decays
+   (``wkv6`` on both of its routes) and the prefill shapes of rwkv6-3b
+   and zamba2-7b, against their token-by-token plain versions and their
+   emulations within ``recurrence_tol``, finite, twice with the same
+   bits; their bound recounted for the chunked form they compute. Cases are
    timed (per call on the card's clock, the host's enqueue time, the
    card's time alone with the enqueue hidden; for ``fused_step`` and
    ``spike_accum`` also their unchecked launch path) beside the plain
@@ -613,11 +616,14 @@ def phase_snn_kernels(dev: torch.device) -> dict:
 
 
 def ssm_inputs(kind: str, shape: tuple, dtype, dev, seed: int,
-               model_decay: bool = False) -> tuple:
-    """Seeded inputs of ``wkv6`` ((b, s, h, n): r, k, v, w_log, u,
-    state0) or ``ssd`` ((b, s, h, p, n): x, dt, a_log, b, c, state0),
-    with a non-zero initial state. ``model_decay``: the decays an
-    initialised model gives (w_log near -exp(-6); a_log = log(1..H))."""
+               decay: str = "mild") -> tuple:
+    """Seeded inputs of ``wkv6`` ((b, s, h, n): r, k, v, w_log, u, state0)
+    or ``ssd`` ((b, s, h, p, n): x, dt, a_log, b, c, state0), with a
+    non-zero initial state. ``decay``: "mild" (w_log = -exp(N/2 - 1);
+    a_log = log(1..H)), "model" (the decays an initialised model gives:
+    w_log near -exp(-6)) or "strong" (wkv6: every other head's w_log
+    uniform down to -40 a token, past the kernel's span threshold; ssd:
+    exp(a_log) dt up to 50 a token)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*sz):
@@ -625,16 +631,23 @@ def ssm_inputs(kind: str, shape: tuple, dtype, dev, seed: int,
 
     if kind == "wkv6":
         b, s, h, n = shape
-        w = -torch.exp(rnd(b, s, h, n) * 0.5 - (6.0 if model_decay else 1.0))
+        w = -torch.exp(rnd(b, s, h, n) * 0.5
+                       - (6.0 if decay == "model" else 1.0))
+        if decay == "strong":
+            w[:, :, ::2] = -40.0 * torch.rand((b, s, (h + 1) // 2, n),
+                                              device=dev, generator=g)
         return (*(rnd(b, s, h, n).to(dtype) for _ in range(3)), w,
                 rnd(h, n) * 0.1, rnd(b, h, n, n) * 0.1)
     b, s, h, p, n = shape
-    return (rnd(b, s, h, p).to(dtype),
-            torch.nn.functional.softplus(rnd(b, s, h)),
-            torch.log(torch.arange(1, h + 1, device=dev,
-                                   dtype=torch.float32)),
-            rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype),
-            rnd(b, h, p, n) * 0.1)
+    if decay == "strong":
+        dt = torch.rand((b, s, h), device=dev, generator=g) * 2.0
+        a_log = torch.log(torch.linspace(1.0, 25.0, h, device=dev))
+    else:
+        dt = torch.nn.functional.softplus(rnd(b, s, h))
+        a_log = torch.log(torch.arange(1, h + 1, device=dev,
+                                       dtype=torch.float32))
+    return (rnd(b, s, h, p).to(dtype), dt, a_log, rnd(b, s, n).to(dtype),
+            rnd(b, s, n).to(dtype), rnd(b, h, p, n) * 0.1)
 
 
 def time_ssm(kind: str, args: tuple) -> dict:
@@ -651,80 +664,138 @@ def time_ssm(kind: str, args: tuple) -> dict:
            "device_us": device_us(lambda: fn(*args), iters=20),
            "plain_ms": median_ms(lambda: ref(*args), iters=1, repeats=3),
            "library_ms": None}
+    from repro_torch.kernels.ssm_chunks import CHUNK
+    c = CHUNK
     if kind == "wkv6":
         # bytes: r, k, v read and y written in their dtype, w_log read in
-        # float32, u once, the state read and written; operations per
-        # token and head: y = r S (2 N^2), S = diag(e^w) S + k v^T (3 N^2)
+        # float32, u once, the state read and written. Operations, in the
+        # chunked form the kernel computes (chunks of C tokens), per token
+        # and head: on the tensor cores the causal scores r k^T and att v
+        # (C N / 2 products each), r S0 and the state hop (N^2 each);
+        # outside them about 10 float32 operations per key (the running
+        # log-decay, four decayed factors and their products, the bonus)
         r, w = args[0], args[3]
         b, s, h, n = r.shape
         n_bytes = (4 * r.numel() * r.element_size() + w.numel() * 4
                    + h * n * 4 + 2 * b * h * n * n * 4)
-        n_ops = b * s * h * 5 * n * n
+        tc_ops = b * s * h * 2 * (c * n + 2 * n * n)
+        f32_ops = b * s * h * 10 * n
+        seq_ops = b * s * h * 5 * n * n
     else:
         # bytes: x read and y written in their dtype, dt, b and c read
         # once (b and c are shared by the heads), the state read and
-        # written; operations per token and head: the update (3 P N) and
-        # y = S c (2 P N)
+        # written. Operations, chunked, per token and head: on the tensor
+        # cores the causal M x (C P / 2 products), C S0^T and the state
+        # hop (P N each), and per batch row and token the causal G = C B^T
+        # (C N / 2); outside them the mask's exp and two products per
+        # score (3 C / 2), x coef (P) and the decay sums (4)
         x, dt, bm = args[0], args[1], args[3]
         b, s, h, p = x.shape
         n = bm.shape[-1]
         n_bytes = (2 * x.numel() * x.element_size() + dt.numel() * 4
                    + 2 * bm.numel() * bm.element_size() + h * 4
                    + 2 * b * h * p * n * 4)
-        n_ops = b * s * h * 5 * p * n
-    rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_ops, F32_OPS_PER_S)
+        tc_ops = b * s * (h * 2 * (c * p // 2 + 2 * p * n) + c * n)
+        f32_ops = b * s * h * (3 * c // 2 + p + 4)
+        seq_ops = b * s * h * 5 * p * n
+    # the least time: the bytes, or the chunked form's operations at each
+    # unit's peak, whichever is longer; the sequential form's count (5
+    # float32 operations per state element and token) is what the kernel
+    # did before it was chunked, printed beside it
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = tc_ops / BF16_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    rec["bound_terms_us"] = (t_bytes * 1e6, t_ops * 1e6)
+    rec["seq_bound_ms"] = bound_ms(n_bytes, seq_ops, F32_OPS_PER_S)[0]
     return rec
 
 
 def phase_ssm_kernels(dev: torch.device) -> dict:
     """``wkv6`` and ``ssd`` against ``wkv6_ref`` / ``ssd_ref`` on the
-    card, float32 and bf16, with a non-zero initial state and ragged
-    sequence lengths; then each one's record at the prefill shape of its
-    model (rwkv6-3b: B = 8, S = 1024, H = 40, N = 64; zamba2-7b: B = 4,
-    S = 1024, H = 112, P = N = 64), bf16 as the model runs it."""
+    card, float32 and bf16, with a non-zero initial state: one token, a
+    chunk's sub-chunk boundaries (16, 17), ragged lengths, strong decays
+    (``wkv6`` past its span threshold, on both of its routes; ``ssd`` at
+    e^-50 a token) and the prefill shapes. Each case is also run twice
+    (the same bits) and held to the kernel's emulation (its chunked
+    schedule and roundings in plain torch on the card), all within
+    ``recurrence_tol``, all finite. Then each one's record at the
+    prefill shape of its model (rwkv6-3b: B = 8, S = 1024, H = 40, N =
+    64; zamba2-7b: B = 4, S = 1024, H = 112, P = N = 64), bf16 as the
+    model runs it."""
     from repro_torch.kernels.ref import ssd_ref, wkv6_ref
-    from repro_torch.kernels.ssd import ssd
-    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.kernels.ssd import ssd, ssd_emulated
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_emulated, wkv6_routes
 
     paths = {"wkv6": (8, LM_PROMPT, 40, 64),
              "ssd": (4, LM_PROMPT, 112, 64, 64)}
-    shapes = {"wkv6": [(1, 8, 1, 8), (2, 37, 3, 8), (2, 64, 2, 16),
-                       (1, 129, 4, 32), paths["wkv6"]],
-              "ssd": [(1, 8, 1, 4, 8), (2, 29, 3, 4, 8), (1, 64, 2, 16, 16),
-                      (2, 37, 3, 64, 64), (1, 129, 2, 128, 32),
-                      paths["ssd"]]}
+    cases = {"wkv6": [(1, 8, 1, 8), (2, 37, 3, 8), (2, 64, 2, 16),
+                      (1, 129, 4, 32), (1, 1, 2, 64), (2, 16, 3, 64),
+                      (2, 17, 3, 64), ((2, 129, 4, 64), "strong"),
+                      ((2, 129, 3, 16), "strong"), (paths["wkv6"], "model")],
+             "ssd": [(1, 8, 1, 4, 8), (2, 29, 3, 4, 8), (1, 64, 2, 16, 16),
+                     (2, 37, 3, 64, 64), (1, 129, 2, 128, 32),
+                     (1, 1, 2, 64, 64), (2, 16, 3, 64, 64),
+                     (2, 17, 3, 100, 64), ((2, 129, 4, 64, 64), "strong"),
+                     ((1, 70, 2, 3, 16), "strong"), (paths["ssd"], "mild")]}
     err = {"wkv6": 0.0, "ssd": 0.0}
-    for kind, fn, ref in (("wkv6", wkv6, wkv6_ref), ("ssd", ssd, ssd_ref)):
-        for i, shape in enumerate(shapes[kind]):
+    kernels = {"wkv6": (wkv6, wkv6_ref, wkv6_emulated),
+               "ssd": (ssd, ssd_ref, ssd_emulated)}
+    for kind, (fn, ref, emu) in kernels.items():
+        for i, case in enumerate(cases[kind]):
+            shape, decay = case if isinstance(case[0], tuple) else (case,
+                                                                    "mild")
             for dt in (torch.float32, torch.bfloat16):
-                args = ssm_inputs(kind, shape, dt, dev, seed=i,
-                                  model_decay=shape == paths[kind])
-                got, want = fn(*args), ref(*args)
+                args = ssm_inputs(kind, shape, dt, dev, seed=i, decay=decay)
+                got, again = fn(*args), fn(*args)
+                want, emulated = ref(*args), emu(*args)
                 torch.cuda.synchronize()
-                what = f"{kind} {dt} {shape}"
+                what = f"{kind} {dt} {shape} ({decay} decay)"
                 expect(got[0].dtype == dt and got[1].dtype == torch.float32
                        and all(g.shape == w.shape for g, w in zip(got, want)),
                        f"{what}: {[(g.dtype, tuple(g.shape)) for g in got]}")
-                for name, g, w in zip(("y", "state"), got, want):
-                    e = max_err_f(g, w)
-                    err[kind] = max(err[kind], e)
+                for name, g, g2, w, e in zip(("y", "state"), got, again, want,
+                                             emulated):
+                    expect(bool(g.isfinite().all()), f"{what}: {name} not "
+                           f"finite")
+                    expect(torch.equal(g, g2), f"{what}: {name} differs "
+                           f"between two calls")
+                    ew = max_err_f(g, w)
+                    err[kind] = max(err[kind], ew)
                     expect(torch.allclose(g.float(), w.float(),
                                           **recurrence_tol(dt, w)),
                            f"{what}: {name} differs from {kind}_ref (max "
-                           f"|err| {e})")
-            print(f"{kind} {shape}: float32 and bf16 within recurrence_tol "
-                  f"of {kind}_ref (non-zero initial state); max |err| so "
-                  f"far {err[kind]:.3g}")
+                           f"|err| {ew})")
+                    expect(torch.allclose(g.float(), e.float(),
+                                          **recurrence_tol(dt, e)),
+                           f"{what}: {name} differs from the emulation "
+                           f"(max |err| {max_err_f(g, e)})")
+            if kind == "wkv6" and decay == "strong":
+                routes = wkv6_routes(args[3])
+                expect(bool(routes.any()) and not bool(routes.all()),
+                       f"{what}: one route only ({routes.float().mean()} "
+                       f"of the sub-chunks factorized)")
+                print(f"wkv6 {shape}: {routes.float().mean().item():.3f} of "
+                      f"the sub-chunks factorized, the rest in log space")
+            print(f"{kind} {shape} ({decay} decay): float32 and bf16 within "
+                  f"recurrence_tol of {kind}_ref and of the emulation, the "
+                  f"same bits twice; max |err| so far {err[kind]:.3g}")
     print(f"comparison launches (not counted below): wkv6 {wkv6.launches}, "
           f"ssd {ssd.launches}")
     recs = {}
     for kind in ("wkv6", "ssd"):
         args = ssm_inputs(kind, paths[kind], torch.bfloat16, dev, seed=99,
-                          model_decay=True)
+                          decay="model")
         recs[kind] = time_ssm(kind, args)
         recs[kind]["max_abs_err"] = err[kind]
         print_times(f"{kind} record, bf16 {paths[kind]} (the prefill shape)",
                     recs[kind])
+        t_bytes, t_ops = recs[kind]["bound_terms_us"]
+        print(f"  {kind} bound: bytes {t_bytes:.2f} us, chunked operations "
+              f"{t_ops:.2f} us -> {recs[kind]['bound_by']}; the sequential "
+              f"count gave {recs[kind]['seq_bound_ms'] * 1e3:.2f} us")
+        expect(recs[kind]["device_us"] >= recs[kind]["bound_ms"] * 1e3,
+               f"{kind}: device time below the bound")
     return recs
 
 

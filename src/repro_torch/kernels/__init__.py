@@ -10,6 +10,8 @@
 * ``ref``          — the plain token-by-token versions of those two;
 * ``contract``     — the host side of ``csrc/contract_sm90.cuh``, the
   cluster design ``fused_step`` and ``spike_accum`` share;
+* ``ssm_chunks``   — the host side of ``csrc/ssm_sm90.cuh``, the chunked
+  tensor-core design ``wkv6`` and ``ssd`` share (their emulations);
 * ``_build``       — nvcc build at first use, ctypes binding.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain

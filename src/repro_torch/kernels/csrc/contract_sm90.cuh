@@ -249,6 +249,14 @@ struct RankReduce {
 
 // ---- launch --------------------------------------------------------------
 
+// The widest copy (16, 8 or 4 bytes) that keeps every row of a matrix at
+// `p` with rows of `row_bytes` aligned from a column that is a multiple of
+// 16 bytes; 2 or 1 (below 4: element by element) where none does.
+inline int copy_granule(const void* p, size_t row_bytes) {
+  const size_t x = (reinterpret_cast<uintptr_t>(p) | row_bytes) & 15u;
+  return x == 0 ? 16 : static_cast<int>(x & (~x + 1));
+}
+
 // Launch `kernel` over `grid` with clusters of n_split CTAs along x.
 template <typename... Params, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, int threads,

@@ -278,19 +278,11 @@ spike_accum_kernel(const T* __restrict__ s, const T* __restrict__ w,
   }
 }
 
-// The widest copy (16, 8 or 4 bytes) that keeps every row of a matrix at
-// `p` with rows of `row_bytes` aligned from a column that is a multiple of
-// a K-step; 2 or 1 (below 4: element by element) where none does.
-int copy_granule(const void* p, size_t row_bytes) {
-  const size_t x = (reinterpret_cast<uintptr_t>(p) | row_bytes) & 15u;
-  return x == 0 ? 16 : static_cast<int>(x & (~x + 1));
-}
-
 template <typename T>
 cudaError_t launch(const void* s, const void* w, void* out, int batch,
                    int n_pre, int n_post, cudaStream_t stream) {
-  const int s_granule = copy_granule(s, sizeof(T) * n_pre);
-  const int w_granule = copy_granule(w, sizeof(T) * n_post);
+  const int s_granule = contract::copy_granule(s, sizeof(T) * n_pre);
+  const int w_granule = contract::copy_granule(w, sizeof(T) * n_post);
   constexpr int bytes = Layout<T>::bytes;
   static const cudaError_t attr = cudaFuncSetAttribute(
       spike_accum_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -7,7 +7,9 @@ chip for the whole sequence, x/dt/b/c are read once and y written once.
 :func:`ssd` launches ``csrc/ssd.cu`` for CUDA tensors and runs
 :func:`~repro_torch.kernels.ref.ssd_ref`, its plain torch version, for
 CPU tensors; its design and what bounds it on the H100 are noted in the
-source. The reference's ``chunk`` argument has no counterpart.
+source. The reference's ``chunk`` argument has no counterpart: the
+kernel's chunk is ``ssm_chunks.CHUNK``. :func:`ssd_emulated` replays the
+kernel's chunked schedule and its bf16 roundings in plain torch.
 """
 from __future__ import annotations
 
@@ -15,11 +17,57 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_ref
+from repro_torch.kernels.ssm_chunks import (CHUNK, cumsum_seq, pad_chunks,
+                                            split_terms, tc_dot,
+                                            term_counts)
 from repro_torch.kernels.wkv6 import HEAD_SIZES, check_args
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = HEAD_SIZES               # N: the kernel's register row
 MAX_HEAD_DIM = 128                     # P: one thread per state row
+
+
+def ssd_emulated(x, dt, a_log, b, c, state0):
+    """``csrc/ssd.cu``'s schedule replayed in plain torch, for the tests.
+
+    Same arguments and results as :func:`ssd`. Per chunk of ``CHUNK``
+    tokens (the tail zero-filled): ``cum`` is the running sum of
+    ``-exp(a_log) dt`` taken token by token; ``y = exp(cum_t) (c S0^T)``
+    plus ``M x`` with ``M[t, s] = (c_t . b_s) exp(cum_t - cum_s) dt_s``
+    for ``s <= t``; then ``S = exp(cum_end) S + (x coef)^T b`` with
+    ``coef_s = dt_s exp(cum_end - cum_s)``. Every product takes its
+    operands as the kernel rounds them: x, b, c as inputs, S0, M and
+    ``x coef`` as derived terms (:func:`~repro_torch.kernels.ssm_chunks.
+    term_counts`).
+    """
+    n_in, n_der = term_counts(x.dtype)
+    bsz, s, h, p = x.shape
+    xp, dtp, bp, cp = (pad_chunks(t.to(torch.float32)) for t in (x, dt, b, c))
+    neg_a = torch.exp(a_log.to(torch.float32))
+    st = state0.to(torch.float32)
+    causal = torch.ones(CHUNK, CHUNK, dtype=torch.bool).tril()
+    causal = causal.to(x.device)[None, :, :, None]          # s <= t
+    ys = []
+    for t0 in range(0, xp.shape[1], CHUNK):
+        xc, dtc = xp[:, t0:t0 + CHUNK], dtp[:, t0:t0 + CHUNK]
+        bc, cc = bp[:, t0:t0 + CHUNK], cp[:, t0:t0 + CHUNK]
+        cum = cumsum_seq(-neg_a * dtc, 1)                      # [B, C, H]
+        b_in, c_in = split_terms(bc, n_in), split_terms(cc, n_in)
+        y = tc_dot("btn,bhpn->bthp", c_in, split_terms(st, n_der))
+        y = y * torch.exp(cum)[..., None]
+        g = tc_dot("btn,bsn->bts", c_in, b_in)
+        diff = cum[:, :, None] - cum[:, None]                  # [B, T, S, H]
+        m = g[..., None] * torch.exp(diff.clamp(max=0.0)) * dtc[:, None]
+        m = torch.where(causal, m, torch.zeros((), device=m.device))
+        y = y + tc_dot("btsh,bshp->bthp", split_terms(m, n_der),
+                       split_terms(xc, n_in))
+        end = cum[:, -1]                                       # [B, H]
+        coef = dtc * torch.exp(end[:, None] - cum)
+        st = st * torch.exp(end)[..., None, None] + tc_dot(
+            "bshp,bsn->bhpn", split_terms(xc * coef[..., None], n_der), b_in)
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :s] if ys else x.new_zeros(x.shape)
+    return y.to(x.dtype), st
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,

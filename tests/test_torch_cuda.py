@@ -11,11 +11,12 @@ JAX package, so it also runs on a machine that has only torch:
 Every comparison is bit-exact (tolerance 0) but float ``spike_accum``,
 which sums in another order than ``torch.matmul``: float32 within
 rtol = atol = 1e-5, bf16 within rtol 2e-2 / atol 1e-2 (TF32 off); and
-``wkv6`` / ``ssd`` against their token-by-token plain versions: float32
-within rtol 1e-4 and atol 1e-5 of the largest output (both sequential,
-the sums over the state in another order, so the error scales with the
-largest terms), bf16 inputs within 5e-2 (y rounded to bf16 after
-float32 sums in another order), as ``chip_smoke.recurrence_tol``.
+``wkv6`` / ``ssd`` against their token-by-token plain versions and their
+emulations: float32 within rtol 1e-4 and atol 1e-5 of the largest output
+(sums in another order, so the error scales with the largest terms),
+bf16 inputs within 5e-2 (y rounded to bf16 after float32 sums in another
+order), as ``chip_smoke.recurrence_tol``; each launched twice, bit for
+bit the same.
 """
 from pathlib import Path
 
@@ -34,8 +35,8 @@ from repro_torch.kernels.ref import ssd_ref, wkv6_ref
 from repro_torch.kernels.spike_accum import (spike_accum,
                                              spike_accum_emulated,
                                              spike_accum_ref)
-from repro_torch.kernels.ssd import ssd
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.ssd import ssd, ssd_emulated
+from repro_torch.kernels.wkv6 import wkv6, wkv6_emulated, wkv6_routes
 from repro_torch.snn.lif import LIFIntParams
 from repro_torch.snn.models import SHD_CONFIG, init_params
 from repro_torch.snn.train import loss_and_grads
@@ -265,54 +266,94 @@ def _recurrence_tol(dtype, want):
     return dict(rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 1, 8), (2, 37, 3, 8),
-                                   (2, 64, 2, 16), (1, 129, 4, 32),
-                                   (2, 100, 5, 64), (1, 1024, 3, 64)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wkv6_kernel(cuda_device, shape, dtype):
-    b, s, h, n = shape
-    g = torch.Generator(device=cuda_device).manual_seed(s)
-    rnd = lambda *sz: torch.randn(sz, device=cuda_device, generator=g)
-    r, k, v = (rnd(b, s, h, n).to(dtype) for _ in range(3))
-    # S = 1024 takes a model's decay, near 1 (w0 = -6): a long memory
-    w = -torch.exp(rnd(b, s, h, n) * 0.5 - 6.0) if s == 1024 \
-        else -torch.exp(rnd(b, s, h, n) - 1.0)
-    u = rnd(h, n) * 0.1
-    st = rnd(b, h, n, n)                           # a non-zero state
-    want = wkv6_ref(r, k, v, w, u, st)
-    before = wkv6.launches
-    got = wkv6(r, k, v, w, u, st)
+def _check_recurrence(fn, emulated, args, dtype):
+    """One launch against the plain version and the emulation, a second
+    launch bit for bit the same, every output finite."""
+    want = (wkv6_ref if fn is wkv6 else ssd_ref)(*args)
+    before = fn.launches
+    got, again = fn(*args), fn(*args)
     torch.cuda.synchronize()
-    assert wkv6.launches == before + 1
+    assert fn.launches == before + 2
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
-    for a, e in zip(got, want):
+    for a, a2, e, m in zip(got, again, want, emulated(*args)):
+        assert bool(a.isfinite().all()) and torch.equal(a, a2)
         torch.testing.assert_close(a.float(), e.float(),
                                    **_recurrence_tol(dtype, e))
+        torch.testing.assert_close(a.float(), m.float(),
+                                   **_recurrence_tol(dtype, m))
+
+
+def _wkv6_args(dev, shape, dtype, decay="mild"):
+    b, s, h, n = shape
+    g = torch.Generator(device=dev).manual_seed(s)
+    rnd = lambda *sz: torch.randn(sz, device=dev, generator=g)
+    r, k, v = (rnd(b, s, h, n).to(dtype) for _ in range(3))
+    # S = 1024 takes a model's decay, near 1 (w0 = -6): a long memory;
+    # "strong": every other head down to -40 a token (log-space route)
+    w = -torch.exp(rnd(b, s, h, n) * 0.5 - 6.0) if s == 1024 \
+        else -torch.exp(rnd(b, s, h, n) - 1.0)
+    if decay == "strong":
+        w[:, :, ::2] = -40.0 * torch.rand((b, s, (h + 1) // 2, n),
+                                          device=dev, generator=g)
+    u = rnd(h, n) * 0.1
+    st = rnd(b, h, n, n)                           # a non-zero state
+    return r, k, v, w, u, st
+
+
+def _ssd_args(dev, shape, dtype, decay="mild"):
+    b, s, h, p, n = shape
+    g = torch.Generator(device=dev).manual_seed(s)
+    rnd = lambda *sz: torch.randn(sz, device=dev, generator=g)
+    x = rnd(b, s, h, p).to(dtype)
+    if decay == "strong":                          # exp(a_log) dt up to 50
+        dt = torch.rand((b, s, h), device=dev, generator=g) * 2.0
+        a_log = torch.log(torch.linspace(1.0, 25.0, h, device=dev))
+    else:
+        dt = torch.nn.functional.softplus(rnd(b, s, h))
+        a_log = torch.log(torch.arange(1, h + 1, device=dev,
+                                       dtype=torch.float32))
+    bm, cm = rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype)
+    st = rnd(b, h, p, n)                           # a non-zero state
+    return x, dt, a_log, bm, cm, st
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 1, 8), (2, 37, 3, 8),
+                                   (2, 64, 2, 16), (1, 129, 4, 32),
+                                   (2, 100, 5, 64), (1, 1024, 3, 64),
+                                   (1, 1, 3, 64), (2, 16, 3, 64),
+                                   (2, 17, 3, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel(cuda_device, shape, dtype):
+    _check_recurrence(wkv6, wkv6_emulated,
+                      _wkv6_args(cuda_device, shape, dtype), dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 129, 4, 64), (1, 70, 3, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_strong_decay(cuda_device, shape, dtype):
+    """Sub-chunks whose decay spans more than the threshold: their scores
+    are summed in log space, the others' factorized; no inf or nan."""
+    args = _wkv6_args(cuda_device, shape, dtype, "strong")
+    routes = wkv6_routes(args[3])
+    assert bool(routes.any()) and not bool(routes.all())
+    _check_recurrence(wkv6, wkv6_emulated, args, dtype)
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 1, 4, 8), (2, 29, 3, 4, 8),
                                    (1, 64, 2, 16, 16), (2, 129, 3, 64, 64),
-                                   (1, 37, 2, 128, 32)])
+                                   (1, 37, 2, 128, 32), (1, 1, 2, 64, 64),
+                                   (2, 16, 3, 64, 64), (2, 17, 3, 100, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel(cuda_device, shape, dtype):
-    b, s, h, p, n = shape
-    g = torch.Generator(device=cuda_device).manual_seed(s)
-    rnd = lambda *sz: torch.randn(sz, device=cuda_device, generator=g)
-    x = rnd(b, s, h, p).to(dtype)
-    dt = torch.nn.functional.softplus(rnd(b, s, h))
-    a_log = torch.log(torch.arange(1, h + 1, device=cuda_device,
-                                   dtype=torch.float32))
-    bm, cm = rnd(b, s, n).to(dtype), rnd(b, s, n).to(dtype)
-    st = rnd(b, h, p, n)                           # a non-zero state
-    want = ssd_ref(x, dt, a_log, bm, cm, st)
-    before = ssd.launches
-    got = ssd(x, dt, a_log, bm, cm, st)
-    torch.cuda.synchronize()
-    assert ssd.launches == before + 1
-    assert got[0].dtype == dtype and got[1].dtype == torch.float32
-    for a, e in zip(got, want):
-        torch.testing.assert_close(a.float(), e.float(),
-                                   **_recurrence_tol(dtype, e))
+    _check_recurrence(ssd, ssd_emulated,
+                      _ssd_args(cuda_device, shape, dtype), dtype)
+
+
+@pytest.mark.parametrize("shape", [(2, 129, 4, 64, 64), (1, 70, 2, 3, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_strong_decay(cuda_device, shape, dtype):
+    _check_recurrence(ssd, ssd_emulated,
+                      _ssd_args(cuda_device, shape, dtype, "strong"), dtype)
 
 
 @pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-7b"])
