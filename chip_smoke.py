@@ -14,10 +14,16 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    planes at B in {1, 3, 8, 9, 17, 64} with negative potentials and
    recurrent inputs, with 0/1 and with non-binary external spikes
    (``ODD_SPIKES``), each twice (repeatability),
-   ``lif_update_int`` at leak_shift in {1, 2, 4}, the float
-   ``lif_update`` at alpha in {0.25, 0.03125, 0.5} with a non-zero
-   reset and potentials sitting on the threshold, all bit-exact
-   (``torch.equal``, tolerance 0) in and out of place; ``spike_accum``
+   ``lif_update_int`` at leak_shift in {1, 2, 4} (also through the
+   ``"lif"`` tier's unchecked launch, which drains its current plane),
+   the float ``lif_update`` at alpha in {0.25, 0.03125, 0.5} with a
+   non-zero reset and potentials sitting on the threshold, with one
+   current and with the recurrent layer's two (``LIFUpdateFn`` and the
+   unchecked launch), all bit-exact (``torch.equal``, tolerance 0) in
+   and out of place; the float step's gradient kernel
+   ``lif_update_bwd`` on the same inputs for every surrogate, one and
+   two currents, either incoming gradient absent, within ``BWD_TOL`` of
+   ``lif_update_bwd_ref``, with its own record; ``spike_accum``
    on float32, bf16 and int32 at the shapes of ``tests/test_kernels.py``
    and of the SHD and MNIST nets, float32 within rtol = atol = 1e-5,
    bf16 within rtol 2e-2 / atol 1e-2 (another summation order than
@@ -33,8 +39,8 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    emulations within ``recurrence_tol``, finite, twice with the same
    bits; their bound recounted for the chunked form they compute. Cases are
    timed (per call on the card's clock, the host's enqueue time, the
-   card's time alone with the enqueue hidden; for ``fused_step`` and
-   ``spike_accum`` also their unchecked launch path) beside the plain
+   card's time alone with the enqueue hidden; for every kernel of the
+   SNN paths also its unchecked launch path) beside the plain
    version's, one PyTorch library call's and the card's bound; then each
    kernel's record at the shape its path gives it;
 4. the golden artifacts (``tests/golden``), all three tiers on the
@@ -44,14 +50,19 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    once on the default ``"fused"`` tier and once on ``"lif"``, each run
    with the launch counts set to 0 just before and read just after, and
    every request's outputs checked against the ``"reference"`` tier,
-   then each tier's engine time per timestep at B = 8;
+   then each tier's engine time per timestep at B = 8; then a program
+   with no internal neuron on both tiers and ``fused_step``: each
+   step's packet count is its non-zero external spikes;
 6. train the paper's SHD SRNN (``SHD_CONFIG``, 700-300-20 recurrent,
    T = 100) at full width for 5 steps at B = 32 with
    ``repro_torch.snn.train.train`` and score it with ``evaluate``, then
    the MNIST SFNN (784-116-10, T = 10, rate-coded) the same way at
    B = 64, the launch counts set to 0 just before and read just after:
    exactly T x 3 (SHD; T x 2 MNIST) ``spike_accum`` and T x 2
-   ``lif_update`` per forward, none in the backward. The first SHD step
+   ``lif_update`` per forward, and in the backward only
+   ``lif_update_bwd``, once per step and layer the loss depends on
+   (``bwd_per_step``: 2 T - 1). A warm SHD step is broken down by the
+   profiler (its forward holds no elementwise add). The first SHD step
    is also run on the CPU through the plain versions from the same
    params and batch, and held to it: loss within relative
    ``LOSS_RTOL``, at most ``SPIKE_FLIP_FRAC`` of hidden and output
@@ -110,6 +121,10 @@ SHD_BATCH, MNIST_BATCH = 32, 64
 LOSS_RTOL = 1e-5                 # relative difference of the first loss
 SPIKE_FLIP_FRAC = 1e-4           # share of hidden/output spikes differing
 GRAD_RTOL = 1e-3                 # |g_card - g_cpu| / |g_cpu| per plane
+# the float LIF step's gradient kernel against lif_update_bwd_ref on the
+# same inputs: the same operations in the same order, but the sigmoid
+# surrogate's exp on the card and in torch may differ in the last bits
+BWD_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def recurrence_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
@@ -293,11 +308,20 @@ def time_fused(ext, prev, v, w, p) -> dict:
 def time_lif(v, cur, p) -> dict:
     """``lif_update_int``'s times (in place, as the engine calls it)
     beside its plain version's and the card's bound; no single PyTorch
-    call computes the LIF step."""
-    from repro_torch.kernels.lif_update import (lif_update_int,
+    call computes the LIF step. ``engine_*`` times the ``"lif"`` tier's
+    unchecked launch (``lif_int_launcher``, draining a copy of the
+    current plane) on the same buffers."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lif_update import (lif_int_launcher,
+                                                lif_update_int,
                                                 lif_update_int_ref)
-    v_k, s_out = v.clone(), torch.empty_like(v)
+    v_k, c_k, s_out = v.clone(), cur.clone(), torch.empty_like(v)
+    launch = lif_int_launcher(p)
+    ptrs = (v_k.data_ptr(), c_k.data_ptr(), v_k.data_ptr(),
+            s_out.data_ptr(), v.numel(), _build.stream_handle(v.device))
     rec = {
+        "engine_ms": median_ms(lambda: launch(*ptrs)),
+        "engine_host_us": host_us(lambda: launch(*ptrs)),
         "ms": median_ms(lambda: lif_update_int(v_k, cur, p,
                                                out=(v_k, s_out))),
         "host_us": host_us(lambda: lif_update_int(v_k, cur, p,
@@ -319,13 +343,18 @@ def time_spike_accum(s, w) -> dict:
     ``torch.matmul`` of the same dtype and the card's bound;
     ``engine_*`` times its unchecked launch (``launch_spike_accum``)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.spike_accum import (launch_spike_accum,
+    from repro_torch.kernels.spike_accum import (SpikeAccumFn,
+                                                 launch_spike_accum,
                                                  spike_accum,
                                                  spike_accum_ref)
     b, n_post = s.shape[0], w.shape[1]
     out = spike_accum(s, w)
     stream = _build.stream_handle(s.device)
-    rec = {
+    rec = {}
+    if s.is_floating_point():           # the training forward's node
+        w_g = w.clone().requires_grad_()
+        rec["autograd_host_us"] = host_us(lambda: SpikeAccumFn.apply(s, w_g))
+    rec |= {
         "ms": median_ms(lambda: spike_accum(s, w)),
         "host_us": host_us(lambda: spike_accum(s, w)),
         "device_us": device_us(lambda: spike_accum(s, w)),
@@ -353,10 +382,26 @@ def time_spike_accum(s, w) -> dict:
 def time_lif_float(v, cur, p) -> dict:
     """The float ``lif_update``'s times (out of place, as training calls
     it) beside its plain version's and the card's bound; no single
-    PyTorch call computes the LIF step."""
-    from repro_torch.kernels.lif_update import lif_update, lif_update_ref
+    PyTorch call computes the LIF step. ``engine_*`` times the training
+    forward's unchecked launch (``launch_lif_update``) of the same step."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lif_update import (LIFUpdateFn,
+                                                launch_lif_update,
+                                                lif_update, lif_update_ref)
     kw = dict(alpha=p.alpha, v_th=p.v_threshold, v_reset=p.v_reset)
+    v_out, s_out = torch.empty_like(v), torch.empty_like(v)
+    stream = _build.stream_handle(v.device)
+    v_g = v.clone().requires_grad_()
+
+    def lean():
+        launch_lif_update(v, cur, None, v_out, s_out, p.alpha,
+                          p.v_threshold, p.v_reset, stream)
+
     rec = {
+        "engine_ms": median_ms(lean),
+        "engine_host_us": host_us(lean),
+        "autograd_host_us": host_us(lambda: LIFUpdateFn.apply(
+            v_g, cur, None, p, "sigmoid")),
         "ms": median_ms(lambda: lif_update(v, cur, **kw)),
         "host_us": host_us(lambda: lif_update(v, cur, **kw)),
         "device_us": device_us(lambda: lif_update(v, cur, **kw)),
@@ -372,12 +417,53 @@ def time_lif_float(v, cur, p) -> dict:
     return rec
 
 
+def time_lif_bwd(v, cur, cur_rec, g_vnext, g_s, p, surrogate) -> dict:
+    """The float LIF step's gradient kernel (``lif_update_bwd``, not a TPU
+    kernel: it replaces the plain autograd of ``lif_step``): its times
+    beside its plain version's and the card's bound; ``engine_*`` times
+    the unchecked launch ``LIFUpdateFn.backward`` makes. No single
+    PyTorch call computes it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lif_update import (launch_lif_update_bwd,
+                                                lif_update_bwd,
+                                                lif_update_bwd_ref)
+    kw = dict(alpha=p.alpha, v_th=p.v_threshold, surrogate=surrogate,
+              current_rec=cur_rec)
+    g_v, g_i = torch.empty_like(v), torch.empty_like(v)
+    stream = _build.stream_handle(v.device)
+
+    def call():
+        lif_update_bwd(v, cur, g_vnext, g_s, **kw)
+
+    def lean():
+        launch_lif_update_bwd(v, cur, cur_rec, g_vnext, g_s, g_v, g_i,
+                              p.alpha, p.v_threshold, surrogate, stream)
+
+    rec = {"ms": median_ms(call), "host_us": host_us(call),
+           "device_us": device_us(call), "engine_ms": median_ms(lean),
+           "engine_host_us": host_us(lean),
+           "plain_ms": median_ms(lambda: lif_update_bwd_ref(
+               v, cur, g_vnext, g_s, p.alpha, p.v_threshold, surrogate,
+               cur_rec)),
+           "library_ms": None}
+    # v, both currents and both incoming gradients read, two gradients
+    # written; about 20 float32 operations per element (u again, the
+    # surrogate's exp, divide and products, the select, two products)
+    n_in = 2 + sum(t is not None for t in (cur_rec, g_vnext, g_s))
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        (n_in + 2) * v.numel() * 4, 20 * v.numel(), F32_OPS_PER_S)
+    return rec
+
+
 def print_times(what: str, rec: dict) -> None:
     lib = ("n/a" if rec["library_ms"] is None
            else f"{rec['library_ms'] * 1e3:.2f} us")
     lean = (f", unchecked launch {rec['engine_ms'] * 1e3:.2f} us (host "
             f"{rec['engine_host_us']:.2f} us/call)" if "engine_ms" in rec
             else "")
+    if "autograd_host_us" in rec:
+        lean += (f", under autograd (.apply, grad on) host "
+                 f"{rec['autograd_host_us']:.2f} us/call")
     print(f"  {what}: kernel {rec['ms'] * 1e3:.2f} us (host "
           f"{rec['host_us']:.2f} us/call, device {rec['device_us']:.2f} "
           f"us/launch){lean}, plain "
@@ -389,9 +475,11 @@ def phase_kernels(dev: torch.device) -> dict:
     """Kernels vs plain versions (bit-exact) and their times, then each
     kernel's record at the serving shape on the SHD-scale artifact."""
     from repro_torch.core import Program
+    from repro_torch.kernels import _build
     from repro_torch.kernels.fused_step import (fused_step, fused_step_ref,
                                                 pack_dense)
-    from repro_torch.kernels.lif_update import (lif_update_int,
+    from repro_torch.kernels.lif_update import (lif_int_launcher,
+                                                lif_update_int,
                                                 lif_update_int_ref)
     from repro_torch.snn.lif import LIFIntParams
 
@@ -449,14 +537,24 @@ def phase_kernels(dev: torch.device) -> dict:
             v_k, s_k = lif_update_int(v0, cur, p)
             v_i = v0.clone()                           # the in-place form
             lif_update_int(v_i, cur, p, out=(v_i, torch.empty_like(v_i)))
+            # the "lif" tier's unchecked launch, draining its current
+            v_d, c_d, s_d = v0.clone(), cur.clone(), torch.empty_like(v0)
+            lif_int_launcher(p)(
+                v_d.data_ptr(), c_d.data_ptr(), v_d.data_ptr(),
+                s_d.data_ptr(), v0.numel(), _build.stream_handle(dev))
             torch.cuda.synchronize()
             for what, a, r in (("v", v_k, v_r), ("spikes", s_k, s_r),
-                               ("v in place", v_i, v_r)):
+                               ("v in place", v_i, v_r),
+                               ("v, drained", v_d, v_r),
+                               ("spikes, drained", s_d, s_r),
+                               ("current, drained", c_d,
+                                torch.zeros_like(cur))):
                 e = max_err(a, r)
                 err["lif_update_int"] = max(err["lif_update_int"], e)
                 expect(torch.equal(a, r), f"lif_update_int {shape} ls={ls}: "
                        f"{what} differs (max |err| {e})")
-            print(f"lif_update_int {shape} leak_shift={ls}: bit-exact")
+            print(f"lif_update_int {shape} leak_shift={ls}: bit-exact, "
+                  f"checked, in place and draining its current")
         print_times("times", time_lif(v0, cur, p))
     print(f"comparison launches (not counted below): fused_step "
           f"{fused_step.launches}, lif_update_int {lif_update_int.launches}")
@@ -493,7 +591,7 @@ def phase_snn_kernels(dev: torch.device) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 yardsticks
     rng = np.random.default_rng(2)
-    err = {"spike_accum": 0.0, "lif_update": 0.0}
+    err = {"spike_accum": 0.0, "lif_update": 0.0, "lif_update_bwd": 0.0}
     tol = {torch.float32: dict(rtol=1e-5, atol=1e-5),
            torch.bfloat16: dict(rtol=2e-2, atol=1e-2)}
     groups = {"test_kernels": ([(1, 7, 5), (3, 128, 128), (5, 300, 70),
@@ -590,6 +688,8 @@ def phase_snn_kernels(dev: torch.device) -> dict:
                            f"(max |err| {e})")
             print(f"lif_update {shape} alpha={alpha} reset 0 and -0.25: "
                   f"bit-exact (spike rate {want[1].mean().item():.3f})")
+            check_lif_two_currents(v, cur, on, p, err)
+            check_lif_bwd(v, cur, p, err)
         print_times("times", time_lif_float(v, cur, p))
 
     # each kernel's record: SHD layer 0 at B = 32, its input spikes at
@@ -612,7 +712,83 @@ def phase_snn_kernels(dev: torch.device) -> dict:
     for name, rec in recs.items():
         print_times(f"{name} record, SHD layer 0 at B={SHD_BATCH}", rec)
         rec["max_abs_err"] = err[name]
+    # the gradient kernel's record (not a TPU kernel, so not in the
+    # kernels line): SHD layer 0's backward, both currents, both gradients
+    cur_rec = spike_accum(hidden, w["wr0"])
+    g_vnext, g_s = (torch.randn((SHD_BATCH, 300), device=dev) * 0.1
+                    for _ in range(2))
+    bwd = time_lif_bwd(v, cur, cur_rec, g_vnext, g_s, p, SHD_CONFIG.surrogate)
+    bwd["max_abs_err"] = err["lif_update_bwd"]
+    print_times(f"lif_update_bwd record, SHD layer 0 at B={SHD_BATCH} "
+                f"(two currents, {SHD_CONFIG.surrogate})", bwd)
+    print(f"lif_update_bwd record: max |err| {bwd['max_abs_err']:.3g} "
+          f"against lif_update_bwd_ref (rtol {BWD_TOL['rtol']}, atol "
+          f"{BWD_TOL['atol']})")
     return recs
+
+
+def check_lif_two_currents(v, cur, on, p, err) -> None:
+    """The forward with the recurrent current added in the kernel, through
+    ``LIFUpdateFn`` and the unchecked launch (in place), bit-exact with
+    ``lif_update_ref(v, a + b)``. ``cur`` puts the neurons ``on`` on the
+    threshold; there the recurrent plane is zero and ``a`` is ``cur``,
+    elsewhere the two planes split it."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lif_update import (LIFUpdateFn,
+                                                launch_lif_update,
+                                                lif_update_ref)
+    rec = torch.where(on, 0.0, torch.randn_like(v) * 0.5)
+    a = torch.where(on, cur, cur - rec)
+    want = lif_update_ref(v, a + rec, p.alpha, p.v_threshold, p.v_reset)
+    got = LIFUpdateFn.apply(v, a, rec, p, "sigmoid")
+    v_i, s_i = v.clone(), torch.empty_like(v)
+    launch_lif_update(v_i, a, rec, v_i, s_i, p.alpha, p.v_threshold,
+                      p.v_reset, _build.stream_handle(v.device))
+    torch.cuda.synchronize()
+    for what, x, y in (("v", got[0], want[0]), ("spikes", got[1], want[1]),
+                       ("v in place", v_i, want[0]),
+                       ("spikes in place", s_i, want[1])):
+        e = max_err_f(x, y)
+        err["lif_update"] = max(err["lif_update"], e)
+        expect(torch.equal(x, y), f"lif_update two currents {tuple(v.shape)}"
+               f" {p}: {what} differs (max |err| {e})")
+
+
+def check_lif_bwd(v, cur, p, err) -> None:
+    """The gradient kernel (public call and the unchecked launch, one and
+    two currents, each gradient present or absent, every surrogate)
+    within ``BWD_TOL`` of ``lif_update_bwd_ref`` on the same inputs."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lif_update import (launch_lif_update_bwd,
+                                                lif_update_bwd,
+                                                lif_update_bwd_ref)
+    from repro_torch.snn.lif import SURROGATES
+    g_vnext, g_s = torch.randn_like(v), torch.randn_like(v)
+    rec = (torch.rand_like(v) < 0.3).float() * 0.2
+    stream = _build.stream_handle(v.device)
+    for surrogate in SURROGATES:
+        for c_rec, gv, gs in ((None, g_vnext, g_s), (rec, g_vnext, g_s),
+                              (rec, None, g_s), (None, g_vnext, None)):
+            want = lif_update_bwd_ref(v, cur, gv, gs, p.alpha,
+                                      p.v_threshold, surrogate, c_rec)
+            got = lif_update_bwd(v, cur, gv, gs, alpha=p.alpha,
+                                 v_th=p.v_threshold, surrogate=surrogate,
+                                 current_rec=c_rec)
+            lean = torch.empty_like(v), torch.empty_like(v)
+            launch_lif_update_bwd(v, cur, c_rec, gv, gs, *lean, p.alpha,
+                                  p.v_threshold, surrogate, stream)
+            torch.cuda.synchronize()
+            for x, y in zip(got + lean, want + want):
+                e = max_err_f(x, y)
+                err["lif_update_bwd"] = max(err["lif_update_bwd"], e)
+                expect(torch.allclose(x, y, **BWD_TOL),
+                       f"lif_update_bwd {tuple(v.shape)} {surrogate} "
+                       f"recurrent={c_rec is not None} g_vnext="
+                       f"{gv is not None} g_s={gs is not None}: max |err| "
+                       f"{e}")
+    print(f"  lif_update two currents bit-exact; lif_update_bwd within "
+          f"BWD_TOL for {', '.join(SURROGATES)}, one and two currents, "
+          f"absent gradients; max |err| so far {err['lif_update_bwd']:.3g}")
 
 
 def ssm_inputs(kind: str, shape: tuple, dtype, dev, seed: int,
@@ -799,20 +975,37 @@ def phase_ssm_kernels(dev: torch.device) -> dict:
     return recs
 
 
+def train_kernels() -> tuple:
+    """The training path's kernel wrappers, whose counts are read as
+    ``(spike_accum, lif_update, lif_update_bwd)``."""
+    from repro_torch.kernels.lif_update import lif_update, lif_update_bwd
+    from repro_torch.kernels.spike_accum import spike_accum
+    return spike_accum, lif_update, lif_update_bwd
+
+
+def bwd_per_step(cfg) -> int:
+    """The LIF gradient kernel's launches in one backward: one per step
+    and layer the loss depends on. The loss reads the output layer's
+    spikes; with the hardware's delay layer i's step t feeds layer i+1's
+    step t+1, so the last n-1-i steps of layer i feed nothing it reads:
+    n T - n (n-1) / 2 for n layers (SHD: 199 of 200)."""
+    n, t = cfg.n_layers, cfg.timesteps
+    return n * t - (n * (n - 1) // 2 if cfg.delayed else 0)
+
+
 def first_step(params, x, y, cfg) -> dict:
     """One training step's forward and gradients: the loss, every
     layer's spikes, the gradients, the launches (spike_accum,
-    lif_update) and the seconds (each part ended by a sync on the card)
-    of the forward and of the backward."""
-    from repro_torch.kernels.lif_update import lif_update
-    from repro_torch.kernels.spike_accum import spike_accum
+    lif_update, lif_update_bwd) and the seconds (each part ended by a
+    sync on the card) of the forward and of the backward."""
     from repro_torch.snn.models import is_mask, layer_spikes
     from repro_torch.snn.train import spike_count_loss
 
     def mark():
         if x.is_cuda:
             torch.cuda.synchronize()
-        return (spike_accum.launches, lif_update.launches), time.perf_counter()
+        return (tuple(k.launches for k in train_kernels()),
+                time.perf_counter())
 
     trained = {k: v.detach().requires_grad_() for k, v in params.items()
                if not is_mask(k)}
@@ -829,35 +1022,80 @@ def first_step(params, x, y, cfg) -> dict:
             "fwd_s": t1 - t0, "bwd_s": t2 - t1}
 
 
-def step_breakdown(params, x, y, cfg) -> None:
-    """Where a warm SHD step's time goes: the forward and the backward on
-    the host's clock, then one step under ``torch.profiler``: the card's
-    time by kernel and its busy share of the unprofiled step."""
+def device_kernels(fn) -> dict[str, tuple[float, int]]:
+    """The card's events under ``torch.profiler`` for one call of ``fn``
+    (kernels, copies, fills): name -> (us, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.key, (0.0, 0))
+            by_name[e.key] = (us + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0)), n + e.count)
+    return by_name
+
+
+KERNEL_EVENTS = ("spike_accum_kernel", "lif_update_kernel",
+                 "lif_update_bwd_kernel")
+
+
+def kernel_events(by_name: dict) -> tuple:
+    """The profiled events of (spike_accum, lif_update, lif_update_bwd)
+    in ``device_kernels``' result."""
+    return tuple(sum(n for name, (_, n) in by_name.items() if key in name)
+                 for key in KERNEL_EVENTS)
+
+
+def step_breakdown(params, x, y, cfg, per_fwd: tuple,
+                   per_bwd: tuple) -> None:
+    """Where a warm SHD step's time goes: the forward and the backward on
+    the host's clock, then one step under ``torch.profiler``: the card's
+    time by kernel, its busy share of the unprofiled step and the card's
+    launches; then the forward alone under the profiler, which must hold
+    no elementwise add (the recurrent layer's two currents are added in
+    the LIF kernel). Both profiles must hold the path's kernel events,
+    ``per_fwd`` and ``per_bwd`` of (spike_accum, lif_update,
+    lif_update_bwd), so that neither check passes on an empty trace."""
+    from repro_torch.snn.models import layer_spikes
 
     first_step(params, x, y, cfg)                  # warm
     warm = first_step(params, x, y, cfg)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        first_step(params, x, y, cfg)
-    by_name = {}                # the card's own events: kernels, copies
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + getattr(
-                e, "self_device_time_total",
-                getattr(e, "self_cuda_time_total", 0.0))
-    busy_ms = sum(by_name.values()) / 1e3
+    by_name = device_kernels(lambda: first_step(params, x, y, cfg))
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    n_events = sum(n for _, n in by_name.values())
     step_ms = (warm["fwd_s"] + warm["bwd_s"]) * 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"train SHD warm step (forward + backward, no optimizer): "
           f"forward {warm['fwd_s'] * 1e3:.2f} ms, backward "
-          f"{warm['bwd_s'] * 1e3:.2f} ms; card time under the profiler "
-          f"{busy_ms:.2f} ms, "
+          f"{warm['bwd_s'] * 1e3:.2f} ms; launches forward "
+          f"{warm['fwd_launches']}, backward {warm['bwd_launches']} "
+          f"(spike_accum, lif_update, lif_update_bwd); card time under the "
+          f"profiler {busy_ms:.2f} ms in {n_events} device events, "
           + (f"busy {busy_ms / step_ms:.3f} of the unprofiled step"
              if busy_ms else "not measured (no device events)"))
-    for name, us in top:
-        print(f"  {us / 1e3:8.3f} ms  {name[:90]}")
+    for name, (us, n) in top:
+        print(f"  {us / 1e3:8.3f} ms {n:6d} x  {name[:90]}")
+    per_step = tuple(a + b for a, b in zip(per_fwd, per_bwd))
+    expect(kernel_events(by_name) == per_step,
+           f"the profiled SHD step holds {kernel_events(by_name)} kernel "
+           f"events (spike_accum, lif_update, lif_update_bwd), want "
+           f"{per_step}")
+    fwd = device_kernels(lambda: layer_spikes(params, x, cfg))
+    adds = sum(n for name, (_, n) in fwd.items() if "add" in name.lower())
+    print(f"  the forward alone: {sum(n for _, n in fwd.values())} device "
+          f"events, {adds} of them elementwise adds; by count: " + "; ".join(
+              f"{n} x {name[:60]}" for name, (_, n) in sorted(
+                  fwd.items(), key=lambda kv: -kv[1][1])[:5]))
+    expect(kernel_events(fwd) == per_fwd,
+           f"the profiled SHD forward holds {kernel_events(fwd)} kernel "
+           f"events, want {per_fwd}")
+    expect(adds == 0, f"the SHD forward launched {adds} adds")
 
 
 def phase_train(dev: torch.device) -> dict[str, int]:
@@ -866,10 +1104,13 @@ def phase_train(dev: torch.device) -> dict[str, int]:
     each kernel's launches in the counted runs."""
     from repro_torch.data import (mnist_batches, shd_batches,
                                   synthetic_mnist, synthetic_shd)
-    from repro_torch.kernels.lif_update import lif_update
-    from repro_torch.kernels.spike_accum import spike_accum
     from repro_torch.snn.models import MNIST_CONFIG, SHD_CONFIG, init_params
     from repro_torch.snn.train import evaluate, train
+
+    kernels = train_kernels()
+
+    def counts() -> tuple:
+        return tuple(k.launches for k in kernels)
 
     cfg, t_steps = SHD_CONFIG, SHD_CONFIG.timesteps
     t0 = time.perf_counter()
@@ -882,16 +1123,21 @@ def phase_train(dev: torch.device) -> dict[str, int]:
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     x_np, y_np = next(shd_batches(xtr, ytr, SHD_BATCH, seed=0))
     x, y = torch.from_numpy(x_np), torch.from_numpy(y_np).long()
-    per_fwd = (t_steps * 3, t_steps * 2)        # 2 planes + 1 recurrent; 2 LIF
+    # per forward: 2 planes + 1 recurrent, 2 LIF steps; per backward: the
+    # LIF gradient alone
+    per_fwd = (t_steps * 3, t_steps * 2, 0)
+    per_bwd = (0, 0, bwd_per_step(cfg))
+    per_step = tuple(a + b for a, b in zip(per_fwd, per_bwd))
 
     card_params = {k: v.to(dev) for k, v in params.items()}
     card = first_step(card_params, x.to(dev), y.to(dev), cfg)
     cpu = first_step(params, x, y, cfg)
     expect(card["fwd_launches"] == per_fwd, f"SHD forward launched "
-           f"{card['fwd_launches']} (spike_accum, lif_update), want {per_fwd}")
-    expect(card["bwd_launches"] == (0, 0),
-           f"SHD backward launched {card['bwd_launches']}")
-    expect(cpu["fwd_launches"] == cpu["bwd_launches"] == (0, 0),
+           f"{card['fwd_launches']} (spike_accum, lif_update, "
+           f"lif_update_bwd), want {per_fwd}")
+    expect(card["bwd_launches"] == per_bwd,
+           f"SHD backward launched {card['bwd_launches']}, want {per_bwd}")
+    expect(cpu["fwd_launches"] == cpu["bwd_launches"] == (0, 0, 0),
            "the CPU step launched a kernel")
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     flips = [float((a.cpu() != b).float().mean())
@@ -916,19 +1162,21 @@ def phase_train(dev: torch.device) -> dict[str, int]:
     expect(max(grad_rel.values()) <= GRAD_RTOL,
            f"SHD gradients differ: {grad_rel}")
 
-    step_breakdown(card_params, x.to(dev), y.to(dev), cfg)
+    step_breakdown(card_params, x.to(dev), y.to(dev), cfg, per_fwd, per_bwd)
 
-    spike_accum.launches = lif_update.launches = 0
+    for k in kernels:
+        k.launches = 0
     res = train(cfg, shd_batches(xtr, ytr, SHD_BATCH, seed=0), TRAIN_STEPS,
                 lr=1e-3, encode=False, params=params)
-    trained = (spike_accum.launches, lif_update.launches)
+    trained = counts()
     acc = evaluate(res.params, cfg, xte, yte, encode=False)
-    shd = (spike_accum.launches, lif_update.launches)
-    expect(trained == tuple(TRAIN_STEPS * n for n in per_fwd),
-           f"SHD training launched {trained}, want {TRAIN_STEPS} x {per_fwd}"
-           f" (forward only: the backward launches none)")
-    expect(shd == tuple((TRAIN_STEPS + 1) * n for n in per_fwd),
-           f"SHD training + evaluate launched {shd}")
+    shd = counts()
+    expect(trained == tuple(TRAIN_STEPS * n for n in per_step),
+           f"SHD training launched {trained}, want {TRAIN_STEPS} x "
+           f"{per_step}")
+    expect(shd == tuple(a + b for a, b in zip(trained, per_fwd)),
+           f"SHD training + evaluate launched {shd} (evaluate: one "
+           f"forward, no backward)")
     expect(all(np.isfinite(res.loss_history))
            and all(bool(v.isfinite().all()) for v in res.params.values())
            and all(v.is_cuda for v in res.params.values()),
@@ -939,9 +1187,10 @@ def phase_train(dev: torch.device) -> dict[str, int]:
            f"{card['loss']}")
     print(f"train SHD {cfg.layer_sizes} recurrent T={t_steps} B={SHD_BATCH}:"
           f" {TRAIN_STEPS} steps, {res.wall_seconds / TRAIN_STEPS * 1e3:.1f} "
-          f"ms per step (host clock, each step ends in a sync), forward "
-          f"launches per step spike_accum {per_fwd[0]} lif_update "
-          f"{per_fwd[1]}, losses {[round(v, 4) for v in res.loss_history]}; "
+          f"ms per step (host clock, each step ends in a sync), launches "
+          f"per step spike_accum {per_step[0]} lif_update {per_step[1]} "
+          f"lif_update_bwd {per_step[2]}, losses "
+          f"{[round(v, 4) for v in res.loss_history]}; "
           f"evaluate on {len(xte)} test samples: accuracy {acc:.3f} after "
           f"{TRAIN_STEPS} steps (not a claim: five steps train nothing)")
 
@@ -951,26 +1200,26 @@ def phase_train(dev: torch.device) -> dict[str, int]:
                                          n_test=MNIST_BATCH, seed=0)
     print(f"train MNIST: synthetic set {xtr.shape} + {xte.shape} in "
           f"{time.perf_counter() - t0:.2f} s")
-    per_fwd = (t_steps * 2, t_steps * 2)
+    per_fwd = (t_steps * 2, t_steps * 2, 0)
+    per_step = (t_steps * 2, t_steps * 2, bwd_per_step(cfg))
     res = train(cfg, mnist_batches(xtr, ytr, MNIST_BATCH, seed=0),
                 TRAIN_STEPS, lr=1e-3, seed=0, encode=True)
-    trained = tuple(a - b for a, b in zip((spike_accum.launches,
-                                           lif_update.launches), shd))
+    trained = tuple(a - b for a, b in zip(counts(), shd))
     acc = evaluate(res.params, cfg, xte, yte, encode=True)
-    launches = {"spike_accum": spike_accum.launches,
-                "lif_update": lif_update.launches}
-    mnist = tuple(a - b for a, b in zip(launches.values(), shd))
-    expect(trained == tuple(TRAIN_STEPS * n for n in per_fwd),
+    launches = {k.__name__: k.launches for k in kernels}
+    mnist = tuple(a - b for a, b in zip(counts(), shd))
+    expect(trained == tuple(TRAIN_STEPS * n for n in per_step),
            f"MNIST training launched {trained}, want {TRAIN_STEPS} x "
-           f"{per_fwd}")
-    expect(mnist == tuple((TRAIN_STEPS + 1) * n for n in per_fwd),
+           f"{per_step}")
+    expect(mnist == tuple(a + b for a, b in zip(trained, per_fwd)),
            f"MNIST training + evaluate launched {mnist}")
     expect(all(np.isfinite(res.loss_history)), "MNIST: non-finite loss")
     print(f"train MNIST {cfg.layer_sizes} T={t_steps} B={MNIST_BATCH} "
           f"rate-coded: {TRAIN_STEPS} steps, "
-          f"{res.wall_seconds / TRAIN_STEPS * 1e3:.1f} ms per step, forward "
-          f"launches per step spike_accum {per_fwd[0]} lif_update "
-          f"{per_fwd[1]}, losses {[round(v, 4) for v in res.loss_history]}; "
+          f"{res.wall_seconds / TRAIN_STEPS * 1e3:.1f} ms per step, launches "
+          f"per step spike_accum {per_step[0]} lif_update {per_step[1]} "
+          f"lif_update_bwd {per_step[2]}, losses "
+          f"{[round(v, 4) for v in res.loss_history]}; "
           f"evaluate on {len(xte)} test images: accuracy {acc:.3f} (not a "
           f"claim)")
     print(f"training phase launches (SHD + MNIST, train + evaluate): "
@@ -981,13 +1230,14 @@ def phase_train(dev: torch.device) -> dict[str, int]:
 def counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
     from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.lif_update import lif_update, lif_update_int
+    from repro_torch.kernels.lif_update import (lif_update, lif_update_bwd,
+                                                lif_update_int)
     from repro_torch.kernels.spike_accum import spike_accum
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
     return {"fused_step": fused_step, "lif_update_int": lif_update_int,
-            "lif_update": lif_update, "spike_accum": spike_accum,
-            "wkv6": wkv6, "ssd": ssd}
+            "lif_update": lif_update, "lif_update_bwd": lif_update_bwd,
+            "spike_accum": spike_accum, "wkv6": wkv6, "ssd": ssd}
 
 
 def leaves(tree: dict, path: str = "") -> list:
@@ -1288,7 +1538,54 @@ def phase_serve() -> dict[str, int]:
         per_step = (time.perf_counter() - t0) / (5 * TIMESTEPS)
         print(f"serve {tier}: engine run B={SERVE_BATCH} T={TIMESTEPS} "
               f"(warm, 5 runs): {per_step * 1e6:.2f} us per timestep")
+    check_no_internal_neurons()
     return launches
+
+
+def check_no_internal_neurons() -> None:
+    """A program with no internal neuron (4 inputs, no synapse) on the
+    card: the fused and lif tiers and the public ``fused_step`` give each
+    step's non-zero external spikes as its packet count, and launch no
+    kernel (there is no neuron work)."""
+    from repro_torch.core import ExecutionSpec, SNNGraph, TorchMappedEngine
+    from repro_torch.core.scheduling import LoweredProgram
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.lif_update import lif_update_int
+    from repro_torch.snn.lif import LIFIntParams
+    none = np.zeros(0, np.int32)
+    g = SNNGraph(n_inputs=4, n_neurons=4, pre=none, post=none, weight=none,
+                 lif=LIFIntParams(2, 10, 0))
+    lw = LoweredProgram(n_inputs=4, n_neurons=4, n_internal=0, n_spus=1,
+                        depth=0, op_spu=none, op_slot=none, op_pre=none,
+                        op_post_local=none, op_weight=none,
+                        op_pre_end=np.zeros(0, bool),
+                        op_post_end=np.zeros(0, bool),
+                        routing=np.zeros((4, 1), bool))
+    ext = np.random.default_rng(3).integers(-2, 3, (3, 7, 4)).astype(np.int32)
+    before = (fused_step.launches, lif_update_int.launches)
+    for tier in ("fused", "lif"):
+        eng = TorchMappedEngine(g, lw, ExecutionSpec(kernel=tier))
+        for e in (np.ones((2, 3, 4), np.int32), ext):
+            spikes, v, st = eng.run(e)
+            expect(spikes.shape == e.shape[:2] + (0,) and v.shape == (len(e), 0)
+                   and np.array_equal(st["packet_counts"], (e != 0).sum(-1)),
+                   f"no internal neurons, {tier} tier: packets "
+                   f"{st['packet_counts'].tolist()}, want "
+                   f"{(e != 0).sum(-1).tolist()}")
+    dev = torch.device("cuda", 0)
+    ext_t = torch.from_numpy(ext[:, 0]).to(dev)
+    empty = torch.zeros((3, 0), dtype=torch.int32, device=dev)
+    pkt = torch.full((3,), -7, dtype=torch.int32, device=dev)
+    fused_step(ext_t, empty, empty.clone(),
+               torch.zeros((4, 0), dtype=torch.int16, device=dev),
+               g.lif, pkt_out=pkt)
+    expect(pkt.tolist() == (ext[:, 0] != 0).sum(-1).tolist(),
+           f"no internal neurons, fused_step: packets {pkt.tolist()}")
+    expect((fused_step.launches, lif_update_int.launches) == before,
+           "no internal neurons: a kernel was launched")
+    print("no internal neurons (4 inputs, no synapse): the fused and lif "
+          "tiers and fused_step count each step's non-zero external "
+          "spikes, e.g. [[4, 4, 4], [4, 4, 4]] for all-one spikes")
 
 
 def main() -> int:

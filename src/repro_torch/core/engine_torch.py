@@ -9,7 +9,7 @@ three **kernel tiers**, selected by
 * ``"fused"`` (default) — the whole timestep in ONE kernel launch over
   the packed dense weight plane (:mod:`repro_torch.kernels.fused_step`);
 * ``"lif"`` — ``index_select`` gather + int32 ``index_add_``
-  segment-sum over the op stream, then the LIF kernel
+  segment-sum over the op stream, then the LIF kernel, the Neuron Unit
   (:func:`repro_torch.kernels.lif_update.lif_update_int`);
 * ``"reference"`` — the same segment-sum + plain torch ``lif_step_int``.
 
@@ -23,11 +23,15 @@ once as ``[T, B, n_inputs]``, spikes are written into a ``[T, B, n_int]``
 buffer whose slice ``t-1`` is step ``t``'s ``s_prev`` (so a step never
 writes the plane it reads, the recurrent race the reference avoids by
 concatenating), ``v`` is updated in place, and the results are copied
-back once at the end. The fused tier launches one kernel per timestep.
-On the card it packs the plane for the kernel once, at build, and the
-step loop launches through ``fused_launcher`` with no per-step checks,
-views or stream lookups: each step's pointers are offsets into the
-contiguous ``[T, B, ·]`` buffers.
+back once at the end. On the card each kernel tier has a step loop of
+its own that launches with no per-step checks or stream lookups, each
+step's pointers offsets into the contiguous ``[T, B, ·]`` buffers: the
+fused tier packs the plane for its kernel once, at build, and launches
+through ``fused_launcher``, one launch per timestep; the ``"lif"`` tier
+merges each step into one current plane kept for the whole run, which
+its Neuron Unit (``lif_int_launcher``) drains as it reads it. A program
+with no internal neurons does no neuron work: there a step's packets
+are its non-zero external spikes, counted on the device.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ from repro_torch.core.scheduling import LoweredProgram, OpTables, lower_tables
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
                                             pack_dense, pack_plane)
-from repro_torch.kernels.lif_update import lif_update_int
+from repro_torch.kernels.lif_update import lif_int_launcher, lif_update_int
 from repro_torch.snn.lif import LIFIntParams, lif_step_int
 
 
@@ -75,6 +79,16 @@ def finalize_outputs(spikes, v, pkts, squeeze: bool
     return spikes, v, packet_stats(pkts)
 
 
+def _count_packets(ext_d: torch.Tensor, spikes: torch.Tensor,
+                   pkts: torch.Tensor) -> None:
+    """The distribution phase of a whole run on the device, straight into
+    ``pkts`` ``[T, B]``: one MC packet per fired neuron, so step t's are
+    ``ext_d[t]``'s non-zero spikes plus ``spikes[t-1]``'s, which are 0/1
+    (none with no internal neuron)."""
+    torch.sum(ext_d != 0, dim=2, dtype=torch.int32, out=pkts)
+    pkts[1:] += spikes[:-1].sum(dim=2, dtype=torch.int32)
+
+
 class TorchMappedEngine:
     """A lowered program placed on one device for batched execution.
 
@@ -91,18 +105,22 @@ class TorchMappedEngine:
                         else lower_tables(g, tables))
         self.lif: LIFIntParams = g.lif
         lw, dev = self.lowered, self.device
-        self._launch = None
+        self._launch = self._run_card = None
         if self.spec.kernel == "fused":
             self._weight = torch.from_numpy(pack_dense(lw).weight).to(dev)
             if dev.type == "cuda":      # packed and checked once, here
                 self._weight = pack_plane(self._weight)
                 self._launch = fused_launcher(self._weight, self.lif,
                                               lw.n_inputs)
+                self._run_card = self._run_fused
         else:
             self._op_pre = torch.from_numpy(lw.op_pre.astype(np.int64)).to(dev)
             self._op_post = torch.from_numpy(
                 lw.op_post_local.astype(np.int64)).to(dev)
             self._op_w = torch.from_numpy(lw.op_weight).to(dev)
+            if self.spec.kernel == "lif" and dev.type == "cuda":
+                self._launch = lif_int_launcher(self.lif)
+                self._run_card = self._run_lif
         self._warm: set[tuple[int, int]] = set()
 
     # -- one timestep -------------------------------------------------------
@@ -150,6 +168,40 @@ class TorchMappedEngine:
                        stream)
                 prev = out
 
+    def _run_lif(self, ext_d: torch.Tensor, s_prev: torch.Tensor,
+                 v: torch.Tensor, spikes: torch.Tensor,
+                 pkts: torch.Tensor) -> None:
+        """The ``"lif"`` tier's step loop on the card, over ``run``'s
+        buffers as :meth:`_run_fused` (``s_prev`` is zero). Each step
+        gathers ``ext_d[t] ‖ spikes[t-1]`` into one buffer, merges every
+        op into ``current`` (allocated once per run; the Neuron Unit
+        leaves it zero) and launches the Neuron Unit on ``v`` in place,
+        its spikes into ``spikes[t]``. The packets are counted once per
+        run, by :func:`_count_packets`."""
+        t_steps, b, n_in = ext_d.shape
+        n_int = v.shape[1]
+        s_all = torch.empty((b, n_in + n_int), dtype=torch.int32,
+                            device=v.device)
+        act = torch.empty((b, self._op_pre.numel()), dtype=torch.int32,
+                          device=v.device)
+        current = torch.zeros_like(v)
+        launch, dev, n = self._launch, self.device, b * n_int
+        sp0, d_sp = spikes.data_ptr(), b * n_int * 4
+        v_p, cur_p = v.data_ptr(), current.data_ptr()
+        prev = s_prev
+        with _build.on_device(dev):
+            stream = _build.stream_handle(dev)
+            for t in range(t_steps):
+                torch.cat((ext_d[t], prev), dim=1, out=s_all)
+                # synaptic phase: every op gated by its pre's spike,
+                # merged per post neuron (exact int32 sum == ME tree)
+                torch.index_select(s_all, 1, self._op_pre, out=act)
+                act.mul_(self._op_w)
+                current.index_add_(1, self._op_post, act)
+                launch(v_p, cur_p, v_p, sp0 + t * d_sp, n, stream)
+                prev = spikes[t]
+        _count_packets(ext_d, spikes, pkts)
+
     # -- warm-up ------------------------------------------------------------
 
     def precompile(self, batch_sizes, timesteps: int) -> list[tuple[int, int]]:
@@ -190,9 +242,11 @@ class TorchMappedEngine:
         pkts = torch.empty((t_steps, b), dtype=torch.int32, device=dev)
         v = torch.zeros((b, lw.n_internal), dtype=torch.int32, device=dev)
         s_prev = torch.zeros_like(v)
-        if self._launch is not None:
+        if self._run_card is not None:
             if b and lw.n_internal:
-                self._run_fused(ext_d, s_prev, v, spikes, pkts)
+                self._run_card(ext_d, s_prev, v, spikes, pkts)
+            else:       # no neuron work: the packets are the ext spikes
+                _count_packets(ext_d, spikes, pkts)
         else:
             for t in range(t_steps):
                 self._step(ext_d[t], s_prev, v, spikes[t], pkts[t])

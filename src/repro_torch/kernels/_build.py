@@ -34,8 +34,9 @@ _F = ctypes.c_float
 # C entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     "suprasnn_fused_step": (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 7 + (_P,),
-    "suprasnn_lif_update_int": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
-    "suprasnn_lif_update": (_P, _P, _P, _P, _L, _F, _F, _F, _P),
+    "suprasnn_lif_update_int": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
+    "suprasnn_lif_update": (_P,) * 5 + (_L, _F, _F, _F, _P),
+    "suprasnn_lif_update_bwd": (_P,) * 7 + (_L, _F, _F, _I, _P),
     "suprasnn_spike_accum": (_P, _P, _P, _I, _I, _I, _I, _P),
     "suprasnn_wkv6": (_P,) * 8 + (_I,) * 5 + (_P,),
     "suprasnn_ssd": (_P,) * 8 + (_I,) * 6 + (_P,),
@@ -134,7 +135,8 @@ def stream_handle(device: torch.device) -> int:
 
 
 def on_device(device: torch.device):
-    """``torch.cuda.device(device)`` unless it is already current."""
-    if device.index == torch.cuda.current_device():
+    """``torch.cuda.device(device)`` unless it is already current or not
+    a CUDA device."""
+    if device.type != "cuda" or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)

@@ -12,7 +12,8 @@ design and what bounds it on the H100 are noted in the source.
 operands already known good. :func:`split_bf16x3` and
 :func:`spike_accum_emulated` replay the kernel's float32 split and its
 schedule in plain torch for the tests. :class:`SpikeAccumFn` puts it
-under autograd with a plain torch backward.
+under autograd (the training forward's unchecked launch) with a plain
+torch backward.
 """
 from __future__ import annotations
 
@@ -187,14 +188,26 @@ spike_accum.launches = 0
 
 class SpikeAccumFn(torch.autograd.Function):
     """:func:`spike_accum` under autograd: ``SpikeAccumFn.apply(spikes,
-    weights)``. Backward ``g @ W^T`` and ``S^T @ g`` with
-    ``torch.matmul``: plain matrix products, which the JAX package too
-    leaves to autodiff outside any kernel."""
+    weights)``. On the card the forward launches without checks
+    (:func:`launch_spike_accum`): the operands must be what
+    :func:`spike_accum` takes, on the current device, as
+    :func:`~repro_torch.snn.models.layer_spikes` checks once per
+    forward; on the CPU it is :func:`spike_accum`. Backward ``g @ W^T``
+    and ``S^T @ g`` with ``torch.matmul``: plain matrix products, which
+    the JAX package too leaves to autodiff outside any kernel."""
 
     @staticmethod
     def forward(ctx, spikes, weights):
         ctx.save_for_backward(spikes, weights)
-        return spike_accum(spikes, weights)
+        if not spikes.is_cuda:
+            return spike_accum(spikes, weights)
+        out = spikes.new_empty((spikes.shape[0], weights.shape[1]),
+                               dtype=torch.int32 if spikes.dtype == torch.int32
+                               else torch.float32)
+        if out.numel():
+            launch_spike_accum(spikes, weights, out,
+                               _build.stream_handle(spikes.device))
+        return out
 
     @staticmethod
     def backward(ctx, g):

@@ -6,10 +6,11 @@ Parameters are plain dicts of tensors (``w{i}``, ``mask{i}`` and, for a
 recurrent net, ``wr{i}``, ``maskr{i}``), as the reference's pytrees are.
 :func:`forward` runs the spike train with a Python loop over time, which
 autograd unrolls for BPTT. Every timestep of every layer goes through
-the two CUDA kernels under autograd: ``src @ w`` through
-:class:`~repro_torch.kernels.spike_accum.SpikeAccumFn` and the LIF step
-through :class:`~repro_torch.kernels.lif_update.LIFUpdateFn` (their
-plain torch versions for CPU tensors).
+the CUDA kernels under autograd: ``src @ w`` through
+:class:`~repro_torch.kernels.spike_accum.SpikeAccumFn` and the LIF step,
+with a recurrent layer's two currents added in it, through
+:class:`~repro_torch.kernels.lif_update.LIFUpdateFn`, whose backward is
+a kernel too (their plain torch versions for CPU tensors).
 """
 from __future__ import annotations
 
@@ -120,6 +121,31 @@ def masked_weights(params: dict[str, torch.Tensor], cfg: SNNConfig
     return out
 
 
+def _check_on_card(spikes_in: torch.Tensor, w: dict[str, torch.Tensor],
+                   cfg: SNNConfig) -> None:
+    """What the forward's unchecked launches rely on, checked once:
+    every weight plane a contiguous float32 [fan_in, fan_out] tensor on
+    the spike train's card, a [T, B, n_in] train of at most the
+    contraction kernel's batch. The rest the loop makes itself: the
+    potentials, spikes and currents are kernel outputs or zeros of one
+    shape per layer."""
+    from repro_torch.kernels.spike_accum import MAX_BATCH
+    dev = spikes_in.device
+    if spikes_in.ndim != 3 or spikes_in.shape[2] != cfg.layer_sizes[0]:
+        raise ValueError(f"spikes_in shape {tuple(spikes_in.shape)}: want "
+                         f"[T, B, {cfg.layer_sizes[0]}]")
+    if spikes_in.shape[1] > MAX_BATCH:
+        raise ValueError(f"batch {spikes_in.shape[1]} > {MAX_BATCH}, the "
+                         f"contraction kernel's grid limit")
+    shapes = param_shapes(cfg)
+    for k, t in w.items():
+        if (t.dtype != torch.float32 or t.device != dev
+                or tuple(t.shape) != shapes[k] or not t.is_contiguous()):
+            raise ValueError(f"{k}: {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}; want contiguous float32 "
+                             f"{shapes[k]} on {dev}")
+
+
 def layer_spikes(params: dict[str, torch.Tensor], spikes_in: torch.Tensor,
                  cfg: SNNConfig) -> list[torch.Tensor]:
     """Run the network over a spike train; every layer's spikes.
@@ -128,10 +154,13 @@ def layer_spikes(params: dict[str, torch.Tensor], spikes_in: torch.Tensor,
     promotes it so in ``src @ w``). Returns one [T, B, n_i]
     spike train per layer, the output layer last. Each timestep launches
     ``spike_accum`` once per weight plane and ``lif_update`` once per
-    layer.
+    layer, which adds a recurrent layer's two currents itself; on the
+    card the operands are checked once, here, and every launch of the
+    loop is unchecked.
     """
     # imported here: the kernel modules import snn.lif, whose package
     # imports this module, so a module-level import would be circular
+    from repro_torch.kernels import _build
     from repro_torch.kernels.lif_update import LIFUpdateFn
     from repro_torch.kernels.spike_accum import SpikeAccumFn
 
@@ -140,26 +169,31 @@ def layer_spikes(params: dict[str, torch.Tensor], spikes_in: torch.Tensor,
     spikes_in = spikes_in.to(torch.float32).contiguous()
     b = spikes_in.shape[1]
     dev = spikes_in.device
+    if dev.type == "cuda":
+        _check_on_card(spikes_in, w, cfg)
     vs = [torch.zeros((b, n), device=dev) for n in cfg.layer_sizes[1:]]
     prev = [torch.zeros((b, n), device=dev) for n in cfg.layer_sizes[1:]]
     trains: list[list[torch.Tensor]] = [[] for _ in range(cfg.n_layers)]
-    for t in range(spikes_in.shape[0]):
-        layer_in = spikes_in[t]
-        new_vs, new_spikes = [], []
-        for i in range(cfg.n_layers):
-            # delayed (hardware) semantics: internal synapses carry spikes
-            # from the PREVIOUS timestep; external inputs arrive same-step.
-            src = layer_in if i == 0 else (prev[i - 1] if cfg.delayed
-                                           else layer_in)
-            cur = SpikeAccumFn.apply(src, w[f"w{i}"])
-            if cfg.recurrent and i < cfg.n_layers - 1:
-                cur = cur + SpikeAccumFn.apply(prev[i], w[f"wr{i}"])
-            v_next, s = LIFUpdateFn.apply(vs[i], cur, cfg.lif, cfg.surrogate)
-            new_vs.append(v_next)
-            new_spikes.append(s)
-            trains[i].append(s)
-            layer_in = s
-        vs, prev = new_vs, new_spikes
+    with _build.on_device(dev):
+        for t in range(spikes_in.shape[0]):
+            layer_in = spikes_in[t]
+            new_vs, new_spikes = [], []
+            for i in range(cfg.n_layers):
+                # delayed (hardware) semantics: internal synapses carry
+                # spikes from the PREVIOUS timestep; external inputs
+                # arrive same-step.
+                src = layer_in if i == 0 else (prev[i - 1] if cfg.delayed
+                                               else layer_in)
+                cur = SpikeAccumFn.apply(src, w[f"w{i}"])
+                rec = (SpikeAccumFn.apply(prev[i], w[f"wr{i}"])
+                       if cfg.recurrent and i < cfg.n_layers - 1 else None)
+                v_next, s = LIFUpdateFn.apply(vs[i], cur, rec, cfg.lif,
+                                              cfg.surrogate)
+                new_vs.append(v_next)
+                new_spikes.append(s)
+                trains[i].append(s)
+                layer_in = s
+            vs, prev = new_vs, new_spikes
     return [torch.stack(tr) for tr in trains]
 
 

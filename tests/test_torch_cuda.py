@@ -8,7 +8,10 @@ JAX package, so it also runs on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Every comparison is bit-exact (tolerance 0) but float ``spike_accum``,
+Every comparison is bit-exact (tolerance 0) but the float LIF step's
+gradient kernel, within rtol 1e-5 / atol 1e-6 of its plain version (the
+sigmoid surrogate's ``exp`` may differ from torch's in the last bits);
+float ``spike_accum``,
 which sums in another order than ``torch.matmul``: float32 within
 rtol = atol = 1e-5, bf16 within rtol 2e-2 / atol 1e-2 (TF32 off); and
 ``wkv6`` / ``ssd`` against their token-by-token plain versions and their
@@ -28,7 +31,10 @@ from repro_torch.core import ExecutionSpec, Program
 from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
                                             fused_step_emulated,
                                             fused_step_ref, pack_plane)
-from repro_torch.kernels.lif_update import (lif_update, lif_update_int,
+from repro_torch.kernels.lif_update import (LIFUpdateFn, launch_lif_update,
+                                            lif_update, lif_update_bwd,
+                                            lif_update_bwd_ref,
+                                            lif_update_int,
                                             lif_update_int_ref,
                                             lif_update_ref)
 from repro_torch.kernels.ref import ssd_ref, wkv6_ref
@@ -37,7 +43,10 @@ from repro_torch.kernels.spike_accum import (spike_accum,
                                              spike_accum_ref)
 from repro_torch.kernels.ssd import ssd, ssd_emulated
 from repro_torch.kernels.wkv6 import wkv6, wkv6_emulated, wkv6_routes
-from repro_torch.snn.lif import LIFIntParams
+from repro_torch.core import TorchMappedEngine
+from repro_torch.core.graph import SNNGraph
+from repro_torch.core.scheduling import LoweredProgram
+from repro_torch.snn.lif import SURROGATES, LIFIntParams, LIFParams
 from repro_torch.snn.models import SHD_CONFIG, init_params
 from repro_torch.snn.train import loss_and_grads
 from torch_parity import assert_same_run, cuda_device, to_torch  # noqa: F401
@@ -244,20 +253,198 @@ def test_lif_update_kernel(cuda_device, shape, alpha):
 
 def test_shd_train_step_launches_kernels(cuda_device):
     """One full-width SHD step: every forward timestep goes through the
-    kernels (3 spike_accum, 2 lif_update), the backward through none."""
+    kernels (3 spike_accum, 2 lif_update), the backward through the LIF
+    gradient kernel alone, once per step and layer the loss depends on
+    (the hidden layer's last step feeds nothing: 2 T - 1)."""
     cfg = SHD_CONFIG
     params = init_params(cfg, torch.Generator().manual_seed(0), cuda_device)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.random((cfg.timesteps, 32, 700)) < 0.07
                          ).to(cuda_device, torch.float32)
     y = torch.from_numpy(rng.integers(0, 20, 32)).to(cuda_device)
-    before = (spike_accum.launches, lif_update.launches)
+    kernels = (spike_accum, lif_update, lif_update_bwd)
+    before = [k.launches for k in kernels]
     loss, counts, grads = loss_and_grads(params, x, y, cfg)
     torch.cuda.synchronize()
-    grew = (spike_accum.launches - before[0], lif_update.launches - before[1])
-    assert grew == (cfg.timesteps * 3, cfg.timesteps * 2)
+    grew = tuple(k.launches - n for k, n in zip(kernels, before))
+    assert grew == (cfg.timesteps * 3, cfg.timesteps * 2,
+                    cfg.timesteps * 2 - 1)
     assert torch.isfinite(loss) and sorted(grads) == ["w0", "w1", "wr0"]
     assert all(bool(g.isfinite().all()) for g in grads.values())
+
+
+def _on_threshold(shape, alpha, dev, seed):
+    """v, a current and a recurrent current with about a third of the
+    neurons exactly on the threshold 1.0: there v lies on a grid of
+    2^-7, so (1 - alpha) v and 1 - (1 - alpha) v are exact in float32
+    and the recurrent current is 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn(shape, device=dev, generator=g)
+    a = torch.randn(shape, device=dev, generator=g)
+    b = torch.randn(shape, device=dev, generator=g) * 0.5
+    on = torch.rand(shape, device=dev, generator=g) < 0.35
+    v = torch.where(on, torch.randint(-64, 192, shape, device=dev,
+                                      generator=g) / 128.0, v)
+    a = torch.where(on, 1.0 - (1.0 - alpha) * v, a)
+    return v, a, torch.where(on, 0.0, b)
+
+
+@pytest.mark.parametrize("shape", [(7,), (32, 300), (13, 301)])
+@pytest.mark.parametrize("alpha", [0.25, 0.03125])
+def test_lif_update_two_currents_kernel(cuda_device, shape, alpha):
+    """The forward with the recurrent current added in the kernel, through
+    ``LIFUpdateFn`` and the unchecked launch (in place too), is bit-exact
+    with ``lif_update_ref(v, a + b)``; each counts one launch."""
+    v, a, b = _on_threshold(shape, alpha, cuda_device, seed=len(shape))
+    p = LIFParams(alpha, 1.0, -0.25)
+    want = lif_update_ref(v, a + b, alpha, 1.0, -0.25)
+    assert bool(want[1].any()) and not bool(want[1].all())
+    before = lif_update.launches
+    got = LIFUpdateFn.apply(v, a, b, p, "sigmoid")
+    v_i, s_i = v.clone(), torch.empty_like(v)
+    launch_lif_update(v_i, a, b, v_i, s_i, alpha, 1.0, -0.25,
+                      torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert lif_update.launches == before + 2
+    for x, y in zip(got + (v_i, s_i), want + want):
+        assert torch.equal(x, y)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` 4 bytes past a 16-byte boundary (a view that does
+    not start on an allocation)."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    assert out.data_ptr() % 16 == 4
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("case", ["both", "no_g_vnext", "no_g_s",
+                                  "one_current", "ragged", "offset"])
+@pytest.mark.parametrize("surrogate", SURROGATES)
+def test_lif_update_bwd_kernel(cuda_device, surrogate, case):
+    """The gradient kernel within rtol 1e-5 / atol 1e-6 of
+    ``lif_update_bwd_ref`` with neurons on the threshold: both gradients
+    and two currents, either gradient absent, one current, n % 4 != 0,
+    and operands 4 bytes off a 16-byte boundary; one launch each."""
+    shape = (13, 301) if case == "ragged" else (32, 300)
+    alpha = 0.03125
+    v, a, b = _on_threshold(shape, alpha, cuda_device, seed=7)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    gv, gs = (torch.randn(shape, device=cuda_device, generator=g)
+              for _ in range(2))
+    if case in ("one_current", "offset"):
+        b = None
+    if case == "no_g_vnext":
+        gv = None
+    if case == "no_g_s":
+        gs = None
+    if case == "offset":
+        v, a, gv, gs = (_misaligned(t) for t in (v, a, gv, gs))
+    want = lif_update_bwd_ref(v, a, gv, gs, alpha, 1.0, surrogate, b)
+    before = lif_update_bwd.launches
+    got = lif_update_bwd(v, a, gv, gs, alpha=alpha, v_th=1.0,
+                         surrogate=surrogate, current_rec=b)
+    torch.cuda.synchronize()
+    assert lif_update_bwd.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.allclose(x, y, rtol=1e-5, atol=1e-6), \
+            (x - y).abs().max().item()
+
+
+@pytest.mark.parametrize("surrogate", SURROGATES)
+def test_lif_update_fn_backward_on_card(cuda_device, surrogate):
+    """``LIFUpdateFn``'s backward on the card launches the gradient kernel
+    once and gives ``lif_update_bwd_ref``'s gradients (rtol 1e-5 / atol
+    1e-6), the current's to both planes; with ``v_next`` unused it gets
+    ``None`` for its gradient and still launches once."""
+    alpha = 0.25
+    v, a, b = _on_threshold((32, 300), alpha, cuda_device, seed=3)
+    gs = torch.randn((32, 300), device=cuda_device)
+    gv = torch.randn((32, 300), device=cuda_device)
+    p = LIFParams(alpha, 1.0, 0.0)
+    for used in ("both", "spikes"):
+        leaves = [t.clone().requires_grad_() for t in (v, a, b)]
+        v_next, s = LIFUpdateFn.apply(*leaves, p, surrogate)
+        before = lif_update_bwd.launches
+        if used == "both":
+            torch.autograd.backward((v_next, s), (gv, gs))
+        else:
+            s.backward(gs)
+        torch.cuda.synchronize()
+        assert lif_update_bwd.launches == before + 1
+        want_v, want_i = lif_update_bwd_ref(
+            v, a, gv if used == "both" else None, gs, alpha, 1.0, surrogate,
+            b)
+        for t, w in zip(leaves, (want_v, want_i, want_i)):
+            assert torch.allclose(t.grad, w, rtol=1e-5, atol=1e-6)
+
+
+def test_lif_tier_card_loop_matches_reference(cuda_device):
+    """The ``"lif"`` tier's step loop on the card (one current plane per
+    run, drained by the Neuron Unit) against the ``"reference"`` tier on
+    the card, bit for bit, on SHD-scale requests, run twice (a plane
+    left non-zero would show in the second run): exactly T launches of
+    the Neuron Unit per run."""
+    prog = Program.load(GOLDEN / "shd_program_v1.npz")
+    rng = np.random.default_rng(4)
+    ext = (rng.random((5, 40, prog.n_inputs)) < 0.1).astype(np.int32)
+    want = prog.run(ext, ExecutionSpec(kernel="reference"))
+    for _ in range(2):
+        before = lif_update_int.launches
+        got = prog.run(ext, ExecutionSpec(kernel="lif"))
+        assert lif_update_int.launches == before + 40
+        assert_same_run(got, want, "lif tier on the card")
+
+
+def _no_internal_neurons():
+    """A program of 4 inputs and no internal neuron or synapse, lowered:
+    ``(graph, lowered)``."""
+    none = np.zeros(0, np.int32)
+    g = SNNGraph(n_inputs=4, n_neurons=4, pre=none, post=none, weight=none,
+                 lif=LIFIntParams(2, 10, 0))
+    lw = LoweredProgram(n_inputs=4, n_neurons=4, n_internal=0, n_spus=1,
+                        depth=0, op_spu=none, op_slot=none, op_pre=none,
+                        op_post_local=none, op_weight=none,
+                        op_pre_end=np.zeros(0, bool),
+                        op_post_end=np.zeros(0, bool),
+                        routing=np.zeros((4, 1), bool))
+    return g, lw
+
+
+@pytest.mark.parametrize("tier", ["fused", "lif", "reference"])
+def test_no_internal_neurons_on_card(cuda_device, tier):
+    """With no internal neuron a step's packet count is its non-zero
+    external spikes, on every tier on the card: [[4, 4, 4], [4, 4, 4]]
+    for all-one spikes, and per step for random ones (any int32)."""
+    g, lw = _no_internal_neurons()
+    eng = TorchMappedEngine(g, lw, ExecutionSpec(kernel=tier))
+    spikes, v, st = eng.run(np.ones((2, 3, 4), np.int32))
+    assert spikes.shape == (2, 3, 0) and v.shape == (2, 0)
+    np.testing.assert_array_equal(st["packet_counts"], [[4, 4, 4],
+                                                        [4, 4, 4]])
+    ext = np.random.default_rng(5).integers(-2, 3, (3, 7, 4)).astype(np.int32)
+    np.testing.assert_array_equal(eng.run(ext)[2]["packet_counts"],
+                                  (ext != 0).sum(-1))
+
+
+def test_fused_step_without_internal_neurons(cuda_device):
+    """The public ``fused_step`` with ``n_int == 0`` writes the packet
+    counts (the non-zero external spikes) and launches nothing."""
+    dev = cuda_device
+    ext = to_torch(np.array([[1, 0, 3, 1], [0, 0, 0, 0], [2, -1, 1, 1]]), dev)
+    empty = torch.zeros((3, 0), dtype=torch.int32, device=dev)
+    w = torch.zeros((4, 0), dtype=torch.int16, device=dev)
+    pkt = torch.full((3,), -7, dtype=torch.int32, device=dev)
+    before = fused_step.launches
+    _, _, got = fused_step(ext, empty, empty.clone(), w,
+                           LIFIntParams(2, 10, 0), pkt_out=pkt)
+    _, _, fresh = fused_step(ext, empty, empty.clone(), w,
+                             LIFIntParams(2, 10, 0))
+    torch.cuda.synchronize()
+    assert got is pkt and fused_step.launches == before
+    for p in (got, fresh):
+        assert p.tolist() == [3, 0, 4]
 
 
 def _recurrence_tol(dtype, want):

@@ -13,8 +13,15 @@ Float path: ``lif_update`` (its plain version on the CPU) and
 shapes and leaks of ``tests/test_kernels.py``, rtol = atol = 1e-6 for
 potentials, spikes equal; ``spike_fn``'s three surrogates against
 ``jax.grad`` at rtol 1e-6; ``lif_step`` and the kernel's autograd
-wrapper against ``jax.vjp`` of the reference ``lif_step`` at rtol 1e-6.
+wrapper against ``jax.vjp`` of the reference ``lif_step`` at rtol 1e-6,
+also with the recurrent layer's two current planes (``lif_step(v, a +
+b)``), with an output's gradient absent (``None``), and the backward's
+plain version ``lif_update_bwd_ref`` (and ``lif_update_bwd``, which runs
+it on the CPU) against the same ``jax.vjp``: spikes equal, values and
+gradients within rtol 1e-6 / atol 1e-7.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +38,8 @@ from repro.snn.lif import lif_step as jax_lif_step
 from repro.snn.lif import lif_step_int as jax_lif_step_int
 from repro.snn.lif import spike_fn as jax_spike_fn
 from repro_torch.kernels.lif_update import (LIFUpdateFn, lif_update,
+                                            lif_update_bwd,
+                                            lif_update_bwd_ref,
                                             lif_update_int,
                                             lif_update_int_ref,
                                             lif_update_ref)
@@ -174,6 +183,11 @@ def test_spike_fn_surrogate_grads_match_jax(surrogate):
                                atol=1e-7)
 
 
+def _kernel_step(v, current, p, surrogate):
+    """``LIFUpdateFn`` with one current plane, as ``lif_step`` is called."""
+    return LIFUpdateFn.apply(v, current, None, p, surrogate)
+
+
 @pytest.mark.parametrize("surrogate", SURROGATES)
 @pytest.mark.parametrize("alpha,v_reset", [(0.25, 0.0), (0.03125, -0.2)])
 def test_lif_step_and_kernel_grads_match_jax(surrogate, alpha, v_reset):
@@ -191,7 +205,7 @@ def test_lif_step_and_kernel_grads_match_jax(surrogate, alpha, v_reset):
                        jnp.asarray(v), jnp.asarray(cur))
     want_v, want_i = vjp((jnp.asarray(gv), jnp.asarray(gs)))
     assert 0 < float(np.asarray(out[1]).mean()) < 1
-    for fn in (lif_step, LIFUpdateFn.apply):
+    for fn in (lif_step, _kernel_step):
         tv = torch.from_numpy(v).requires_grad_()
         tc = torch.from_numpy(cur).requires_grad_()
         v_next, s = fn(tv, tc, LIFParams(*p), surrogate)
@@ -213,3 +227,108 @@ def test_float_lif_rejects_and_shift():
         lif_update(torch.zeros(3, dtype=torch.float64),
                    torch.zeros(3, dtype=torch.float64), alpha=0.5)
     assert alpha_to_shift(0.25) == 2 and alpha_to_shift(0.03125) == 5
+
+
+@pytest.mark.parametrize("surrogate", SURROGATES)
+@pytest.mark.parametrize("alpha,v_reset", [(0.25, 0.0), (0.03125, -0.2)])
+def test_two_current_lif_grads_match_jax(surrogate, alpha, v_reset):
+    """``LIFUpdateFn`` given a current and a recurrent current against
+    ``jax.vjp`` of the reference ``lif_step`` of their sum: the same
+    spikes, the same ``v_next`` and gradients within rtol 1e-6 / atol
+    1e-7, the sum's gradient reaching both planes; then the backward's
+    plain version, alone, against the same ``vjp``."""
+    rng = np.random.default_rng(11)
+    v = rng.uniform(-0.5, 1.5, (5, 36)).astype(np.float32)
+    a = rng.uniform(-0.5, 0.8, (5, 36)).astype(np.float32)
+    b = rng.uniform(-0.4, 0.4, (5, 36)).astype(np.float32)
+    # a few neurons exactly on the threshold: v on a grid of 2^-7, so
+    # that (1 - alpha) v and 1 - (1 - alpha) v are exact in float32
+    v[:, ::9] = rng.integers(-64, 192, v[:, ::9].shape) / 128.0
+    b[:, ::9] = 0.0
+    a[:, ::9] = np.float32(1.0) - np.float32(1.0 - alpha) * v[:, ::9]
+    gv, gs = (rng.standard_normal((5, 36)).astype(np.float32)
+              for _ in range(2))
+    p = (alpha, 1.0, v_reset)
+    out, vjp = jax.vjp(lambda x, c: jax_lif_step(x, c, JaxLIFParams(*p),
+                                                 surrogate),
+                       jnp.asarray(v), jnp.asarray(a + b))
+    want_v, want_i = (np.asarray(g) for g in vjp((jnp.asarray(gv),
+                                                   jnp.asarray(gs))))
+    assert 0 < float(np.asarray(out[1]).mean()) < 1
+    assert np.asarray(out[1])[:, ::9].all()     # on the threshold: spikes
+
+    tv, ta, tb = (torch.from_numpy(x).requires_grad_() for x in (v, a, b))
+    v_next, s = LIFUpdateFn.apply(tv, ta, tb, LIFParams(*p), surrogate)
+    torch.autograd.backward((v_next, s), (torch.from_numpy(gv),
+                                          torch.from_numpy(gs)))
+    np.testing.assert_array_equal(s.detach().numpy(), np.asarray(out[1]))
+    np.testing.assert_allclose(v_next.detach().numpy(), np.asarray(out[0]),
+                               rtol=1e-6, atol=1e-7)
+    for name, g, w in (("v", tv.grad, want_v), ("current", ta.grad, want_i),
+                       ("current_rec", tb.grad, want_i)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-7,
+                                   err_msg=name)
+
+    args = [torch.from_numpy(x) for x in (v, a, gv, gs)]
+    for g_v, g_i in (lif_update_bwd_ref(*args, alpha, 1.0, surrogate,
+                                        torch.from_numpy(b)),
+                     lif_update_bwd(*args, alpha=alpha, v_th=1.0,
+                                    surrogate=surrogate,
+                                    current_rec=torch.from_numpy(b))):
+        np.testing.assert_allclose(g_v.numpy(), want_v, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(g_i.numpy(), want_i, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("surrogate", SURROGATES)
+@pytest.mark.parametrize("missing", ["g_vnext", "g_s"])
+@pytest.mark.parametrize("recurrent", [False, True])
+def test_lif_grads_with_an_output_unused(surrogate, missing, recurrent):
+    """Only one output of the step reaches the loss: autograd hands the
+    backward ``None`` for the other (no zeros are made), and the
+    gradients equal ``jax.vjp`` with a zero cotangent there, within rtol
+    1e-6 / atol 1e-7; ``lif_update_bwd_ref`` given ``None`` agrees."""
+    rng = np.random.default_rng(13)
+    v = rng.uniform(-0.5, 1.5, (3, 40)).astype(np.float32)
+    a = rng.uniform(-0.5, 0.8, (3, 40)).astype(np.float32)
+    b = (rng.uniform(-0.4, 0.4, (3, 40)).astype(np.float32) if recurrent
+         else np.zeros_like(a))
+    g = rng.standard_normal((3, 40)).astype(np.float32)
+    zero = np.zeros_like(g)
+    cot = (zero, g) if missing == "g_vnext" else (g, zero)
+    p = (0.25, 1.0, -0.1)
+    _, vjp = jax.vjp(lambda x, c: jax_lif_step(x, c, JaxLIFParams(*p),
+                                               surrogate),
+                     jnp.asarray(v), jnp.asarray(a + b))
+    want_v, want_i = (np.asarray(x) for x in vjp(tuple(jnp.asarray(c)
+                                                       for c in cot)))
+    tv, ta = (torch.from_numpy(x).requires_grad_() for x in (v, a))
+    tb = torch.from_numpy(b).requires_grad_() if recurrent else None
+    seen = []
+    real_ref = lif_update_bwd_ref
+
+    def spy(v_, c_, g_vnext, g_s, *rest):
+        seen.append((g_vnext is None, g_s is None))
+        return real_ref(v_, c_, g_vnext, g_s, *rest)
+
+    mod = sys.modules[LIFUpdateFn.__module__]
+    setattr(mod, "lif_update_bwd_ref", spy)
+    try:
+        v_next, s = LIFUpdateFn.apply(tv, ta, tb, LIFParams(*p), surrogate)
+        used = s if missing == "g_vnext" else v_next
+        inputs = (tv, ta) + ((tb,) if recurrent else ())
+        grads = torch.autograd.grad(used, inputs, torch.from_numpy(g))
+    finally:
+        setattr(mod, "lif_update_bwd_ref", real_ref)
+    assert seen == [(missing == "g_vnext", missing == "g_s")]
+    for name, got, w in zip(("v", "current", "current_rec"), grads,
+                            (want_v, want_i, want_i)):
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-6, atol=1e-7,
+                                   err_msg=name)
+    gt = torch.from_numpy(g)
+    g_v, g_i = lif_update_bwd_ref(
+        torch.from_numpy(v), torch.from_numpy(a),
+        None if missing == "g_vnext" else gt,
+        None if missing == "g_s" else gt, p[0], p[1], surrogate,
+        torch.from_numpy(b) if recurrent else None)
+    np.testing.assert_allclose(g_v.numpy(), want_v, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(g_i.numpy(), want_i, rtol=1e-6, atol=1e-7)

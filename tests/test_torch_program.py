@@ -161,6 +161,26 @@ def test_shd_scale_matches_reference():
         assert_same_run(prog.run(ext, cpu(tier)), want, tier)
 
 
+@pytest.mark.parametrize("tier", TIERS)
+def test_program_without_internal_neurons_counts_external_spikes(tier):
+    """A program with no internal neuron (4 inputs, no synapse) does no
+    neuron work; each step's packet count is its non-zero external
+    spikes, as the reference's ``"reference"`` tier gives it."""
+    from repro.core import SNNGraph as JaxGraph
+    from repro.snn.lif import LIFIntParams as JaxLIFIntParams
+    none = np.zeros(0, np.int32)
+    ref = compile(JaxGraph(n_inputs=4, n_neurons=4, pre=none, post=none,
+                           weight=none, lif=JaxLIFIntParams(2, 10, 0)),
+                  JaxHardwareConfig())
+    ext = np.ones((2, 3, 4), np.int32)
+    want = ref.run(ext, JaxSpec(kernel="reference"))
+    np.testing.assert_array_equal(want[2]["packet_counts"], [[4, 4, 4],
+                                                             [4, 4, 4]])
+    got = carry(ref).run(ext, cpu(tier))
+    assert_same_run(got, want, tier)
+    assert got[0].shape == (2, 3, 0) and got[1].shape == (2, 0)
+
+
 def test_carried_program_shape_errors(programs):
     prog = carry(programs["feedforward"])
     with pytest.raises(ValueError, match=r"\[B, T, 16\] or \[T, 16\]"):

@@ -17,6 +17,7 @@
   without a card; ``evaluate`` scores as the reference's forward does.
 """
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +28,7 @@ import torch
 import repro.snn as ref_snn
 from repro.snn.models import forward as jax_forward
 from repro.snn.train import spike_count_loss as jax_loss
-from repro_torch.kernels.lif_update import lif_update
+from repro_torch.kernels.lif_update import LIFUpdateFn, lif_update
 from repro_torch.kernels.spike_accum import spike_accum
 from repro_torch.snn import (MNIST_CONFIG, SHD_CONFIG, LIFParams,
                              QuantConfig, SNNConfig, forward, quantize)
@@ -188,6 +189,104 @@ def test_train_step_loss_and_grads_match_reference(net):
             assert new[k] is v
         else:
             assert torch.equal(new[k], want[k]) and not torch.equal(new[k], v)
+
+
+def _grad_fn_names(node) -> list[str]:
+    """The autograd nodes feeding ``node``, by class name."""
+    return [type(f).__name__ for f, _ in node.next_functions
+            if f is not None]
+
+
+def test_shd_shaped_srnn_spikes_and_grads_match_reference():
+    """The SHD SRNN's shape cut to a few neurons (recurrent, SHD's leak,
+    sparsity and sigmoid surrogate, T = 6) through ``layer_spikes``:
+    every layer's spikes equal the reference's, the gradients of the
+    spike-count loss within rtol 1e-4 / atol 1e-6 (as above). The hidden
+    layer's two currents reach the LIF step as two planes (no separate
+    add in the graph), and the backward runs the LIF step's backward
+    once per step and layer the loss depends on: with the hardware's
+    delay a hidden layer's last step feeds nothing, so n T - n (n-1) / 2
+    of them for n layers."""
+    common = dict(layer_sizes=(70, 30, 20), recurrent=True,
+                  sparsity=SHD_CONFIG.sparsity, surrogate="sigmoid",
+                  timesteps=6)
+    jcfg = ref_snn.SNNConfig(lif=ref_snn.LIFParams(alpha=0.03125), **common)
+    cfg = SNNConfig(lif=SHD_CONFIG.lif, **common)
+    np_params = {k: np.asarray(v) for k, v in
+                 ref_snn.init_params(jcfg, jax.random.PRNGKey(2)).items()}
+    rng = np.random.default_rng(2)
+    spikes = (rng.random((6, 3, 70)) < 0.35).astype(np.float32)
+    labels = rng.integers(0, 20, 3).astype(np.int32)
+    jp = {k: jnp.asarray(v) for k, v in np_params.items()}
+
+    def loss_fn(p):
+        return jax_loss(jax_forward(p, jnp.asarray(spikes), jcfg)[0],
+                        jnp.asarray(labels))
+
+    loss_ref, grads_ref = jax.value_and_grad(loss_fn)(jp)
+    want = _jax_replay_trains(np_params, spikes, jcfg)
+
+    params = params_from_numpy(np_params, cfg, "cpu")
+    trained = {k: v.requires_grad_() for k, v in params.items()
+               if not k.startswith("mask")}
+    trains = layer_spikes(params, torch.from_numpy(spikes), cfg)
+    for i, (got, w) in enumerate(zip(trains, want)):
+        np.testing.assert_array_equal(got.detach().numpy(), w,
+                                      err_msg=f"layer {i}")
+    assert 0 < float(trains[0].detach().mean()) < 1
+    assert float(trains[1].detach().sum()) > 0
+    # the hidden layer's LIF step takes both currents, the output's one
+    hidden = trains[0].grad_fn.next_functions[-1][0]     # step T-1, layer 0
+    output = trains[1].grad_fn.next_functions[-1][0]
+    assert _grad_fn_names(hidden) == ["LIFUpdateFnBackward",
+                                      "SpikeAccumFnBackward",
+                                      "SpikeAccumFnBackward"]
+    assert _grad_fn_names(output) == ["LIFUpdateFnBackward",
+                                      "SpikeAccumFnBackward"]
+
+    mod = sys.modules[LIFUpdateFn.__module__]
+    real_ref, calls = mod.lif_update_bwd_ref, []
+
+    def spy(*args):
+        calls.append(1)
+        return real_ref(*args)
+
+    loss = spike_count_loss(trains[-1].sum(0), torch.from_numpy(labels))
+    mod.lif_update_bwd_ref = spy
+    try:
+        grads = torch.autograd.grad(loss, list(trained.values()))
+    finally:
+        mod.lif_update_bwd_ref = real_ref
+    n = cfg.n_layers
+    assert len(calls) == n * 6 - n * (n - 1) // 2
+    np.testing.assert_allclose(float(loss), float(loss_ref), rtol=1e-4)
+    for k, g in zip(trained, grads):
+        g_ref = np.asarray(grads_ref[k])
+        assert np.abs(g_ref).max() > 0, k
+        np.testing.assert_allclose(g.numpy(), g_ref, rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+
+
+def _jax_replay_trains(np_params, spikes, jcfg) -> list[np.ndarray]:
+    """Every layer's spike train of the reference's forward, [T, B, n]."""
+    w = ref_snn.masked_weights({k: jnp.asarray(v) for k, v in
+                                np_params.items()}, jcfg)
+    n, b = jcfg.n_layers, spikes.shape[1]
+    vs = [jnp.zeros((b, k)) for k in jcfg.layer_sizes[1:]]
+    prev = [jnp.zeros((b, k)) for k in jcfg.layer_sizes[1:]]
+    trains = [[] for _ in range(n)]
+    for t in range(spikes.shape[0]):
+        layer_in = jnp.asarray(spikes[t])
+        for i in range(n):
+            src = layer_in if i == 0 else prev[i - 1]
+            cur = src @ w[f"w{i}"]
+            if jcfg.recurrent and i < n - 1:
+                cur = cur + prev[i] @ w[f"wr{i}"]
+            vs[i], s = ref_snn.lif_step(vs[i], cur, jcfg.lif, jcfg.surrogate)
+            trains[i].append(np.asarray(s))
+            layer_in = s
+        prev = [tr[-1] for tr in trains]
+    return [np.stack(tr) for tr in trains]
 
 
 def test_train_from_carried_params_on_cpu():
