@@ -49,10 +49,25 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    through ``ProgramRegistry`` and ``MicroBatcher`` in measured mode,
    once on the default ``"fused"`` tier and once on ``"lif"``, each run
    with the launch counts set to 0 just before and read just after, and
-   every request's outputs checked against the ``"reference"`` tier,
-   then each tier's engine time per timestep at B = 8; then a program
+   every request's outputs checked against the ``"reference"`` tier
+   and ``Program.profile`` of the served stats equal to the reference
+   tier's field by field (the cycle model's latency, power and energy
+   per request printed: modeled FPGA figures, not card times), then
+   each tier's engine time per timestep at B = 8; then a program
    with no internal neuron on both tiers and ``fused_step``: each
-   step's packet count is its non-zero external spikes;
+   step's packet count is its non-zero external spikes. The registry's
+   ``precompile`` captures each bucket's T-step loop as a CUDA graph,
+   so the drain replays graphs and the launch counts are the graphs'
+   recorded launches. Then the three engines on both goldens
+   (``"oracle"`` on the card, ``"python"`` on the CPU with its wall
+   time, both bit-exact with the recorded io and the fused tier), the
+   SHD artifact saved and re-loaded (header and arrays equal to the
+   golden file's, ``content_hash`` the reference's ``SHD_HASH``), and
+   each kernel tier graphed against eager and the reference tier at
+   every bucket and at T in {100, ``ODD_T``}, with T launches per
+   replay, an uncaptured shape run eagerly, and the warm time per
+   timestep at B = 8, graphed and eager in turns, beside the card's
+   name and power limit;
 6. train the paper's SHD SRNN (``SHD_CONFIG``, 700-300-20 recurrent,
    T = 100) at full width for 5 steps at B = 32 with
    ``repro_torch.snn.train.train`` and score it with ``evaluate``, then
@@ -82,7 +97,8 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    agreeing are reported; prefill and decode times, tokens/s, peak
    memory and the card's time by kernel are printed.
 
-The last two lines are the kernels' JSON record and
+Last, a capture that fails (a loop that copies to the host) must raise
+and leave no graph. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -113,6 +129,10 @@ FUSED_BATCHES = (1, 3, 8, 9, 17, 64)
 ODD_SPIKES = (2, -1, 300, 2 ** 20)   # external spike values outside {0, 1}
 N_REQUESTS = 32
 SERVE_BATCH = 8
+ODD_T = 37                       # a T no serving policy uses
+TIME_PAIRS = 3                   # graphed/eager timing pairs, interleaved
+# the SHD-scale golden artifact's identity: the reference's content_hash
+SHD_HASH = "2b2916b301a3678ffa1bf4427c59838bde159f778e00f7ab9df3106cff54ee01"
 TRAIN_STEPS = 5
 SHD_BATCH, MNIST_BATCH = 32, 64
 # the training path on the card against the plain versions on the CPU;
@@ -1520,6 +1540,7 @@ def phase_serve() -> dict[str, int]:
         expect(np.array_equal(s, s_ref) and np.array_equal(v, v_ref)
                and np.array_equal(pk, st_ref["packet_counts"]),
                f"{tier}: served outputs differ from the reference tier")
+        check_profile(program, pk, st_ref, tier)
         m = res.metrics()
         print(f"serve {tier}: {N_REQUESTS} requests in {len(res.batches)} "
               f"batches {m['buckets']}, {counts[kernel]} {kernel} launches "
@@ -1540,6 +1561,201 @@ def phase_serve() -> dict[str, int]:
               f"(warm, 5 runs): {per_step * 1e6:.2f} us per timestep")
     check_no_internal_neurons()
     return launches
+
+
+def check_profile(program, served_pkts: np.ndarray, st_ref: dict,
+                  tier: str) -> None:
+    """``Program.profile`` of the served drain's packet counts equals
+    the profile of the reference tier's stats, field by field; prints
+    the cycle model's figures per request."""
+    import dataclasses
+    got, want = program.profile(served_pkts), program.profile(st_ref)
+    expect(got.per_sample == want.per_sample and got.cycle == want.cycle
+           and got.resources == want.resources,
+           f"{tier}: profile of the served stats differs from the "
+           f"reference tier's")
+    c = got.cycle
+    print(f"serve {tier}: profile per request (CycleModel, modeled FPGA "
+          f"figures for this artifact, not card times): latency "
+          f"{c.latency_us!r} us, power {c.power_w!r} W, energy "
+          f"{c.energy_mj!r} mJ, {c.energy_per_synapse_nj!r} nJ per synapse; "
+          f"{c.cycles_total} cycles; resources "
+          f"{dataclasses.asdict(got.resources)}; equal to the reference "
+          f"tier's profile field by field")
+
+
+def phase_engines() -> None:
+    """The port's three engines on both golden artifacts: ``"oracle"``
+    on the card for every recorded sample, ``"python"`` (the host
+    simulator, ``device="cpu"``) on the tiny io and SHD sample 0, each
+    bit-exact with the recorded io and the fused tier; then the SHD
+    artifact saved and re-loaded: header and arrays equal to the golden
+    file's, ``content_hash`` the reference's."""
+    import tempfile
+    from repro_torch.core import ExecutionSpec, Program
+    for name in ("tiny", "shd"):
+        path = GOLDEN / f"{name}_program_v1.npz"
+        program = Program.load(path)
+        with np.load(GOLDEN / f"{name}_program_v1_io.npz") as io:
+            io = {k: io[k] for k in io.files}
+        fused = program.run(io["ext"])
+        oracle = program.run(io["ext"], ExecutionSpec(engine="oracle"))
+        n = 1 if io["ext"].ndim == 2 else len(io["ext"])
+        one = (lambda a: a) if n == 1 else (lambda a: a[0])
+        t0 = time.perf_counter()
+        python = program.run(one(io["ext"]),
+                             ExecutionSpec(engine="python", device="cpu"))
+        py_s = time.perf_counter() - t0
+        for engine, got, pick in (("oracle", oracle, lambda a: a),
+                                  ("fused", fused, lambda a: a),
+                                  ("python", python, one)):
+            for what, a, r in (("spikes", got[0], io["spikes"]),
+                               ("v_final", got[1], io["v_final"]),
+                               ("packet_counts", got[2]["packet_counts"],
+                                io["packet_counts"])):
+                r = pick(r)
+                expect(a.dtype == r.dtype and np.array_equal(a, r),
+                       f"golden {name} engine {engine}: {what} differs from "
+                       f"the recorded io")
+            if engine != "fused":
+                for a, r in zip(got[:2], fused[:2]):
+                    expect(np.array_equal(a, pick(r)),
+                           f"golden {name}: {engine} differs from fused")
+        print(f"engines {name}: oracle on the card ({n} samples), python on "
+              f"the CPU ({'sample 0' if n > 1 else 'the io'}: "
+              f"{py_s:.3f} s wall, OT depth {program.ot_depth}, "
+              f"{program.hw.n_spus} SPUs, T = {io['spikes'].shape[-2]}) and "
+              f"fused match the recorded io bit for bit")
+    program = Program.load(GOLDEN / "shd_program_v1.npz")
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = program.save(Path(tmp) / "shd")
+        with np.load(GOLDEN / "shd_program_v1.npz") as a, np.load(saved) as b:
+            expect(set(a.files) == set(b.files), "save: members differ")
+            expect(json.loads(str(a["header"][()]))
+                   == json.loads(str(b["header"][()])), "save: header differs")
+            for k in a.files:
+                expect(k == "header" or (a[k].dtype == b[k].dtype
+                                         and a[k].tobytes() == b[k].tobytes()),
+                       f"save: array {k} differs")
+        again = Program.load(saved)
+    expect(program.content_hash() == again.content_hash() == SHD_HASH,
+           f"content_hash {again.content_hash()} != {SHD_HASH}")
+    expect(again.init_packets() == program.init_packets()
+           and len(program.init_packets()) == program.report.n_init_packets,
+           "init_packets differ after save and load")
+    print(f"save shd: header and arrays equal the golden file's; "
+          f"content_hash {SHD_HASH}; {program.report.n_init_packets} init "
+          f"packets")
+
+
+def phase_graphs(smi: str) -> None:
+    """Each kernel tier's CUDA-graphed loop (``precompile``) against its
+    eager loop and the reference tier on the SHD-scale artifact, at
+    every bucket of the serving policy and at T in {TIMESTEPS, ODD_T}:
+    bit-exact, T launches counted per replay, re-``precompile`` a no-op,
+    an uncaptured shape run eagerly; then the warm time per timestep at
+    B = SERVE_BATCH, graphed and eager interleaved."""
+    from repro_torch.core import ExecutionSpec, Program, TorchMappedEngine
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.lif_update import lif_update_int
+    from repro_torch.serve import BatchPolicy
+    buckets = BatchPolicy(max_batch=SERVE_BATCH).buckets
+    program = Program.load(GOLDEN / "shd_program_v1.npz")
+    rng = np.random.default_rng(5)
+    reference = ExecutionSpec(kernel="reference")
+    for tier, kernel, other in (("fused", fused_step, lif_update_int),
+                                ("lif", lif_update_int, fused_step)):
+        spec = ExecutionSpec(kernel=tier)
+        graphed = program.engine(spec)
+        eager = TorchMappedEngine(program.graph, program.lowered, spec)
+        for t_steps in (TIMESTEPS, ODD_T):
+            t0 = time.perf_counter()
+            new = graphed.precompile(buckets, t_steps)
+            cap_s = time.perf_counter() - t0
+            expect(new == [(b, t_steps) for b in buckets]
+                   and graphed.precompile(buckets, t_steps) == []
+                   and all((b, t_steps) in graphed._graphs for b in buckets),
+                   f"{tier}: precompile T={t_steps} captured {new}")
+            for b in buckets + (3,):               # 3: not a bucket
+                ext = (rng.random((b, t_steps, program.n_inputs))
+                       < 0.1).astype(np.int32)
+                want = program.run(ext, reference)
+                kernel.launches = other.launches = 0
+                got = graphed.run(ext)
+                expect(kernel.launches == t_steps and other.launches == 0,
+                       f"{tier} B={b} T={t_steps}: {kernel.launches} "
+                       f"launches, want {t_steps}")
+                expect(((b, t_steps) in graphed._graphs) == (b != 3),
+                       f"{tier}: B={b} T={t_steps} graphed state")
+                for what, a, e, r in zip(("spikes", "v_final"), got,
+                                         eager.run(ext), want):
+                    expect(np.array_equal(a, e) and np.array_equal(a, r),
+                           f"{tier} B={b} T={t_steps}: graphed {what} "
+                           f"differs from eager or the reference tier")
+                expect(np.array_equal(got[2]["packet_counts"],
+                                      want[2]["packet_counts"]),
+                       f"{tier} B={b} T={t_steps}: packet counts differ")
+            print(f"graphs {tier} T={t_steps}: captured buckets {buckets} "
+                  f"in {cap_s:.3f} s; graphed runs equal eager and the "
+                  f"reference tier at every bucket, {t_steps} launches per "
+                  f"replay; B=3 (not captured) ran eagerly")
+        # warm time per timestep at the serving batch, graphed and eager
+        # in turns; a run ends in the copy of its outputs to the host
+        ext = (rng.random((SERVE_BATCH, TIMESTEPS, program.n_inputs))
+               < 0.1).astype(np.int32)
+
+        def per_step_us(eng) -> float:
+            eng.run(ext)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.run(ext)
+            return (time.perf_counter() - t0) / (5 * TIMESTEPS) * 1e6
+
+        pairs = [(per_step_us(graphed), per_step_us(eager))
+                 for _ in range(TIME_PAIRS)]
+        shape = graphed._graphs[(SERVE_BATCH, TIMESTEPS)]
+        replay_us = median_ms(shape.replay, iters=20, repeats=5) \
+            / TIMESTEPS * 1e3
+        buf = eager._buffers(SERVE_BATCH, TIMESTEPS)
+        buf.ext_d.copy_(torch.from_numpy(ext.transpose(1, 0, 2).copy()))
+        loop_us = median_ms(lambda: eager._loop(buf), iters=5, repeats=5) \
+            / TIMESTEPS * 1e3
+        print(f"graphs {tier}: engine run B={SERVE_BATCH} T={TIMESTEPS} "
+              f"(warm, 5 runs each, interleaved) us per timestep "
+              f"graphed/eager: "
+              + ", ".join(f"{g!r}/{e!r}" for g, e in pairs)
+              + f"; card clock per timestep: graph replay {replay_us!r} us, "
+              f"eager loop {loop_us!r} us [{smi}]")
+
+
+def check_failed_capture() -> None:
+    """A capture that fails raises, and leaves no graph behind: a loop
+    that copies to the host inside the capture is not capturable."""
+    from repro_torch.core import ExecutionSpec, Program
+    from repro_torch.kernels.fused_step import fused_step
+    program = Program.load(GOLDEN / "tiny_program_v1.npz")
+    eng = program.engine(ExecutionSpec(kernel="fused"))
+    run_card = eng._run_card
+
+    def syncing(buf):
+        run_card(buf)
+        buf.v.cpu()                        # a host copy: not capturable
+
+    eng._run_card = syncing
+    before = fused_step.launches
+    try:
+        eng.precompile((2,), 5)
+    except RuntimeError as e:
+        err = e
+    else:
+        err = None
+    expect(err is not None, "a failed capture did not raise")
+    expect(not eng._graphs and fused_step.launches == before + 5,
+           "a failed capture left a graph or counted its launches")
+    eng._run_card = run_card
+    torch.cuda.synchronize()
+    print(f"failed capture raised {type(err).__name__}: "
+          f"{str(err).splitlines()[0][:120]}")
 
 
 def check_no_internal_neurons() -> None:
@@ -1605,8 +1821,11 @@ def main() -> int:
     recs.update(phase_ssm_kernels(dev))
     phase_golden()
     launches = phase_serve()
+    phase_engines()
+    phase_graphs(smi)
     launches.update(phase_train(dev))
     launches.update(phase_lm(dev))
+    check_failed_capture()
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                        "src/repro/kernels/fused_step.py:122"),

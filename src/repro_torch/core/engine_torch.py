@@ -32,8 +32,18 @@ merges each step into one current plane kept for the whole run, which
 its Neuron Unit (``lif_int_launcher``) drains as it reads it. A program
 with no internal neurons does no neuron work: there a step's packets
 are its non-zero external spikes, counted on the device.
+
+On the card the ``"fused"`` and ``"lif"`` tiers also capture the whole
+T-step loop as one CUDA graph per ``(batch, T)`` shape
+(:meth:`TorchMappedEngine.precompile`, the counterpart of the
+reference's AOT-compiled scan): static buffers for that shape, the
+zeroing of the state, the step loop and the packet count, replayed for
+every request of the shape. The ``"reference"`` tier and CPU engines
+stay eager.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -89,6 +99,45 @@ def _count_packets(ext_d: torch.Tensor, spikes: torch.Tensor,
     pkts[1:] += spikes[:-1].sum(dim=2, dtype=torch.int32)
 
 
+@dataclasses.dataclass
+class _Buffers:
+    """One ``(batch, T)`` shape's device buffers, int32 and contiguous:
+    the run's input, outputs and state, and the ``"lif"`` tier's planes
+    (``s_all`` = ``ext_d[t] ‖ spikes[t-1]``, ``act`` per op, ``current``
+    per neuron). A captured graph keeps its own: the copy width of the
+    fused kernel is picked from their addresses at capture, so a graph
+    is never replayed over other tensors."""
+    ext_d: torch.Tensor                  # [T, B, n_inputs]
+    spikes: torch.Tensor                 # [T, B, n_internal]
+    pkts: torch.Tensor                   # [T, B]
+    v: torch.Tensor                      # [B, n_internal]
+    s_prev: torch.Tensor                 # [B, n_internal], zero
+    s_all: torch.Tensor | None = None    # [B, n_inputs + n_internal]
+    act: torch.Tensor | None = None      # [B, n_ops]
+    current: torch.Tensor | None = None  # [B, n_internal]
+
+
+@dataclasses.dataclass
+class _GraphedShape:
+    """The T-step loop of one shape captured as a CUDA graph, over its
+    static buffers. ``launches`` maps each kernel wrapper to the
+    launches the graph recorded: a replay launches them on the card
+    without passing through the Python launcher, so :meth:`replay` adds
+    them to the wrapper's count."""
+    graph: "torch.cuda.CUDAGraph"
+    buf: _Buffers
+    launches: dict
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for kernel, n in self.launches.items():
+            kernel.launches += n
+
+
+# the kernel wrappers whose launches a captured loop records
+_COUNTED = (fused_step, lif_update_int)
+
+
 class TorchMappedEngine:
     """A lowered program placed on one device for batched execution.
 
@@ -122,6 +171,7 @@ class TorchMappedEngine:
                 self._launch = lif_int_launcher(self.lif)
                 self._run_card = self._run_lif
         self._warm: set[tuple[int, int]] = set()
+        self._graphs: dict[tuple[int, int], _GraphedShape] = {}
 
     # -- one timestep -------------------------------------------------------
 
@@ -147,19 +197,18 @@ class TorchMappedEngine:
             v.copy_(v_next)
             s_out.copy_(s)
 
-    def _run_fused(self, ext_d: torch.Tensor, s_prev: torch.Tensor,
-                   v: torch.Tensor, spikes: torch.Tensor,
-                   pkts: torch.Tensor) -> None:
+    def _run_fused(self, buf: _Buffers) -> None:
         """The fused tier's step loop on the card. The buffers were made
-        by ``run`` (contiguous int32 on the device, ``[T, B, ·]``), which
-        is their check; step ``t`` reads ``ext_d[t]`` and ``spikes[t-1]``
+        by :meth:`_buffers` (contiguous int32 on the device), which is
+        their check; step ``t`` reads ``ext_d[t]`` and ``spikes[t-1]``
         and writes ``spikes[t]`` and ``pkts[t]`` at pointer offsets."""
-        t_steps, b, n_in = ext_d.shape
-        n_int = v.shape[1]
+        t_steps, b, n_in = buf.ext_d.shape
+        n_int = buf.v.shape[1]
         launch, dev = self._launch, self.device
-        ext0, sp0, pk0 = ext_d.data_ptr(), spikes.data_ptr(), pkts.data_ptr()
+        ext0, sp0 = buf.ext_d.data_ptr(), buf.spikes.data_ptr()
+        pk0 = buf.pkts.data_ptr()
         d_ext, d_sp, d_pk = b * n_in * 4, b * n_int * 4, b * 4
-        v_p, prev = v.data_ptr(), s_prev.data_ptr()
+        v_p, prev = buf.v.data_ptr(), buf.s_prev.data_ptr()
         with _build.on_device(dev):
             stream = _build.stream_handle(dev)
             for t in range(t_steps):
@@ -168,27 +217,22 @@ class TorchMappedEngine:
                        stream)
                 prev = out
 
-    def _run_lif(self, ext_d: torch.Tensor, s_prev: torch.Tensor,
-                 v: torch.Tensor, spikes: torch.Tensor,
-                 pkts: torch.Tensor) -> None:
-        """The ``"lif"`` tier's step loop on the card, over ``run``'s
-        buffers as :meth:`_run_fused` (``s_prev`` is zero). Each step
-        gathers ``ext_d[t] ‖ spikes[t-1]`` into one buffer, merges every
-        op into ``current`` (allocated once per run; the Neuron Unit
-        leaves it zero) and launches the Neuron Unit on ``v`` in place,
-        its spikes into ``spikes[t]``. The packets are counted once per
-        run, by :func:`_count_packets`."""
-        t_steps, b, n_in = ext_d.shape
+    def _run_lif(self, buf: _Buffers) -> None:
+        """The ``"lif"`` tier's step loop on the card, over the buffers
+        of :meth:`_buffers` as :meth:`_run_fused` (``s_prev`` and
+        ``current`` are zero). Each step gathers ``ext_d[t] ‖
+        spikes[t-1]`` into ``s_all``, merges every op into ``current``
+        (the Neuron Unit leaves it zero) and launches the Neuron Unit on
+        ``v`` in place, its spikes into ``spikes[t]``. The packets are
+        counted once per run, by :func:`_count_packets`."""
+        ext_d, spikes, v = buf.ext_d, buf.spikes, buf.v
+        s_all, act, current = buf.s_all, buf.act, buf.current
+        t_steps, b, _ = ext_d.shape
         n_int = v.shape[1]
-        s_all = torch.empty((b, n_in + n_int), dtype=torch.int32,
-                            device=v.device)
-        act = torch.empty((b, self._op_pre.numel()), dtype=torch.int32,
-                          device=v.device)
-        current = torch.zeros_like(v)
         launch, dev, n = self._launch, self.device, b * n_int
         sp0, d_sp = spikes.data_ptr(), b * n_int * 4
         v_p, cur_p = v.data_ptr(), current.data_ptr()
-        prev = s_prev
+        prev = buf.s_prev
         with _build.on_device(dev):
             stream = _build.stream_handle(dev)
             for t in range(t_steps):
@@ -200,27 +244,94 @@ class TorchMappedEngine:
                 current.index_add_(1, self._op_post, act)
                 launch(v_p, cur_p, v_p, sp0 + t * d_sp, n, stream)
                 prev = spikes[t]
-        _count_packets(ext_d, spikes, pkts)
+        _count_packets(ext_d, spikes, buf.pkts)
 
-    # -- warm-up ------------------------------------------------------------
+    # -- the T-step loop ----------------------------------------------------
+
+    def _buffers(self, b: int, t_steps: int) -> _Buffers:
+        lw = self.lowered
+        i32 = dict(dtype=torch.int32, device=self.device)
+        n_in, n_int = lw.n_inputs, lw.n_internal
+        buf = _Buffers(torch.empty((t_steps, b, n_in), **i32),
+                       torch.empty((t_steps, b, n_int), **i32),
+                       torch.empty((t_steps, b), **i32),
+                       torch.empty((b, n_int), **i32),
+                       torch.empty((b, n_int), **i32))
+        if self._run_card == self._run_lif:
+            buf.s_all = torch.empty((b, n_in + n_int), **i32)
+            buf.act = torch.empty((b, lw.n_ops), **i32)
+            buf.current = torch.empty((b, n_int), **i32)
+        return buf
+
+    def _loop(self, buf: _Buffers) -> None:
+        """One whole run over ``buf``: the state zeroed, T steps, the
+        packets counted; what a captured graph replays."""
+        buf.v.zero_()
+        buf.s_prev.zero_()
+        if buf.current is not None:
+            buf.current.zero_()
+        if self._run_card is None:
+            s_prev = buf.s_prev
+            for t in range(buf.ext_d.shape[0]):
+                self._step(buf.ext_d[t], s_prev, buf.v, buf.spikes[t],
+                           buf.pkts[t])
+                s_prev = buf.spikes[t]
+        elif buf.v.numel():
+            self._run_card(buf)
+        else:           # no neuron work: the packets are the ext spikes
+            _count_packets(buf.ext_d, buf.spikes, buf.pkts)
+
+    def _capture(self, b: int, t_steps: int) -> _GraphedShape:
+        """Capture the loop of one shape into a CUDA graph over static
+        buffers, after one warm run on a side stream (the first launch
+        of a lazily loaded kernel must not fall inside a capture). A
+        capture that fails raises. The capture launches nothing, so the
+        wrappers' counts are put back and the recorded launches kept
+        for :meth:`_GraphedShape.replay`."""
+        buf = self._buffers(b, t_steps)
+        buf.ext_d.zero_()
+        with _build.on_device(self.device):
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self._loop(buf)
+            main.wait_stream(side)
+            before = [k.launches for k in _COUNTED]
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    self._loop(buf)
+                recorded = {k: k.launches - n
+                            for k, n in zip(_COUNTED, before)}
+            finally:
+                for k, n in zip(_COUNTED, before):
+                    k.launches = n
+        return _GraphedShape(graph, buf,
+                             {k: n for k, n in recorded.items() if n})
 
     def precompile(self, batch_sizes, timesteps: int) -> list[tuple[int, int]]:
-        """Run each ``(batch, timesteps)`` shape once on zeros.
+        """Prepare each ``(batch, timesteps)`` shape for serving.
 
-        Builds the kernels' library on first use and warms the
-        allocator, so a warmed shape's first real request runs at
-        steady-state latency. Returns the shapes warmed by THIS call.
+        On the card the ``"fused"`` and ``"lif"`` tiers capture the
+        shape's whole loop as one CUDA graph, which :meth:`run` replays
+        for a request of that shape; elsewhere the shape is run once on
+        zeros (builds the kernels' library, warms the allocator).
+        Returns the shapes prepared by THIS call.
         """
-        warmed = []
+        done = []
         for b in batch_sizes:
             key = (int(b), int(timesteps))
             if key in self._warm:
                 continue
-            self.run(np.zeros((key[0], key[1], self.lowered.n_inputs),
-                              np.int32))
+            if self._run_card is not None:
+                self._graphs[key] = self._capture(*key)
+            else:
+                self.run(np.zeros((key[0], key[1], self.lowered.n_inputs),
+                                  np.int32))
             self._warm.add(key)
-            warmed.append(key)
-        return warmed
+            done.append(key)
+        return done
 
     # -- public API ---------------------------------------------------------
 
@@ -231,26 +342,23 @@ class TorchMappedEngine:
         ext_spikes: [T, n_inputs] or batched [B, T, n_inputs].
         Returns (spikes, v_final, stats): [T, n_int] / [n_int] /
         packet_counts [T] for 2-D input, with a leading B when batched.
+        A shape :meth:`precompile` captured replays its graph over its
+        static buffers (so one engine serves one request at a time);
+        any other runs the loop eagerly.
         """
-        lw, dev = self.lowered, self.device
-        ext, squeeze = normalize_ext_spikes(ext_spikes, lw.n_inputs)
+        ext, squeeze = normalize_ext_spikes(ext_spikes, self.lowered.n_inputs)
         b, t_steps, _ = ext.shape
-        ext_d = torch.from_numpy(np.ascontiguousarray(
-            ext.transpose(1, 0, 2), np.int32)).to(dev)
-        spikes = torch.empty((t_steps, b, lw.n_internal), dtype=torch.int32,
-                             device=dev)
-        pkts = torch.empty((t_steps, b), dtype=torch.int32, device=dev)
-        v = torch.zeros((b, lw.n_internal), dtype=torch.int32, device=dev)
-        s_prev = torch.zeros_like(v)
-        if self._run_card is not None:
-            if b and lw.n_internal:
-                self._run_card(ext_d, s_prev, v, spikes, pkts)
-            else:       # no neuron work: the packets are the ext spikes
-                _count_packets(ext_d, spikes, pkts)
+        host = torch.from_numpy(np.ascontiguousarray(ext.transpose(1, 0, 2),
+                                                     np.int32))
+        graphed = self._graphs.get((b, t_steps))
+        if graphed is not None:
+            buf = graphed.buf
+            buf.ext_d.copy_(host)
+            graphed.replay()
         else:
-            for t in range(t_steps):
-                self._step(ext_d[t], s_prev, v, spikes[t], pkts[t])
-                s_prev = spikes[t]
-        return finalize_outputs(spikes.cpu().numpy().transpose(1, 0, 2),
-                                v.cpu().numpy(), pkts.cpu().numpy().T,
+            buf = self._buffers(b, t_steps)
+            buf.ext_d.copy_(host)
+            self._loop(buf)
+        return finalize_outputs(buf.spikes.cpu().numpy().transpose(1, 0, 2),
+                                buf.v.cpu().numpy(), buf.pkts.cpu().numpy().T,
                                 squeeze)

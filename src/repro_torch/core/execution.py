@@ -2,13 +2,18 @@
 ``repro/core/execution.py``.
 
 * ``engine`` — ``"torch"``, the batched engine
-  (:class:`~repro_torch.core.engine_torch.TorchMappedEngine`). The
-  reference's ``"python"`` and ``"oracle"`` executors are not ported
-  yet (ROADMAP Queue A item 3);
-* ``kernel`` — the tier: ``"fused"`` (the whole timestep in one CUDA
-  kernel, :mod:`repro_torch.kernels.fused_step`), ``"lif"``
-  (index_add segment-sum + the CUDA LIF kernel), ``"reference"`` (plain
-  torch). ``None`` resolves to ``"fused"``;
+  (:class:`~repro_torch.core.engine_torch.TorchMappedEngine`);
+  ``"oracle"``, the dense integer LIF
+  (:func:`~repro_torch.core.engine.run_oracle`), on the device like
+  ``"torch"``; ``"python"``, the structure-faithful host simulator
+  (:func:`~repro_torch.core.engine.run_mapped`), which runs on the CPU
+  only and so must be asked for with ``device="cpu"``: it never stands
+  in on the host for a card the caller asked for (or left to default);
+* ``kernel`` — the ``"torch"`` engine's tier: ``"fused"`` (the whole
+  timestep in one CUDA kernel, :mod:`repro_torch.kernels.fused_step`),
+  ``"lif"`` (index_add segment-sum + the CUDA LIF kernel),
+  ``"reference"`` (plain torch). ``None`` resolves to ``"fused"``; it
+  does not apply to the other engines;
 * ``device`` — where the engine runs. ``None`` resolves to the card;
   without one, resolving raises and names ``device="cpu"``. It takes
   the place of the reference's ``interpret`` knob: on the CPU the
@@ -17,7 +22,7 @@
 The reference's ``mesh``/``donate`` fields and its deprecated-kwarg
 shims are not ported. :meth:`ExecutionSpec.resolve` folds the defaults
 in once; the resolved spec is the engine cache key of
-``Program.engine()``. All tiers are bit-exact.
+``Program.engine()``. All engines and tiers are bit-exact.
 """
 from __future__ import annotations
 
@@ -25,14 +30,10 @@ import dataclasses
 
 import torch
 
-ENGINES = ("torch",)
+ENGINES = ("torch", "python", "oracle")
 KERNELS = ("fused", "lif", "reference")
 # reference engine names and where they stand in the port
-_ENGINE_NOTES = {
-    "jax": "the port's compiled engine is 'torch'",
-    "python": "not ported yet (ROADMAP Queue A item 3)",
-    "oracle": "not ported yet (ROADMAP Queue A item 3)",
-}
+_ENGINE_NOTES = {"jax": "the port's compiled engine is 'torch'"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,14 +51,27 @@ class ExecutionSpec:
         if self.kernel is not None and self.kernel not in KERNELS:
             raise ValueError(f"unknown kernel {self.kernel!r}; use one of "
                              f"{KERNELS} (or None for the default)")
+        if self.engine != "torch" and self.kernel is not None:
+            raise ValueError(f"kernel selects the torch engine's tier; it "
+                             f"does not apply to engine={self.engine!r}")
+        if self.engine == "python" and (
+                self.device is None or torch.device(self.device).type
+                != "cpu"):
+            raise ValueError(
+                f"engine='python' is the host simulator and runs on the "
+                f"CPU only; pass device=\"cpu\" (got device="
+                f"{self.device!r})")
 
     def resolve(self) -> "ExecutionSpec":
-        """Fold the defaults in: kernel ``"fused"``, device the card.
+        """Fold the defaults in: kernel ``"fused"`` (torch engine only),
+        device the card.
 
         Raises ``RuntimeError`` when the spec names the card (or leaves
         the device to default) and no CUDA device is present. Idempotent.
         """
-        kernel = self.kernel if self.kernel is not None else "fused"
+        kernel = self.kernel
+        if self.engine == "torch" and kernel is None:
+            kernel = "fused"
         return dataclasses.replace(self, kernel=kernel,
                                    device=str(resolve_device(self.device)))
 

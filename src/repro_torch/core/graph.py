@@ -41,6 +41,9 @@ class SNNGraph:
     def n_synapses(self) -> int:
         return int(self.pre.shape[0])
 
+    def local(self, global_idx: np.ndarray) -> np.ndarray:
+        return global_idx - self.n_inputs
+
     def validate(self):
         if not ((self.pre >= 0).all() and (self.pre < self.n_neurons).all()):
             raise ValueError("pre index out of range")

@@ -3,11 +3,14 @@
 
 Same fields, same defaults, same ``__post_init__`` checks (raised as
 ``ValueError``). ``Program.load`` builds it from the artifact header.
-The memory model itself (Eqs. 9-11) waits for the compiler slice.
+``tree_depth`` feeds the cycle model; the memory model itself
+(Eqs. 9-11) and the multi-chip mesh properties wait for the compiler
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,3 +46,7 @@ class HardwareConfig:
         if self.mesh_x and self.mesh_x * self.mesh_y != self.n_chips:
             raise ValueError(f"mesh {self.mesh_x}x{self.mesh_y} != "
                              f"n_chips={self.n_chips}")
+
+    @property
+    def tree_depth(self) -> int:
+        return int(math.log2(self.n_spus))

@@ -1,24 +1,34 @@
-"""The compiled SupraSNN deployment artifact; port of the loading and
-running half of ``repro/core/program.py``.
+"""The compiled SupraSNN deployment artifact; port of the loading,
+running, profiling and saving half of ``repro/core/program.py``.
 
 A :class:`Program` is built from the arrays of a saved npz v1 artifact
 (:meth:`Program.load`, or :meth:`Program.from_arrays` for the same
 arrays held in memory) and owns its engines:
 
 * ``program.run(ext, spec)`` — ``[T, n_inputs]`` / ``[B, T, n_inputs]``
-  in, ``(spikes, v_final, stats)`` out, on the device and kernel tier
-  the :class:`~repro_torch.core.execution.ExecutionSpec` names (the
-  card and the ``"fused"`` tier by default);
-* ``program.engine(spec)`` — the owned engine, built lazily and keyed
-  on the resolved spec;
-* ``program.precompile(buckets, T)`` — warms every serving shape.
+  in, ``(spikes, v_final, stats)`` out, on the engine, device and kernel
+  tier the :class:`~repro_torch.core.execution.ExecutionSpec` names (the
+  ``"torch"`` engine on the card and the ``"fused"`` tier by default;
+  ``"oracle"``, the dense integer LIF; ``"python"``, the host
+  simulator, with ``device="cpu"``);
+* ``program.profile(stats)`` — the ``CycleModel``'s latency and energy
+  of the FPGA design and the resource report in one
+  :class:`ProfileReport`;
+* ``program.init_packets()`` — the MC-tree configuration stream;
+* ``program.content_hash()`` — the artifact's identity, the reference's
+  string;
+* ``program.save(path)`` — the npz v1 artifact the reference writes, so
+  either package loads the other's file;
+* ``program.engine(spec)`` — the owned ``"torch"`` engine, built lazily
+  and keyed on the resolved spec;
+* ``program.precompile(buckets, T)`` — on the card, one CUDA graph of
+  the T-step loop per bucket (see
+  :meth:`~repro_torch.core.engine_torch.TorchMappedEngine.precompile`).
 
-The compiler (``compile``), ``CompileReport``/``PartitionResult``,
-``profile``, ``init_packets``, ``verify`` and ``save`` wait for later
-slices. Until then the header's ``report`` and ``part`` dicts and their
-arrays are kept as they were read, so a later ``save`` can write them
-back unchanged. A header whose ``default_engine`` is the reference's
-``"jax"`` maps to the port's ``"torch"``.
+The compiler (``compile``), ``verify`` and the multi-chip accounting
+wait for later slices. A header whose ``default_engine`` is the
+reference's ``"jax"`` maps to the port's ``"torch"``, and ``save``
+writes it back as ``"jax"``.
 """
 from __future__ import annotations
 
@@ -28,34 +38,37 @@ from pathlib import Path
 
 import numpy as np
 
-from repro_torch.core.engine_torch import TorchMappedEngine
+from repro_torch.core.aot import content_hash, normalize_buckets
+from repro_torch.core.cost import ResourceReport
+from repro_torch.core.engine import (CycleModel, CycleReport, PowerModel,
+                                     oracle_packet_counts, packet_stats,
+                                     run_mapped, run_oracle)
+from repro_torch.core.engine_torch import (TorchMappedEngine,
+                                           normalize_ext_spikes)
 from repro_torch.core.execution import ExecutionSpec, as_spec
 from repro_torch.core.graph import SNNGraph
+from repro_torch.core.mapping.books import PartitionResult
+from repro_torch.core.mapping.search import SearchTrace
 from repro_torch.core.memory_model import HardwareConfig
+from repro_torch.core.passes import CompileReport, initialization_packets
 from repro_torch.core.scheduling import LoweredProgram, OpTables, lower_tables
 from repro_torch.snn.lif import LIFIntParams
 
+__all__ = ["PROGRAM_FORMAT", "PROGRAM_FORMAT_VERSION", "Program",
+           "ProfileReport", "normalize_buckets"]
+
 PROGRAM_FORMAT = "suprasnn-program"
 PROGRAM_FORMAT_VERSION = 1
+# the header's engine names: the reference's compiled engine is the port's
 _ENGINE_ALIASES = {"jax": "torch"}
-# arrays of the report and partition, kept as read
-_META_ARRAYS = ("part_assign", "part_scores", "part_history", "rep_scores",
-                "rep_spu_synapse_counts", "rep_spu_post_counts",
-                "rep_spu_weight_counts")
-
-
-def normalize_buckets(buckets) -> tuple[int, ...]:
-    """Coerce a ``BatchPolicy`` or iterable of batch sizes to sorted
-    unique positive ints — the shapes precompile walks (port of
-    ``repro/core/aot.py::normalize_buckets``)."""
-    buckets = getattr(buckets, "buckets", buckets)
-    if isinstance(buckets, (int, np.integer)):
-        buckets = (buckets,)
-    out = tuple(sorted({int(b) for b in buckets}))
-    if not out or out[0] < 1:
-        raise ValueError(f"precompile buckets must be positive batch "
-                         f"sizes, got {buckets}")
-    return out
+_ENGINE_HEADER = {"torch": "jax"}
+# HardwareConfig fields added after format v1 shipped; written only at
+# non-default values, as the reference writes them
+_POST_V1_HW_FIELDS = frozenset({"n_chips", "inter_chip_hop_cycles",
+                                "mesh_x", "mesh_y"})
+_NEEDS_MULTICHIP = ("the multi-chip accounting needs the mapping's "
+                    "hypergraph, which the port does not have yet (ROADMAP "
+                    "Queue A item 7)")
 
 
 def _check_header(header: dict, where) -> None:
@@ -70,15 +83,62 @@ def _check_header(header: dict, where) -> None:
 
 
 @dataclasses.dataclass
+class ProfileReport:
+    """One-call profile of a run: timing/energy + hardware resources.
+
+    ``per_sample`` holds one :class:`CycleReport` per batch sample;
+    ``cycle`` aggregates them (mean over the batch; equal to
+    ``per_sample[0]`` for unbatched runs). The scalar properties
+    delegate to the aggregate. These are the cycle model's figures for
+    the FPGA design, not times of the card.
+    """
+    cycle: CycleReport
+    resources: ResourceReport
+    per_sample: list[CycleReport]
+
+    @property
+    def latency_us(self) -> float:
+        return self.cycle.latency_us
+
+    @property
+    def power_w(self) -> float:
+        return self.cycle.power_w
+
+    @property
+    def energy_mj(self) -> float:
+        return self.cycle.energy_mj
+
+    @property
+    def energy_per_synapse_nj(self) -> float:
+        return self.cycle.energy_per_synapse_nj
+
+
+def _aggregate_cycles(reports: list[CycleReport]) -> CycleReport:
+    if len(reports) == 1:
+        return reports[0]
+
+    def mean(f):
+        return float(np.mean([getattr(r, f) for r in reports]))
+
+    return CycleReport(
+        cycles_total=int(round(mean("cycles_total"))),
+        cycles_distribution=int(round(mean("cycles_distribution"))),
+        cycles_synaptic=int(round(mean("cycles_synaptic"))),
+        cycles_overhead=int(round(mean("cycles_overhead"))),
+        latency_us=mean("latency_us"), power_w=reports[0].power_w,
+        energy_mj=mean("energy_mj"),
+        energy_per_synapse_nj=mean("energy_per_synapse_nj"))
+
+
+@dataclasses.dataclass
 class Program:
-    """A compiled, runnable SupraSNN deployment artifact."""
+    """A compiled, runnable, persistable SupraSNN deployment artifact."""
     graph: SNNGraph
     hw: HardwareConfig
     tables: OpTables
     lowered: LoweredProgram
-    report: dict                       # header "report", as read
-    part: dict                         # header "part", as read
-    meta_arrays: dict                  # report/partition arrays, as read
+    report: CompileReport
+    part: PartitionResult
     default_engine: str = "torch"
     _engines: dict = dataclasses.field(default_factory=dict, repr=False,
                                        compare=False)
@@ -87,7 +147,7 @@ class Program:
 
     @property
     def feasible(self) -> bool:
-        return bool(self.report["feasible"])
+        return self.report.feasible
 
     @property
     def ot_depth(self) -> int:
@@ -104,9 +164,13 @@ class Program:
     # -- engines ------------------------------------------------------------
 
     def engine(self, spec: ExecutionSpec | None = None) -> TorchMappedEngine:
-        """The owned engine for ``spec``, keyed on the resolved spec so
-        an explicit value and the default it resolves to share one."""
+        """The owned ``"torch"`` engine for ``spec``, keyed on the
+        resolved spec so an explicit value and the default it resolves
+        to share one."""
         spec = as_spec(spec, self.default_engine).resolve()
+        if spec.engine != "torch":
+            raise ValueError(f"Program.engine builds the torch engine; got "
+                             f"engine={spec.engine!r}")
         eng = self._engines.get(spec)
         if eng is None:
             eng = TorchMappedEngine(self.graph, self.lowered, spec)
@@ -115,15 +179,24 @@ class Program:
 
     def precompile(self, batch_sizes, timesteps: int,
                    spec: ExecutionSpec | None = None) -> list:
-        """Warm the engine for every serving shape NOW.
+        """Prepare the engine for every serving shape NOW.
 
         ``batch_sizes`` is a :class:`~repro_torch.serve.batcher
         .BatchPolicy` or an iterable of batch sizes; ``timesteps`` fixes
-        the T axis. Returns the shapes warmed by this call; idempotent
-        per engine.
+        the T axis. On the card the ``"fused"`` and ``"lif"`` tiers
+        capture one CUDA graph of the T-step loop per shape; elsewhere
+        each shape is run once on zeros. Returns the shapes prepared by
+        this call; idempotent per engine.
         """
         return self.engine(spec).precompile(normalize_buckets(batch_sizes),
                                             timesteps)
+
+    def content_hash(self) -> str:
+        """SHA-256 over the lowered program + LIF params — the stable
+        identity of the compiled computation (:mod:`repro_torch.core.aot`)."""
+        return content_hash(self)
+
+    # -- execution ----------------------------------------------------------
 
     def run(self, ext_spikes: np.ndarray,
             spec: "ExecutionSpec | str | None" = None
@@ -131,20 +204,176 @@ class Program:
         """Execute the program on a spike train (batch).
 
         ext_spikes: binary ``[T, n_inputs]`` or ``[B, T, n_inputs]``.
-        Returns ``(spikes, v_final, stats)`` — ``[T, n_internal]`` /
+        spec: an :class:`~repro_torch.core.execution.ExecutionSpec`, an
+        engine-name string (``"torch"``, ``"oracle"``; ``"python"`` needs
+        ``device="cpu"`` in a spec), or ``None`` for
+        ``self.default_engine``. Every engine and tier returns
+        ``(spikes, v_final, stats)`` — ``[T, n_internal]`` /
         ``[n_internal]`` / packet_counts ``[T]``, batched with a leading
-        ``B`` — with the reference's bits on every tier and device.
+        ``B`` — with the reference's bits and dtypes.
         """
-        return self.engine(spec).run(ext_spikes)
+        spec = as_spec(spec, self.default_engine)
+        if spec.engine == "torch":
+            return self.engine(spec).run(ext_spikes)
+        device = spec.resolve().device
+        ext, squeeze = normalize_ext_spikes(ext_spikes, self.graph.n_inputs)
+        ext = ext.astype(np.int32)
+        if spec.engine == "python":
+            runs = [run_mapped(self.graph, self.tables, e,
+                               routing=self.lowered.routing) for e in ext]
+            s_all = np.stack([r[0] for r in runs])
+            v_all = np.stack([r[1] for r in runs])
+            p_all = np.stack([r[2]["packet_counts"] for r in runs])
+        else:
+            s_all, v_all = run_oracle(self.graph, ext, device)
+            p_all = oracle_packet_counts(ext, s_all)
+        if squeeze:
+            s_all, v_all, p_all = s_all[0], v_all[0], p_all[0]
+        return s_all, v_all, packet_stats(p_all)
+
+    # -- profiling ----------------------------------------------------------
+
+    def profile(self, stats: dict | np.ndarray, *,
+                n_synapses: int | None = None,
+                power: PowerModel | None = None,
+                inter_chip_counts: np.ndarray | None = None
+                ) -> ProfileReport:
+        """CycleModel timing/energy + resource report in one call.
+
+        ``stats`` is the dict returned by :meth:`run` (or a raw
+        packet-counts array, ``[T]`` or ``[B, T]``). ``n_synapses``
+        overrides the energy-per-synapse denominator (e.g. the
+        pre-pruning synapse count of a quantized model); defaults to
+        the mapped graph's nonzero synapses. ``inter_chip_counts`` (same
+        shape as the packet counts) charges forwarded packets their hop
+        cost — omitted, the profile is the single-chip model.
+        """
+        pkts = stats["packet_counts"] if isinstance(stats, dict) else stats
+        pkts = np.atleast_2d(np.asarray(pkts))
+        if inter_chip_counts is None:
+            ics = [None] * pkts.shape[0]
+        else:
+            ic = np.atleast_2d(np.asarray(inter_chip_counts))
+            if ic.shape != pkts.shape:
+                raise ValueError(f"inter_chip_counts shape {ic.shape} != "
+                                 f"packet_counts shape {pkts.shape}")
+            ics = list(ic)
+        n_syn = self.graph.n_synapses if n_synapses is None else n_synapses
+        cm = CycleModel(self.hw, power)
+        per = [cm.run(row, self.tables.depth, n_syn, inter_chip_counts=i)
+               for row, i in zip(pkts, ics)]
+        return ProfileReport(cycle=_aggregate_cycles(per),
+                             resources=self.report.resources,
+                             per_sample=per)
+
+    # -- multi-chip accounting and static verification (later slices) -------
+
+    def chip_span(self) -> np.ndarray:
+        raise NotImplementedError(_NEEDS_MULTICHIP)
+
+    def mesh_hops(self) -> np.ndarray:
+        raise NotImplementedError(_NEEDS_MULTICHIP)
+
+    def inter_chip_counts(self, ext_spikes: np.ndarray,
+                          spikes: np.ndarray) -> np.ndarray:
+        raise NotImplementedError(_NEEDS_MULTICHIP)
+
+    def verify(self, checkers: "list[str] | None" = None):
+        raise NotImplementedError(
+            "verify() needs the static verifier, which the port does not "
+            "have yet (ROADMAP Queue A item 5)")
+
+    # -- initialization stream ----------------------------------------------
+
+    def init_packets(self) -> list[tuple[int, int]]:
+        """The MC-tree (ctrl, payload) configuration stream (§4.3)."""
+        return initialization_packets(self.graph, self.tables, self.hw,
+                                      routing=self.lowered.routing)
 
     # -- persistence --------------------------------------------------------
+
+    def save(self, path: str | Path) -> Path:
+        """Persist the artifact as the reference's npz v1 (JSON header +
+        dense arrays); returns the file path (``.npz`` appended if
+        missing). Post-v1 ``HardwareConfig`` fields are written only at
+        non-default values, the ``phase_*`` report keys only when
+        present, and the ``"torch"`` engine as ``"jax"``, so the
+        reference loads the file.
+        """
+        path = Path(path)
+        if path.suffix != ".npz":
+            path = path.with_name(path.name + ".npz")
+        g, hw, rep, part = self.graph, self.hw, self.report, self.part
+        res = rep.resources
+        header = {
+            "format": PROGRAM_FORMAT,
+            "version": PROGRAM_FORMAT_VERSION,
+            "default_engine": _ENGINE_HEADER.get(self.default_engine,
+                                                 self.default_engine),
+            "graph": {
+                "n_inputs": int(g.n_inputs),
+                "n_neurons": int(g.n_neurons),
+                "output_slice": [int(g.output_slice[0]),
+                                 int(g.output_slice[1])],
+                "lif": {"leak_shift": int(g.lif.leak_shift),
+                        "v_threshold": int(g.lif.v_threshold),
+                        "v_reset": int(g.lif.v_reset)},
+            },
+            "hw": {f.name: getattr(hw, f.name)
+                   for f in dataclasses.fields(hw)
+                   if f.name not in _POST_V1_HW_FIELDS
+                   or getattr(hw, f.name) != f.default},
+            "report": {
+                "method": rep.method,
+                "feasible": bool(rep.feasible),
+                "iterations": int(rep.iterations),
+                "perturbations": int(rep.perturbations),
+                "ot_depth": int(rep.ot_depth),
+                "n_init_packets": int(rep.n_init_packets),
+                "compile_seconds": float(rep.compile_seconds),
+                "resources": {"luts": int(res.luts), "ffs": int(res.ffs),
+                              "brams": float(res.brams),
+                              "memory_kb": float(res.memory_kb)},
+                "search": rep.search.to_json() if rep.search else None,
+                "candidates_tried": int(rep.candidates_tried),
+                "schedule_method": rep.schedule_method,
+                "schedule_depths": ({k: int(v) for k, v
+                                     in rep.schedule_depths.items()}
+                                    if rep.schedule_depths else None),
+                **({"phase_seconds": {k: float(v) for k, v
+                                      in rep.phase_seconds.items()}}
+                   if rep.phase_seconds else {}),
+                **({"phase_alloc_mb": {k: float(v) for k, v
+                                       in rep.phase_alloc_mb.items()}}
+                   if rep.phase_alloc_mb else {}),
+            },
+            "part": {
+                "feasible": bool(part.feasible),
+                "iterations": int(part.iterations),
+                "perturbations": int(part.perturbations),
+            },
+        }
+        np.savez_compressed(
+            path,
+            header=np.asarray(json.dumps(header)),
+            g_pre=g.pre, g_post=g.post, g_weight=g.weight,
+            t_pre=self.tables.pre, t_post=self.tables.post,
+            t_weight=self.tables.weight, t_pre_end=self.tables.pre_end,
+            t_post_end=self.tables.post_end, t_assign=self.tables.assign,
+            part_assign=part.assign, part_scores=part.scores,
+            part_history=np.asarray(part.score_history, np.float64),
+            rep_scores=rep.scores,
+            rep_spu_synapse_counts=rep.spu_synapse_counts,
+            rep_spu_post_counts=rep.spu_post_counts,
+            rep_spu_weight_counts=rep.spu_weight_counts)
+        return path
 
     @classmethod
     def from_arrays(cls, header: dict, arrays: dict, *,
                     source="arrays") -> "Program":
         """Build a Program from an artifact's parsed JSON header and its
-        numpy arrays, the ones ``repro.Program.save`` writes. ``source``
-        names them in error messages."""
+        numpy arrays, the ones ``save`` writes. ``source`` names them in
+        error messages."""
         _check_header(header, source)
         gh = header["graph"]
         g = SNNGraph(
@@ -157,11 +386,34 @@ class Program:
         tables = OpTables.from_dense(
             arrays["t_pre"], arrays["t_post"], arrays["t_weight"],
             arrays["t_pre_end"], arrays["t_post_end"], arrays["t_assign"])
+        ph = header["part"]
+        part = PartitionResult(
+            assign=arrays["part_assign"], scores=arrays["part_scores"],
+            feasible=ph["feasible"], iterations=ph["iterations"],
+            perturbations=ph["perturbations"],
+            score_history=arrays["part_history"].tolist())
+        rh = header["report"]
+        report = CompileReport(
+            method=rh["method"], feasible=rh["feasible"],
+            iterations=rh["iterations"], perturbations=rh["perturbations"],
+            ot_depth=rh["ot_depth"], scores=arrays["rep_scores"],
+            spu_synapse_counts=arrays["rep_spu_synapse_counts"],
+            spu_post_counts=arrays["rep_spu_post_counts"],
+            spu_weight_counts=arrays["rep_spu_weight_counts"],
+            resources=ResourceReport(**rh["resources"]),
+            n_init_packets=rh["n_init_packets"],
+            compile_seconds=rh["compile_seconds"],
+            search=(SearchTrace.from_json(rh["search"])
+                    if rh.get("search") else None),
+            candidates_tried=rh.get("candidates_tried", 1),
+            schedule_method=rh.get("schedule_method", "slack"),
+            schedule_depths=rh.get("schedule_depths"),
+            phase_seconds=rh.get("phase_seconds"),
+            phase_alloc_mb=rh.get("phase_alloc_mb"))
         # re-lower (pure, deterministic) — never re-partition
         lowered = lower_tables(g, tables)
         engine = header.get("default_engine", "jax")
-        return cls(g, hw, tables, lowered, header["report"], header["part"],
-                   {k: arrays[k] for k in _META_ARRAYS},
+        return cls(g, hw, tables, lowered, report, part,
                    default_engine=_ENGINE_ALIASES.get(engine, engine))
 
     @classmethod
@@ -171,7 +423,7 @@ class Program:
         """Load a saved artifact; rejects unknown formats/versions.
 
         ``precompile=`` (a ``BatchPolicy`` or iterable of batch buckets,
-        with ``timesteps=`` fixing the T axis) warms the engine for
+        with ``timesteps=`` fixing the T axis) prepares the engine for
         every serving shape at load time — see :meth:`precompile`.
         """
         with np.load(path) as z:

@@ -7,8 +7,10 @@ keyed on the resolved :class:`~repro_torch.core.execution.ExecutionSpec`,
 so two models never share an engine and re-resolving a runner reuses
 the same one. ``register``/``load`` take ``precompile=`` (a
 ``BatchPolicy`` or iterable of batch buckets, with ``timesteps=``) and
-warm every serving shape before the model takes its first request.
-The reference's sharded runners and deprecated kwargs are not ported.
+prepare every serving shape before the model takes its first request:
+on the card the ``"fused"`` and ``"lif"`` tiers capture each shape's
+T-step loop as a CUDA graph (``Program.precompile``). The reference's
+sharded runners and deprecated kwargs are not ported.
 """
 from __future__ import annotations
 
@@ -38,8 +40,9 @@ class ProgramRegistry:
                  policy: "BatchPolicy | None" = None) -> Program:
         """Register a loaded program; duplicate names are rejected.
 
-        ``precompile=`` warms the given batch buckets (``timesteps``
-        fixing the T axis) for ``spec`` at insert time. ``policy=``
+        ``precompile=`` prepares the given batch buckets (``timesteps``
+        fixing the T axis) for ``spec`` at insert time: one CUDA graph
+        per bucket on the card (``Program.precompile``). ``policy=``
         attaches the model's serving ``BatchPolicy``. ``verify=True``
         needs the static verifier, which is not ported yet.
         """

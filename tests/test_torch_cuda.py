@@ -570,3 +570,79 @@ def test_lm_prefill_launches_one_kernel_per_layer(cuda_device, name):
     torch.cuda.synchronize()
     assert kernel.launches == before + cfg.n_layers
     assert bool(lg.isfinite().all())
+
+
+# -- the CUDA-graphed T-step loop (precompile) ---------------------------------
+
+@pytest.mark.parametrize("tier", ["fused", "lif"])
+def test_graphed_loop_matches_eager_and_reference(cuda_device, tier):
+    """Every captured bucket, at T = 100 and an odd T, replays the same
+    bits as the eager loop and the reference tier, counts T launches per
+    replay, and a shape not captured still runs eagerly."""
+    prog = Program.load(GOLDEN / "shd_program_v1.npz")
+    spec = ExecutionSpec(kernel=tier, device=str(cuda_device))
+    kernel = fused_step if tier == "fused" else lif_update_int
+    graphed = prog.engine(spec)
+    eager = TorchMappedEngine(prog.graph, prog.lowered, spec)
+    rng = np.random.default_rng(11)
+    for t_steps in (100, 13):
+        assert graphed.precompile((1, 2, 4, 8), t_steps) == \
+            [(b, t_steps) for b in (1, 2, 4, 8)]
+        for b in (1, 2, 4, 8, 3):
+            ext = (rng.random((b, t_steps, prog.n_inputs)) < 0.1
+                   ).astype(np.int32)
+            before = kernel.launches
+            got = graphed.run(ext)
+            assert kernel.launches - before == t_steps
+            assert ((b, t_steps) in graphed._graphs) == (b != 3)
+            assert_same_run(got, eager.run(ext), f"{tier} B={b} eager")
+            assert_same_run(got, prog.run(ext, ExecutionSpec(
+                kernel="reference", device=str(cuda_device))),
+                f"{tier} B={b} reference")
+
+
+@pytest.mark.parametrize("tier", ["fused", "lif"])
+def test_precompile_is_idempotent_and_counts_replays(cuda_device, tier):
+    prog = Program.load(GOLDEN / "shd_program_v1.npz")
+    spec = ExecutionSpec(kernel=tier, device=str(cuda_device))
+    kernel = fused_step if tier == "fused" else lif_update_int
+    assert prog.precompile((2, 4), 9, spec) == [(2, 9), (4, 9)]
+    graphs = dict(prog.engine(spec)._graphs)
+    before = kernel.launches
+    assert prog.precompile((4, 2), 9, spec) == []
+    assert kernel.launches == before
+    assert prog.engine(spec)._graphs == graphs
+    shape = graphs[(4, 9)]
+    for _ in range(3):
+        shape.replay()
+    torch.cuda.synchronize()
+    assert kernel.launches - before == 3 * 9
+
+
+def test_failed_capture_raises(cuda_device):
+    """A loop that cannot be captured (it copies to the host) raises at
+    precompile; no graph is kept and no launch of the capture counts."""
+    prog = Program.load(GOLDEN / "tiny_program_v1.npz")
+    eng = prog.engine(ExecutionSpec(kernel="fused", device=str(cuda_device)))
+    run_card = eng._run_card
+
+    def syncing(buf):
+        run_card(buf)
+        buf.v.cpu()
+
+    eng._run_card = syncing
+    before = fused_step.launches
+    with pytest.raises(RuntimeError):
+        eng.precompile((2,), 5)
+    assert not eng._graphs and fused_step.launches == before + 5
+
+
+@pytest.mark.parametrize("name", ["tiny", "shd"])
+def test_oracle_on_card_matches_cpu(cuda_device, name):
+    prog = Program.load(GOLDEN / f"{name}_program_v1.npz")
+    with np.load(GOLDEN / f"{name}_program_v1_io.npz") as io:
+        ext = io["ext"]
+    got = prog.run(ext, ExecutionSpec(engine="oracle",
+                                      device=str(cuda_device)))
+    assert_same_run(got, prog.run(ext, ExecutionSpec(engine="oracle",
+                                                     device="cpu")))

@@ -73,16 +73,37 @@ def test_load_matches_reference(name):
     assert want.default_engine == "jax" and got.default_engine == "torch"
 
 
-def test_from_arrays_keeps_report_and_partition_as_read():
-    path = GOLDEN / "shd_program_v1.npz"
+def _assert_fields_equal(got, want, what):
+    """Dataclass ``got`` (the port's) equals ``want`` (the reference's)
+    field by field: arrays by dtype and bytes, nested dataclasses
+    recursively, everything else by ``==``."""
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)], what
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), \
+                (what, f.name)
+        elif dataclasses.is_dataclass(b):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), \
+                (what, f.name)
+        else:
+            assert a == b, (what, f.name)
+
+
+@pytest.mark.parametrize("name", ["tiny", "shd"])
+def test_from_arrays_keeps_report_and_partition_as_read(name):
+    """The ported ``CompileReport`` and ``PartitionResult`` built by
+    ``from_arrays`` equal the reference's ``Program.load`` field by
+    field."""
+    path = GOLDEN / f"{name}_program_v1.npz"
     with np.load(path) as z:
         header = json.loads(str(z["header"][()]))
         arrays = {k: z[k] for k in z.files if k != "header"}
-    prog = Program.from_arrays(header, arrays)
-    assert prog.report == header["report"] and prog.part == header["part"]
-    for k, a in prog.meta_arrays.items():
-        assert a.dtype == arrays[k].dtype
-        assert a.tobytes() == arrays[k].tobytes(), k
+    prog, want = Program.from_arrays(header, arrays), JaxProgram.load(path)
+    _assert_fields_equal(prog.report, want.report, "report")
+    _assert_fields_equal(prog.part, want.part, "part")
+    assert prog.feasible is want.feasible is True
 
 
 @pytest.mark.parametrize("fault", ["no_header", "format", "version"])
@@ -200,12 +221,29 @@ def test_default_device_needs_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("engine,note", [("jax", "'torch'"),
-                                         ("python", "Queue A item 3"),
-                                         ("oracle", "Queue A item 3"),
+                                         ("python", 'device="cpu"'),
+                                         ("oracle", 'device="cpu"'),
                                          ("nope", "use one of")])
-def test_spec_rejects_other_engines(engine, note):
-    with pytest.raises(ValueError, match=note):
-        ExecutionSpec(engine=engine)
+def test_spec_rejects_other_engines(monkeypatch, engine, note):
+    """Unknown engines are rejected; ``"python"`` runs on the CPU only
+    and must be asked for with ``device="cpu"``; ``"oracle"`` resolves
+    like ``"torch"``, to the card (absent here)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if engine == "oracle":
+        with pytest.raises(RuntimeError, match=note):
+            ExecutionSpec(engine=engine).resolve()
+        assert ExecutionSpec(engine, device="cpu").resolve() == \
+            ExecutionSpec(engine, None, "cpu")
+    else:
+        with pytest.raises(ValueError, match=note):
+            ExecutionSpec(engine=engine)
+    if engine == "python":
+        with pytest.raises(ValueError, match=note):
+            ExecutionSpec(engine, device="cuda")
+        assert ExecutionSpec(engine, device="cpu").resolve().kernel is None
+    if engine in ("python", "oracle"):
+        with pytest.raises(ValueError, match="does not apply"):
+            ExecutionSpec(engine, kernel="fused", device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):
         ExecutionSpec(kernel="pallas")
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
@@ -223,6 +261,7 @@ def test_engines_are_owned_and_keyed_on_resolved_spec():
     assert prog.precompile((1, 4, 4), 5, cpu()) == [(1, 5), (4, 5)]
     assert prog.precompile([4, 1], 5, cpu()) == []
     assert prog.precompile((2,), 5, cpu()) == [(2, 5)]
+    assert eng._graphs == {}             # the CPU engine stays eager
     with pytest.raises(ValueError, match="positive batch sizes"):
         prog.precompile((0,), 5, cpu())
 
@@ -247,3 +286,190 @@ def test_artifact_arrays_round_trip_through_save(programs, tmp_path):
         assert (a.tobytes() == b.tobytes()) if isinstance(a, np.ndarray) \
             else a == b, f.name
     assert in_memory.hw == from_file.hw
+
+
+# -- the python and oracle engines ---------------------------------------------
+
+PYTHON = ExecutionSpec(engine="python", device="cpu")
+ORACLE = ExecutionSpec(engine="oracle", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["tiny", "shd"])
+@pytest.mark.parametrize("engine", ["python", "oracle"])
+def test_engines_reproduce_golden(name, engine):
+    """``"python"`` and ``"oracle"`` give the reference's ``run`` and the
+    recorded io bit for bit, dtypes included (SHD: sample 0 for the host
+    simulator, every sample for the oracle)."""
+    path = GOLDEN / f"{name}_program_v1.npz"
+    with np.load(GOLDEN / f"{name}_program_v1_io.npz") as io:
+        io = {k: io[k] for k in io.files}
+    ext, recorded = io["ext"], (io["spikes"], io["v_final"],
+                                io["packet_counts"])
+    if engine == "python" and ext.ndim == 3:
+        ext, recorded = ext[0], tuple(a[0] for a in recorded)
+    got = Program.load(path).run(ext, PYTHON if engine == "python"
+                                 else ORACLE)
+    assert_same_run(got, JaxProgram.load(path).run(ext, engine), name)
+    assert_same_run(got, recorded[:2] + ({
+        "packet_counts": recorded[2],
+        "mean_packets_per_step": float(recorded[2].mean())},), name)
+
+
+@pytest.mark.parametrize("kind", ["feedforward", "recurrent"])
+@pytest.mark.parametrize("engine", ["python", "oracle"])
+def test_engines_match_reference(programs, kind, engine):
+    ref = programs[kind]
+    prog = carry(ref)
+    spec = PYTHON if engine == "python" else ORACLE
+    for b in (1, 3, 8):
+        ext = make_ext(ref.graph, b, 7, seed=b)
+        got = prog.run(ext, spec)
+        assert_same_run(got, ref.run(ext, engine), f"{kind} B={b}")
+        assert_same_run(got, prog.run(ext, cpu("fused")), f"{kind} fused")
+    ext2 = make_ext(ref.graph, 1, 9, seed=99)[0]
+    assert_same_run(prog.run(ext2, spec), ref.run(ext2, engine), "2-D")
+    with pytest.raises(ValueError, match=r"\[B, T, "):
+        prog.run(np.zeros((2, 3, 1), np.int32), spec)
+
+
+def test_engine_builds_only_the_torch_engine(monkeypatch):
+    prog = Program.load(GOLDEN / "tiny_program_v1.npz")
+    with pytest.raises(ValueError, match="torch engine"):
+        prog.engine(ORACLE)
+    with pytest.raises(ValueError, match="torch engine"):
+        prog.precompile((1,), 4, PYTHON)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        prog.run(np.zeros((4, 6), np.int32), "oracle")
+    with pytest.raises(ValueError, match='device="cpu"'):
+        prog.run(np.zeros((4, 6), np.int32), "python")
+
+
+def test_later_slices_raise():
+    prog = Program.load(GOLDEN / "tiny_program_v1.npz")
+    for call, item in ((prog.verify, "item 5"), (prog.chip_span, "item 7"),
+                       (prog.mesh_hops, "item 7"),
+                       (lambda: prog.inter_chip_counts(None, None),
+                        "item 7")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+
+
+# -- profile, init packets, content hash ---------------------------------------
+
+def _loaded_and_carried(programs, name):
+    if name in ("tiny", "shd"):
+        path = GOLDEN / f"{name}_program_v1.npz"
+        return JaxProgram.load(path), Program.load(path)
+    return programs[name], carry(programs[name])
+
+
+def _assert_profile_equal(got, want, what):
+    assert dataclasses.asdict(got.cycle) == dataclasses.asdict(want.cycle), \
+        what
+    assert [dataclasses.asdict(r) for r in got.per_sample] == \
+        [dataclasses.asdict(r) for r in want.per_sample], what
+    assert dataclasses.asdict(got.resources) == \
+        dataclasses.asdict(want.resources), what
+    for f in ("latency_us", "power_w", "energy_mj", "energy_per_synapse_nj"):
+        assert getattr(got, f) == getattr(want, f), (what, f)
+
+
+@pytest.mark.parametrize("name", ["tiny", "shd", "feedforward", "recurrent"])
+def test_profile_matches_reference(programs, name):
+    """``ProfileReport`` equal to the reference's, batched and unbatched,
+    with the ``n_synapses=`` override, a power model and
+    ``inter_chip_counts``; a raw packet-count array as the stats dict."""
+    want_p, got_p = _loaded_and_carried(programs, name)
+    rng = np.random.default_rng(3)
+    ext = (rng.random((3, 9, got_p.n_inputs)) < 0.3).astype(np.int32)
+    _, _, st = got_p.run(ext, cpu("reference"))
+    ic = rng.integers(0, 4, st["packet_counts"].shape)
+    from repro.core.engine import PowerModel as JaxPowerModel
+    from repro_torch.core import PowerModel
+    power = dict(static_w=0.3, spu_dyn_w_per_bit=0.002, fabric_dyn_w=0.01)
+    for kw_got, kw_want in (
+            ({}, {}),
+            ({"n_synapses": 2 * got_p.n_synapses},
+             {"n_synapses": 2 * want_p.n_synapses}),
+            ({"power": PowerModel(**power)},
+             {"power": JaxPowerModel(**power)}),
+            ({"inter_chip_counts": ic}, {"inter_chip_counts": ic})):
+        _assert_profile_equal(got_p.profile(st, **kw_got),
+                              want_p.profile(st, **kw_want), (name, kw_got))
+        one = {k: (v[0] if isinstance(v, np.ndarray) else v)
+               for k, v in kw_got.items()}
+        one_w = {k: (v[0] if isinstance(v, np.ndarray) else v)
+                 for k, v in kw_want.items()}
+        got1 = got_p.profile(st["packet_counts"][0], **one)
+        _assert_profile_equal(got1, want_p.profile(
+            st["packet_counts"][0], **one_w), (name, "unbatched"))
+        assert got1.cycle == got1.per_sample[0]
+    with pytest.raises(ValueError, match="inter_chip_counts shape"):
+        got_p.profile(st, inter_chip_counts=ic[:, :3])
+
+
+@pytest.mark.parametrize("name", ["tiny", "shd", "feedforward", "recurrent"])
+def test_init_packets_and_content_hash_match_reference(programs, name):
+    want_p, got_p = _loaded_and_carried(programs, name)
+    pkts = got_p.init_packets()
+    assert pkts == want_p.init_packets()
+    assert len(pkts) == got_p.report.n_init_packets
+    assert got_p.content_hash() == want_p.content_hash()
+    if name == "shd":
+        assert got_p.content_hash() == ("2b2916b301a3678ffa1bf4427c59838b"
+                                        "de159f778e00f7ab9df3106cff54ee01")
+
+
+# -- save ------------------------------------------------------------------------
+
+def _assert_same_file(a_path, b_path):
+    """Same members, equal parsed JSON headers, equal bytes and dtypes of
+    every array (``savez_compressed`` stamps members with the clock, so
+    two saves' file bytes differ, the reference's own included)."""
+    with np.load(a_path) as a, np.load(b_path) as b:
+        assert set(a.files) == set(b.files)
+        assert json.loads(str(a["header"][()])) == \
+            json.loads(str(b["header"][()]))
+        for k in a.files:
+            if k != "header":
+                assert a[k].dtype == b[k].dtype, k
+                assert a[k].tobytes() == b[k].tobytes(), k
+
+
+@pytest.fixture(scope="module")
+def more_programs():
+    """A two-chip compile (post-v1 hw fields in the header) and a
+    portfolio compile (a search trace in the header)."""
+    from repro.core.mapping.search import SearchConfig
+    g = random_graph(12, 20, 160, seed=3)
+    return {"two_chips": compile(g, make_hw(g), max_iters=4000, n_chips=2),
+            "portfolio": compile(g, make_hw(g), search=SearchConfig(
+                restarts=2, max_iters=2000))}
+
+
+@pytest.mark.parametrize("name", ["tiny", "shd", "feedforward", "recurrent",
+                                  "two_chips", "portfolio"])
+def test_save_matches_reference(programs, more_programs, name, tmp_path):
+    """The port's save gives the reference's header and arrays (and the
+    golden file's); each package loads the other's file."""
+    want_p, got_p = _loaded_and_carried({**programs, **more_programs}, name)
+    ours = got_p.save(tmp_path / "ours")
+    theirs = want_p.save(tmp_path / "theirs.npz")
+    assert ours.name == "ours.npz"
+    _assert_same_file(ours, theirs)
+    if name in ("tiny", "shd"):
+        _assert_same_file(ours, GOLDEN / f"{name}_program_v1.npz")
+    back = JaxProgram.load(ours)
+    assert back.default_engine == "jax"
+    assert back.content_hash() == want_p.content_hash()
+    assert back.init_packets() == want_p.init_packets()
+    again = Program.load(theirs)
+    assert again.default_engine == "torch"
+    _assert_fields_equal(again.report, got_p.report, "report")
+    _assert_fields_equal(again.part, got_p.part, "part")
+    assert again.hw == got_p.hw and again.content_hash() == \
+        got_p.content_hash()
+    rng = np.random.default_rng(8)
+    ext = (rng.random((2, 6, got_p.n_inputs)) < 0.3).astype(np.int32)
+    assert_same_run(again.run(ext, cpu()), back.run(ext, "python"), name)

@@ -8,6 +8,10 @@ decision is made when the test runs, never at import).
 """
 from __future__ import annotations
 
+import json
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,44 +33,13 @@ def to_torch(a, device=CPU, dtype=torch.int32) -> torch.Tensor:
 
 
 def artifact_arrays(program) -> tuple[dict, dict]:
-    """The JSON header and arrays a reference ``Program.save`` writes,
-    built in memory from the reference ``program``."""
-    g, hw, t, rep, part = (program.graph, program.hw, program.tables,
-                           program.report, program.part)
-    header = {
-        "format": "suprasnn-program", "version": 1,
-        "default_engine": program.default_engine,
-        "graph": {"n_inputs": int(g.n_inputs),
-                  "n_neurons": int(g.n_neurons),
-                  "output_slice": [int(x) for x in g.output_slice],
-                  "lif": {"leak_shift": int(g.lif.leak_shift),
-                          "v_threshold": int(g.lif.v_threshold),
-                          "v_reset": int(g.lif.v_reset)}},
-        "hw": {"n_spus": hw.n_spus, "unified_mem_depth": hw.unified_mem_depth,
-               "concentration": hw.concentration,
-               "weight_bits": hw.weight_bits,
-               "potential_bits": hw.potential_bits,
-               "max_neurons": hw.max_neurons,
-               "max_post_neurons": hw.max_post_neurons,
-               "clock_mhz": hw.clock_mhz},
-        "report": {"method": rep.method, "feasible": bool(rep.feasible),
-                   "ot_depth": int(rep.ot_depth)},
-        "part": {"feasible": bool(part.feasible),
-                 "iterations": int(part.iterations),
-                 "perturbations": int(part.perturbations)},
-    }
-    arrays = {
-        "g_pre": g.pre, "g_post": g.post, "g_weight": g.weight,
-        "t_pre": t.pre, "t_post": t.post, "t_weight": t.weight,
-        "t_pre_end": t.pre_end, "t_post_end": t.post_end,
-        "t_assign": t.assign, "part_assign": part.assign,
-        "part_scores": part.scores,
-        "part_history": np.asarray(part.score_history, np.float64),
-        "rep_scores": rep.scores,
-        "rep_spu_synapse_counts": rep.spu_synapse_counts,
-        "rep_spu_post_counts": rep.spu_post_counts,
-        "rep_spu_weight_counts": rep.spu_weight_counts,
-    }
+    """The JSON header and arrays a reference ``Program.save`` writes:
+    the reference's own save of ``program`` to a temporary file, read
+    back, so a carried program profiles and saves as the reference's."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with np.load(program.save(Path(tmp) / "artifact")) as z:
+            header = json.loads(str(z["header"][()]))
+            arrays = {k: z[k] for k in z.files if k != "header"}
     return header, arrays
 
 
