@@ -67,7 +67,17 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    every bucket and at T in {100, ``ODD_T``}, with T launches per
    replay, an uncaptured shape run eagerly, and the warm time per
    timestep at B = 8, graphed and eager in turns, beside the card's
-   name and power limit;
+   name and power limit. The rest of serving (before the engines): a
+   ``ShardedRunner`` of two shards on the one card (``min_shard=0``)
+   and ``ExecutionSpec(mesh="auto")`` at B in ``SHARD_BATCHES``, both
+   tiers, bit-exact with one engine and the reference tier, T launches
+   per shard; an ``AsyncServer`` in engine mode serving 32 concurrent
+   SHD requests on the registry's graphed fused engine, every output
+   bit-exact with ``program.run`` and every stage sum equal to the
+   latency (p50 / p99 / req/s printed); ``replay`` of a Poisson and a
+   bursty trace at ``REPLAY_LOADS`` of the top bucket's capacity with
+   the card's measured graphed engine time per bucket as the service
+   model (p50 / p99 / shed printed);
 6. train the paper's SHD SRNN (``SHD_CONFIG``, 700-300-20 recurrent,
    T = 100) at full width for 5 steps at B = 32 with
    ``repro_torch.snn.train.train`` and score it with ``evaluate``, then
@@ -95,7 +105,14 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    input within ``LM_TOL``; the whole prefill is also run through the
    chunked path and its divergence and the share of greedy tokens
    agreeing are reported; prefill and decode times, tokens/s, peak
-   memory and the card's time by kernel are printed.
+   memory and the card's time by kernel are printed. Then the decode
+   step as one CUDA graph (``make_graphed_serve_step``, captured after
+   ``_grow_cache``, its capture time printed): 32 tokens graphed and 32
+   eager from two copies of the grown state, tokens, every state leaf
+   and the last logits equal bit for bit, no kernel-wrapper launch; a
+   step past the capacity and one over another params tree raise; ms
+   per token step graphed against eager in 3 interleaved pairs, tokens/s
+   and the graphed step's card busy share.
 
 Last, a capture that fails (a loop that copies to the host) must raise
 and leave no graph. The last two lines are the kernels' JSON record and
@@ -130,6 +147,10 @@ ODD_SPIKES = (2, -1, 300, 2 ** 20)   # external spike values outside {0, 1}
 N_REQUESTS = 32
 SERVE_BATCH = 8
 ODD_T = 37                       # a T no serving policy uses
+SHARD_BATCHES = (1, 3, 5, 8)     # the sharded runner's ragged batches
+REPLAY_REPS = 15                 # engine runs per bucket for the service model
+REPLAY_S = 2.0                   # simulated seconds of each replayed trace
+REPLAY_LOADS = (0.5, 0.9)        # offered rate / the top bucket's capacity
 TIME_PAIRS = 3                   # graphed/eager timing pairs, interleaved
 # the SHD-scale golden artifact's identity: the reference's content_hash
 SHD_HASH = "2b2916b301a3678ffa1bf4427c59838bde159f778e00f7ab9df3106cff54ee01"
@@ -1466,7 +1487,112 @@ def serve_lm(name: str, batch: int, dev: torch.device) -> int:
     torch.cuda.synchronize()
     print(f"  {name} one decode step: " + device_breakdown(
         lambda: serve(params, tok, state), time.perf_counter() - t0))
+    graphed_decode(name, cfg, params, logits, st_kernel, batch, dev)
     return at_prefill[kernel]
+
+
+def graphed_decode(name: str, cfg, params, logits, st_prefill, batch: int,
+                   dev: torch.device) -> None:
+    """The decode step as one CUDA graph (``make_graphed_serve_step``),
+    captured after ``_grow_cache``: LM_GEN greedy tokens graphed and
+    LM_GEN eager (``make_serve_step``'s body, keeping the last logits)
+    from two copies of the grown state, the counts set to 0 just before
+    and read just after (no kernel wrapper in decode); tokens, the final
+    state's leaves and the last logits equal bit for bit. A step past
+    the capacity and a step over another params tree raise. Then ms per
+    token step graphed against eager in TIME_PAIRS interleaved pairs
+    (the first step of each run, which copies the state in, untimed;
+    host clock and the card's clock), tokens/s and the graphed step's
+    busy share under the profiler."""
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+    from repro_torch.train.steps import (make_graphed_serve_step,
+                                         make_serve_step)
+
+    capacity = LM_PROMPT + LM_GEN
+    grown = _grow_cache(cfg, st_prefill, batch, capacity, dev)
+    tok0 = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    step = make_graphed_serve_step(cfg, params, dev)
+    step.precompile(batch, capacity)
+    torch.cuda.synchronize()
+    t_capture = time.perf_counter() - t0
+
+    g_state, tok, toks_g = tree_map(torch.clone, grown), tok0, []
+    for _ in range(LM_GEN):
+        tok, g_state = step(params, tok.reshape(batch, 1), g_state)
+        toks_g.append(tok.clone())
+    logits_g = step.last_logits.clone()
+    e_state, tok, toks_e = tree_map(torch.clone, grown), tok0, []
+    for _ in range(LM_GEN):
+        logits_e, e_state = M.decode_step(params, cfg, tok.reshape(batch, 1),
+                                          e_state)
+        tok = torch.argmax(logits_e[:, -1], dim=-1).to(torch.int32)
+        toks_e.append(tok)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in fns.items()}
+    expect(not any(counts.values()),
+           f"{name} graphed decode launched {counts}")
+    expect(torch.equal(torch.stack(toks_g), torch.stack(toks_e)),
+           f"{name}: graphed greedy tokens differ from eager")
+    got, ref = dict(leaves(g_state)), dict(leaves(e_state))
+    diff = {k: max_err_f(got[k], ref[k]) for k in got
+            if not torch.equal(got[k], ref[k])}
+    if not torch.equal(logits_g, logits_e):
+        diff["last logits"] = max_err_f(logits_g, logits_e)
+    expect(not diff, f"{name}: graphed decode differs from eager (max |err| "
+           f"by leaf): {diff}")
+    for what, call in (("past capacity", lambda: step(
+            params, tok.reshape(batch, 1), g_state)),
+            ("another params tree", lambda: step(
+                dict(params), tok0.reshape(batch, 1), grown))):
+        try:
+            call()
+        except ValueError as e:
+            err = str(e)
+        else:
+            err = None
+        expect(err is not None, f"{name}: a step {what} did not raise")
+        print(f"  {name} graphed step {what} raised: {err[:90]}")
+
+    eager = make_serve_step(cfg)
+
+    def run(serve) -> tuple[float, float]:
+        st = tree_map(torch.clone, grown)
+        t, st = serve(params, tok0.reshape(batch, 1), st)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        for _ in range(LM_GEN - 1):
+            t, st = serve(params, t.reshape(batch, 1), st)
+        ev[1].record()
+        torch.cuda.synchronize()
+        n = LM_GEN - 1
+        return ((time.perf_counter() - t0) / n * 1e3,
+                ev[0].elapsed_time(ev[1]) / n)
+
+    pairs = [(run(step), run(eager)) for _ in range(TIME_PAIRS)]
+    g_ms = statistics.median(g[0] for g, _ in pairs)
+    e_ms = statistics.median(e[0] for _, e in pairs)
+    print(f"serve {name} graphed decode (B={batch}, capacity {capacity}): "
+          f"capture {t_capture:.3f} s (warm step included); {LM_GEN} tokens "
+          f"graphed and eager equal bit for bit (tokens, every state leaf, "
+          f"the last logits); 0 kernel-wrapper launches; ms per token step "
+          f"graphed/eager (host clock; card clock): "
+          + ", ".join(f"{g[0]!r}/{e[0]!r} ({g[1]!r}/{e[1]!r})"
+                      for g, e in pairs)
+          + f"; tokens/s graphed {batch * 1e3 / g_ms:.1f}, eager "
+          f"{batch * 1e3 / e_ms:.1f}")
+    st = tree_map(torch.clone, grown)
+    tok, st = step(params, tok0.reshape(batch, 1), st)
+    print(f"  {name} one graphed decode step: " + device_breakdown(
+        lambda: step(params, tok.reshape(batch, 1), st), g_ms / 1e3))
+    del step
 
 
 def phase_lm(dev: torch.device) -> dict[str, int]:
@@ -1582,6 +1708,189 @@ def check_profile(program, served_pkts: np.ndarray, st_ref: dict,
           f"{c.cycles_total} cycles; resources "
           f"{dataclasses.asdict(got.resources)}; equal to the reference "
           f"tier's profile field by field")
+
+
+def same_run(got, want) -> bool:
+    """Bit-exact equality of two ``(spikes, v_final, stats)`` results."""
+    return all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in (
+        (got[0], want[0]), (got[1], want[1]),
+        (got[2]["packet_counts"], want[2]["packet_counts"])))
+
+
+def phase_sharded() -> None:
+    """``ShardedRunner`` over two shards on the one card (``min_shard=0``,
+    so every batch pads and masks) and ``ExecutionSpec(mesh="auto")`` on
+    the SHD-scale artifact at B in SHARD_BATCHES, T = TIMESTEPS, on the
+    fused and lif tiers: bit-exact with ``program.run`` on one engine
+    and the reference tier; ``precompile`` captures each per-shard size
+    once; a two-shard run launches the tier's kernel T times per shard
+    (the counts set to 0 just before each run and read just after)."""
+    from repro_torch.core import ExecutionSpec, Program
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.lif_update import lif_update_int
+    from repro_torch.serve import ShardedRunner
+    program = Program.load(GOLDEN / "shd_program_v1.npz")
+    rng = np.random.default_rng(6)
+    reference = ExecutionSpec(kernel="reference")
+    cards = tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))
+    for tier, kernel, other in (("fused", fused_step, lif_update_int),
+                                ("lif", lif_update_int, fused_step)):
+        one = ExecutionSpec(kernel=tier)
+        auto = ExecutionSpec(kernel=tier, mesh="auto")
+        two = ShardedRunner(program, spec=ExecutionSpec(
+            kernel=tier, mesh=("cuda:0", "cuda:0")), min_shard=0)
+        runner_auto = program.sharded_runner(auto)
+        expect(two.n_shards == 2 and runner_auto.mesh == cards
+               and program.sharded_runner(auto) is runner_auto,
+               f"sharded {tier}: mesh {two.mesh}, auto "
+               f"{program.sharded_runner(auto).mesh}")
+        new = two.precompile(SHARD_BATCHES, TIMESTEPS)
+        want_keys = [(two.padded_size(b), TIMESTEPS) for b in SHARD_BATCHES]
+        engine = program.engine(one)
+        expect(new == want_keys and two.precompile(SHARD_BATCHES,
+                                                   TIMESTEPS) == []
+               and all((k[0] // 2, TIMESTEPS) in engine._graphs
+                       for k in want_keys),
+               f"sharded {tier}: precompile prepared {new}")
+        for b in SHARD_BATCHES:
+            ext = (rng.random((b, TIMESTEPS, program.n_inputs))
+                   < 0.1).astype(np.int32)
+            want = program.run(ext, reference)
+            kernel.launches = other.launches = 0
+            got = two.run(ext)
+            counts = (kernel.launches, other.launches)
+            expect(counts == (2 * TIMESTEPS, 0),
+                   f"sharded {tier} B={b}: launches {counts}, want "
+                   f"({2 * TIMESTEPS}, 0)")
+            for what, res in (("two shards", got),
+                              ("mesh=auto", program.run(ext, auto)),
+                              ("one engine", program.run(ext, one))):
+                expect(same_run(res, want), f"sharded {tier} B={b}: {what} "
+                       f"differs from the reference tier")
+        ext = (rng.random((SERVE_BATCH, TIMESTEPS, program.n_inputs))
+               < 0.1).astype(np.int32)
+        engine.precompile([SERVE_BATCH], TIMESTEPS)   # both sides graphed
+
+        def run_ms(fn) -> float:
+            fn(ext)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn(ext)
+            return (time.perf_counter() - t0) / 5 * 1e3
+
+        print(f"sharded {tier}: two shards on cuda:0 (min_shard=0) and "
+              f"mesh=auto {cards} equal one engine and the reference tier at "
+              f"B={SHARD_BATCHES}, T={TIMESTEPS}, {2 * TIMESTEPS} launches "
+              f"per two-shard run; run at B={SERVE_BATCH}, graphed (warm, 5 runs, "
+              f"host clock): two shards {run_ms(two.run)!r} ms, one engine "
+              f"{run_ms(engine.run)!r} ms")
+
+
+def phase_async_server() -> None:
+    """``AsyncServer`` in engine mode on the registry's precompiled fused
+    engine: N_REQUESTS seeded SHD requests submitted concurrently, every
+    output bit-exact with ``program.run`` on the same request, every
+    stage sum equal to the latency, the kernel launched T times per
+    batch (the count set to 0 just before and read just after). Two
+    rounds, each a new server: the first batch of a round runs in a new
+    executor thread."""
+    import asyncio
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.serve import (AsyncServer, BatchPolicy, ProgramRegistry,
+                                   Request)
+    policy = BatchPolicy(max_batch=SERVE_BATCH, max_wait_us=2000.0)
+    registry = ProgramRegistry()
+    program = registry.load("shd", GOLDEN / "shd_program_v1.npz",
+                            precompile=policy, timesteps=TIMESTEPS)
+    rng = np.random.default_rng(7)
+    reqs = (rng.random((N_REQUESTS, TIMESTEPS, program.n_inputs))
+            < 0.1).astype(np.int32)
+
+    async def serve():
+        async with AsyncServer(registry, policy=policy) as srv:
+            t0 = time.perf_counter()
+            done = await asyncio.gather(*[
+                srv.submit(Request("shd", reqs[i], 0.0, stream=i))
+                for i in range(N_REQUESTS)])
+            wall = time.perf_counter() - t0
+        return done, srv.metrics(), wall
+
+    want = [program.run(r) for r in reqs]
+    for round_ in (1, 2):
+        fused_step.launches = 0
+        done, m, wall = asyncio.run(serve())
+        launches = fused_step.launches
+        batches = m["models"]["shd"]["batches"]
+        expect(launches == batches * TIMESTEPS,
+               f"async: {launches} fused_step launches for {batches} batches")
+        expect(sorted(c.stream for c in done) == list(range(N_REQUESTS)),
+               "async: a request was lost")
+        for c in done:
+            expect(((c.queue_wait_us + c.fill_wait_us) + c.pad_us)
+                   + c.compute_us == c.latency_us,
+                   f"async: stream {c.stream}'s stages do not sum to its "
+                   f"latency")
+            s, v, st = want[c.stream]
+            expect(np.array_equal(c.outputs[0], s)
+                   and np.array_equal(c.outputs[1], v)
+                   and np.array_equal(c.outputs[2], st["packet_counts"]),
+                   f"async: stream {c.stream}'s outputs differ from "
+                   f"program.run")
+        t, st = m["total"], m["total"]["stages_us"]
+        print(f"async server round {round_} (engine mode, fused tier, "
+              f"graphed buckets): {N_REQUESTS} concurrent SHD requests in "
+              f"{batches} batches, {launches} fused_step launches; p50 "
+              f"{t['p50_ms']!r} ms p99 {t['p99_ms']!r} ms "
+              f"{t['throughput_rps']!r} req/s (real clock, wall {wall:.3f} s);"
+              f" stages (us) queue {st['queue_wait']:.1f} fill "
+              f"{st['batch_fill']:.1f} pad {st['pad']:.1f} compute "
+              f"{st['compute']:.1f}; batch compute (us) "
+              f"{sorted({round(c.compute_us + c.pad_us, 1) for c in done})}; "
+              f"outputs equal program.run, stage sums equal the latency")
+
+
+def phase_replay(smi: str) -> None:
+    """``replay`` of Poisson and bursty traces with the card's measured
+    service model: the graphed fused engine's warm run time per bucket
+    (median of REPLAY_REPS runs, host clock, outputs copied back), the
+    offered rate REPLAY_LOADS of the top bucket's capacity (max_batch /
+    its service time), a queue bounded at 64 (reject)."""
+    from repro_torch.core import Program
+    from repro_torch.serve import ArrivalTrace, BatchPolicy, replay
+    policy = BatchPolicy(max_batch=SERVE_BATCH, max_queue=64)
+    program = Program.load(GOLDEN / "shd_program_v1.npz")
+    engine = program.engine()
+    engine.precompile(policy.buckets, TIMESTEPS)
+    rng = np.random.default_rng(8)
+    service = {}
+    for b in policy.buckets:
+        ext = (rng.random((b, TIMESTEPS, program.n_inputs))
+               < 0.1).astype(np.int32)
+        engine.run(ext)
+        runs = []
+        for _ in range(REPLAY_REPS):
+            t0 = time.perf_counter()
+            engine.run(ext)
+            runs.append((time.perf_counter() - t0) * 1e6)
+        service[b] = statistics.median(runs)
+    top_qps = SERVE_BATCH / service[SERVE_BATCH] * 1e6
+    print(f"replay service model (graphed fused engine, T={TIMESTEPS}, median "
+          f"of {REPLAY_REPS} warm runs) us per bucket: "
+          + ", ".join(f"{b}: {us!r}" for b, us in service.items())
+          + f"; top bucket's capacity {top_qps!r} req/s [{smi}]")
+    for kind in ("poisson", "bursty"):
+        for load in REPLAY_LOADS:
+            trace = getattr(ArrivalTrace, kind)(load * top_qps, REPLAY_S,
+                                                seed=0)
+            rep = replay(trace, policy, service.__getitem__)
+            expect(rep.stage_sum_exact and rep.served + sum(rep.shed.values())
+                   == rep.requests, f"replay {kind} {load}: accounting")
+            print(f"replay {kind} at {load:.0%} of capacity "
+                  f"({trace.offered_qps:.1f} req/s, {rep.requests} requests over {REPLAY_S} s): p50 "
+                  f"{rep.p50_ms!r} ms p99 {rep.p99_ms!r} ms, shed {rep.shed} "
+                  f"({rep.shed_frac:.4f}); stages (us) "
+                  + ", ".join(f"{k} {v:.1f}"
+                              for k, v in rep.stages_us.items()))
 
 
 def phase_engines() -> None:
@@ -1821,6 +2130,9 @@ def main() -> int:
     recs.update(phase_ssm_kernels(dev))
     phase_golden()
     launches = phase_serve()
+    phase_sharded()
+    phase_async_server()
+    phase_replay(smi)
     phase_engines()
     phase_graphs(smi)
     launches.update(phase_train(dev))

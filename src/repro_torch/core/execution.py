@@ -19,10 +19,21 @@
   the place of the reference's ``interpret`` knob: on the CPU the
   kernels' plain versions run, on CUDA the kernels.
 
-The reference's ``mesh``/``donate`` fields and its deprecated-kwarg
-shims are not ported. :meth:`ExecutionSpec.resolve` folds the defaults
-in once; the resolved spec is the engine cache key of
-``Program.engine()``. All engines and tiers are bit-exact.
+* ``mesh`` — ``None`` runs on one device; ``"auto"`` (every visible
+  CUDA device; without one, ``("cpu",)``) or a tuple of device strings
+  data-shards the batch through the owned
+  :class:`~repro_torch.serve.sharded.ShardedRunner` (``"torch"``
+  engine only). A device may repeat: ``("cpu",) * 4`` is four shards
+  run one after another, ``("cuda:0", "cuda:0")`` two on one card.
+  With a mesh, ``device`` is left ``None`` (it resolves to the mesh's
+  first device, the runner's single-device engine).
+
+The reference's ``donate`` field is not ported: the port's engines own
+their buffers (a captured shape replays over static ones), so there is
+nothing for a caller to donate. Nor are its deprecated-kwarg shims.
+:meth:`ExecutionSpec.resolve` folds the defaults in once; the resolved
+spec is the engine and runner cache key of ``Program.engine()`` and
+``Program.sharded_runner()``. All engines and tiers are bit-exact.
 """
 from __future__ import annotations
 
@@ -32,6 +43,7 @@ import torch
 
 ENGINES = ("torch", "python", "oracle")
 KERNELS = ("fused", "lif", "reference")
+AUTO_MESH = "auto"
 # reference engine names and where they stand in the port
 _ENGINE_NOTES = {"jax": "the port's compiled engine is 'torch'"}
 
@@ -42,8 +54,13 @@ class ExecutionSpec:
     engine: str = "torch"
     kernel: str | None = None          # None -> "fused"
     device: str | None = None          # None -> the CUDA card
+    mesh: object | None = None         # None | "auto" | tuple of devices
 
     def __post_init__(self):
+        if self.mesh is not None and not isinstance(self.mesh, str):
+            # a hashable tuple of device strings: the spec is a cache key
+            object.__setattr__(self, "mesh",
+                               tuple(str(d) for d in self.mesh))
         if self.engine not in ENGINES:
             note = _ENGINE_NOTES.get(self.engine)
             raise ValueError(f"unknown engine {self.engine!r}; use one of "
@@ -54,6 +71,15 @@ class ExecutionSpec:
         if self.engine != "torch" and self.kernel is not None:
             raise ValueError(f"kernel selects the torch engine's tier; it "
                              f"does not apply to engine={self.engine!r}")
+        if self.mesh is not None:
+            if self.engine != "torch":
+                raise ValueError(f"mesh= shards the torch engine; got "
+                                 f"engine={self.engine!r}")
+            if isinstance(self.mesh, str) and self.mesh != AUTO_MESH:
+                raise ValueError(f"mesh={self.mesh!r}: the only string form "
+                                 f"is {AUTO_MESH!r} (every visible device)")
+            if not self.mesh:
+                raise ValueError("mesh=() names no device")
         if self.engine == "python" and (
                 self.device is None or torch.device(self.device).type
                 != "cpu"):
@@ -62,18 +88,50 @@ class ExecutionSpec:
                 f"CPU only; pass device=\"cpu\" (got device="
                 f"{self.device!r})")
 
+    @property
+    def sharded(self) -> bool:
+        """True iff this spec routes through the sharded runner."""
+        return self.mesh is not None
+
+    def single_device(self) -> "ExecutionSpec":
+        """This spec without the mesh, on the mesh's first device — the
+        per-device engine key the sharded runner (and its small-batch
+        fallback) builds from. Call it on a resolved spec."""
+        if self.mesh is None:
+            return self
+        return dataclasses.replace(self, mesh=None, device=self.mesh[0])
+
     def resolve(self) -> "ExecutionSpec":
         """Fold the defaults in: kernel ``"fused"`` (torch engine only),
-        device the card.
+        device the card, ``mesh="auto"`` every visible CUDA device (the
+        CPU without one), each mesh device resolved like ``device``, and
+        ``device`` the mesh's first.
 
         Raises ``RuntimeError`` when the spec names the card (or leaves
-        the device to default) and no CUDA device is present. Idempotent.
+        the device to default) and no CUDA device is present, and
+        ``ValueError`` for a mesh that mixes the card and the CPU or a
+        ``device`` that is not the mesh's first. Idempotent.
         """
         kernel = self.kernel
         if self.engine == "torch" and kernel is None:
             kernel = "fused"
-        return dataclasses.replace(self, kernel=kernel,
-                                   device=str(resolve_device(self.device)))
+        if self.mesh is None:
+            return dataclasses.replace(self, kernel=kernel,
+                                       device=str(resolve_device(self.device)))
+        mesh = self.mesh
+        if mesh == AUTO_MESH:
+            n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            mesh = tuple(f"cuda:{i}" for i in range(n)) or ("cpu",)
+        devices = tuple(resolve_device(d) for d in mesh)
+        if len({d.type for d in devices}) > 1:
+            raise ValueError(f"mesh={self.mesh!r} mixes the card and the CPU; "
+                             f"a mesh's devices are all CUDA or all 'cpu'")
+        mesh = tuple(str(d) for d in devices)
+        if self.device is not None and self.device != mesh[0]:
+            raise ValueError(f"device={self.device!r} with mesh={mesh!r}: "
+                             f"leave device to the mesh (its first device)")
+        return dataclasses.replace(self, kernel=kernel, device=mesh[0],
+                                   mesh=mesh)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -21,6 +21,9 @@ arrays held in memory) and owns its engines:
   either package loads the other's file;
 * ``program.engine(spec)`` — the owned ``"torch"`` engine, built lazily
   and keyed on the resolved spec;
+* ``program.sharded_runner(spec)`` — the owned data-parallel runner
+  over the spec's mesh (:mod:`repro_torch.serve.sharded`), which
+  ``program.run(ext, ExecutionSpec(mesh=...))`` goes through;
 * ``program.precompile(buckets, T)`` — on the card, one CUDA graph of
   the T-step loop per bucket (see
   :meth:`~repro_torch.core.engine_torch.TorchMappedEngine.precompile`).
@@ -45,7 +48,8 @@ from repro_torch.core.engine import (CycleModel, CycleReport, PowerModel,
                                      run_mapped, run_oracle)
 from repro_torch.core.engine_torch import (TorchMappedEngine,
                                            normalize_ext_spikes)
-from repro_torch.core.execution import ExecutionSpec, as_spec
+from repro_torch.core.execution import (AUTO_MESH, ExecutionSpec,
+                                        as_spec)
 from repro_torch.core.graph import SNNGraph
 from repro_torch.core.mapping.books import PartitionResult
 from repro_torch.core.mapping.search import SearchTrace
@@ -167,7 +171,7 @@ class Program:
         """The owned ``"torch"`` engine for ``spec``, keyed on the
         resolved spec so an explicit value and the default it resolves
         to share one."""
-        spec = as_spec(spec, self.default_engine).resolve()
+        spec = as_spec(spec, self.default_engine).resolve().single_device()
         if spec.engine != "torch":
             raise ValueError(f"Program.engine builds the torch engine; got "
                              f"engine={spec.engine!r}")
@@ -177,6 +181,27 @@ class Program:
             self._engines[spec] = eng
         return eng
 
+    def sharded_runner(self, spec=None):
+        """The owned multi-device runner for ``spec``.
+
+        ``spec`` may be an :class:`ExecutionSpec` (``mesh=None`` means
+        ``"auto"`` here), a bare mesh (``"auto"`` or a tuple of device
+        strings), or ``None`` (``"auto"``). See
+        :mod:`repro_torch.serve.sharded`. Runners are cached like
+        engines: same resolved spec -> same object.
+        """
+        from repro_torch.serve.sharded import ShardedRunner
+        if spec is None or not isinstance(spec, ExecutionSpec):
+            spec = ExecutionSpec(mesh=AUTO_MESH if spec is None else spec)
+        if spec.mesh is None:
+            spec = dataclasses.replace(spec, mesh=AUTO_MESH)
+        spec = spec.resolve()
+        runner = self._engines.get(spec)
+        if runner is None:
+            runner = ShardedRunner(self, spec=spec)
+            self._engines[spec] = runner
+        return runner
+
     def precompile(self, batch_sizes, timesteps: int,
                    spec: ExecutionSpec | None = None) -> list:
         """Prepare the engine for every serving shape NOW.
@@ -185,11 +210,14 @@ class Program:
         .BatchPolicy` or an iterable of batch sizes; ``timesteps`` fixes
         the T axis. On the card the ``"fused"`` and ``"lif"`` tiers
         capture one CUDA graph of the T-step loop per shape; elsewhere
-        each shape is run once on zeros. Returns the shapes prepared by
+        each shape is run once on zeros. A ``mesh`` spec prepares the
+        owned sharded runner's shapes. Returns the shapes prepared by
         this call; idempotent per engine.
         """
-        return self.engine(spec).precompile(normalize_buckets(batch_sizes),
-                                            timesteps)
+        spec = as_spec(spec, self.default_engine)
+        target = (self.sharded_runner(spec) if spec.sharded
+                  else self.engine(spec))
+        return target.precompile(normalize_buckets(batch_sizes), timesteps)
 
     def content_hash(self) -> str:
         """SHA-256 over the lowered program + LIF params — the stable
@@ -211,8 +239,13 @@ class Program:
         ``(spikes, v_final, stats)`` — ``[T, n_internal]`` /
         ``[n_internal]`` / packet_counts ``[T]``, batched with a leading
         ``B`` — with the reference's bits and dtypes.
+        ``ExecutionSpec(mesh=...)`` data-parallelizes the batch axis over
+        the mesh's devices through the owned
+        :class:`~repro_torch.serve.sharded.ShardedRunner`.
         """
         spec = as_spec(spec, self.default_engine)
+        if spec.sharded:
+            return self.sharded_runner(spec).run(ext_spikes)
         if spec.engine == "torch":
             return self.engine(spec).run(ext_spikes)
         device = spec.resolve().device

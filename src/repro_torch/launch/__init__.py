@@ -1,1 +1,2 @@
-"""Port of :mod:`repro.launch`: the LM serving CLI (``serve``)."""
+"""Port of :mod:`repro.launch`: the LM serving CLI (``serve``) and the
+SNN serving CLI (``serve_snn``, the port of ``examples/serve_snn.py``)."""

@@ -7,7 +7,11 @@ greedily with the recurrent (and K/V) state; port of
 
 It runs on the card unless ``--device cpu`` is given. Parameters are
 drawn from ``--seed`` on the run's device (no checkpoint is read);
-prompts are numpy token ids from the same seed.
+prompts are numpy token ids from the same seed. On the card the decode
+steps replay one CUDA graph of the step, captured after the cache is
+grown (:func:`~repro_torch.train.steps.make_graphed_serve_step`, the
+counterpart of the reference's jitted, donated serve step); the CPU
+runs the step eagerly.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.execution import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.model import tree_map
-from repro_torch.train.steps import make_prefill_step, make_serve_step
+from repro_torch.train.steps import (make_graphed_serve_step,
+                                     make_prefill_step, make_serve_step)
 
 
 def main(argv=None) -> np.ndarray:
@@ -48,28 +53,40 @@ def main(argv=None) -> np.ndarray:
     # prefill fills a capacity == prompt_len cache; decoding continues in
     # a capacity prompt_len + gen cache (copied once, written in place)
     prefill = make_prefill_step(cfg)
-    serve = make_serve_step(cfg)
+    capacity = args.prompt_len + args.gen
     t0 = time.perf_counter()
     logits, state = prefill(params, {"tokens": prompts})
-    state = _grow_cache(cfg, state, args.batch, args.prompt_len + args.gen,
-                        dev)
+    state = _grow_cache(cfg, state, args.batch, capacity, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_prefill = time.perf_counter() - t0
 
+    t_capture = None
+    if dev.type == "cuda":      # one graph for the grown cache's shape
+        t0 = time.perf_counter()
+        serve = make_graphed_serve_step(cfg, params, dev)
+        serve.precompile(args.batch, capacity)
+        torch.cuda.synchronize(dev)
+        t_capture = time.perf_counter() - t0
+    else:
+        serve = make_serve_step(cfg)
+
     next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    out = []
+    toks_d = torch.empty((args.gen, args.batch), dtype=torch.int32,
+                         device=dev)
     t0 = time.perf_counter()
-    for _ in range(args.gen):
+    for i in range(args.gen):
         next_tok, state = serve(params, next_tok.reshape(args.batch, 1),
                                 state)
-        out.append(next_tok)
-    toks = torch.stack(out, dim=1).cpu().numpy() if out else \
-        np.zeros((args.batch, 0), np.int32)
+        toks_d[i].copy_(next_tok)      # a graphed step reuses next_tok
+    toks = toks_d.T.cpu().numpy()
     t_decode = time.perf_counter() - t0
 
     print(f"[prefill] {args.batch}x{args.prompt_len} in {t_prefill:.3f}s "
           f"on {dev}")
+    if t_capture is not None:
+        print(f"[capture] decode step graph (batch {args.batch}, capacity "
+              f"{capacity}) in {t_capture:.3f}s")
     print(f"[decode ] {args.gen} steps x batch {args.batch} in "
           f"{t_decode:.3f}s  "
           f"({args.gen * args.batch / max(t_decode, 1e-9):.1f} tok/s)")

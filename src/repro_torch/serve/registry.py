@@ -9,8 +9,10 @@ the same one. ``register``/``load`` take ``precompile=`` (a
 ``BatchPolicy`` or iterable of batch buckets, with ``timesteps=``) and
 prepare every serving shape before the model takes its first request:
 on the card the ``"fused"`` and ``"lif"`` tiers capture each shape's
-T-step loop as a CUDA graph (``Program.precompile``). The reference's
-sharded runners and deprecated kwargs are not ported.
+T-step loop as a CUDA graph (``Program.precompile``). A runner for an
+``ExecutionSpec(mesh=...)`` is the program's owned sharded runner
+(:mod:`repro_torch.serve.sharded`). The reference's deprecated kwargs
+are not ported.
 """
 from __future__ import annotations
 
@@ -109,14 +111,18 @@ class ProgramRegistry:
     def runner(self, name: str, spec: ExecutionSpec | None = None):
         """The model's batch-callable: ``[b, T, n_in] -> (s, v, stats)``.
 
-        Resolves to the program's owned engine for ``spec``; the
-        returned callable carries a ``precompile(buckets, timesteps)``
-        hook (``Program.run``'s owner has one) for warming.
+        Resolves to the program's owned engine (or owned sharded runner
+        when ``spec.mesh`` is set) — repeated calls reuse the same
+        object, and distinct models own distinct engines. The returned
+        callable carries a ``precompile(buckets, timesteps)`` hook (the
+        bound methods' owners have one) for warming.
         """
         program = self.get(name)
         if spec is None:
             return program.run              # default-spec bound method
         spec = as_spec(spec)
+        if spec.sharded:
+            return program.sharded_runner(spec).run
 
         def call(ext):
             return program.run(ext, spec)

@@ -646,3 +646,96 @@ def test_oracle_on_card_matches_cpu(cuda_device, name):
                                       device=str(cuda_device)))
     assert_same_run(got, prog.run(ext, ExecutionSpec(engine="oracle",
                                                      device="cpu")))
+
+
+# -- the rest of serving: sharded runner, async server, graphed decode ------
+
+@pytest.mark.parametrize("tier", ["fused", "lif"])
+def test_sharded_two_shards_on_one_card(cuda_device, tier):
+    """Two shards on one card (pad-and-mask at every size) equal the
+    single engine bit for bit, and run each shard through the kernel."""
+    from repro_torch.serve import ShardedRunner
+    prog = Program.load(GOLDEN / "shd_program_v1.npz")
+    dev = str(cuda_device)
+    spec = ExecutionSpec(kernel=tier, device=dev)
+    kernel = fused_step if tier == "fused" else lif_update_int
+    runner = ShardedRunner(prog, spec=ExecutionSpec(kernel=tier,
+                                                    mesh=(dev, dev)),
+                           min_shard=0)
+    assert runner.precompile((3, 4), 20) == [(4, 20)]
+    rng = np.random.default_rng(12)
+    for b in (1, 3, 5):
+        ext = (rng.random((b, 20, prog.n_inputs)) < 0.1).astype(np.int32)
+        before = kernel.launches
+        got = runner.run(ext)
+        assert kernel.launches - before == 2 * 20
+        assert_same_run(got, prog.run(ext, spec), f"{tier} B={b}")
+
+
+def test_async_server_engine_mode_round_trip(cuda_device):
+    """One AsyncServer round trip on the card's precompiled fused engine:
+    outputs bit-exact with program.run, stage sum equal to the latency."""
+    import asyncio
+
+    from repro_torch.serve import (AsyncServer, BatchPolicy, ProgramRegistry,
+                                   Request)
+    policy = BatchPolicy(max_batch=4, max_wait_us=2000.0)
+    spec = ExecutionSpec(device=str(cuda_device))
+    reg = ProgramRegistry()
+    prog = reg.load("m", GOLDEN / "tiny_program_v1.npz", precompile=policy,
+                    timesteps=6, spec=spec)
+    rng = np.random.default_rng(13)
+    reqs = [(rng.random((6, prog.n_inputs)) < 0.3).astype(np.int32)
+            for _ in range(5)]
+
+    async def main():
+        async with AsyncServer(reg, policy=policy, spec=spec) as srv:
+            return await asyncio.gather(*[srv.submit(Request("m", r, 0.0,
+                                                             stream=i))
+                                          for i, r in enumerate(reqs)])
+
+    for c in asyncio.run(main()):
+        assert ((c.queue_wait_us + c.fill_wait_us) + c.pad_us) \
+            + c.compute_us == c.latency_us
+        s, v, st = prog.run(reqs[c.stream], spec)
+        assert c.outputs[0].tobytes() == s.tobytes()
+        assert c.outputs[1].tobytes() == v.tobytes()
+        np.testing.assert_array_equal(c.outputs[2], st["packet_counts"])
+
+
+@pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-7b"])
+def test_graphed_decode_matches_eager(cuda_device, name):
+    """The graphed decode step at reduced size: the same greedy tokens and
+    state bits as the eager step, no kernel-wrapper launch, and a step
+    past the capacity raises before it replays."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+    from repro_torch.train.steps import (make_graphed_serve_step,
+                                         make_serve_step)
+
+    cfg = get_reduced(name)
+    params = M.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16))).to(cuda_device)
+    logits, st = M.prefill(params, cfg, tokens)
+    grown = _grow_cache(cfg, st, 2, 22, cuda_device)
+    step = make_graphed_serve_step(cfg, params, cuda_device)
+    assert step.precompile(2, 22) and not step.precompile(2, 22)
+    before = (wkv6.launches, ssd.launches)
+    eager = make_serve_step(cfg)
+    tok0 = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    tg, te = tok0, tok0
+    sg, se = tree_map(torch.clone, grown), tree_map(torch.clone, grown)
+    for _ in range(6):
+        tg, sg = step(params, tg.reshape(2, 1), sg)
+        te, se = eager(params, te.reshape(2, 1), se)
+        assert torch.equal(tg, te)
+    tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0),
+             sg, se)
+    torch.cuda.synchronize()
+    assert (wkv6.launches, ssd.launches) == before
+    with pytest.raises(ValueError, match="past capacity"):
+        step(params, tg.reshape(2, 1), sg)

@@ -5,7 +5,10 @@ imports every module of ``repro_torch``; more subprocesses import each
 package that takes part in an import cycle first (the kernel modules
 import ``snn.lif``, and ``snn`` launches the kernels; ``kernels.ref``
 loops ``models.mamba2.ssd_step``, and the models launch the kernels). An AST scan checks
-every import statement of the package and of ``chip_smoke.py``.
+every import statement of the package and of ``chip_smoke.py``. One more
+subprocess, jax still blocked, imports and runs the serving modules
+(sharded runner, replay, the serving CLI) and the graphed decode step's
+module.
 ``chip_smoke.py`` must fail, and print no result, without a CUDA card
 and outside the repo.
 """
@@ -64,7 +67,10 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.kernels.ssd",
                                    "repro_torch.models.mamba2",
                                    "repro_torch.models.model",
-                                   "repro_torch.launch.serve"])
+                                   "repro_torch.launch.serve",
+                                   "repro_torch.serve",
+                                   "repro_torch.launch.serve_snn",
+                                   "repro_torch.train.steps"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
@@ -78,6 +84,50 @@ def test_import_order_does_not_matter(first):
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+SERVING_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+import repro_torch.serve as S
+from repro_torch.core import ExecutionSpec, Program
+from repro_torch.launch import serve_snn
+from repro_torch.train.steps import (GraphedServeStep, StaticServeStep,
+                                     make_graphed_serve_step)
+assert set(S.__all__) >= {"ShardedRunner", "sharded_runner", "AsyncServer",
+                          "CompletedRequest", "ShedError", "QueueFullError",
+                          "DeadlineMissError", "ArrivalTrace", "SoakReport",
+                          "replay"}
+tiny = sys.argv[1]
+prog = Program.load(tiny)
+ext = np.ones((3, 5, prog.n_inputs), np.int32)
+got = S.sharded_runner(prog, ("cpu",) * 2, min_shard=0).run(ext)
+want = prog.run(ext, ExecutionSpec(device="cpu"))
+assert all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2]))
+rep = S.replay(S.ArrivalTrace.poisson(500.0, 1.0, seed=1), S.BatchPolicy(),
+               S.linear_service_model())
+assert rep.stage_sum_exact and rep.requests > 0
+m = serve_snn.main(["--artifact", tiny, "--requests", "6", "--timesteps",
+                    "4", "--device", "cpu"])
+assert m["requests"] == 6
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_serving_imports_and_runs_without_jax():
+    tiny = ROOT / "tests" / "golden" / "tiny_program_v1.npz"
+    out = subprocess.run([sys.executable, "-c", SERVING_WITHOUT_JAX,
+                          str(tiny)],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
 
 
 @pytest.mark.parametrize("path", _sources(),
