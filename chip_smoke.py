@@ -44,9 +44,30 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    version's, one PyTorch library call's and the card's bound; then each
    kernel's record at the shape its path gives it;
 4. the golden artifacts (``tests/golden``), all three tiers on the
-   card, against their recorded outputs;
+   card, against their recorded outputs; then the compiler's back end
+   and the static verifier: the SHD golden's graph rebuilt by the port's
+   ``random_graph`` and its hw from ``SHD_HW`` (9-bit weights, 18-bit
+   potentials), its assignment scheduled with ``"slack"``, lowered,
+   reported and saved, equal to the golden (tables, lowering, report,
+   npz arrays, ``content_hash``); the same assignment scheduled with
+   ``"consecutive"`` and ``"load_balance"``, each program verified clean
+   and run at B = 8, T = 100 on the fused and lif tiers (counts set to 0
+   just before each run and read just after: exactly T launches of the
+   tier's kernel), bit-exact with the reference tier and the recorded
+   io, OT depths printed; ``verify()`` clean on both goldens, its wall
+   time at SHD scale per checker and ``schedule``'s per strategy
+   printed (host time of the card's machine) with the card's name and
+   power limit; a MEM002 and a SCHED006 mutant refused by
+   ``register(verify=True, precompile=...)`` with no engine built, the
+   verifier CLI's exit codes 0 (goldens), 1 (a mutant saved to a
+   temporary directory) and 2 (an unreadable file); and the golden on
+   4 chips (a 2 x 2 mesh): ``chip_span``, ``mesh_hops`` and
+   ``inter_chip_counts`` of the card's served spikes, and the cycle
+   model's latency and energy beside the single-chip figures (modeled
+   FPGA figures, not card times);
 5. serve 32 seeded Poisson requests (T = 100) of the SHD-scale artifact
-   through ``ProgramRegistry`` and ``MicroBatcher`` in measured mode,
+   (registered with ``verify=True``) through ``ProgramRegistry`` and
+   ``MicroBatcher`` in measured mode,
    once on the default ``"fused"`` tier and once on ``"lif"``, each run
    with the launch counts set to 0 just before and read just after, and
    every request's outputs checked against the ``"reference"`` tier
@@ -115,8 +136,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    and the graphed step's card busy share.
 
 Last, a capture that fails (a loop that copies to the host) must raise
-and leave no graph. The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+and leave no graph. The last two lines are the kernels' JSON record (a
+kernel's ``launches`` summed over the counted runs of the paths that
+launch it: phases 4 and 5 for ``fused_step`` and ``lif_update_int``)
+and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1623,6 +1646,235 @@ def phase_golden() -> None:
                   f"reference match the recorded outputs on the card")
 
 
+def _io(name: str) -> dict:
+    with np.load(GOLDEN / f"{name}_program_v1_io.npz") as io:
+        return {k: io[k] for k in io.files}
+
+
+def _same_header(a: dict, b: dict) -> bool:
+    """Two artifact headers equal but for the compile's wall times."""
+    def strip(h):
+        rep = {k: v for k, v in h["report"].items()
+               if k not in ("compile_seconds", "phase_seconds",
+                            "phase_alloc_mb")}
+        return {**h, "report": rep}
+    return strip(a) == strip(b)
+
+
+def phase_back_end(smi: str) -> dict[str, int]:
+    """The compiler's back end and the static verifier on the card's
+    machine, without jax: (a) the SHD golden's graph rebuilt by
+    ``random_graph`` and its hw from ``SHD_HW``; (b) the golden's
+    assignment scheduled (``"slack"``), lowered, reported and saved:
+    tables, lowering, report, npz arrays and ``content_hash`` equal the
+    golden's; (c) the same assignment under ``"consecutive"`` and
+    ``"load_balance"``, each program verified clean and run at
+    B = SERVE_BATCH, T = TIMESTEPS on the fused and lif tiers with the
+    counts set to 0 just before and read just after: exactly T launches
+    of the tier's kernel, bit-exact with the reference tier and the
+    golden's recorded io; (d) ``verify()`` on both goldens, its wall
+    time at SHD scale per checker, and ``schedule``'s per strategy;
+    (e) mutants (a stale ``report.scores[0]``, MEM002; a send slot
+    moved to 0, SCHED006) refused by ``register(verify=True,
+    precompile=...)`` before any capture, and the verifier CLI's exit
+    codes 0 / 1 / 2; (f) the golden on 4 chips (a 2 x 2 mesh): the
+    multi-chip accounting of the card's served spikes and the cycle
+    model's modeled FPGA figures beside the single-chip ones. Returns
+    each kernel's launches in the counted runs of (c)."""
+    import dataclasses
+    import os
+    import tempfile
+    from repro_torch.configs.snn_paper import SHD_HW
+    from repro_torch.core import (ExecutionSpec, Program, lower_tables,
+                                  packet_stats, random_graph)
+    from repro_torch.core.passes import (build_report, lower_pass,
+                                         schedule_pass, validate_pass)
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.lif_update import lif_update_int
+    from repro_torch.serve import ProgramRegistry
+
+    path = GOLDEN / "shd_program_v1.npz"
+    gold = Program.load(path)
+    io = _io("shd")
+    # (a) the graph and the hardware from the port alone
+    g = random_graph(700, 320, 33000, seed=0, weight_lo=-255, weight_hi=255)
+    hw = dataclasses.replace(SHD_HW, weight_bits=9, potential_bits=18)
+    expect(all(np.array_equal(getattr(g, f), getattr(gold.graph, f))
+               and getattr(g, f).dtype == getattr(gold.graph, f).dtype
+               for f in ("pre", "post", "weight"))
+           and (g.n_inputs, g.n_neurons, g.output_slice, g.lif)
+           == (gold.graph.n_inputs, gold.graph.n_neurons,
+               gold.graph.output_slice, gold.graph.lif),
+           "random_graph differs from the SHD golden's graph")
+    expect(hw == gold.hw, f"SHD_HW at 9/18 bits {hw} != golden {gold.hw}")
+    # (b) schedule, lower, report, save: the golden again
+    part, rep = gold.part, gold.report
+    t0 = time.perf_counter()
+    tables = schedule_pass(g, part, hw, method="slack")
+    sched_s = time.perf_counter() - t0
+    validate_pass(g, tables)
+    for f in ("pre", "post", "weight", "pre_end", "post_end", "assign"):
+        expect(np.array_equal(getattr(tables, f), getattr(gold.tables, f)),
+               f"slack schedule: tables.{f} differs from the golden's")
+    expect(tables.send_slot == gold.tables.send_slot
+           and tables.send_order == gold.tables.send_order,
+           "slack schedule: send slots differ from the golden's")
+    lowered = lower_pass(g, tables)
+    for f in dataclasses.fields(lowered):
+        a, b = getattr(lowered, f.name), getattr(gold.lowered, f.name)
+        expect(np.array_equal(a, b) and np.asarray(a).dtype
+               == np.asarray(b).dtype, f"lowering: {f.name} differs")
+    expect(np.array_equal(lower_tables(g, tables).op_pre, lowered.op_pre),
+           "lower_tables differs from lower_pass")
+    report = build_report(g, hw, tables, part, method=rep.method,
+                          compile_seconds=rep.compile_seconds,
+                          routing=lowered.routing, search=rep.search,
+                          schedule_method="slack",
+                          schedule_depths=rep.schedule_depths)
+    report.phase_seconds = rep.phase_seconds
+    rebuilt = Program(g, hw, tables, lowered, report, part)
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = rebuilt.save(Path(tmp) / "shd")
+        with np.load(path) as a, np.load(saved) as b:
+            expect(set(a.files) == set(b.files), "rebuilt: members differ")
+            expect(_same_header(json.loads(str(a["header"][()])),
+                                json.loads(str(b["header"][()]))),
+                   "rebuilt: header differs from the golden's")
+            for k in a.files:
+                expect(k == "header" or (a[k].dtype == b[k].dtype
+                                         and a[k].tobytes() == b[k].tobytes()),
+                       f"rebuilt: array {k} differs from the golden's")
+    expect(rebuilt.content_hash() == SHD_HASH,
+           f"rebuilt content_hash {rebuilt.content_hash()} != {SHD_HASH}")
+    print(f"back end shd: random_graph + SHD_HW (9/18 bits) = the golden's "
+          f"graph and hw; slack schedule of its assignment in "
+          f"{sched_s * 1e3:.2f} ms (host), OT depth {tables.depth}: tables, "
+          f"lowering, report and saved arrays equal the golden's, "
+          f"content_hash {SHD_HASH}")
+    # (c) the other two strategies, verified and run on both kernel tiers
+    launches = {"fused_step": 0, "lif_update_int": 0}
+    ext = np.concatenate([io["ext"]] * (SERVE_BATCH // len(io["ext"])))
+    want = tuple(np.concatenate([io[k]] * (SERVE_BATCH // len(io["ext"])))
+                 for k in ("spikes", "v_final", "packet_counts"))
+    depths = {"slack": tables.depth}
+    for method in ("consecutive", "load_balance"):
+        t_m = schedule_pass(g, part, hw, method=method)
+        validate_pass(g, t_m)
+        prog = Program(g, hw, t_m, lower_pass(g, t_m),
+                       build_report(g, hw, t_m, part, method=rep.method,
+                                    compile_seconds=0.0,
+                                    schedule_method=method), part)
+        depths[method] = t_m.depth
+        vr = prog.verify()
+        expect(vr.ok and not vr.diagnostics,
+               f"{method}: verify not clean: {vr.summary()}")
+        ref = prog.run(ext, ExecutionSpec(kernel="reference"))
+        for tier, kernel, other in (("fused", fused_step, lif_update_int),
+                                    ("lif", lif_update_int, fused_step)):
+            kernel.launches = other.launches = 0
+            got = prog.run(ext, ExecutionSpec(kernel=tier))
+            n_k, n_o = kernel.launches, other.launches
+            expect(n_k == TIMESTEPS and n_o == 0,
+                   f"{method} {tier}: {n_k} launches (and {n_o} of the "
+                   f"other kernel), want {TIMESTEPS}")
+            launches[kernel.__name__] += n_k
+            expect(same_run(got, ref) and same_run(
+                got, want[:2] + (packet_stats(want[2]),)),
+                f"{method} {tier}: differs from the reference tier or the "
+                f"golden's recorded io")
+    print(f"back end strategies: OT depth {depths}; consecutive and "
+          f"load_balance verify clean and run B={SERVE_BATCH} "
+          f"T={TIMESTEPS} on the fused and lif tiers with {TIMESTEPS} "
+          f"launches a run, bit-exact with the reference tier and the "
+          f"golden's recorded io")
+    # (d) the verifier on both goldens, and its host time at SHD scale
+    for name in ("tiny", "shd"):
+        vr = Program.load(GOLDEN / f"{name}_program_v1.npz").verify()
+        expect(vr.ok and not vr.diagnostics,
+               f"verify {name}: not clean: {vr.summary()}")
+    runs = [gold.verify() for _ in range(7)]
+    split = {k: statistics.median(r.checker_wall_ms[k] for r in runs)
+             for k in runs[0].checkers}
+    sched = {}
+    for method in depths:
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            schedule_pass(g, part, hw, method=method)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        sched[method] = statistics.median(ts)
+    print(f"verify shd (host of the card's machine, median of 7): "
+          f"{statistics.median(r.wall_ms for r in runs)!r} ms; per checker "
+          + ", ".join(f"{k} {v!r}" for k, v in split.items())
+          + " ms; schedule (median of 5) "
+          + ", ".join(f"{k} {v!r}" for k, v in sched.items())
+          + f" ms [{smi}]")
+    # (e) mutants refused before any capture; the CLI's exit codes
+    registry = ProgramRegistry()
+    policy = (1, 2, 4, SERVE_BATCH)
+    bad = Program.load(path)
+    bad.report.scores[0] += 1
+    bad_send = Program.load(path)
+    t_b = bad_send.tables
+    t_b.send_slot[max(t_b.send_slot, key=t_b.send_slot.__getitem__)] = 0
+    for code, mutant in (("MEM002", bad), ("SCHED006", bad_send)):
+        before = (fused_step.launches, lif_update_int.launches)
+        try:
+            registry.register(code, mutant, verify=True, precompile=policy,
+                              timesteps=TIMESTEPS)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        expect(code in refused and code not in registry
+               and not mutant._engines
+               and (fused_step.launches, lif_update_int.launches) == before,
+               f"mutant {code}: not refused before capture ({refused!r})")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cli = [sys.executable, "-m", "repro_torch.analysis.verify"]
+    with tempfile.TemporaryDirectory() as tmp:
+        stale = bad.save(Path(tmp) / "stale")
+        junk = Path(tmp) / "junk.npz"
+        junk.write_bytes(b"not an npz")
+        codes = {}
+        for what, args in (("goldens", [str(path), str(GOLDEN /
+                                                      "tiny_program_v1.npz")]),
+                           ("mutant", [str(stale), "--json"]),
+                           ("unreadable", [str(junk)])):
+            r = subprocess.run(cli + args, capture_output=True, text=True,
+                               env=env, timeout=300)
+            codes[what] = r.returncode
+    expect(codes == {"goldens": 0, "mutant": 1, "unreadable": 2},
+           f"verifier CLI exit codes {codes}")
+    print(f"verify gate: MEM002 and SCHED006 mutants refused by "
+          f"register(verify=True, precompile=...) with no engine built and "
+          f"no launch; CLI exit codes {codes}")
+    # (f) four chips: the multi-chip accounting of the served spikes
+    s, v, stats = gold.run(io["ext"])
+    expect(same_run((s, v, stats), (io["spikes"], io["v_final"],
+                                     packet_stats(io["packet_counts"]))),
+           "4 chips: the served run differs from the recorded io")
+    four = Program.load(path)
+    four.hw = dataclasses.replace(four.hw, n_chips=4)
+    span, hops = four.chip_span(), four.mesh_hops()
+    ic = four.inter_chip_counts(io["ext"], s)
+    one_p, four_p = gold.profile(stats), four.profile(stats,
+                                                      inter_chip_counts=ic)
+    expect(four.hw.mesh_dims == (2, 2) and four.hw.spus_per_chip == 16
+           and span.max() <= 4 and ic.shape == stats["packet_counts"].shape
+           and int(ic.sum()) > 0
+           and four_p.cycle.cycles_total > one_p.cycle.cycles_total,
+           "4 chips: accounting out of shape or zero")
+    print(f"4 chips (2 x 2 mesh, 16 SPUs a chip) on the served spikes: "
+          f"mean chip span {float(span[span > 0].mean())!r}, mesh hops "
+          f"{int(hops.sum())} over {int((hops > 0).sum())} neurons, "
+          f"{int(ic.sum())} inter-chip hops in {ic.size} timesteps; "
+          f"CycleModel (modeled FPGA figures, not card times): latency "
+          f"{four_p.latency_us!r} us, energy {four_p.energy_mj!r} mJ on 4 "
+          f"chips against {one_p.latency_us!r} us, {one_p.energy_mj!r} mJ "
+          f"on one")
+    return launches
+
+
 def phase_serve() -> dict[str, int]:
     """Serve the SHD-scale artifact on the fused and lif tiers; return
     each kernel's launches in the run of its tier."""
@@ -1634,7 +1886,8 @@ def phase_serve() -> dict[str, int]:
     policy = BatchPolicy(max_batch=SERVE_BATCH)
     registry = ProgramRegistry()
     program = registry.load("shd", GOLDEN / "shd_program_v1.npz",
-                            precompile=policy, timesteps=TIMESTEPS)
+                            verify=True, precompile=policy,
+                            timesteps=TIMESTEPS)
     rng = np.random.default_rng(1)
     requests = (rng.random((N_REQUESTS, TIMESTEPS, program.n_inputs))
                 < 0.1).astype(np.int32)
@@ -1801,7 +2054,8 @@ def phase_async_server() -> None:
     policy = BatchPolicy(max_batch=SERVE_BATCH, max_wait_us=2000.0)
     registry = ProgramRegistry()
     program = registry.load("shd", GOLDEN / "shd_program_v1.npz",
-                            precompile=policy, timesteps=TIMESTEPS)
+                            verify=True, precompile=policy,
+                            timesteps=TIMESTEPS)
     rng = np.random.default_rng(7)
     reqs = (rng.random((N_REQUESTS, TIMESTEPS, program.n_inputs))
             < 0.1).astype(np.int32)
@@ -2129,7 +2383,10 @@ def main() -> int:
     recs.update(phase_snn_kernels(dev))
     recs.update(phase_ssm_kernels(dev))
     phase_golden()
+    back_end = phase_back_end(smi)
     launches = phase_serve()
+    for name, n in back_end.items():
+        launches[name] += n
     phase_sharded()
     phase_async_server()
     phase_replay(smi)

@@ -1,10 +1,16 @@
-"""Port of :mod:`repro.core`: the artifact, its executors, its cycle and
-energy model, and the engine.
+"""Port of :mod:`repro.core`: the graph, the memory and resource models,
+the baselines, the scheduler and the back-end passes, the artifact, its
+executors, its cycle and energy model, and the engine.
 
 This package imports torch and numpy only; nothing here pulls in jax.
+The partitioner (``partition``, ``compile`` and the mapping search)
+waits for a later slice.
 """
 from repro_torch.core.aot import content_hash, normalize_buckets
-from repro_torch.core.cost import ResourceModel, ResourceReport
+from repro_torch.core.baselines import (BASELINES, post_neuron_round_robin,
+                                        synapse_round_robin,
+                                        weight_round_robin)
+from repro_torch.core.cost import ResourceModel, ResourceReport, resources
 from repro_torch.core.engine import (CycleModel, CycleReport,
                                      MergeAlignmentError, PowerModel,
                                      oracle_packet_counts, packet_stats,
@@ -13,23 +19,42 @@ from repro_torch.core.engine_torch import (TorchMappedEngine,
                                            finalize_outputs,
                                            normalize_ext_spikes)
 from repro_torch.core.execution import ExecutionSpec, as_spec
-from repro_torch.core.graph import SNNGraph
+from repro_torch.core.graph import SNNGraph, from_quantized, random_graph
 from repro_torch.core.mapping import (CandidateTrace, PartitionResult,
                                       SearchTrace)
-from repro_torch.core.memory_model import HardwareConfig
-from repro_torch.core.passes import CompileReport, initialization_packets
+from repro_torch.core.memory_model import (HardwareConfig, bram_count,
+                                           scores_from_assignment,
+                                           spu_score, spu_usage,
+                                           total_memory_bits,
+                                           total_memory_kb)
+from repro_torch.core.passes import (CompileReport, build_report,
+                                     initialization_packets, lower_pass,
+                                     schedule_pass, validate_pass)
 from repro_torch.core.program import ProfileReport, Program
-from repro_torch.core.scheduling import (NOP, LoweredProgram, OpTables,
-                                         lower_tables)
+from repro_torch.core.scheduling import (NOP, SCHEDULE_STRATEGIES,
+                                         LoweredProgram, OpTables,
+                                         ScheduleStrategy,
+                                         get_schedule_strategy,
+                                         lower_tables,
+                                         register_schedule_strategy,
+                                         schedule, validate_schedule)
 
 __all__ = [
-    "CandidateTrace", "CompileReport", "CycleModel", "CycleReport",
-    "ExecutionSpec", "HardwareConfig", "LoweredProgram",
-    "MergeAlignmentError", "NOP", "OpTables", "PartitionResult",
-    "PowerModel", "ProfileReport", "Program", "ResourceModel",
-    "ResourceReport", "SNNGraph", "SearchTrace", "TorchMappedEngine",
-    "as_spec", "content_hash", "finalize_outputs",
-    "initialization_packets", "lower_tables", "normalize_buckets",
-    "normalize_ext_spikes", "oracle_packet_counts", "packet_stats",
-    "run_mapped", "run_oracle",
+    "SNNGraph", "from_quantized", "random_graph", "HardwareConfig",
+    "spu_score", "spu_usage", "scores_from_assignment", "total_memory_bits",
+    "total_memory_kb", "bram_count", "PartitionResult",
+    "BASELINES", "post_neuron_round_robin", "synapse_round_robin",
+    "weight_round_robin", "NOP", "LoweredProgram", "OpTables", "lower_tables",
+    "schedule", "validate_schedule",
+    "SCHEDULE_STRATEGIES", "ScheduleStrategy", "get_schedule_strategy",
+    "register_schedule_strategy",
+    "CycleModel", "CycleReport", "PowerModel", "MergeAlignmentError",
+    "oracle_packet_counts", "packet_stats", "run_mapped", "run_oracle",
+    "TorchMappedEngine", "ResourceModel", "ResourceReport", "resources",
+    "CandidateTrace", "SearchTrace",
+    "CompileReport", "build_report", "initialization_packets", "lower_pass",
+    "schedule_pass", "validate_pass",
+    "Program", "ProfileReport",
+    "ExecutionSpec", "as_spec", "content_hash", "finalize_outputs",
+    "normalize_buckets", "normalize_ext_spikes",
 ]

@@ -1,16 +1,15 @@
 """FPGA resource model (LUT/FF/BRAM); port of ``repro/core/cost.py``.
 
 LUT/FF constants are fitted to the two implementation points of paper
-Table 2 (XC7Z020/MNIST and XC7Z030/SHD). :func:`resources` needs the
-memory model (Eqs. 9-11) for its BRAM and memory figures, which waits
-for the compiler slice; a loaded artifact carries its
-:class:`ResourceReport` in the header.
+Table 2 (XC7Z020/MNIST and XC7Z030/SHD); BRAM and memory come from
+the memory model (Eq. 11) with half-BRAM packing granularity.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core.memory_model import HardwareConfig
+from repro_torch.core.memory_model import (HardwareConfig, bram_count,
+                                           total_memory_kb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +42,8 @@ class ResourceReport:
 
 def resources(hw: HardwareConfig, ot_depth: int,
               model: ResourceModel | None = None) -> ResourceReport:
-    raise NotImplementedError(
-        "resources() needs the memory model (Eqs. 9-11), which the port "
-        "does not have yet (ROADMAP Queue A item 7)")
+    model = model or ResourceModel()
+    return ResourceReport(
+        luts=model.luts(hw), ffs=model.ffs(hw),
+        brams=bram_count(hw, ot_depth),
+        memory_kb=total_memory_kb(hw, ot_depth))

@@ -55,6 +55,7 @@ from repro_torch.core.scheduling import LoweredProgram, OpTables, lower_tables
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
                                             pack_dense, pack_plane)
+from repro_torch.kernels.launches import count_launch, recording
 from repro_torch.kernels.lif_update import lif_int_launcher, lif_update_int
 from repro_torch.snn.lif import LIFIntParams, lif_step_int
 
@@ -131,11 +132,7 @@ class _GraphedShape:
     def replay(self) -> None:
         self.graph.replay()
         for kernel, n in self.launches.items():
-            kernel.launches += n
-
-
-# the kernel wrappers whose launches a captured loop records
-_COUNTED = (fused_step, lif_update_int)
+            count_launch(kernel, n)
 
 
 class TorchMappedEngine:
@@ -285,9 +282,9 @@ class TorchMappedEngine:
         """Capture the loop of one shape into a CUDA graph over static
         buffers, after one warm run on a side stream (the first launch
         of a lazily loaded kernel must not fall inside a capture). A
-        capture that fails raises. The capture launches nothing, so the
-        wrappers' counts are put back and the recorded launches kept
-        for :meth:`_GraphedShape.replay`."""
+        capture that fails raises. The capture launches nothing: the
+        launches it records go to :meth:`_GraphedShape.replay`, not to
+        the wrappers' counts."""
         buf = self._buffers(b, t_steps)
         buf.ext_d.zero_()
         with _build.on_device(self.device):
@@ -297,18 +294,10 @@ class TorchMappedEngine:
             with torch.cuda.stream(side):
                 self._loop(buf)
             main.wait_stream(side)
-            before = [k.launches for k in _COUNTED]
             graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph):
-                    self._loop(buf)
-                recorded = {k: k.launches - n
-                            for k, n in zip(_COUNTED, before)}
-            finally:
-                for k, n in zip(_COUNTED, before):
-                    k.launches = n
-        return _GraphedShape(graph, buf,
-                             {k: n for k, n in recorded.items() if n})
+            with recording() as recorded, torch.cuda.graph(graph):
+                self._loop(buf)
+        return _GraphedShape(graph, buf, recorded)
 
     def precompile(self, batch_sizes, timesteps: int) -> list[tuple[int, int]]:
         """Prepare each ``(batch, timesteps)`` shape for serving.

@@ -1,8 +1,13 @@
-"""The compile pipeline's report and the initialization stream; port of
-``CompileReport`` and ``initialization_packets`` from
-``repro/core/passes.py``. The passes themselves (partition, schedule,
-validate, build_report) wait for the compiler slice (ROADMAP Queue A
-item 7); a loaded artifact carries its report in the header.
+"""The compile pipeline's back end as explicit passes; port of
+``repro/core/passes.py`` from a partition onward::
+
+    schedule -> validate -> lower -> report
+
+Each pass is a pure function of its inputs: re-schedule a hand-edited
+assignment, or lower a baseline for comparison. This module also owns
+:class:`CompileReport` and :func:`initialization_packets` (the MC-tree
+configuration stream). The partitioning passes (``partition_pass``,
+``search_pass``) wait for the partitioner (ROADMAP Queue A item 7).
 """
 from __future__ import annotations
 
@@ -10,11 +15,14 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.cost import ResourceReport
+from repro_torch.core.cost import ResourceReport, resources
 from repro_torch.core.graph import SNNGraph
+from repro_torch.core.mapping.books import PartitionResult
 from repro_torch.core.mapping.search import SearchTrace
 from repro_torch.core.memory_model import HardwareConfig
-from repro_torch.core.scheduling import NOP, OpTables
+from repro_torch.core.scheduling import (NOP, LoweredProgram, OpTables,
+                                         lower_tables, schedule,
+                                         validate_schedule)
 
 
 @dataclasses.dataclass
@@ -42,6 +50,99 @@ class CompileReport:
     phase_seconds: dict | None = None
     # per-phase net allocation MB (None unless an alloc profiler ran)
     phase_alloc_mb: dict | None = None
+
+
+# ---------------------------------------------------------------------------
+# Passes.
+# ---------------------------------------------------------------------------
+
+def schedule_pass(g: SNNGraph, part: PartitionResult | np.ndarray,
+                  hw: HardwareConfig, *, method: str = "slack") -> OpTables:
+    """Heuristic scheduling (paper §6.3) of an assignment into OpTables.
+
+    ``method`` names a registered
+    :class:`~repro_torch.core.scheduling.strategies.ScheduleStrategy`
+    (the post transmit-order policy); ``'slack'`` is the default.
+    """
+    assign = part.assign if isinstance(part, PartitionResult) else part
+    return schedule(g, assign, hw, method=method)
+
+
+def validate_pass(g: SNNGraph, tables: OpTables) -> None:
+    """Schedule legality checks; raises AssertionError on violation.
+
+    The hazard detector of :mod:`repro_torch.analysis.schedule` computes
+    every diagnostic and the highest-priority one is raised with the
+    reference's message (an explicit raise, so it holds under
+    ``python -O``); see :func:`~repro_torch.core.scheduling
+    .validate_schedule`.
+    """
+    validate_schedule(g, tables)
+
+
+def lower_pass(g: SNNGraph, tables: OpTables) -> LoweredProgram:
+    """Lower OpTables to the dense slot-major program the engines run."""
+    return lower_tables(g, tables)
+
+
+def _spu_stats(g: SNNGraph, assign: np.ndarray, m: int):
+    # unique (spu, value) pair counts, one np.unique per attribute
+    syn = np.bincount(assign, minlength=m).astype(np.int64)
+    posts = np.zeros(m, np.int64)
+    weights = np.zeros(m, np.int64)
+    a = assign.astype(np.int64)
+    for arr, out in ((g.post, posts), (g.weight, weights)):
+        vals, inv = np.unique(arr, return_inverse=True)
+        if not len(vals):
+            continue
+        pairs = np.unique(a * len(vals) + inv)
+        np.add.at(out, pairs // len(vals), 1)
+    return syn, posts, weights
+
+
+def build_report(g: SNNGraph, hw: HardwareConfig, tables: OpTables,
+                 part: PartitionResult, *, method: str,
+                 compile_seconds: float,
+                 routing: np.ndarray | None = None,
+                 search: SearchTrace | None = None,
+                 schedule_method: str = "slack",
+                 schedule_depths: dict | None = None) -> CompileReport:
+    """Assemble the :class:`CompileReport` for a finished pipeline run."""
+    syn, posts, weights = _spu_stats(g, part.assign, hw.n_spus)
+    return CompileReport(
+        method=method, feasible=part.feasible, iterations=part.iterations,
+        perturbations=part.perturbations, ot_depth=tables.depth,
+        scores=part.scores, spu_synapse_counts=syn, spu_post_counts=posts,
+        spu_weight_counts=weights, resources=resources(hw, tables.depth),
+        n_init_packets=n_initialization_packets(g, tables),
+        compile_seconds=compile_seconds,
+        search=search,
+        candidates_tried=len(search.candidates) if search else 1,
+        schedule_method=schedule_method,
+        schedule_depths=(schedule_depths if schedule_depths is not None
+                         else {schedule_method: int(tables.depth)}))
+
+
+# ---------------------------------------------------------------------------
+# Initialization stream of the compiled artifact.
+# ---------------------------------------------------------------------------
+
+def n_initialization_packets(g: SNNGraph, tables: OpTables) -> int:
+    """Length of :func:`initialization_packets` without materializing
+    the stream. Closed form: one select + ``n_neurons`` routing words,
+    per SPU one select + ``depth`` OT words + its used-weight words, one
+    select + ``n_internal`` Neuron Unit words.
+    """
+    mask = tables.pre != NOP                      # [M, depth]
+    w = tables.weight.astype(np.int64)
+    span = int(w.max(initial=0)) - int(w.min(initial=0)) + 1
+    i_idx = np.nonzero(mask)[0]
+    keys = np.unique(i_idx * span + (w[mask] - int(w.min(initial=0))))
+    used_w = int(len(keys))
+    m = tables.n_spus
+    return (1 + g.n_neurons
+            + m * (1 + int(tables.depth)) + used_w
+            + 1 + (g.n_neurons - g.n_inputs))
 
 
 def initialization_packets(g: SNNGraph, tables: OpTables,

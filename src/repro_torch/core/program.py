@@ -28,10 +28,16 @@ arrays held in memory) and owns its engines:
   the T-step loop per bucket (see
   :meth:`~repro_torch.core.engine_torch.TorchMappedEngine.precompile`).
 
-The compiler (``compile``), ``verify`` and the multi-chip accounting
-wait for later slices. A header whose ``default_engine`` is the
-reference's ``"jax"`` maps to the port's ``"torch"``, and ``save``
-writes it back as ``"jax"``.
+* ``program.verify()`` — the static verifier's
+  :class:`~repro_torch.analysis.diagnostics.VerifyReport`, no engine
+  run;
+* ``program.chip_span()``, ``mesh_hops()``, ``inter_chip_counts(ext,
+  spikes)`` — the multi-chip accounting of the mapping, for
+  ``profile(stats, inter_chip_counts=...)``.
+
+The compiler (``compile``) waits for the partitioner. A header whose
+``default_engine`` is the reference's ``"jax"`` maps to the port's
+``"torch"``, and ``save`` writes it back as ``"jax"``.
 """
 from __future__ import annotations
 
@@ -70,9 +76,6 @@ _ENGINE_HEADER = {"torch": "jax"}
 # non-default values, as the reference writes them
 _POST_V1_HW_FIELDS = frozenset({"n_chips", "inter_chip_hop_cycles",
                                 "mesh_x", "mesh_y"})
-_NEEDS_MULTICHIP = ("the multi-chip accounting needs the mapping's "
-                    "hypergraph, which the port does not have yet (ROADMAP "
-                    "Queue A item 7)")
 
 
 def _check_header(header: dict, where) -> None:
@@ -299,22 +302,49 @@ class Program:
                              resources=self.report.resources,
                              per_sample=per)
 
-    # -- multi-chip accounting and static verification (later slices) -------
+    # -- multi-chip accounting ------------------------------------------------
 
     def chip_span(self) -> np.ndarray:
-        raise NotImplementedError(_NEEDS_MULTICHIP)
+        """[n_neurons] distinct chips each neuron's fan-out spans under
+        this program's mapping (all-ones/zeros on a single-chip hw)."""
+        from repro_torch.core.mapping.hypergraph import chip_span
+        return chip_span(self.graph, self.tables.assign, self.hw)
 
     def mesh_hops(self) -> np.ndarray:
-        raise NotImplementedError(_NEEDS_MULTICHIP)
+        """[n_neurons] 2D-mesh hop cost of each neuron's multicast under
+        this program's mapping (all zeros on a single-chip hw)."""
+        from repro_torch.core.mapping.hypergraph import mesh_hops
+        return mesh_hops(self.graph, self.tables.assign, self.hw)
 
     def inter_chip_counts(self, ext_spikes: np.ndarray,
                           spikes: np.ndarray) -> np.ndarray:
-        raise NotImplementedError(_NEEDS_MULTICHIP)
+        """Per-timestep inter-chip mesh hops of a run, for
+        :meth:`profile`'s ``inter_chip_counts=``: each firing neuron
+        charges the XY-mesh bounding-box hop count of its multicast
+        (:meth:`mesh_hops`). ``ext_spikes`` and ``spikes`` are the run's
+        input and output spike trains (``[T, n]`` or ``[B, T, n]``). All
+        zeros when ``n_chips == 1``.
+        """
+        from repro_torch.core.mapping.hypergraph import inter_chip_hop_counts
+        return inter_chip_hop_counts(ext_spikes, spikes, self.mesh_hops())
+
+    # -- static verification --------------------------------------------------
 
     def verify(self, checkers: "list[str] | None" = None):
-        raise NotImplementedError(
-            "verify() needs the static verifier, which the port does not "
-            "have yet (ROADMAP Queue A item 5)")
+        """Statically verify the artifact without executing any engine.
+
+        Runs the registered checkers of :mod:`repro_torch.analysis`
+        (schedule hazards, integer ranges, the Eq. 9/11 memory audit)
+        and returns their
+        :class:`~repro_torch.analysis.diagnostics.VerifyReport`
+        (``report.ok`` iff no ERROR diagnostic). The CLI form is
+        ``python -m repro_torch.analysis.verify artifact.npz``.
+        """
+        # from the verify module itself: once ``repro_torch.analysis.verify``
+        # is imported as a module, the package attribute of that name is
+        # the module, not the function
+        from repro_torch.analysis.verify import verify as _verify
+        return _verify(self, checkers=checkers)
 
     # -- initialization stream ----------------------------------------------
 

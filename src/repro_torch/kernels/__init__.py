@@ -12,7 +12,8 @@
   cluster design ``fused_step`` and ``spike_accum`` share;
 * ``ssm_chunks``   — the host side of ``csrc/ssm_sm90.cuh``, the chunked
   tensor-core design ``wkv6`` and ``ssd`` share (their emulations);
-* ``_build``       — nvcc build at first use, ctypes binding.
+* ``_build``       — nvcc build at first use, ctypes binding;
+* ``launches``     — the wrappers' launch counters, safe across threads.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 torch version (``*_ref``, in the same module or in ``ref``) for CPU

@@ -31,6 +31,7 @@ import torch
 from repro_torch.analysis.ranges import dense_plane_bounds, min_safe_dtype
 from repro_torch.kernels import _build
 from repro_torch.kernels.contract import KSTEP, kstep_ranges
+from repro_torch.kernels.launches import count_launch
 from repro_torch.kernels.lif_update import check_params
 from repro_torch.snn.lif import LIFIntParams, lif_step_int
 
@@ -284,7 +285,7 @@ def fused_launcher(packed: PackedPlane, p: LIFIntParams, n_ext: int):
         err = fn(ext, s_prev, p0, p1, kind, v, s_next, pkt, batch, n_ext,
                  n_int, k_pad, ls, th, reset, stream)
         _build.check(err, "fused_step")
-        fused_step.launches += 1
+        count_launch(fused_step)
 
     return launch
 
@@ -346,7 +347,7 @@ def fused_step(s_ext: torch.Tensor, s_prev: torch.Tensor, v: torch.Tensor,
                 p.leak_shift, p.v_threshold, p.v_reset,
                 _build.stream_handle(dev))
         _build.check(err, "fused_step")
-        fused_step.launches += 1
+        count_launch(fused_step)
     elif b:     # no internal neuron: the packets are the external spikes
         torch.sum(s_ext != 0, dim=1, dtype=torch.int32, out=pkt_out)
     return v, spikes_out, pkt_out

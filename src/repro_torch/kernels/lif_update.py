@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import count_launch
 from repro_torch.snn.lif import (SURROGATES, LIFIntParams, LIFParams,
                                  check_surrogate, lif_step_int,
                                  surrogate_grad)
@@ -100,7 +101,7 @@ def launch_lif_update(v: torch.Tensor, current: torch.Tensor,
             v_out.data_ptr(), s_out.data_ptr(), n, 1.0 - alpha, v_th,
             v_reset, stream)
         _build.check(err, "lif_update")
-        lif_update.launches += 1
+        count_launch(lif_update)
 
 
 def lif_update(v: torch.Tensor, current: torch.Tensor, *, alpha: float,
@@ -177,7 +178,7 @@ def launch_lif_update_bwd(v: torch.Tensor, current: torch.Tensor,
             _ptr(g_vnext), _ptr(g_s), g_v.data_ptr(), g_current.data_ptr(),
             n, 1.0 - alpha, v_th, SURROGATES.index(surrogate), stream)
         _build.check(err, "lif_update_bwd")
-        lif_update_bwd.launches += 1
+        count_launch(lif_update_bwd)
 
 
 def lif_update_bwd(v: torch.Tensor, current: torch.Tensor,
@@ -287,7 +288,7 @@ def lif_int_launcher(p: LIFIntParams):
     def launch(v, current, v_out, s_out, n, stream):
         err = fn(v, current, v_out, s_out, n, ls, th, reset, 1, stream)
         _build.check(err, "lif_update_int")
-        lif_update_int.launches += 1
+        count_launch(lif_update_int)
 
     return launch
 
@@ -321,7 +322,7 @@ def lif_update_int(v: torch.Tensor, current: torch.Tensor, p: LIFIntParams,
                 s_out.data_ptr(), v.numel(), p.leak_shift, p.v_threshold,
                 p.v_reset, 0, _build.stream_handle(v.device))
         _build.check(err, "lif_update_int")
-        lif_update_int.launches += 1
+        count_launch(lif_update_int)
     return v_out, s_out
 
 

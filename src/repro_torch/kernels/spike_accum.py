@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.contract import KSTEP, kstep_ranges
 from repro_torch.kernels.fused_step import contract_int32
+from repro_torch.kernels.launches import count_launch
 
 # input dtype -> the kernel's type code; spikes and weights share one
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -140,7 +141,7 @@ def launch_spike_accum(spikes: torch.Tensor, weights: torch.Tensor,
         spikes.data_ptr(), weights.data_ptr(), out.data_ptr(),
         _KERNEL_DTYPES[spikes.dtype], b, n_pre, weights.shape[1], stream)
     _build.check(err, "spike_accum")
-    spike_accum.launches += 1
+    count_launch(spike_accum)
     return out
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import count_launch
 from repro_torch.kernels.ref import ssd_ref
 from repro_torch.kernels.ssm_chunks import (CHUNK, cumsum_seq, pad_chunks,
                                             split_terms, tc_dot,
@@ -114,7 +115,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 state.data_ptr(), _KERNEL_DTYPES[x.dtype], bsz, s, h, p, n,
                 torch.cuda.current_stream().cuda_stream)
         _build.check(err, "ssd")
-        ssd.launches += 1
+        count_launch(ssd)
     return y, state
 
 

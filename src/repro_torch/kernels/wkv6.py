@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import count_launch
 from repro_torch.kernels.ref import wkv6_ref
 from repro_torch.kernels.ssm_chunks import (CHUNK, SPAN_MAX, SUB,
                                             cumsum_seq, pad_chunks,
@@ -198,7 +199,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 state.data_ptr(), _KERNEL_DTYPES[r.dtype], b, s, h, n,
                 torch.cuda.current_stream().cuda_stream)
         _build.check(err, "wkv6")
-        wkv6.launches += 1
+        count_launch(wkv6)
     return y, state
 
 

@@ -46,7 +46,9 @@ class ProgramRegistry:
         fixing the T axis) for ``spec`` at insert time: one CUDA graph
         per bucket on the card (``Program.precompile``). ``policy=``
         attaches the model's serving ``BatchPolicy``. ``verify=True``
-        needs the static verifier, which is not ported yet.
+        statically verifies the artifact first (:meth:`Program.verify`)
+        and rejects it with ``ValueError`` listing the diagnostics if a
+        checker reports an ERROR, before any precompile.
         """
         if not name:
             raise ValueError("model name must be non-empty")
@@ -54,9 +56,12 @@ class ProgramRegistry:
             raise ValueError(f"model {name!r} already registered; "
                              "unregister it first to replace")
         if verify:
-            raise NotImplementedError(
-                "register(verify=True) needs the static verifier, which "
-                "the port does not have yet (ROADMAP Queue A item 5)")
+            report = program.verify()
+            if not report.ok:
+                raise ValueError(
+                    f"model {name!r} failed static verification with "
+                    f"{len(report.errors)} error(s):\n"
+                    + "\n".join(f"  {d}" for d in report.errors))
         if precompile is not None:
             if timesteps is None:
                 raise ValueError("register(precompile=...) needs timesteps= "
@@ -72,7 +77,8 @@ class ProgramRegistry:
              spec: ExecutionSpec | None = None,
              verify: bool = False,
              policy: "BatchPolicy | None" = None) -> Program:
-        """``Program.load`` an artifact and register it under ``name``."""
+        """``Program.load`` an artifact and register it under ``name``
+        (statically verifying it first when ``verify=True``)."""
         return self.register(name, Program.load(path),
                              precompile=precompile, timesteps=timesteps,
                              spec=spec, verify=verify, policy=policy)

@@ -115,11 +115,13 @@ class StaticServeStep:
     the host: prompt length plus steps taken; the reference's
     ``dynamic_update_slice`` would clamp the write instead).
 
-    The state keeps ``init_decode_state``'s leaf dtypes, as a graph's
-    buffers must: with the models' bf16 parameters that is the plain
-    step's bits; with float32 parameters the plain step returns the bf16
-    recurrent leaves (``tm_x``/``cm_x``, ``conv``) as float32, and this
-    step rounds them back to bf16.
+    Each state leaf is allocated in the dtype ``decode_step`` returns
+    for it under ``params`` (found once, by one step at batch 1 on
+    scratch buffers): with the models' bf16 parameters these are
+    ``init_decode_state``'s dtypes; with float32 parameters the
+    recurrent leaves ``tm_x``/``cm_x`` (rwkv) and ``conv`` (mamba) are
+    float32, as the plain step returns them. A state copied in is cast
+    to those dtypes (bf16 into float32 is exact).
     """
 
     def __init__(self, cfg: ArchConfig, params,
@@ -129,6 +131,7 @@ class StaticServeStep:
         self.device = resolve_device(device)
         self._shapes: dict[tuple[int, int], _StaticShape] = {}
         self._last: _StaticShape | None = None
+        self._dtypes: dict | None = None
 
     @property
     def last_logits(self) -> torch.Tensor | None:
@@ -141,12 +144,26 @@ class StaticServeStep:
         if key in self._shapes:
             return False
         next_tok = torch.zeros(key[0], dtype=torch.int32, device=self.device)
-        shape = _StaticShape(
-            *key, next_tok, next_tok.view(key[0], 1),
-            M.init_decode_state(self.cfg, key[0], key[1], self.device))
+        state = tree_map(lambda a, d: a.to(d),
+                         M.init_decode_state(self.cfg, key[0], key[1],
+                                             self.device),
+                         self._state_dtypes())
+        shape = _StaticShape(*key, next_tok, next_tok.view(key[0], 1), state)
         self._prepare(shape)
         self._shapes[key] = shape
         return True
+
+    def _state_dtypes(self) -> dict:
+        """The dtype of each state leaf ``decode_step`` returns under
+        ``self.params``: one step at batch 1 from a zero state."""
+        if self._dtypes is None:
+            with _build.on_device(self.device):
+                probe = M.init_decode_state(self.cfg, 1, 1, self.device)
+                tok = torch.zeros((1, 1), dtype=torch.int32,
+                                  device=self.device)
+                _, new = M.decode_step(self.params, self.cfg, tok, probe)
+            self._dtypes = tree_map(lambda a: a.dtype, new)
+        return self._dtypes
 
     def _prepare(self, shape: _StaticShape) -> None:
         """Make the shape runnable (the graphed step captures here)."""

@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import ExecutionSpec, Program
+from repro_torch.core import ExecutionSpec, Program, packet_stats
 from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
                                             fused_step_emulated,
                                             fused_step_ref, pack_plane)
@@ -739,3 +739,63 @@ def test_graphed_decode_matches_eager(cuda_device, name):
     assert (wkv6.launches, ssd.launches) == before
     with pytest.raises(ValueError, match="past capacity"):
         step(params, tg.reshape(2, 1), sg)
+
+
+# -- programs the port schedules and verifies itself --------------------------
+
+def _port_scheduled(method):
+    """The SHD golden's partition scheduled, lowered and reported by the
+    port with ``method``."""
+    from repro_torch.core import passes
+    gold = Program.load(GOLDEN / "shd_program_v1.npz")
+    g, hw, part = gold.graph, gold.hw, gold.part
+    tables = passes.schedule_pass(g, part, hw, method=method)
+    passes.validate_pass(g, tables)
+    report = passes.build_report(g, hw, tables, part, method="framework",
+                                 compile_seconds=0.0, schedule_method=method)
+    return Program(g, hw, tables, passes.lower_pass(g, tables), report, part)
+
+
+@pytest.mark.parametrize("method", ["consecutive", "load_balance"])
+@pytest.mark.parametrize("tier", ["fused", "lif"])
+def test_port_scheduled_programs_run_bit_exact(cuda_device, method, tier):
+    """Each strategy's program verifies clean and runs B = 8, T = 100 on
+    the kernel tier with T launches, bit-exact with the reference tier
+    and the golden's recorded io (the schedule moves slots, not math)."""
+    prog = _port_scheduled(method)
+    assert prog.verify().ok
+    with np.load(GOLDEN / "shd_program_v1_io.npz") as io:
+        io = {k: np.concatenate([io[k], io[k]]) for k in io.files}
+    kernel = fused_step if tier == "fused" else lif_update_int
+    spec = ExecutionSpec(kernel=tier, device=str(cuda_device))
+    before = kernel.launches
+    got = prog.run(io["ext"], spec)
+    assert kernel.launches - before == io["ext"].shape[1]
+    assert_same_run(got, prog.run(io["ext"], ExecutionSpec(
+        kernel="reference", device=str(cuda_device))), f"{method} {tier}")
+    assert_same_run(got, (io["spikes"], io["v_final"],
+                          packet_stats(io["packet_counts"])),
+                    f"{method} {tier} recorded")
+
+
+def test_verify_gate_refuses_before_any_capture(cuda_device):
+    """A mutant (a stale score, MEM002; a send slot moved to 0,
+    SCHED006) is refused by ``register(verify=True, precompile=...)``
+    with ``ValueError``, and no engine or graph is built for it."""
+    from repro_torch.serve import ProgramRegistry
+    spec = ExecutionSpec(device=str(cuda_device))
+    reg = ProgramRegistry()
+    good = reg.load("shd", GOLDEN / "shd_program_v1.npz", verify=True,
+                    precompile=(8,), timesteps=100, spec=spec)
+    assert good.engine(spec)._graphs
+    bad = Program.load(GOLDEN / "shd_program_v1.npz")
+    bad.report.scores[0] += 1
+    t = bad.tables
+    t.send_slot[max(t.send_slot, key=t.send_slot.__getitem__)] = 0
+    before = fused_step.launches
+    with pytest.raises(ValueError, match="MEM002") as info:
+        reg.register("bad", bad, verify=True, precompile=(8,),
+                     timesteps=100, spec=spec)
+    assert "SCHED006" in str(info.value)
+    assert "bad" not in reg and not bad._engines
+    assert fused_step.launches == before

@@ -13,11 +13,12 @@ phase 7 replay it):
   the same float32-cast parameters, and each step started from the
   reference's state gives its logits and state within the tolerance
   ``tests/test_torch_lm.py`` states for decode (rtol = atol = 2e-4;
-  bf16 leaves one bf16 ulp). The static buffers keep
-  ``init_decode_state``'s leaf dtypes, where the reference's step with
-  float32 parameters returns its bf16 recurrent leaves as float32: so
-  each step starts both from the reference's state cast to those dtypes,
-  and the reference's result is cast to them too (ROADMAP Queue C);
+  bf16 leaves one bf16 ulp), dtypes included: the static buffers hold
+  each leaf in the dtype the step returns for it, so with float32
+  parameters the recurrent leaves ``tm_x``/``cm_x`` (rwkv) and ``conv``
+  (mamba) are float32, as the reference's and the plain step's are;
+* with float32-cast parameters one step from a grown state gives the
+  plain step's tokens and state, every leaf's dtype and bits equal;
 * the warm-up leaves the live buffers untouched; a step past the
   capacity, a step over another params tree and a state of a shape not
   prepared raise; the graphed step raises on the CPU.
@@ -104,19 +105,17 @@ def reference(request):
     st = jax_grow_cache(jcfg, st, B, CAP)
     serve = jax.jit(jax_make_serve_step(jcfg, None), donate_argnums=(2,))
     decode = jax.jit(JM.decode_step, static_argnums=1)
-    dtypes = jax.tree.map(lambda a: a.dtype, st)   # the static buffers'
 
-    def cast(tree):
-        return jax.tree.map(lambda a, d: np.asarray(a).astype(d), tree,
-                            dtypes)
+    def copy(tree):                                 # st is donated below
+        return jax.tree.map(np.array, tree)
 
     tok = jnp.argmax(logits[:, -1], -1).astype(jnp.int32)
     steps, toks = [], []
     for _ in range(GEN):
-        before = cast(st)
+        before = copy(st)
         lg, after = decode(params, jcfg, tok[:, None],
                            jax.tree.map(jnp.asarray, before))
-        steps.append((np.array(tok), before, np.asarray(lg), cast(after)))
+        steps.append((np.array(tok), before, np.asarray(lg), copy(after)))
         tok, st = serve(params, tok[:, None], st)   # st donated
         toks.append(np.asarray(tok))
     return name, p32, np.stack(toks), steps
@@ -152,6 +151,34 @@ def test_static_step_from_the_reference_state(reference):
         assert st is step._shapes[(B, CAP)].state
         assert step._shapes[(B, CAP)].length == int(want_st["len"])
     assert BF16_LEAF["rtol"] == 2 ** -7            # the stated tolerance
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_static_step_keeps_the_float32_leaves_of_float32_params(name):
+    """With float32-cast parameters the plain step returns the bf16
+    recurrent leaves of the grown state as float32; one static step from
+    the same grown state returns the same dtypes and bits."""
+    cfg = get_reduced(name)
+    params = tree_map(lambda a: a.float() if a.is_floating_point() else a,
+                      M.init_model(cfg, torch.Generator().manual_seed(0),
+                                   CPU))
+    _, _, tok, grown = _prefilled(name, params)
+    want_tok, want = make_serve_step(cfg)(params, tok.reshape(B, 1),
+                                          tree_map(torch.clone, grown))
+    step = StaticServeStep(cfg, params, "cpu")
+    step.precompile(B, CAP)
+    got_tok, got = step(params, tok.reshape(B, 1),
+                        tree_map(torch.clone, grown))
+    assert torch.equal(got_tok, want_tok)
+    leaf = (("rwkv", "cm_x") if cfg.family == "ssm" else ("mamba", "conv"))
+    assert grown[leaf[0]][leaf[1]].dtype == torch.bfloat16
+    assert want[leaf[0]][leaf[1]].dtype == torch.float32
+
+    def same(a, b):
+        assert a.dtype == b.dtype, (a.dtype, b.dtype)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    tree_map(same, got, want)
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -8,7 +8,10 @@ loops ``models.mamba2.ssd_step``, and the models launch the kernels). An AST sca
 every import statement of the package and of ``chip_smoke.py``. One more
 subprocess, jax still blocked, imports and runs the serving modules
 (sharded runner, replay, the serving CLI) and the graphed decode step's
-module.
+module; another the compiler's back end and the verifier (the graph
+generator, the three schedule strategies, the report, the multi-chip
+accounting, ``verify``, its CLI and the registry's gate) and every new
+module of that slice on its own.
 ``chip_smoke.py`` must fail, and print no result, without a CUDA card
 and outside the repo.
 """
@@ -57,7 +60,7 @@ def test_every_module_imports_without_jax():
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 55       # the slices' modules
+    assert int(out.stdout.split()[-1]) >= 71       # the slices' modules
 
 
 @pytest.mark.parametrize("first", ["repro_torch.kernels",
@@ -70,7 +73,15 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.launch.serve",
                                    "repro_torch.serve",
                                    "repro_torch.launch.serve_snn",
-                                   "repro_torch.train.steps"])
+                                   "repro_torch.train.steps",
+                                   "repro_torch.analysis",
+                                   "repro_torch.analysis.verify",
+                                   "repro_torch.analysis.memory",
+                                   "repro_torch.core.scheduling",
+                                   "repro_torch.core.passes",
+                                   "repro_torch.core.schedule",
+                                   "repro_torch.configs.snn_paper",
+                                   "repro_torch.kernels.launches"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
@@ -124,6 +135,62 @@ def test_serving_imports_and_runs_without_jax():
     tiny = ROOT / "tests" / "golden" / "tiny_program_v1.npz"
     out = subprocess.run([sys.executable, "-c", SERVING_WITHOUT_JAX,
                           str(tiny)],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+BACK_END_WITHOUT_JAX = """
+import dataclasses, io, contextlib, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import numpy as np
+first = sys.argv[1]
+__import__(first)
+from repro_torch.analysis import CODES
+from repro_torch.analysis.verify import main, verify
+from repro_torch.configs.snn_paper import SHD_HW
+from repro_torch.core import Program, random_graph
+from repro_torch.core.passes import build_report
+from repro_torch.core.schedule import schedule as shim_schedule
+from repro_torch.core.scheduling import schedule
+from repro_torch.serve import ProgramRegistry
+shd = Program.load(sys.argv[2])
+assert dataclasses.replace(SHD_HW, weight_bits=9, potential_bits=18) == shd.hw
+g = random_graph(700, 320, 33000, seed=0, weight_lo=-255, weight_hi=255)
+assert np.array_equal(g.weight, shd.graph.weight)
+for method in ("slack", "consecutive", "load_balance"):
+    t = schedule(g, shd.tables.assign, shd.hw, method=method)
+    assert t.depth >= 1
+assert shim_schedule is schedule
+t = schedule(g, shd.tables.assign, shd.hw)
+assert np.array_equal(t.pre, shd.tables.pre)
+rep = build_report(g, shd.hw, t, shd.part, method="framework",
+                   compile_seconds=0.0)
+assert rep.resources == shd.report.resources
+assert verify(shd).ok and len(CODES) >= 23
+shd.hw = dataclasses.replace(shd.hw, n_chips=4)
+assert shd.mesh_hops().any() and shd.chip_span().max() <= 4
+ProgramRegistry().register("shd", Program.load(sys.argv[2]), verify=True)
+with contextlib.redirect_stdout(io.StringIO()):
+    assert main([sys.argv[2]]) == 0
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("first", ["repro_torch.analysis.verify",
+                                   "repro_torch.core.scheduling.vectorized",
+                                   "repro_torch.core.mapping.hypergraph",
+                                   "repro_torch.core.baselines"])
+def test_back_end_and_verifier_run_without_jax(first):
+    shd = ROOT / "tests" / "golden" / "shd_program_v1.npz"
+    out = subprocess.run([sys.executable, "-c", BACK_END_WITHOUT_JAX, first,
+                          str(shd)],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

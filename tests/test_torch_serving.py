@@ -157,8 +157,8 @@ def test_registry_surface(models, tmp_path):
     runner = reg.runner("rec", CPU)
     assert runner.precompile((1, 2), 4) == []          # warmed at insert
     assert runner.precompile((3,), 4) == [(3, 4)]
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        reg.register("again", prog, verify=True)
+    assert reg.register("again", prog, verify=True) is prog   # clean
+    assert reg.unregister("again") is prog
     with pytest.raises(ValueError):
         reg.register("rec", prog)
     assert reg.unregister("rec") is prog and len(reg) == 0
