@@ -64,7 +64,20 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    4 chips (a 2 x 2 mesh): ``chip_span``, ``mesh_hops`` and
    ``inter_chip_counts`` of the card's served spikes, and the cycle
    model's latency and energy beside the single-chip figures (modeled
-   FPGA figures, not card times);
+   FPGA figures, not card times); then the compiler (``compile``) on the
+   card machine's host with the port alone: the SHD golden's graph
+   compiled from scratch equal to the golden (arrays, header but for
+   wall times, ``content_hash``) and run at B = 8, T = 100 on both
+   kernel tiers against the recorded io; the portfolio
+   (``search=SearchConfig()``) inline and over a spawn pool of 4 while
+   this process holds CUDA, each trace the reference's pinned one, the
+   pooled trace equal to the inline ``early_exit=False`` one but for
+   ``seconds``, the winner run on both tiers; the compiler-scale shape
+   (``benchmarks/compiler_scale.py``'s 10^5 synapses, multilevel, 4
+   chips) compiled in a subprocess that never starts CUDA, its OT depth
+   and ``content_hash`` the reference's, verified, run on the fused tier
+   (2000 x 1500 int8) with its modeled 4-chip figures; and the serving
+   CLI on a missing artifact, which compiles, saves and serves it;
 5. serve 32 seeded Poisson requests (T = 100) of the SHD-scale artifact
    (registered with ``verify=True``) through ``ProgramRegistry`` and
    ``MicroBatcher`` in measured mode,
@@ -138,7 +151,8 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
 Last, a capture that fails (a loop that copies to the host) must raise
 and leave no graph. The last two lines are the kernels' JSON record (a
 kernel's ``launches`` summed over the counted runs of the paths that
-launch it: phases 4 and 5 for ``fused_step`` and ``lif_update_int``)
+launch it: phases 4 (the back end's and the compiler's programs) and 5
+for ``fused_step`` and ``lif_update_int``)
 and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -177,6 +191,48 @@ REPLAY_LOADS = (0.5, 0.9)        # offered rate / the top bucket's capacity
 TIME_PAIRS = 3                   # graphed/eager timing pairs, interleaved
 # the SHD-scale golden artifact's identity: the reference's content_hash
 SHD_HASH = "2b2916b301a3678ffa1bf4427c59838bde159f778e00f7ab9df3106cff54ee01"
+# the portfolio search on the SHD golden's graph and hardware: each
+# candidate's (strategy, seed, feasible, OT depth) and the winner's
+# content_hash, from the reference on the CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import dataclasses;
+#   from repro.configs.snn_paper import SHD_HW;
+#   from repro.core import SearchConfig, compile, random_graph;
+#   g = random_graph(700, 320, 33000, seed=0, weight_lo=-255,
+#   weight_hi=255); p = compile(g, dataclasses.replace(SHD_HW,
+#   weight_bits=9, potential_bits=18), search=SearchConfig());
+#   print([(c.strategy, c.seed, c.feasible, c.ot_depth) for c in
+#   p.report.search.candidates], p.content_hash())"
+SHD_PORTFOLIO = [("post_neuron_rr", None, True, 618),
+                 ("synapse_rr", None, False, None),
+                 ("weight_rr", None, False, None),
+                 ("hypergraph", 0, True, 706),
+                 ("framework", 0, True, 1240),
+                 ("framework", 1, False, None),
+                 ("framework", 2, False, None),
+                 ("framework", 3, False, None)]
+# the same search over a pool (SearchConfig(workers=4)), where every
+# framework restart runs to its end (early_exit stops the others only
+# inline), from the same command with workers=4; equal to the inline
+# search with early_exit=False
+SHD_PORTFOLIO_POOLED = SHD_PORTFOLIO[:5] + [("framework", 1, True, 1174),
+                                            ("framework", 2, True, 1194),
+                                            ("framework", 3, True, 1262)]
+SHD_PORTFOLIO_HASH = \
+    "9d661e22f8c3078f10d11b88e783f7961ab363b21e83f791df10725b0176fbb5"
+PORTFOLIO_WORKERS = 4
+# benchmarks/compiler_scale.py's PINNED 10^5-synapse shape compiled per
+# chip with method="multilevel", n_chips=4: feasible, its OT depth and
+# content_hash, from the reference on the CPU:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import dataclasses;
+#   from repro.core import compile;
+#   from repro.core.scale import scale_hw, synthetic_graph;
+#   g = synthetic_graph(100_000, topology='mixed', skew=1.0, seed=0);
+#   hw = scale_hw(g, n_chips=4, spus_per_chip=16);
+#   p = compile(g, dataclasses.replace(hw, n_spus=16, n_chips=1),
+#   method='multilevel', n_chips=4);
+#   print(p.feasible, p.ot_depth, p.content_hash())"
+SCALE_OT_DEPTH = 2718
+SCALE_HASH = "bb8196d01d30e3c51c2d7e9c6981a37189617137d7fc30e54489791d820f49a9"
 TRAIN_STEPS = 5
 SHD_BATCH, MNIST_BATCH = 32, 64
 # the training path on the card against the plain versions on the CPU;
@@ -1652,11 +1708,19 @@ def _io(name: str) -> dict:
 
 
 def _same_header(a: dict, b: dict) -> bool:
-    """Two artifact headers equal but for the compile's wall times."""
+    """Two artifact headers equal but for the compile's wall times: the
+    report's ``compile_seconds``, ``phase_seconds`` and
+    ``phase_alloc_mb``, and the search trace's ``seconds`` and each
+    candidate's."""
     def strip(h):
         rep = {k: v for k, v in h["report"].items()
                if k not in ("compile_seconds", "phase_seconds",
                             "phase_alloc_mb")}
+        if rep.get("search"):
+            rep["search"] = {
+                **{k: v for k, v in rep["search"].items() if k != "seconds"},
+                "candidates": [{k: v for k, v in c.items() if k != "seconds"}
+                               for c in rep["search"]["candidates"]]}
         return {**h, "report": rep}
     return strip(a) == strip(b)
 
@@ -1734,16 +1798,12 @@ def phase_back_end(smi: str) -> dict[str, int]:
     report.phase_seconds = rep.phase_seconds
     rebuilt = Program(g, hw, tables, lowered, report, part)
     with tempfile.TemporaryDirectory() as tmp:
-        saved = rebuilt.save(Path(tmp) / "shd")
-        with np.load(path) as a, np.load(saved) as b:
-            expect(set(a.files) == set(b.files), "rebuilt: members differ")
-            expect(_same_header(json.loads(str(a["header"][()])),
-                                json.loads(str(b["header"][()]))),
-                   "rebuilt: header differs from the golden's")
-            for k in a.files:
-                expect(k == "header" or (a[k].dtype == b[k].dtype
-                                         and a[k].tobytes() == b[k].tobytes()),
-                       f"rebuilt: array {k} differs from the golden's")
+        header, arrays = _saved(rebuilt, Path(tmp) / "shd")
+    gold_h, gold_a = _artifact(path)
+    expect(_same_header(gold_h, header),
+           "rebuilt: header differs from the golden's")
+    expect(_same_arrays(gold_a, arrays),
+           "rebuilt: the arrays differ from the golden's")
     expect(rebuilt.content_hash() == SHD_HASH,
            f"rebuilt content_hash {rebuilt.content_hash()} != {SHD_HASH}")
     print(f"back end shd: random_graph + SHD_HW (9/18 bits) = the golden's "
@@ -1769,19 +1829,11 @@ def phase_back_end(smi: str) -> dict[str, int]:
         expect(vr.ok and not vr.diagnostics,
                f"{method}: verify not clean: {vr.summary()}")
         ref = prog.run(ext, ExecutionSpec(kernel="reference"))
-        for tier, kernel, other in (("fused", fused_step, lif_update_int),
-                                    ("lif", lif_update_int, fused_step)):
-            kernel.launches = other.launches = 0
-            got = prog.run(ext, ExecutionSpec(kernel=tier))
-            n_k, n_o = kernel.launches, other.launches
-            expect(n_k == TIMESTEPS and n_o == 0,
-                   f"{method} {tier}: {n_k} launches (and {n_o} of the "
-                   f"other kernel), want {TIMESTEPS}")
-            launches[kernel.__name__] += n_k
-            expect(same_run(got, ref) and same_run(
-                got, want[:2] + (packet_stats(want[2]),)),
-                f"{method} {tier}: differs from the reference tier or the "
-                f"golden's recorded io")
+        expect(same_run(ref, want[:2] + (packet_stats(want[2]),)),
+               f"{method}: the reference tier differs from the golden's "
+               f"recorded io")
+        for k, n in _counted_tiers(prog, ext, ref, method).items():
+            launches[k] += n
     print(f"back end strategies: OT depth {depths}; consecutive and "
           f"load_balance verify clean and run B={SERVE_BATCH} "
           f"T={TIMESTEPS} on the fused and lif tiers with {TIMESTEPS} "
@@ -1872,6 +1924,263 @@ def phase_back_end(smi: str) -> dict[str, int]:
           f"{four_p.latency_us!r} us, energy {four_p.energy_mj!r} mJ on 4 "
           f"chips against {one_p.latency_us!r} us, {one_p.energy_mj!r} mJ "
           f"on one")
+    return launches
+
+
+def _artifact(path: Path) -> tuple[dict, dict]:
+    """The JSON header and arrays of a saved artifact."""
+    with np.load(path) as z:
+        return (json.loads(str(z["header"][()])),
+                {k: z[k] for k in z.files if k != "header"})
+
+
+def _saved(program, path: Path) -> tuple[dict, dict]:
+    """The JSON header and arrays of ``program.save(path)``."""
+    return _artifact(program.save(path))
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def _counted_tiers(prog, ext, want, what: str, tiers=("fused", "lif")
+                   ) -> dict[str, int]:
+    """Run ``prog`` on each kernel tier with the counts set to 0 just
+    before and read just after: exactly T launches of the tier's kernel
+    and none of the other, bit-exact with ``want``. Returns the
+    launches by kernel."""
+    from repro_torch.core import ExecutionSpec
+    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.lif_update import lif_update_int
+    launches = {"fused_step": 0, "lif_update_int": 0}
+    steps = ext.shape[-2]
+    for tier in tiers:
+        kernel, other = {"fused": (fused_step, lif_update_int),
+                         "lif": (lif_update_int, fused_step)}[tier]
+        kernel.launches = other.launches = 0
+        got = prog.run(ext, ExecutionSpec(kernel=tier))
+        n_k, n_o = kernel.launches, other.launches
+        expect(n_k == steps and n_o == 0,
+               f"{what} {tier}: {n_k} launches (and {n_o} of the other "
+               f"kernel), want {steps}")
+        launches[kernel.__name__] += n_k
+        expect(same_run(got, want), f"{what} {tier}: differs from the "
+                                    f"reference tier")
+    return launches
+
+
+def _pool_probe(module: str) -> int:
+    """A spawned worker's first task: import ``module`` (what unpickling
+    a portfolio work item does), report whether CUDA came up."""
+    import importlib
+    importlib.import_module(module)
+    return int(torch.cuda.is_initialized())
+
+
+SCALE_COMPILE = """
+import dataclasses, json, resource, sys, time
+import torch
+from repro_torch.core import compile
+from repro_torch.core.scale import scale_hw, synthetic_graph
+g = synthetic_graph(100_000, topology="mixed", skew=1.0, seed=0)
+hw = scale_hw(g, n_chips=4, spus_per_chip=16)
+hw1 = dataclasses.replace(hw, n_spus=hw.spus_per_chip, n_chips=1)
+rss_mb = lambda: resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+before = rss_mb()
+t0 = time.perf_counter()
+prog = compile(g, hw1, method="multilevel", n_chips=4)
+seconds = time.perf_counter() - t0
+peak = rss_mb()
+prog.save(sys.argv[1])
+print(json.dumps({"seconds": seconds, "rss_before_mb": before,
+                  "peak_rss_mb": peak, "cuda": torch.cuda.is_initialized()}))
+"""
+
+
+def phase_compile(smi: str) -> dict[str, int]:
+    """The compiler on the card machine's host with the port alone, and
+    what it compiled on the card: (a) the SHD golden's graph compiled
+    from scratch (``max_iters=20000``): its saved arrays and header
+    (but for wall times) the golden's, its ``content_hash``
+    ``SHD_HASH``, run at B = SERVE_BATCH, T = TIMESTEPS on the fused and
+    lif tiers against the reference tier and the golden's recorded io;
+    (b) the portfolio (``search=SearchConfig()``) inline and over a
+    spawn pool of ``PORTFOLIO_WORKERS`` while this process holds CUDA:
+    each trace the reference's (``SHD_PORTFOLIO``,
+    ``SHD_PORTFOLIO_POOLED``: a pooled restart is not stopped early),
+    the saved arrays equal, the pooled trace equal but for ``seconds``
+    to the inline one with ``early_exit=False``, the winner
+    ``SHD_PORTFOLIO_HASH`` run on both tiers; (c) the compiler-scale
+    shape (10^5 synapses, multilevel, 4 chips) compiled in a subprocess
+    that never touches CUDA: feasible,
+    ``SCALE_OT_DEPTH``, ``SCALE_HASH``, verified clean, run on the fused
+    tier (its 2000 x 1500 int8 plane) against the reference tier, with
+    the cycle model's 4-chip figures; (d) the serving CLI on a missing
+    artifact compiles, saves and serves it on the card, with the metrics
+    of serving the saved artifact again. Counted runs set the counts to
+    0 just before and read them just after: exactly T launches each.
+    Returns each kernel's launches in the counted runs of (a)-(c)."""
+    import concurrent.futures as cf
+    import dataclasses
+    import io as _io_mod
+    import multiprocessing
+    import os
+    import tempfile
+    from contextlib import redirect_stdout
+    from repro_torch.configs.snn_paper import SHD_HW
+    from repro_torch.core import (ExecutionSpec, Program, SearchConfig,
+                                  compile, packet_stats, random_graph)
+    from repro_torch.launch import serve_snn
+
+    launches = {"fused_step": 0, "lif_update_int": 0}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    io = _io("shd")
+    reps = SERVE_BATCH // len(io["ext"])
+    ext = np.concatenate([io["ext"]] * reps)
+    want = (np.concatenate([io["spikes"]] * reps),
+            np.concatenate([io["v_final"]] * reps),
+            packet_stats(np.concatenate([io["packet_counts"]] * reps)))
+    g = random_graph(700, 320, 33000, seed=0, weight_lo=-255, weight_hi=255)
+    hw = dataclasses.replace(SHD_HW, weight_bits=9, potential_bits=18)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) the SHD golden from scratch
+        t0 = time.perf_counter()
+        shd = compile(g, hw, max_iters=20000)
+        shd_s = time.perf_counter() - t0
+        header, arrays = _saved(shd, tmp / "shd")
+        gold_h, gold_a = _artifact(GOLDEN / "shd_program_v1.npz")
+        expect(_same_arrays(arrays, gold_a),
+               "compiled SHD: saved arrays differ from the golden's")
+        expect(_same_header(header, gold_h),
+               "compiled SHD: header differs from the golden's")
+        expect(shd.content_hash() == SHD_HASH,
+               f"compiled SHD: content_hash {shd.content_hash()}")
+        ref = shd.run(ext, ExecutionSpec(kernel="reference"))
+        expect(same_run(ref, want), "compiled SHD: the reference tier "
+                                    "differs from the recorded io")
+        add(_counted_tiers(shd, ext, want, "compiled SHD"))
+        print(f"compile shd (host of the card's machine): {shd_s!r} s, "
+              f"phases {shd.report.phase_seconds}; arrays and header (but "
+              f"for wall times) equal the golden's, content_hash "
+              f"{SHD_HASH}; B={SERVE_BATCH} T={TIMESTEPS} on the fused and "
+              f"lif tiers bit-exact with the recorded io, {TIMESTEPS} "
+              f"launches a run [{smi}]")
+
+        # (b) the portfolio, inline and over a spawn pool with CUDA live
+        expect(torch.cuda.is_initialized(), "CUDA not live before the pool")
+        timed, progs, saved = {}, {}, {}
+        for name, cfg in (("inline", SearchConfig()),
+                          ("pooled", SearchConfig(workers=PORTFOLIO_WORKERS)),
+                          ("inline-full", SearchConfig(early_exit=False))):
+            t0 = time.perf_counter()
+            progs[name] = compile(g, hw, search=cfg)
+            timed[name] = time.perf_counter() - t0
+            saved[name] = _saved(progs[name], tmp / f"portfolio-{name}")
+        for name, pinned in (("inline", SHD_PORTFOLIO),
+                             ("pooled", SHD_PORTFOLIO_POOLED),
+                             ("inline-full", SHD_PORTFOLIO_POOLED)):
+            rows = [(c.strategy, c.seed, c.feasible, c.ot_depth)
+                    for c in progs[name].report.search.candidates]
+            expect(rows == pinned, f"portfolio {name}: candidates {rows} "
+                                   f"!= the reference's")
+            expect(_same_arrays(saved[name][1], saved["inline"][1])
+                   and progs[name].content_hash() == SHD_PORTFOLIO_HASH,
+                   f"portfolio {name}: the saved arrays differ, or "
+                   f"content_hash {progs[name].content_hash()}")
+        expect(_same_header(saved["pooled"][0], saved["inline-full"][0]),
+               f"portfolio: {PORTFOLIO_WORKERS} workers differ from one "
+               f"(early_exit=False) but for seconds")
+        one = progs["inline"]
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+        with cf.ProcessPoolExecutor(max_workers=PORTFOLIO_WORKERS,
+                                    mp_context=ctx) as pool:
+            cuda_up = list(pool.map(
+                _pool_probe,
+                ["repro_torch.core.mapping.search"] * PORTFOLIO_WORKERS))
+        pool_s = time.perf_counter() - t0
+        expect(not any(cuda_up), "a spawned compile worker brought up CUDA")
+        ref = one.run(ext, ExecutionSpec(kernel="reference"))
+        add(_counted_tiers(one, ext, ref, "portfolio winner"))
+        sel = one.report.search.selected
+        print(f"compile portfolio (host): workers=1 {timed['inline']!r} "
+              f"s, workers={PORTFOLIO_WORKERS} (spawn, CUDA live in this "
+              f"process) {timed['pooled']!r} s, workers=1 with "
+              f"early_exit=False {timed['inline-full']!r} s, a bare spawn "
+              f"pool of {PORTFOLIO_WORKERS} importing the port {pool_s!r} "
+              f"s; traces the reference's, the pooled one equal to the "
+              f"inline early_exit=False one but for seconds; winner "
+              f"{sel.strategy} / {sel.schedule_method}, OT depth "
+              f"{one.ot_depth}, bit-exact with the reference tier on both "
+              f"kernel tiers [{smi}]")
+
+        # (c) the compiler's scale shape, compiled where CUDA never starts
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        r = subprocess.run([sys.executable, "-c", SCALE_COMPILE,
+                            str(tmp / "scale.npz")], capture_output=True,
+                           text=True, env=env, timeout=600)
+        expect(r.returncode == 0, f"scale compile failed: {r.stderr[-2000:]}")
+        child = json.loads(r.stdout.strip().splitlines()[-1])
+        expect(not child["cuda"], "the scale compile brought up CUDA")
+        big = Program.load(tmp / "scale.npz")
+        expect(big.feasible and big.ot_depth == SCALE_OT_DEPTH
+               and big.content_hash() == SCALE_HASH,
+               f"scale: feasible {big.feasible}, OT depth {big.ot_depth}, "
+               f"content_hash {big.content_hash()}")
+        vr = big.verify()
+        expect(vr.ok and not vr.diagnostics,
+               f"scale: verify not clean: {vr.summary()}")
+        plane = vr.stats["ranges"]["dense_dtype"]
+        expect(plane == "int8" and (big.graph.n_neurons,
+                                    big.graph.n_internal) == (2000, 1500),
+               f"scale: plane {plane} {big.graph.n_neurons} x "
+               f"{big.graph.n_internal}")
+        rng = np.random.default_rng(0)
+        ext_big = (rng.random((SERVE_BATCH, TIMESTEPS, big.n_inputs))
+                   < 0.1).astype(np.int32)
+        ref = big.run(ext_big, ExecutionSpec(kernel="reference"))
+        add(_counted_tiers(big, ext_big, ref, "scale", tiers=("fused",)))
+        ic = big.inter_chip_counts(ext_big, ref[0])
+        prof = big.profile(ref[2], inter_chip_counts=ic)
+        print(f"compile scale (10^5 synapses, multilevel, 4 chips, host, "
+              f"a subprocess without CUDA): {child['seconds']!r} s, peak "
+              f"RSS {child['peak_rss_mb']!r} MB against "
+              f"{child['rss_before_mb']!r} MB before the compile (torch "
+              f"imported, the graph made), phases "
+              f"{big.report.phase_seconds}; feasible, OT depth "
+              f"{big.ot_depth}, content_hash {SCALE_HASH}, verify clean; "
+              f"B={SERVE_BATCH} T={TIMESTEPS} on the fused tier (2000 x "
+              f"1500 int8) bit-exact with the reference tier, {TIMESTEPS} "
+              f"launches; CycleModel on 4 chips (modeled FPGA figures, not "
+              f"card times): latency {prof.latency_us!r} us, energy "
+              f"{prof.energy_mj!r} mJ a request, {int(ic.sum())} "
+              f"inter-chip hops [{smi}]")
+
+        # (d) the serving CLI compiles a missing artifact, then serves it
+        argv = ["--artifact", str(tmp / "toy"), "--requests",
+                str(N_REQUESTS), "--timesteps", "20"]
+        out = _io_mod.StringIO()
+        with redirect_stdout(out):
+            first = serve_snn.main(argv)
+        expect("compiled: feasible=True" in out.getvalue()
+               and (tmp / "toy.npz").is_file(),
+               f"serve_snn: no compile of the missing artifact: "
+               f"{out.getvalue()!r}")
+        with redirect_stdout(_io_mod.StringIO()):
+            again = serve_snn.main(argv)
+        expect(first == again, "serve_snn: the compiled artifact served "
+                               "again gives other metrics")
+        print(f"serve_snn on a missing artifact: compiled, saved, served "
+              f"{first['requests']} requests on the card; served again "
+              f"from the saved file with the same metrics (p50 "
+              f"{first['p50_ms']!r} ms, modeled service times)")
     return launches
 
 
@@ -2384,9 +2693,10 @@ def main() -> int:
     recs.update(phase_ssm_kernels(dev))
     phase_golden()
     back_end = phase_back_end(smi)
+    compiled = phase_compile(smi)
     launches = phase_serve()
-    for name, n in back_end.items():
-        launches[name] += n
+    for name in launches:
+        launches[name] += back_end[name] + compiled[name]
     phase_sharded()
     phase_async_server()
     phase_replay(smi)

@@ -1,13 +1,13 @@
-"""The compile pipeline's back end as explicit passes; port of
-``repro/core/passes.py`` from a partition onward::
+"""The compile pipeline as explicit passes; port of
+``repro/core/passes.py``::
 
-    schedule -> validate -> lower -> report
+    partition (or search) -> schedule -> validate -> lower -> report
 
-Each pass is a pure function of its inputs: re-schedule a hand-edited
-assignment, or lower a baseline for comparison. This module also owns
-:class:`CompileReport` and :func:`initialization_packets` (the MC-tree
-configuration stream). The partitioning passes (``partition_pass``,
-``search_pass``) wait for the partitioner (ROADMAP Queue A item 7).
+:func:`repro_torch.core.program.compile` assembles them into a
+:class:`~repro_torch.core.program.Program`. Each pass is a pure function
+of its inputs: re-schedule a hand-edited assignment, or lower a baseline
+for comparison. This module also owns :class:`CompileReport` and
+:func:`initialization_packets` (the MC-tree configuration stream).
 """
 from __future__ import annotations
 
@@ -18,7 +18,9 @@ import numpy as np
 from repro_torch.core.cost import ResourceReport, resources
 from repro_torch.core.graph import SNNGraph
 from repro_torch.core.mapping.books import PartitionResult
-from repro_torch.core.mapping.search import SearchTrace
+from repro_torch.core.mapping.search import (SearchConfig, SearchTrace,
+                                             portfolio_search)
+from repro_torch.core.mapping.strategies import get_strategy
 from repro_torch.core.memory_model import HardwareConfig
 from repro_torch.core.scheduling import (NOP, LoweredProgram, OpTables,
                                          lower_tables, schedule,
@@ -55,6 +57,39 @@ class CompileReport:
 # ---------------------------------------------------------------------------
 # Passes.
 # ---------------------------------------------------------------------------
+
+def partition_pass(g: SNNGraph, hw: HardwareConfig, *,
+                   method: str = "framework", seed: int = 0,
+                   max_iters: int = 20000, restarts: int = 1,
+                   workers: int = 1) -> PartitionResult:
+    """Synapse -> SPU assignment (paper §6.2, or a round-robin baseline).
+
+    ``method`` names a registered
+    :class:`~repro_torch.core.mapping.strategies.MappingStrategy`:
+    ``'framework'`` is the probabilistic search (vectorized over up to
+    ``restarts`` lockstep seeds, keeping the first feasible / best
+    worst-SPU score); the :data:`repro_torch.core.baselines.BASELINES`
+    keys select those baselines. Unknown names raise ``ValueError``
+    listing the registry. ``workers > 1`` lets strategies with internal
+    candidate races (``multilevel`` coarse seeds) fan out over spawned
+    processes; results are worker-count-invariant.
+    """
+    return get_strategy(method).partition(g, hw, seed=seed,
+                                          max_iters=max_iters,
+                                          restarts=restarts,
+                                          workers=workers)
+
+
+def search_pass(g: SNNGraph, hw: HardwareConfig,
+                config: SearchConfig | None = None
+                ) -> tuple[PartitionResult, SearchTrace, OpTables | None]:
+    """Portfolio mapping search (``compile(search=...)``): the framework
+    restart population raced against every baseline; returns the best
+    (feasible, min OT depth, min memory) candidate, the per-candidate
+    :class:`~repro_torch.core.mapping.search.SearchTrace`, and the
+    winner's already-scheduled tables (None if infeasible)."""
+    return portfolio_search(g, hw, config)
+
 
 def schedule_pass(g: SNNGraph, part: PartitionResult | np.ndarray,
                   hw: HardwareConfig, *, method: str = "slack") -> OpTables:

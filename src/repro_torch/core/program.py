@@ -35,14 +35,20 @@ arrays held in memory) and owns its engines:
   spikes)`` — the multi-chip accounting of the mapping, for
   ``profile(stats, inter_chip_counts=...)``.
 
-The compiler (``compile``) waits for the partitioner. A header whose
-``default_engine`` is the reference's ``"jax"`` maps to the port's
-``"torch"``, and ``save`` writes it back as ``"jax"``.
+:func:`compile` runs the pass pipeline of :mod:`repro_torch.core.passes`
+(partition or portfolio search -> schedule -> validate -> lower ->
+report) on the host, in numpy, and returns a :class:`Program` whose
+arrays and header are the reference's compile of the same graph, bit
+for bit but for wall times. A header whose ``default_engine`` is the
+reference's ``"jax"`` maps to the port's ``"torch"``, and ``save``
+writes it back as ``"jax"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -54,18 +60,23 @@ from repro_torch.core.engine import (CycleModel, CycleReport, PowerModel,
                                      run_mapped, run_oracle)
 from repro_torch.core.engine_torch import (TorchMappedEngine,
                                            normalize_ext_spikes)
-from repro_torch.core.execution import (AUTO_MESH, ExecutionSpec,
+from repro_torch.core.execution import (AUTO_MESH, ENGINES, ExecutionSpec,
                                         as_spec)
-from repro_torch.core.graph import SNNGraph
+from repro_torch.core.graph import SNNGraph, from_quantized
 from repro_torch.core.mapping.books import PartitionResult
-from repro_torch.core.mapping.search import SearchTrace
+from repro_torch.core.mapping.search import SearchConfig, SearchTrace
 from repro_torch.core.memory_model import HardwareConfig
-from repro_torch.core.passes import CompileReport, initialization_packets
+from repro_torch.core.passes import (CompileReport, build_report,
+                                     initialization_packets, lower_pass,
+                                     partition_pass, schedule_pass,
+                                     search_pass, validate_pass)
+from repro_torch.core.profiling import current_profiler, phase, profiled
 from repro_torch.core.scheduling import LoweredProgram, OpTables, lower_tables
 from repro_torch.snn.lif import LIFIntParams
+from repro_torch.snn.quantize import QuantizedSNN
 
 __all__ = ["PROGRAM_FORMAT", "PROGRAM_FORMAT_VERSION", "Program",
-           "ProfileReport", "normalize_buckets"]
+           "ProfileReport", "compile", "normalize_buckets"]
 
 PROGRAM_FORMAT = "suprasnn-program"
 PROGRAM_FORMAT_VERSION = 1
@@ -502,3 +513,115 @@ class Program:
                                  "warmed shapes")
             prog.precompile(precompile, timesteps, spec)
         return prog
+
+
+# ---------------------------------------------------------------------------
+# The compile entry point.
+# ---------------------------------------------------------------------------
+
+def compile(g_or_qsnn: SNNGraph | QuantizedSNN, hw: HardwareConfig, *,
+            method: str = "framework", engine: str = "torch", seed: int = 0,
+            validate: bool = True, max_iters: int = 20000,
+            restarts: int = 1, workers: int = 1,
+            schedule_method: str = "slack",
+            search: SearchConfig | None = None,
+            n_chips: int | None = None,
+            profile_phases: bool = True) -> Program:
+    """Compile an SNN (graph or the port's quantized model) into a
+    :class:`Program`; port of ``repro.core.program.compile``.
+
+    Runs partition -> schedule -> [validate] -> lower -> report (see
+    :mod:`repro_torch.core.passes`) on the host and wraps every product
+    in the artifact. ``engine`` picks the default executor of
+    :meth:`Program.run`: ``"torch"`` (the card's kernels; the
+    reference's ``"jax"`` is taken as its alias), ``"python"`` or
+    ``"oracle"``. ``method``/``seed``/``max_iters``/``restarts``/
+    ``workers`` parameterize the partitioning pass, and
+    ``schedule_method`` names the registered
+    :class:`~repro_torch.core.scheduling.ScheduleStrategy`.
+
+    ``n_chips=N`` replicates the single-chip ``hw`` N times over the
+    flattened virtual tree (``n_spus`` becomes ``hw.n_spus * N``); the
+    memory and cycle models pick up the per-chip structures and the
+    inter-chip hop costs.
+
+    ``search=SearchConfig(...)`` replaces the partition pass with the
+    joint portfolio search (framework restarts raced against every
+    baseline and the extra strategies, each feasible mapping scheduled
+    under every registered schedule strategy); the trace lands on
+    ``program.report.search`` and the winning strategy on
+    ``program.report.schedule_method``.
+
+    ``profile_phases=True`` records the per-phase wall time on
+    ``report.phase_seconds``; wrap the call in
+    ``profiled(PhaseProfiler(alloc=True))`` to also record per-phase
+    allocation on ``report.phase_alloc_mb``.
+    """
+    engine = _ENGINE_ALIASES.get(engine, engine)
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+    t0 = time.time()
+    if n_chips is not None and n_chips != 1:
+        if hw.n_chips != 1:
+            raise ValueError(
+                f"compile(n_chips={n_chips}) replicates a SINGLE-chip "
+                f"HardwareConfig; hw already has n_chips={hw.n_chips}")
+        hw = dataclasses.replace(hw, n_spus=hw.n_spus * n_chips,
+                                 n_chips=n_chips)
+    g = (from_quantized(g_or_qsnn) if isinstance(g_or_qsnn, QuantizedSNN)
+         else g_or_qsnn)
+    trace = None
+    tables = None
+    schedule_depths = None
+    # reuse a caller-installed profiler so nested compiles accumulate
+    # into it; otherwise install a wall-clock-only one unless disabled
+    prof = current_profiler()
+    ctx = (contextlib.nullcontext(prof)
+           if (prof is not None or not profile_phases) else profiled())
+    with ctx as prof:
+        if search is not None:
+            if (method, seed, max_iters, restarts, workers,
+                    schedule_method) != \
+                    ("framework", 0, 20000, 1, 1, "slack"):
+                raise ValueError(
+                    "search= runs the joint portfolio and takes its "
+                    "parameters from the SearchConfig; pass "
+                    "seed/max_iters/restarts/workers there instead of as "
+                    "compile() arguments (the portfolio explores every "
+                    "registered schedule strategy, so schedule_method= "
+                    "does not apply)")
+            with phase("partition"):
+                part, trace, tables = search_pass(g, hw, search)
+            method = "portfolio"
+            if tables is not None:
+                sel = trace.selected
+                schedule_method = sel.schedule_method or "slack"
+                schedule_depths = sel.schedule_depths
+            else:
+                schedule_method = "slack"  # infeasible winner: default
+        else:
+            with phase("partition"):
+                part = partition_pass(g, hw, method=method, seed=seed,
+                                      max_iters=max_iters,
+                                      restarts=restarts, workers=workers)
+        if tables is None:
+            with phase("schedule"):
+                tables = schedule_pass(g, part, hw, method=schedule_method)
+        if validate:
+            with phase("validate"):
+                validate_pass(g, tables)
+        with phase("lower"):
+            lowered = lower_pass(g, tables)
+        with phase("report"):
+            report = build_report(g, hw, tables, part, method=method,
+                                  compile_seconds=time.time() - t0,
+                                  routing=lowered.routing, search=trace,
+                                  schedule_method=schedule_method,
+                                  schedule_depths=schedule_depths)
+    if prof is not None:
+        report.phase_seconds = {k: float(v) for k, v in prof.seconds.items()}
+        if prof.alloc:
+            report.phase_alloc_mb = {k: float(v)
+                                     for k, v in prof.alloc_mb.items()}
+    return Program(g, hw, tables, lowered, report, part,
+                   default_engine=engine)

@@ -2,14 +2,13 @@
 
 #   tables      OpTables / LoweredProgram containers + lower_tables
 #   vectorized  the array-core scheduler
+#   legacy      the original Python loop, kept as the parity reference
 #   strategies  the ScheduleStrategy registry
 #   validate    schedule legality checks
 
 :func:`schedule` resolves the strategy name to a send order and runs
-the vectorized core; its tables are the reference's bit for bit. The
-reference's ``schedule_legacy`` (the original Python loop, kept there as
-its own parity reference) is not ported: the port is held to the
-reference's vectorized scheduler directly.
+the vectorized core; its tables are the reference's bit for bit, and
+:func:`~repro_torch.core.scheduling.legacy.schedule_legacy`'s.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ import numpy as np
 
 from repro_torch.core.graph import SNNGraph
 from repro_torch.core.memory_model import HardwareConfig
+from repro_torch.core.scheduling.legacy import schedule_legacy
 from repro_torch.core.scheduling.strategies import (SCHEDULE_STRATEGIES,
                                                     ConsecutiveStrategy,
                                                     LoadBalanceStrategy,
@@ -49,7 +49,7 @@ def schedule(g: SNNGraph, assign: np.ndarray, hw: HardwareConfig, *,
 
 __all__ = [
     "NOP", "OpTables", "LoweredProgram", "lower_tables",
-    "schedule", "schedule_vectorized",
+    "schedule", "schedule_legacy", "schedule_vectorized",
     "GroupInfo", "group_info", "validate_schedule",
     "ScheduleStrategy", "SlackStrategy", "ConsecutiveStrategy",
     "LoadBalanceStrategy", "SCHEDULE_STRATEGIES",

@@ -12,9 +12,9 @@ SHD-scale golden ``tests/golden/shd_program_v1.npz``), registers it,
 and drains a Poisson request stream through the library micro-batcher
 (:class:`~repro_torch.serve.batcher.MicroBatcher`): FIFO queue,
 power-of-two batch buckets, pad-and-mask, per-request latency accounting
-on a simulated microsecond clock. The port has no compiler yet (ROADMAP
-Queue A item 7), so a missing artifact is an error here, where the
-reference compiles one.
+on a simulated microsecond clock. A missing artifact is compiled first
+(:func:`build_artifact`: a toy-MNIST-shaped graph on 16 SPUs, the
+reference's), saved there, and then loaded like any other.
 
 Request spike trains AND Poisson arrivals come from ONE
 ``np.random.Generator(--seed)``, and service times default to the
@@ -40,12 +40,26 @@ from pathlib import Path
 
 import numpy as np
 
-from repro_torch.core import ExecutionSpec, Program
+from repro_torch.core import (ExecutionSpec, HardwareConfig, Program,
+                              compile, random_graph)
 from repro_torch.serve import (ArrivalTrace, BatchPolicy, MicroBatcher,
                                ProgramRegistry, linear_service_model)
 
 DEFAULT_ARTIFACT = (Path(__file__).resolve().parents[3] / "tests" / "golden"
                     / "shd_program_v1.npz")
+
+
+def build_artifact(path: Path) -> Path:
+    """Compile-once step: a toy-MNIST-shaped graph onto 16 SPUs."""
+    g = random_graph(n_inputs=64, n_internal=48, n_synapses=900, seed=0)
+    hw = HardwareConfig(n_spus=16, unified_mem_depth=64, concentration=3,
+                        max_neurons=g.n_neurons,
+                        max_post_neurons=g.n_internal)
+    program = compile(g, hw, max_iters=20000)
+    print(f"compiled: feasible={program.feasible} "
+          f"OT depth={program.ot_depth} "
+          f"({program.report.compile_seconds:.1f}s partition+schedule)")
+    return program.save(path)
 
 
 def run_demo(args) -> dict:
@@ -54,10 +68,7 @@ def run_demo(args) -> dict:
     if path.suffix != ".npz":          # Program.save appends .npz
         path = path.with_name(path.name + ".npz")
     if not path.exists():
-        raise FileNotFoundError(
-            f"{path}: no artifact there, and the port cannot compile one "
-            f"yet (the compiler is ROADMAP Queue A item 7); pass --artifact "
-            f"with a saved Program (either package's npz v1)")
+        path = build_artifact(path)
     registry = ProgramRegistry()
     program: Program = registry.load("demo", path)  # no re-partitioning
     print(f"loaded {path.name}: {program.n_synapses} synapses on "

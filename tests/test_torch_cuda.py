@@ -397,6 +397,32 @@ def test_lif_tier_card_loop_matches_reference(cuda_device):
         assert_same_run(got, want, "lif tier on the card")
 
 
+@pytest.mark.parametrize("method", ["framework", "hypergraph"])
+def test_port_compiled_program_on_both_kernel_tiers(cuda_device, method):
+    """A Program the port compiled itself (a recurrent 1200-synapse graph
+    on 8 SPUs, on 4 chips for ``hypergraph``) runs on the ``"fused"`` and
+    ``"lif"`` tiers on the card bit for bit as the ``"reference"`` tier
+    and the oracle, with exactly T launches of each tier's kernel."""
+    from repro_torch.core import HardwareConfig, compile, random_graph
+    g = random_graph(16, 32, 1200, seed=4)
+    hw = HardwareConfig(n_spus=8, unified_mem_depth=48, concentration=3,
+                        max_neurons=g.n_neurons,
+                        max_post_neurons=g.n_internal)
+    prog = compile(g, hw, method=method, max_iters=20000,
+                   n_chips=4 if method == "hypergraph" else None)
+    assert prog.verify().ok
+    ext = (np.random.default_rng(6).random((5, 30, g.n_inputs))
+           < 0.3).astype(np.int32)
+    want = prog.run(ext, ExecutionSpec(kernel="reference"))
+    assert_same_run(prog.run(ext, ExecutionSpec(engine="oracle")), want,
+                    "oracle")
+    for tier, kernel in (("fused", fused_step), ("lif", lif_update_int)):
+        before = kernel.launches
+        got = prog.run(ext, ExecutionSpec(kernel=tier))
+        assert kernel.launches == before + 30, tier
+        assert_same_run(got, want, f"port-compiled {method} on {tier}")
+
+
 def _no_internal_neurons():
     """A program of 4 inputs and no internal neuron or synapse, lowered:
     ``(graph, lowered)``."""

@@ -11,7 +11,10 @@ subprocess, jax still blocked, imports and runs the serving modules
 module; another the compiler's back end and the verifier (the graph
 generator, the three schedule strategies, the report, the multi-chip
 accounting, ``verify``, its CLI and the registry's gate) and every new
-module of that slice on its own.
+module of that slice on its own; another the compiler (``compile`` of
+the SHD golden's graph to its content hash, the portfolio search, a
+4-chip multilevel compile of a synthetic graph, the deprecated wrapper,
+the serving CLI on a missing artifact) and runs what it compiled.
 ``chip_smoke.py`` must fail, and print no result, without a CUDA card
 and outside the repo.
 """
@@ -78,6 +81,11 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.analysis.verify",
                                    "repro_torch.analysis.memory",
                                    "repro_torch.core.scheduling",
+                                   "repro_torch.core.mapping",
+                                   "repro_torch.core.mapping.search",
+                                   "repro_torch.core.mapping.multilevel",
+                                   "repro_torch.core.program",
+                                   "repro_torch.core.compiler",
                                    "repro_torch.core.passes",
                                    "repro_torch.core.schedule",
                                    "repro_torch.configs.snn_paper",
@@ -191,6 +199,70 @@ def test_back_end_and_verifier_run_without_jax(first):
     shd = ROOT / "tests" / "golden" / "shd_program_v1.npz"
     out = subprocess.run([sys.executable, "-c", BACK_END_WITHOUT_JAX, first,
                           str(shd)],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+COMPILE_WITHOUT_JAX = """
+import dataclasses, io, contextlib, sys, tempfile, warnings
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import numpy as np
+first = sys.argv[1]
+__import__(first)
+from repro_torch.configs.snn_paper import SHD_HW
+from repro_torch.core import (ExecutionSpec, Program, SearchConfig, compile,
+                              compile_snn, random_graph)
+from repro_torch.core.scale import scale_hw, synthetic_graph
+from repro_torch.launch import serve_snn
+g = random_graph(700, 320, 33000, seed=0, weight_lo=-255, weight_hi=255)
+hw = dataclasses.replace(SHD_HW, weight_bits=9, potential_bits=18)
+shd = compile(g, hw, max_iters=20000)
+assert shd.content_hash() == sys.argv[2], shd.content_hash()
+assert shd.content_hash() == Program.load(sys.argv[3]).content_hash()
+small = random_graph(12, 24, 800, seed=3)
+hws = dataclasses.replace(hw, n_spus=8, unified_mem_depth=14, max_neurons=64,
+                          max_post_neurons=32)
+prog = compile(small, hws, search=SearchConfig(workers=1))
+assert prog.report.method == "portfolio" and prog.feasible
+ext = (np.random.default_rng(0).random((2, 6, 12)) < 0.3).astype(np.int32)
+cpu = ExecutionSpec(device="cpu")
+s, v, st = prog.run(ext, cpu)
+so, vo, _ = prog.run(ext, ExecutionSpec(engine="oracle", device="cpu"))
+assert np.array_equal(s, so) and np.array_equal(v, vo)
+big = synthetic_graph(4000, topology="mixed", skew=1.0, seed=0)
+hw4 = scale_hw(big, n_chips=4, spus_per_chip=4)
+hw1 = dataclasses.replace(hw4, n_spus=hw4.spus_per_chip, n_chips=1)
+p4 = compile(big, hw1, method="multilevel", n_chips=4)
+assert p4.hw.n_chips == 4 and p4.verify().ok
+with warnings.catch_warnings(record=True) as w:
+    warnings.simplefilter("always")
+    tables, report, part = compile_snn(small, hws, max_iters=2000)
+assert any(issubclass(x.category, DeprecationWarning) for x in w)
+with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.redirect_stdout(io.StringIO()):
+        m = serve_snn.main(["--artifact", tmp + "/absent", "--requests", "4",
+                            "--timesteps", "4", "--device", "cpu"])
+    assert m["requests"] == 4
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+# the SHD golden's content hash (tests/golden/shd_program_v1.npz)
+SHD_HASH = "2b2916b301a3678ffa1bf4427c59838bde159f778e00f7ab9df3106cff54ee01"
+
+
+@pytest.mark.parametrize("first", ["repro_torch.core.program",
+                                   "repro_torch.core.mapping.strategies"])
+def test_compiler_compiles_and_runs_without_jax(first):
+    shd = ROOT / "tests" / "golden" / "shd_program_v1.npz"
+    out = subprocess.run([sys.executable, "-c", COMPILE_WITHOUT_JAX, first,
+                          SHD_HASH, str(shd)],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -5,8 +5,9 @@
 ``tests/golden/tiny_program_v1.npz`` with the same argv (the port's
 with ``--device cpu``): their metrics dicts are equal (tolerance 0),
 for a plain run, an overload run that sheds, a replayed ``--trace``
-and a ``--sharded`` run; a missing artifact raises and names ROADMAP
-Queue A item 7 (the port has no compiler to build one).
+and a ``--sharded`` run; a missing artifact is compiled (the
+reference's toy graph on 16 SPUs), saved with the reference's bytes but
+for wall times, and served.
 """
 import importlib.util
 import sys
@@ -18,6 +19,7 @@ import torch
 
 import repro.serve as ref_serve
 from repro_torch.launch import serve_snn
+from torch_parity import assert_same_saved
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ROOT / "tests" / "golden" / "tiny_program_v1.npz"
@@ -80,11 +82,19 @@ def test_seed_determinism():
     assert (m3["p50_ms"], m3["p99_ms"]) != (m1["p50_ms"], m1["p99_ms"])
 
 
-def test_missing_artifact_names_the_compiler_item(tmp_path):
-    with pytest.raises(FileNotFoundError, match="Queue A item 7"):
-        serve_snn.main(["--artifact", str(tmp_path / "absent"),
-                        "--device", "cpu"])
-    assert not (tmp_path / "absent.npz").exists()      # nothing compiled
+def test_missing_artifact_names_the_compiler_item(tmp_path, reference):
+    """A missing artifact goes to the compiler, as in the reference: the
+    port compiles the toy graph, saves the reference's artifact (but for
+    wall times) and serves it with the reference's metrics."""
+    argv = ["--requests", "6", "--timesteps", "4", "--seed", "3"]
+    got = serve_snn.main(["--artifact", str(tmp_path / "absent"),
+                          "--device", "cpu"] + argv)
+    want = reference.main(["--artifact", str(tmp_path / "ref")] + argv)
+    assert got == want
+    assert_same_saved(tmp_path / "absent.npz", tmp_path / "ref.npz")
+    again = serve_snn.main(["--artifact", str(tmp_path / "absent.npz"),
+                            "--device", "cpu"] + argv)
+    assert again == got                                 # loaded, not rebuilt
 
 
 def test_default_artifact_is_the_shd_golden():

@@ -11,10 +11,10 @@ reference's (``repro.analysis``), on the CPU:
 * ``register_checker`` rejects a duplicate name, ``verify`` refuses an
   unregistered code, and the port's ``CODES`` is its own dict holding
   the reference's codes and titles;
-* the reference's compiles (``framework``, ``synapse_rr``,
-  ``hypergraph`` x feedforward and recurrent; each schedule strategy;
-  ``leak_shift = 0``; the int8 / int16 range proofs), saved and loaded
-  by the port, verify clean with the reference's stats;
+* the port's compiles (``framework``, ``synapse_rr``, ``hypergraph`` x
+  feedforward and recurrent; each schedule strategy; ``leak_shift = 0``;
+  the int8 / int16 range proofs) verify clean with the stats of the
+  reference's compile of the same graph, and save its artifact;
 * the CLI (``python -m repro_torch.analysis.verify``): the reference's
   JSON but for the wall times, exit codes 0 / 1 / 2;
 * ``ProgramRegistry.register(verify=True)`` accepts the golden and
@@ -45,9 +45,10 @@ from repro.serve.registry import ProgramRegistry as JaxRegistry
 from repro.snn.lif import LIFIntParams as JaxLIF
 from repro_torch.analysis import CODES, Diagnostic, Severity
 from repro_torch.analysis.schedule import LEGACY_PRIORITY, check_schedule
-from repro_torch.core import Program
+from repro_torch.core import Program, compile
 from repro_torch.core.scheduling import validate_schedule
 from repro_torch.serve import ProgramRegistry
+from torch_parity import assert_same_artifact, port_graph, port_hw
 from test_analysis import MUTATIONS, _mutate_art001, _mutate_mem004, \
     _mutate_mem005, _mutate_sched001, _mutate_sched006
 
@@ -180,10 +181,11 @@ def test_register_checker_and_unregistered_codes():
     assert analysis.verify is verify.verify and callable(analysis.verify)
 
 
-# -- the reference's compiles, loaded by the port -----------------------------
+# -- the port's compiles against the reference's -----------------------------
 
-def _carried(jp, tmp_path, name="p"):
-    return Program.load(jp.save(tmp_path / name))
+def _compiled(g, hw, **kw):
+    """The port's compile of a reference graph, and the reference's."""
+    return compile(port_graph(g), port_hw(hw), **kw), jax_compile(g, hw, **kw)
 
 
 COMPILES = ([(m, r, "slack") for m in ("framework", "synapse_rr",
@@ -197,32 +199,32 @@ def test_compile_matrix_is_clean_with_the_reference_stats(
         tmp_path, method, recurrent, schedule_method):
     g = (jax_random_graph(10, 12, 120, seed=3) if recurrent
          else make_feedforward())
-    jp = jax_compile(g, make_hw(g), method=method,
-                     schedule_method=schedule_method)
-    p = _carried(jp, tmp_path)
+    p, jp = _compiled(g, make_hw(g), method=method,
+                      schedule_method=schedule_method)
     rep = p.verify()
     assert rep.ok and not rep.diagnostics, rep.summary()
     assert_same_report(rep, jp.verify())
+    assert_same_artifact(p, jp, tmp_path)
 
 
 def test_leak_shift_zero_and_range_proofs(tmp_path):
     lif = JaxLIF(leak_shift=0, v_threshold=9, v_reset=-2)
     g = jax_random_graph(6, 8, 40, seed=7, lif=lif)
-    jp = jax_compile(g, make_hw(g))
-    rep = _carried(jp, tmp_path, "leak0").verify()
+    p, jp = _compiled(g, make_hw(g))
+    rep = p.verify()
     assert_same_report(rep, jp.verify())
     r = rep.stats["ranges"]
     assert r["membrane_hi"] == r["current_hi"]
     assert r["membrane_lo"] == min(0, -2, r["current_lo"])
     ff = make_feedforward()
-    assert _carried(jax_compile(ff, make_hw(ff)), tmp_path, "ff") \
+    assert _compiled(ff, make_hw(ff))[0] \
         .verify().stats["ranges"]["dense_dtype"] == "int8"
     g = jax_random_graph(12, 10, 110, seed=2, weight_lo=-255, weight_hi=255)
     hw = dataclasses.replace(make_hw(g), weight_bits=9, potential_bits=18)
-    jp = jax_compile(g, hw)
-    p = _carried(jp, tmp_path, "int16")
+    p, jp = _compiled(g, hw)
     r = p.verify().stats["ranges"]
     assert r["dense_dtype"] == "int16" and r["int32_safe"]
+    assert_same_report(p.verify(), jp.verify())
     from repro_torch.kernels.fused_step import pack_dense
     assert pack_dense(p.lowered).dtype == np.int16
 
