@@ -146,7 +146,17 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    and the last logits equal bit for bit, no kernel-wrapper launch; a
    step past the capacity and one over another params tree raise; ms
    per token step graphed against eager in 3 interleaved pairs, tokens/s
-   and the graphed step's card busy share.
+   and the graphed step's card busy share. Then, zamba2-7b freed, the
+   dense stablelm-12b (``LM_DENSE``: 40 layers, d_model 5120, LayerNorm,
+   qkv bias, 25 % partial RoPE, GQA 32 / 8 heads of 160, untied head;
+   12.144 B bf16 parameters) at B = 8 the same way through the same
+   entry points: no kernel on its path, so every counter must read 0
+   over the prefill and the decode; finite logits and in-range tokens;
+   one decode step over per-layer cache lists (``unroll=True``) equal to
+   the stacked step bit for bit; the prefill's last logits against a
+   prefill of 1023 tokens and one decode step (reported, not gated: a
+   randomly initialised 40-layer model amplifies rounding); times, peak
+   memory and the card's time by kernel; then the same graphed decode.
 
 Last, a capture that fails (a loop that copies to the host) must raise
 and leave no graph. The last two lines are the kernels' JSON record (a
@@ -260,6 +270,7 @@ def recurrence_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
     return dict(rtol=5e-2, atol=5e-2)
 # LM serving (phase 7): (arch, batch); prompt and generated tokens
 LM_RUNS = (("rwkv6-3b", 8), ("zamba2-7b", 4))
+LM_DENSE = ("stablelm-12b", 8)   # the dense family's largest; no kernel
 LM_PROMPT, LM_GEN = 1024, 32
 # each layer of the kernel prefill against the chunked path on the same
 # input (its output and every state leaf), and the last-position logits:
@@ -1423,27 +1434,78 @@ def layerwise_prefill(params, cfg, batch_in) -> tuple[dict, torch.Tensor,
 
 def device_breakdown(fn, host_s: float) -> str:
     """The card's time under ``torch.profiler`` for one call of ``fn``,
-    by kernel (top 5) and its busy share of ``host_s``, the unprofiled
-    call's host-clock time."""
+    by kernel (top 5), by the torch op and input shapes that launched
+    it (top 5, the op's own kernels), and its busy share of ``host_s``,
+    the unprofiled call's host-clock time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.key_averages():
+    by_name, by_op = {}, {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
         if e.device_type == DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + getattr(
-                e, "self_device_time_total",
-                getattr(e, "self_cuda_time_total", 0.0))
+            by_name[e.key] = by_name.get(e.key, 0.0) + us
+        elif e.key.startswith("aten::") and us:
+            op = f"{e.key} {e.input_shapes}".replace(" ", "")
+            by_op[op] = by_op.get(op, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     if not busy_ms:
         return "card time not measured (no device events)"
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+
+    def top(d, width=70):
+        return "; ".join(f"{us / 1e3:.3f} ms {name[:width]}" for name, us in
+                         sorted(d.items(), key=lambda kv: -kv[1])[:5])
     return (f"card busy {busy_ms:.2f} ms, {busy_ms / (host_s * 1e3):.3f} of "
-            f"the unprofiled {host_s * 1e3:.2f} ms; top: " + "; ".join(
-                f"{us / 1e3:.3f} ms {name[:70]}" for name, us in top))
+            f"the unprofiled {host_s * 1e3:.2f} ms; top: {top(by_name)}; "
+            f"by op: {top(by_op, 100)}")
+
+
+def make_lm(name: str, batch: int, dev: torch.device) -> tuple:
+    """The full-width model ``name`` made on the card from seed 0 (the
+    peak memory count reset first) and ``batch`` seeded LM_PROMPT-token
+    prompts: (cfg, params, {"tokens": prompts}, init s, parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in leaves(params))
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, LM_PROMPT))).to(dev)
+    return cfg, params, {"tokens": prompts}, t_init, n_params
+
+
+def lm_breakdowns(name: str, cfg, params, batch_in: dict, logits, st,
+                  t_prefill_warm: float, dev: torch.device) -> None:
+    """The card's time by kernel of a warm prefill and of one eager
+    decode step from the grown prefill state ``st``, then the graphed
+    decode (``graphed_decode``)."""
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    batch = batch_in["tokens"].shape[0]
+    print(f"  {name} warm prefill: " + device_breakdown(
+        lambda: prefill(params, batch_in), t_prefill_warm))
+    state = _grow_cache(cfg, st, batch, LM_PROMPT + LM_GEN, dev)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    serve(params, tok, state)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(params, tok, state)
+    torch.cuda.synchronize()
+    print(f"  {name} one decode step: " + device_breakdown(
+        lambda: serve(params, tok, state), time.perf_counter() - t0))
+    del state
+    graphed_decode(name, cfg, params, logits, st, batch, dev)
 
 
 def serve_lm(name: str, batch: int, dev: torch.device) -> int:
@@ -1456,22 +1518,11 @@ def serve_lm(name: str, batch: int, dev: torch.device) -> int:
     randomly initialised model at this depth amplifies a one-ulp
     difference layer by layer) and break the times down. Returns the
     kernel's launches in the counted run."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import _grow_cache
-    from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-    cfg = get_config(name)
+    cfg, params, batch_in, t_init, n_params = make_lm(name, batch, dev)
     kernel = "wkv6" if cfg.family == "ssm" else "ssd"
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in leaves(params))
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, LM_PROMPT))).to(dev)
-    batch_in = {"tokens": prompts}
     prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
     capacity = LM_PROMPT + LM_GEN
 
@@ -1554,19 +1605,8 @@ def serve_lm(name: str, batch: int, dev: torch.device) -> int:
           f"{at_prefill[kernel]} {kernel}, decode 0; max memory allocated "
           f"{mem / 2**30:.2f} GiB")
     print(f"  first sequence: {torch.stack(toks)[:16, 0].tolist()}")
-
-    print(f"  {name} warm prefill: " + device_breakdown(
-        lambda: prefill(params, batch_in), t_prefill_warm))
-    state = _grow_cache(cfg, st_kernel, batch, capacity, dev)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
-    serve(params, tok, state)                 # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    serve(params, tok, state)
-    torch.cuda.synchronize()
-    print(f"  {name} one decode step: " + device_breakdown(
-        lambda: serve(params, tok, state), time.perf_counter() - t0))
-    graphed_decode(name, cfg, params, logits, st_kernel, batch, dev)
+    lm_breakdowns(name, cfg, params, batch_in, logits, st_kernel,
+                  t_prefill_warm, dev)
     return at_prefill[kernel]
 
 
@@ -1674,14 +1714,96 @@ def graphed_decode(name: str, cfg, params, logits, st_prefill, batch: int,
     del step
 
 
+def serve_dense(name: str, batch: int, dev: torch.device) -> None:
+    """Serve one full-width dense transformer as ``serve_lm`` serves the
+    recurrent ones: prefill LM_PROMPT tokens of ``batch`` seeded
+    prompts, grow the cache, decode LM_GEN tokens greedily, the counts
+    set to 0 just before and read just after: its path reaches no kernel
+    wrapper, so every count must stay 0. Then one decode step over
+    per-layer cache lists (``unroll=True``) against the stacked step, bit
+    for bit; the prefill's last logits against a prefill of LM_PROMPT - 1
+    tokens and one decode step (reported, not gated); times, memory and
+    the card's time by kernel; and the graphed decode."""
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg, params, batch_in, t_init, n_params = make_lm(name, batch, dev)
+    prompts = batch_in["tokens"]
+    prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
+    capacity = LM_PROMPT + LM_GEN
+
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    logits, st = prefill(params, batch_in)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    state = _grow_cache(cfg, st, batch, capacity, dev)
+    toks, t_decode = decode(serve, params, logits, state, batch)
+    counts = {k: f.launches for k, f in fns.items()}
+    expect(not any(counts.values()), f"{name}: prefill and decode launched "
+           f"{counts}; the dense path has no kernel")
+    expect(all(bool(t.isfinite().all()) for t in (logits, *toks))
+           and all(((t >= 0) & (t < cfg.vocab_size)).all() for t in toks),
+           f"{name}: non-finite logits or tokens out of range")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill(params, batch_in)                 # warm: not counted, timed
+    torch.cuda.synchronize()
+    t_prefill_warm = time.perf_counter() - t0
+
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    stacked = _grow_cache(cfg, st, batch, capacity, dev)
+    unrolled = {"len": stacked["len"].clone(), "main": {
+        k: [t.clone() for t in v] for k, v in stacked["main"].items()}}
+    lg_s, st_s = M.decode_step(params, cfg, tok, stacked)
+    lg_u, st_u = M.decode_step(params, cfg, tok, unrolled, unroll=True)
+    expect(torch.equal(lg_u, lg_s) and all(
+        torch.equal(a, st_s["main"][k][i]) for k in ("k", "v")
+        for i, a in enumerate(st_u["main"][k])),
+        f"{name}: the unrolled decode step differs from the stacked step")
+    del stacked, unrolled, st_s, st_u
+
+    _, st_short = prefill(params, {"tokens": prompts[:, :-1]})
+    st_short = _grow_cache(cfg, st_short, batch, LM_PROMPT, dev)
+    stepped, _ = M.decode_step(params, cfg, prompts[:, -1:], st_short)
+    del st_short
+    agree = float((stepped.argmax(-1) == logits.argmax(-1)).float().mean())
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"{name}: one unrolled decode step (per-layer cache lists) equal "
+          f"to the stacked step bit for bit (logits, every layer's K/V); "
+          f"prefill of {LM_PROMPT - 1} tokens + one decode step vs the "
+          f"prefill's last logits (not gated): max |err| "
+          f"{max_err_f(stepped, logits):.3g} (logits up to "
+          f"{float(logits.abs().max()):.3g}), greedy token agreeing "
+          f"{agree:.3f}")
+    print(f"serve {name} (full width, {n_params / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers) B={batch} prompt {LM_PROMPT} gen "
+          f"{LM_GEN}: init {t_init:.2f} s on the card; prefill "
+          f"{t_prefill * 1e3:.1f} ms (first), {t_prefill_warm * 1e3:.1f} ms "
+          f"(warm); decode {t_decode / LM_GEN * 1e3:.2f} ms per token step "
+          f"({LM_GEN * batch / t_decode:.1f} tokens/s); launches: 0 in "
+          f"prefill and decode (no kernel on this path); max memory "
+          f"allocated {mem / 2**30:.2f} GiB")
+    print(f"  first sequence: {torch.stack(toks)[:16, 0].tolist()}")
+    lm_breakdowns(name, cfg, params, batch_in, logits, st, t_prefill_warm,
+                  dev)
+
+
 def phase_lm(dev: torch.device) -> dict[str, int]:
-    """Serve rwkv6-3b, then zamba2-7b (the first freed before the second
-    is made); return each kernel's launches in its model's counted run."""
+    """Serve rwkv6-3b, then zamba2-7b, then the dense stablelm-12b (each
+    freed before the next is made); return each kernel's launches in its
+    model's counted run (the dense model launches none)."""
     launches = {}
     for name, batch in LM_RUNS:
         n = serve_lm(name, batch, dev)
         launches["wkv6" if name.startswith("rwkv") else "ssd"] = n
         torch.cuda.empty_cache()
+    serve_dense(*LM_DENSE, dev)
+    torch.cuda.empty_cache()
     return launches
 
 

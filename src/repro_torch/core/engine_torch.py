@@ -295,7 +295,8 @@ class TorchMappedEngine:
                 self._loop(buf)
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with recording() as recorded, torch.cuda.graph(graph):
+            with recording() as recorded, _build.gc_paused(), \
+                    torch.cuda.graph(graph):
                 self._loop(buf)
         return _GraphedShape(graph, buf, recorded)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -140,3 +141,19 @@ def on_device(device: torch.device):
     if device.type != "cuda" or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off for the block (a CUDA graph
+    capture). A graph that the collector frees during another graph's
+    capture destroys its executable there, which is not permitted while
+    a stream captures: the capture is invalidated and fails. torch
+    itself no longer collects before a capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

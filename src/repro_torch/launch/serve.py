@@ -1,8 +1,9 @@
 """Batched serving launcher: prefill a prompt batch, then decode tokens
 greedily with the recurrent (and K/V) state; port of
-``repro/launch/serve.py`` for the ported families (rwkv6-3b, zamba2-7b).
+``repro/launch/serve.py`` for the ported families (rwkv6-3b, zamba2-7b,
+and the dense stablelm-12b, glm4-9b, chatglm3-6b and qwen2-1.5b).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
 It runs on the card unless ``--device cpu`` is given. Parameters are
@@ -98,12 +99,15 @@ def _grow_cache(cfg, state: dict, batch: int, capacity: int,
                 device: str | torch.device | None = None) -> dict:
     """Copy a prefill-sized state into a decode state of K/V capacity
     ``capacity`` (zero-padded on the capacity axis; every leaf in
-    :func:`~repro_torch.models.model.init_decode_state`'s dtype)."""
-    fresh = M.init_decode_state(cfg, batch, capacity, device)
+    :func:`~repro_torch.models.model.init_decode_state`'s dtype). A
+    ``dense`` state with per-layer cache lists grows into lists."""
+    unrolled = isinstance(state.get("main", {}).get("k"), list)
+    fresh = M.init_decode_state(cfg, batch, capacity, device, unrolled)
 
     def graft(f, s):
         if f.ndim >= 3 and s.ndim == f.ndim and f.shape != s.shape:
-            # K/V caches differ on the capacity axis (axis 2)
+            # K/V caches differ on the capacity axis (axis 2 stacked,
+            # axis 1 in a per-layer list)
             f[tuple(slice(0, n) for n in s.shape)] = s
             return f
         return s.to(f.dtype)

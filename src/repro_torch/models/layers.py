@@ -1,5 +1,5 @@
 """Building blocks of the language models; port of
-``repro/models/layers.py``, only what the ``ssm`` and ``hybrid``
+``repro/models/layers.py``, what the ``ssm``, ``hybrid`` and ``dense``
 families use.
 
 Parameters are nested dicts of tensors, as the reference's pytrees are,
@@ -10,11 +10,11 @@ with float32 islands for norms, softmax and the recurrent states, and
 attention over a long prompt is chunked (the online-softmax recurrence
 over KV chunks, never the [S, S] score matrix).
 
-Not ported (they raise ``NotImplementedError``): layernorm, M-RoPE,
-attention's qkv bias and qk-norm, the gelu MLP and MLA (ROADMAP Queue A
-item 8). The reference names a ``repro.kernels.flash_attention`` Pallas
-kernel that does not exist, so attention has no kernel to port:
-:func:`chunked_attention` is plain torch.
+Not ported: M-RoPE (it raises ``NotImplementedError``) and MLA
+(ROADMAP Queue A item 8). The reference names a
+``repro.kernels.flash_attention`` Pallas kernel that does not exist, so
+attention has no kernel to port: :func:`chunked_attention` is plain
+torch.
 """
 from __future__ import annotations
 
@@ -81,10 +81,21 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def init_layernorm(d: int, device: torch.device) -> Params:
+    return {"scale": torch.ones((d,), device=device),
+            "bias": torch.zeros((d,), device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)  # as jnp.var
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(x.dtype)
+
+
 def apply_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    if "bias" in p:
-        raise NotImplementedError(f"layernorm is {NOT_PORTED}")
-    return rmsnorm(p, x, eps)
+    return layernorm(p, x, eps) if "bias" in p else rmsnorm(p, x, eps)
 
 
 # ---------------------------------------------------------------------------
@@ -173,21 +184,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def _check_attention(cfg: ArchConfig) -> None:
-    if cfg.qkv_bias or cfg.qk_norm:
-        raise NotImplementedError(f"attention's qkv bias and qk-norm are "
-                                  f"{NOT_PORTED}")
-
-
 def init_attention(cfg: ArchConfig, gen: Optional[torch.Generator],
                    device: torch.device) -> Params:
-    _check_attention(cfg)
     d, h, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dh = cfg.resolved_head_dim
-    return {"wq": _dense_init(gen, (d, h * dh), device),
-            "wk": _dense_init(gen, (d, hkv * dh), device),
-            "wv": _dense_init(gen, (d, hkv * dh), device),
-            "wo": _dense_init(gen, (h * dh, d), device)}
+    p = {"wq": _dense_init(gen, (d, h * dh), device),
+         "wk": _dense_init(gen, (d, hkv * dh), device),
+         "wv": _dense_init(gen, (d, hkv * dh), device),
+         "wo": _dense_init(gen, (h * dh, d), device)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * dh,), device=device)
+        p["bk"] = torch.zeros((hkv * dh,), device=device)
+        p["bv"] = torch.zeros((hkv * dh,), device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(dh, device)
+        p["k_norm"] = init_rmsnorm(dh, device)
+    return p
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -206,13 +218,20 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     serve step donates the state for the same end) and the cache is
     returned; ``cache_len + S`` must not exceed Smax.
     """
-    _check_attention(cfg)
     b, s, _ = x.shape
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
 
-    q = dot(x, p["wq"]).reshape(b, s, h, dh)
-    k = dot(x, p["wk"]).reshape(b, s, hkv, dh)
-    v = dot(x, p["wv"]).reshape(b, s, hkv, dh)
+    q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
+    if cfg.qkv_bias:    # the float32 bias cast first, as the reference does
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hkv, dh)
+    v = v.reshape(b, s, hkv, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     rd = int(dh * cfg.partial_rotary)
     if rd > 0:
         q = apply_rope(q, positions, cfg.rope_theta, rd, cfg.mrope_sections)
@@ -246,23 +265,31 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 
 def init_mlp(d: int, d_ff: int, style: str, gen: Optional[torch.Generator],
              device: torch.device) -> Params:
-    if style != "swiglu":
-        raise NotImplementedError(f"the {style!r} MLP is {NOT_PORTED}")
-    return {"w_gate": _dense_init(gen, (d, d_ff), device),
-            "w_up": _dense_init(gen, (d, d_ff), device),
+    if style == "swiglu":
+        return {"w_gate": _dense_init(gen, (d, d_ff), device),
+                "w_up": _dense_init(gen, (d, d_ff), device),
+                "w_down": _dense_init(gen, (d_ff, d), device)}
+    return {"w_up": _dense_init(gen, (d, d_ff), device),
             "w_down": _dense_init(gen, (d_ff, d), device)}
 
 
 def mlp(p: Params, x: torch.Tensor, style: str) -> torch.Tensor:
-    if style != "swiglu":
-        raise NotImplementedError(f"the {style!r} MLP is {NOT_PORTED}")
-    return dot(F.silu(dot(x, p["w_gate"])) * dot(x, p["w_up"]), p["w_down"])
+    if style == "swiglu":
+        # silu(g) * u in float32 and rounded once, as XLA's fusion of the
+        # reference computes it: rounding silu(g) to bf16 first made a
+        # reduced glm4-9b's bf16 decode logits 1.6x as far from float32
+        # as the reference's own
+        g = dot(x, p["w_gate"])
+        h = F.silu(g.to(torch.float32)) * dot(x, p["w_up"])
+        return dot(h.to(g.dtype), p["w_down"])
+    # jax.nn.gelu's default is the tanh form
+    return dot(F.gelu(dot(x, p["w_up"]), approximate="tanh"), p["w_down"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""The causal LM of the ``ssm`` (rwkv6-3b) and ``hybrid`` (zamba2-7b)
-families; port of ``repro/models/model.py``.
+"""The causal LM of the ``ssm`` (rwkv6-3b), ``hybrid`` (zamba2-7b) and
+``dense`` (stablelm-12b, glm4-9b, chatglm3-6b, qwen2-1.5b) families;
+port of ``repro/models/model.py``.
 
 One model definition driven by ``ArchConfig``. Parameters keep the
 reference's tree: every layer's leaves STACKED on a leading [L] axis, so
@@ -8,16 +9,18 @@ they are. Where the reference scans the stack with ``lax.scan``, the
 port loops over the layers in Python and indexes each leaf (a view, no
 copy). Three modes share the code: ``train`` (the stateless forward,
 behind :func:`full_logits`), ``prefill`` (emit the decode state for the
-whole prompt) and ``decode`` (one token, O(1) recurrent state, plus the
-shared attention's K/V cache for ``hybrid``). A prefill on the card
-runs the recurrences through the ``wkv6`` / ``ssd`` CUDA kernels, one
-launch per layer; on the CPU it runs the chunked einsum forms, as the
-reference's model does; decode runs the single-step recurrences in
-plain torch, as the reference does. The sharding constraints of the
-reference fall away on one card.
+whole prompt) and ``decode`` (one token: O(1) recurrent state, plus
+the shared attention's K/V cache for ``hybrid``; the K/V cache of every
+layer for ``dense``). A prefill on the card runs the recurrences through
+the ``wkv6`` / ``ssd`` CUDA kernels, one launch per layer; on the CPU it
+runs the chunked einsum forms, as the reference's model does; decode
+runs the single-step recurrences in plain torch, as the reference does.
+The ``dense`` family has no kernel: its attention is the reference's
+plain chunked attention, on the card as on the CPU. The sharding
+constraints of the reference fall away on one card.
 
-Other families (dense, MoE/MLA, audio, VLM) and the loss are not ported
-yet (ROADMAP Queue A item 8); they raise ``NotImplementedError``.
+Other families (MoE/MLA, audio, VLM) and the loss are not ported yet
+(ROADMAP Queue A item 8); they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from repro_torch.models import mamba2 as M2
 from repro_torch.models import rwkv as RW
 from repro_torch.models.layers import NOT_PORTED, Params
 
-FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("ssm", "hybrid", "dense")
 
 # ---------------------------------------------------------------------------
 # Trees of tensors
@@ -42,11 +45,14 @@ FAMILIES = ("ssm", "hybrid")
 
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` on every leaf of a nested dict (and the matching leaves of
-    ``rest``), keeping the structure."""
+    """``fn`` on every leaf of nested dicts and lists (and the matching
+    leaves of ``rest``), keeping the structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -65,10 +71,10 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
                                   f"{NOT_PORTED}")
     if cfg.n_codebooks or cfg.mrope_sections or cfg.moe or cfg.mla \
-            or cfg.pos_embed != "rope" or cfg.norm_style != "rmsnorm":
+            or cfg.pos_embed != "rope":
         raise NotImplementedError(f"{cfg.name}: codebooks, M-RoPE, MoE, "
-                                  f"MLA, sinusoidal positions and layernorm "
-                                  f"are {NOT_PORTED}")
+                                  f"MLA and sinusoidal positions are "
+                                  f"{NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -87,37 +93,64 @@ def _stack_init(fn: Callable[[], Params], n: int) -> Params:
     return out
 
 
+def _init_norm(cfg: ArchConfig, device: torch.device) -> Params:
+    return (L.init_layernorm if cfg.norm_style == "layernorm"
+            else L.init_rmsnorm)(cfg.d_model, device)
+
+
+def _init_attn_block(cfg: ArchConfig, gen: Optional[torch.Generator],
+                     device: torch.device) -> Params:
+    return {"ln1": _init_norm(cfg, device),
+            "attn": L.init_attention(cfg, gen, device),
+            "ln2": _init_norm(cfg, device)}
+
+
+def _init_dense_layer(cfg: ArchConfig, gen: Optional[torch.Generator],
+                      device: torch.device) -> Params:
+    p = _init_attn_block(cfg, gen, device)
+    p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_style, gen, device)
+    return p
+
+
 def _init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
                  device: torch.device) -> Params:
     _check_family(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    params: Params = {"final_norm": L.init_rmsnorm(d, device),
+    params: Params = {"final_norm": _init_norm(cfg, device),
                       "embed": L.init_embedding(v, d, gen, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L._dense_init(gen, (d, v), device)
     if cfg.family == "ssm":                       # rwkv6
         params["layers"] = _stack_init(
             lambda: RW.init_rwkv_block(cfg, gen, device), cfg.n_layers)
-    else:                                         # zamba2
+    elif cfg.family == "hybrid":                  # zamba2
         params["mamba"] = _stack_init(
             lambda: M2.init_mamba2_block(cfg, gen, device), cfg.n_layers)
+        shared = _init_dense_layer(cfg, gen, device)
+        # the reference's names for the unstacked shared block
         params["shared_attn_block"] = {
-            "ln1": L.init_rmsnorm(d, device),
-            "shared_attn": L.init_attention(cfg, gen, device),
-            "ln2": L.init_rmsnorm(d, device),
-            "shared_mlp": L.init_mlp(d, cfg.d_ff, cfg.mlp_style, gen,
-                                     device)}
+            "ln1": shared["ln1"], "shared_attn": shared["attn"],
+            "ln2": shared["ln2"], "shared_mlp": shared["mlp"]}
+    else:                                         # dense
+        params["layers"] = _stack_init(
+            lambda: _init_dense_layer(cfg, gen, device), cfg.n_layers)
     return params
 
 
-def init_model(cfg: ArchConfig, generator: torch.Generator,
+def init_model(cfg: ArchConfig, generator: Optional[torch.Generator],
                device: str | torch.device | None = None) -> Params:
     """Random parameters drawn from ``generator`` directly on ``device``
     (``None``: the card; see
     :func:`~repro_torch.core.execution.resolve_device`), which must be
     the generator's device. The distributions are the reference's
     (truncated-normal fan-in dense weights in bf16, N(0, 0.02^2)
-    embeddings); the bits differ from ``jax.random``'s."""
+    embeddings); the bits differ from ``jax.random``'s.
+
+    ``device="meta"`` gives the tree's shapes and dtypes alone, with no
+    memory and ``generator`` unread (the reference's ``jax.eval_shape``
+    of its ``init_model``): a full config's parameter count."""
+    if device is not None and torch.device(device).type == "meta":
+        return _init_params(cfg, None, torch.device("meta"))
     dev = resolve_device(device)
     if generator.device != dev:
         raise ValueError(f"the generator is on {generator.device}, the "
@@ -195,10 +228,13 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             mode: str = "train",
             state: Optional[dict] = None,
-            kernels: bool = True) -> ForwardOut:
+            kernels: bool = True,
+            unroll_decode: bool = False) -> ForwardOut:
     """The model over ``tokens`` [B, S]. ``kernels=False`` runs a prefill
     on the card through the chunked einsum forms instead of the CUDA
-    kernels (the path the kernels are held to)."""
+    kernels (the path the kernels are held to). ``unroll_decode``: a
+    ``dense`` decode returns its K/V caches as per-layer lists (see
+    :func:`_forward_transformer`)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
     _check_family(cfg)
@@ -214,13 +250,66 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     if cfg.family == "ssm":
         x, aux, new_state = _forward_rwkv(params, cfg, x, mode, state,
                                           kernels)
-    else:
+    elif cfg.family == "hybrid":
         x, aux, new_state = _forward_hybrid(params, cfg, x, positions, mode,
                                             state, kernels)
+    else:
+        x, aux, new_state = _forward_transformer(params, cfg, x, positions,
+                                                 mode, state, unroll_decode)
     x = _norm(params["final_norm"], x, cfg)
     if new_state is not None and cache_len is not None:
         new_state["len"] = cache_len + s
     return ForwardOut(x, aux, new_state)
+
+
+# -- dense transformer ----------------------------------------------------------
+
+
+def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
+                    cache_len=None, return_kv=False):
+    """Pre-norm attention + MLP. Returns (x, new_kv)."""
+    h, new_kv = L.attention(lp["attn"], _norm(lp["ln1"], x, cfg), cfg,
+                            positions=positions, kv_cache=kv,
+                            cache_len=cache_len, return_kv=return_kv)
+    x = x + h
+    x = x + L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style)
+    return x, new_kv
+
+
+def _forward_transformer(params, cfg, x, positions, mode, state, unroll):
+    """The stacked layers in a Python loop. Prefill returns the rotated
+    K/V of every layer as ``state["main"]`` = {"k", "v"}, each [L, B, S,
+    Hkv, Dh] bf16. Decode reads layer i's cache as ``state["main"]["k"][i]``,
+    which is a view of a stacked [L, ...] cache or element i of a
+    per-layer list (the reference's ``_decode_transformer_unrolled``
+    layout, ``init_decode_state(unrolled=True)``), and writes the new
+    entries in place either way; the returned state holds the given
+    caches, as per-layer lists when ``unroll``. The reference unrolls
+    its decode so that XLA stops copying the stacked cache per layer;
+    here the stacked cache is already written in place, so both layouts
+    run the same ops and give the same bits."""
+    decode = mode == "decode"
+    cache = state["main"] if decode else None
+    cache_len = state["len"] if decode else None
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        x, kv = _attn_mlp_block(
+            _layer(params["layers"], i), x, cfg, positions=positions,
+            kv=(cache["k"][i], cache["v"][i]) if decode else None,
+            cache_len=cache_len, return_kv=mode == "prefill")
+        if mode == "prefill":
+            ks.append(kv[0])
+            vs.append(kv[1])
+    aux = torch.zeros((), device=x.device)
+    if mode == "train":
+        return x, aux, None
+    if decode:
+        k, v = cache["k"], cache["v"]
+        if unroll:
+            k, v = list(k), list(v)
+    else:
+        k, v = torch.stack(ks), torch.stack(vs)
+    return x, aux, {"main": {"k": k, "v": v}}
 
 
 # -- rwkv ---------------------------------------------------------------------
@@ -316,14 +405,27 @@ def _cat_group_tail(g_states: list, t_states: Optional[list]) -> dict:
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, capacity: int,
-                      device: str | torch.device | None = None) -> dict:
+                      device: str | torch.device | None = None,
+                      unrolled: bool = False) -> dict:
     """Zero-initialized decode state with K/V capacity ``capacity``: the
     reference's keys, leaf shapes and dtypes, on ``device`` (``None``:
-    the card)."""
+    the card). ``unrolled``: a ``dense`` state's caches as per-layer
+    LISTS of [B, C, Hkv, Dh] tensors, each its own buffer (the other
+    families have no per-layer cache and ignore it, as the reference
+    does)."""
     _check_family(cfg)
     dev = resolve_device(device)
     length = torch.zeros((), dtype=torch.int32, device=dev)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
+    if cfg.family == "dense":
+        shape = (batch, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
+        if unrolled:
+            main = {k: [torch.zeros(shape, **bf16)
+                        for _ in range(cfg.n_layers)] for k in ("k", "v")}
+        else:
+            main = {k: torch.zeros((cfg.n_layers, *shape), **bf16)
+                    for k in ("k", "v")}
+        return {"len": length, "main": main}
     if cfg.family == "ssm":
         hd = cfg.ssm.head_dim
         h = cfg.d_model // hd
@@ -363,13 +465,15 @@ def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                state: dict, *, positions: Optional[torch.Tensor] = None
-                ) -> tuple:
+                state: dict, *, positions: Optional[torch.Tensor] = None,
+                unroll: bool = False) -> tuple:
     """One decode step. tokens [B, 1] -> (logits [B, 1, V], state). The
     recurrent leaves of the returned state are new tensors; a ``hybrid``
-    state's K/V caches are the given ones, written in place."""
+    or ``dense`` state's K/V caches are the given ones, written in place.
+    ``unroll``: a ``dense`` state comes back with per-layer cache lists
+    (the reference's unrolled decode)."""
     out = forward(params, cfg, tokens, positions=positions, mode="decode",
-                  state=state)
+                  state=state, unroll_decode=unroll)
     return unembed_hidden(params, cfg, out.hidden), out.state
 
 

@@ -41,15 +41,19 @@ def make_prefill_step(cfg: ArchConfig, kernels: bool = True):
     return prefill_step
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, unroll: bool = False):
     """serve_step(params, tokens, state) -> (next token ids, new state).
 
     One decode step for the whole request batch: the greedy next token
-    (int32 [B]). A ``hybrid`` state's K/V caches are updated in place, as
-    the reference's caller donates the state to its jitted step.
+    (int32 [B]). A ``hybrid`` or ``dense`` state's K/V caches are updated
+    in place, as the reference's caller donates the state to its jitted
+    step. ``unroll``: a ``dense`` state's caches come back as per-layer
+    lists (``init_decode_state(unrolled=True)``; the reference's
+    unrolled decode).
     """
     def serve_step(params, tokens, state):
-        logits, new_state = M.decode_step(params, cfg, tokens, state)
+        logits, new_state = M.decode_step(params, cfg, tokens, state,
+                                          unroll=unroll)
         next_tok = torch.argmax(logits[:, -1], dim=-1)
         return next_tok.to(torch.int32), new_state
     return serve_step
@@ -62,10 +66,11 @@ def serve_step_into(cfg: ArchConfig, params, tokens: torch.Tensor,
 
     Reads ``tokens`` [B, 1] int32 and ``state``; copies the new
     recurrent leaves and ``len`` back into ``state`` (``decode_step``
-    returns new tensors for them; a ``hybrid`` state's K/V caches are
-    written in place by the step itself) and the greedy token into
-    ``next_tok`` [B] int32, which ``tokens`` may view. Returns the
+    returns new tensors for them; a ``hybrid`` or ``dense`` state's K/V
+    caches are written in place by the step itself) and the greedy token
+    into ``next_tok`` [B] int32, which ``tokens`` may view. Returns the
     step's logits [B, 1, V]. Nothing here reads the card from the host.
+    A ``dense`` state keeps its layout, stacked or per-layer lists.
     """
     logits, new_state = M.decode_step(params, cfg, tokens, state)
     tree_map(lambda dst, src: dst if dst is src else dst.copy_(src),
@@ -122,13 +127,18 @@ class StaticServeStep:
     recurrent leaves ``tm_x``/``cm_x`` (rwkv) and ``conv`` (mamba) are
     float32, as the plain step returns them. A state copied in is cast
     to those dtypes (bf16 into float32 is exact).
+
+    ``unroll``: the step of ``make_serve_step(cfg, unroll=True)``, its
+    ``dense`` static state allocated as per-layer cache lists.
     """
 
     def __init__(self, cfg: ArchConfig, params,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 unroll: bool = False):
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        self.unroll = unroll
         self._shapes: dict[tuple[int, int], _StaticShape] = {}
         self._last: _StaticShape | None = None
         self._dtypes: dict | None = None
@@ -146,7 +156,7 @@ class StaticServeStep:
         next_tok = torch.zeros(key[0], dtype=torch.int32, device=self.device)
         state = tree_map(lambda a, d: a.to(d),
                          M.init_decode_state(self.cfg, key[0], key[1],
-                                             self.device),
+                                             self.device, self.unroll),
                          self._state_dtypes())
         shape = _StaticShape(*key, next_tok, next_tok.view(key[0], 1), state)
         self._prepare(shape)
@@ -158,7 +168,8 @@ class StaticServeStep:
         ``self.params``: one step at batch 1 from a zero state."""
         if self._dtypes is None:
             with _build.on_device(self.device):
-                probe = M.init_decode_state(self.cfg, 1, 1, self.device)
+                probe = M.init_decode_state(self.cfg, 1, 1, self.device,
+                                            self.unroll)
                 tok = torch.zeros((1, 1), dtype=torch.int32,
                                   device=self.device)
                 _, new = M.decode_step(self.params, self.cfg, tok, probe)
@@ -178,6 +189,10 @@ class StaticServeStep:
                 return shape
         if self.cfg.family == "hybrid":
             batch, capacity = state["k"].shape[1], state["k"].shape[2]
+        elif self.cfg.family == "dense":
+            k = state["main"]["k"]        # [L, B, C, ...] or L x [B, C, ...]
+            batch, capacity = (k[0].shape[:2] if isinstance(k, list)
+                               else k.shape[1:3])
         else:                    # a recurrent state has no capacity axis
             batch, capacity = state["rwkv"]["tm_x"].shape[1], None
         hits = [s for (b, c), s in self._shapes.items()
@@ -226,8 +241,9 @@ class GraphedServeStep(StaticServeStep):
     """
 
     def __init__(self, cfg: ArchConfig, params,
-                 device: str | torch.device | None = None):
-        super().__init__(cfg, params, device)
+                 device: str | torch.device | None = None,
+                 unroll: bool = False):
+        super().__init__(cfg, params, device, unroll)
         if self.device.type != "cuda":
             raise RuntimeError("the graphed serve step runs on the card; "
                                "on the CPU use make_serve_step")
@@ -244,7 +260,8 @@ class GraphedServeStep(StaticServeStep):
                                 shape.state, shape.next_tok)
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self._pool):
+            with _build.gc_paused(), torch.cuda.graph(graph,
+                                                      pool=self._pool):
                 logits = serve_step_into(self.cfg, self.params, shape.tokens,
                                          shape.state, shape.next_tok)
         shape.graph, shape.logits = graph, logits
@@ -255,9 +272,9 @@ class GraphedServeStep(StaticServeStep):
 
 
 def make_graphed_serve_step(cfg: ArchConfig, params,
-                            device: str | torch.device | None = None
-                            ) -> GraphedServeStep:
+                            device: str | torch.device | None = None,
+                            unroll: bool = False) -> GraphedServeStep:
     """The serve step as one CUDA graph per ``(batch, capacity)``; call
     ``precompile(batch, capacity)`` for each shape (after the cache is
-    grown), then use it as ``make_serve_step(cfg)``'s function."""
-    return GraphedServeStep(cfg, params, device)
+    grown), then use it as ``make_serve_step(cfg, unroll)``'s function."""
+    return GraphedServeStep(cfg, params, device, unroll)

@@ -19,7 +19,10 @@ emulations: float32 within rtol 1e-4 and atol 1e-5 of the largest output
 (sums in another order, so the error scales with the largest terms),
 bf16 inputs within 5e-2 (y rounded to bf16 after float32 sums in another
 order), as ``chip_smoke.recurrence_tol``; each launched twice, bit for
-bit the same.
+bit the same. A reduced dense LM (no kernel) on the card against the
+same model on the CPU with float32-cast weights: logits within the
+float32 recurrence tolerance, bf16 K/V caches within one bf16 ulp
+(rtol 2^-7: values agreeing to 1e-6 can round to neighbours).
 """
 from pathlib import Path
 
@@ -729,7 +732,8 @@ def test_async_server_engine_mode_round_trip(cuda_device):
         np.testing.assert_array_equal(c.outputs[2], st["packet_counts"])
 
 
-@pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-7b"])
+@pytest.mark.parametrize("name", ["rwkv6-3b", "zamba2-7b", "stablelm-12b",
+                                  "glm4-9b"])
 def test_graphed_decode_matches_eager(cuda_device, name):
     """The graphed decode step at reduced size: the same greedy tokens and
     state bits as the eager step, no kernel-wrapper launch, and a step
@@ -765,6 +769,94 @@ def test_graphed_decode_matches_eager(cuda_device, name):
     assert (wkv6.launches, ssd.launches) == before
     with pytest.raises(ValueError, match="past capacity"):
         step(params, tg.reshape(2, 1), sg)
+
+
+def test_captures_keep_the_cycle_collector_off(cuda_device, monkeypatch):
+    """The engine's and the serve step's captures begin with Python's
+    cyclic collector paused, and a capture still succeeds while an old
+    engine's graphs lie in unreachable cycles (the collector would free
+    them mid-capture, which invalidates the capture)."""
+    import gc
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_graphed_serve_step
+
+    prog = Program.load(GOLDEN / "shd_program_v1.npz")
+    spec = ExecutionSpec(kernel="lif", device=str(cuda_device))
+    old = TorchMappedEngine(prog.graph, prog.lowered, spec)
+    old.precompile((1, 2), 5)
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle                        # garbage only the collector frees
+    seen = []
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(self, *args, **kwargs):
+        seen.append(gc.isenabled())
+        return begin(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    fresh = TorchMappedEngine(prog.graph, prog.lowered, spec)
+    assert fresh.precompile((1, 2), 5) == [(1, 5), (2, 5)]
+    cfg = get_reduced("glm4-9b")
+    params = M.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          cuda_device)
+    assert make_graphed_serve_step(cfg, params, cuda_device).precompile(2, 8)
+    assert seen == [False] * 3 and gc.isenabled()
+    gc.collect()
+
+
+@pytest.mark.parametrize("name", ["stablelm-12b", "glm4-9b", "qwen2-1.5b"])
+def test_dense_lm_on_card_matches_cpu(cuda_device, name):
+    """A reduced dense model with float32-cast weights: prefill, two
+    decode steps and one unrolled step on the card against the same on
+    the CPU; no kernel-wrapper launch; the unrolled step equal to the
+    stacked one bit for bit."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+
+    cfg = get_reduced(name)
+    cpu = torch.device("cpu")
+    p_cpu = tree_map(lambda a: a.float(), M.init_model(
+        cfg, torch.Generator().manual_seed(0), cpu))
+    p_gpu = tree_map(lambda a: a.to(cuda_device), p_cpu)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 19)))
+    before = (wkv6.launches, ssd.launches)
+
+    def run(params, dev):
+        toks = tokens.to(dev)
+        lg, st = M.prefill(params, cfg, toks[:, :16])
+        st = _grow_cache(cfg, st, 2, 20, dev)
+        out = [lg]
+        for t in range(16, 18):
+            lg, st = M.decode_step(params, cfg, toks[:, t:t + 1], st)
+            out.append(lg)
+        unrolled = {"len": st["len"].clone(), "main": {
+            k: [a.clone() for a in v] for k, v in st["main"].items()}}
+        lg_u, st_u = M.decode_step(params, cfg, toks[:, 18:], unrolled,
+                                   unroll=True)
+        lg, st = M.decode_step(params, cfg, toks[:, 18:], st)
+        assert torch.equal(lg_u, lg)
+        for k in ("k", "v"):
+            assert torch.equal(torch.stack(st_u["main"][k]), st["main"][k])
+        return out + [lg], st
+
+    want, st_cpu = run(p_cpu, cpu)
+    got, st_gpu = run(p_gpu, cuda_device)
+    torch.cuda.synchronize()
+    assert (wkv6.launches, ssd.launches) == before
+    for g, w in zip(got, want):
+        assert bool(g.isfinite().all())
+        torch.testing.assert_close(g.cpu(), w,
+                                   **_recurrence_tol(torch.float32, w))
+    for k in ("k", "v"):
+        torch.testing.assert_close(st_gpu["main"][k].cpu().float(),
+                                   st_cpu["main"][k].float(),
+                                   rtol=2 ** -7, atol=1e-5)
+    assert int(st_gpu["len"]) == 19
 
 
 # -- programs the port schedules and verifies itself --------------------------

@@ -19,6 +19,9 @@ phase 7 replay it):
   (mamba) are float32, as the reference's and the plain step's are;
 * with float32-cast parameters one step from a grown state gives the
   plain step's tokens and state, every leaf's dtype and bits equal;
+* a ``dense`` step over per-layer cache lists (``unroll=True``) equals
+  the plain unrolled step bit for bit, and its tokens and caches those
+  of the stacked step;
 * the warm-up leaves the live buffers untouched; a step past the
   capacity, a step over another params tree and a state of a shape not
   prepared raise; the graphed step raises on the CPU.
@@ -43,7 +46,9 @@ from repro_torch.train.steps import (GraphedServeStep, StaticServeStep,
                                      serve_step_into, warm_serve_step)
 from test_torch_lm import BF16_LEAF, F32, assert_same_state, f32, to_torch
 
-NAMES = ["rwkv6-3b", "zamba2-7b"]
+NAMES = ["rwkv6-3b", "zamba2-7b", "stablelm-12b", "glm4-9b", "chatglm3-6b",
+         "qwen2-1.5b"]
+RECURRENT = NAMES[:2]
 B, PROMPT, GEN = 2, 8, 8
 CAP = PROMPT + GEN
 CPU = torch.device("cpu")
@@ -153,7 +158,7 @@ def test_static_step_from_the_reference_state(reference):
     assert BF16_LEAF["rtol"] == 2 ** -7            # the stated tolerance
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", RECURRENT)
 def test_static_step_keeps_the_float32_leaves_of_float32_params(name):
     """With float32-cast parameters the plain step returns the bf16
     recurrent leaves of the grown state as float32; one static step from
@@ -179,6 +184,30 @@ def test_static_step_keeps_the_float32_leaves_of_float32_params(name):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
     tree_map(same, got, want)
+
+
+@pytest.mark.parametrize("name", ["glm4-9b", "stablelm-12b"])
+def test_static_step_over_an_unrolled_state(name):
+    """The static step with per-layer cache lists: the plain unrolled
+    step's tokens and state bit for bit, and the stacked step's."""
+    cfg, params, tok, grown = _prefilled(name)
+    unrolled = _grow_cache(cfg, {"len": grown["len"], "main": {
+        k: [t[:, :PROMPT].clone() for t in v]
+        for k, v in grown["main"].items()}}, B, CAP, CPU)
+    want, st_plain = _chain(make_serve_step(cfg, unroll=True), params, tok,
+                            tree_map(torch.clone, unrolled))
+    step = StaticServeStep(cfg, params, "cpu", unroll=True)
+    step.precompile(B, CAP)
+    assert isinstance(step._shapes[(B, CAP)].state["main"]["k"], list)
+    got, st_static = _chain(step, params, tok, tree_map(torch.clone, unrolled))
+    assert torch.equal(got, want)
+    _assert_bits_equal(st_static, st_plain)
+    stacked, st_stacked = _chain(make_serve_step(cfg), params, tok,
+                                 tree_map(torch.clone, grown))
+    assert torch.equal(got, stacked)
+    for k in ("k", "v"):
+        assert torch.equal(torch.stack(st_static["main"][k]),
+                           st_stacked["main"][k])
 
 
 @pytest.mark.parametrize("name", NAMES)

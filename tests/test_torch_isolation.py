@@ -14,8 +14,10 @@ accounting, ``verify``, its CLI and the registry's gate) and every new
 module of that slice on its own; another the compiler (``compile`` of
 the SHD golden's graph to its content hash, the portfolio search, a
 4-chip multilevel compile of a synthetic graph, the deprecated wrapper,
-the serving CLI on a missing artifact) and runs what it compiled.
-``chip_smoke.py`` must fail, and print no result, without a CUDA card
+the serving CLI on a missing artifact) and runs what it compiled;
+another imports the four dense LM configs and runs a reduced dense
+model's prefill and stacked and unrolled decode on the CPU, and the LM
+serving CLI. ``chip_smoke.py`` must fail, and print no result, without a CUDA card
 and outside the repo.
 """
 import ast
@@ -63,7 +65,7 @@ def test_every_module_imports_without_jax():
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 71       # the slices' modules
+    assert int(out.stdout.split()[-1]) >= 75       # the slices' modules
 
 
 @pytest.mark.parametrize("first", ["repro_torch.kernels",
@@ -263,6 +265,55 @@ def test_compiler_compiles_and_runs_without_jax(first):
     shd = ROOT / "tests" / "golden" / "shd_program_v1.npz"
     out = subprocess.run([sys.executable, "-c", COMPILE_WITHOUT_JAX, first,
                           SHD_HASH, str(shd)],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+DENSE_WITHOUT_JAX = """
+import contextlib, io, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import importlib
+import torch
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.launch import serve
+from repro_torch.models import model as M
+names = ["stablelm-12b", "glm4-9b", "chatglm3-6b", "qwen2-1.5b"]
+for name in names:
+    mod = importlib.import_module(
+        "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
+    assert mod.CONFIG is get_config(name) and mod.CONFIG.family == "dense"
+    cfg = get_reduced(name)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9),
+                           generator=torch.Generator().manual_seed(1))
+    logits, st = M.prefill(params, cfg, tokens[:, :8])
+    assert st["main"]["k"].shape[:3] == (cfg.n_layers, 2, 8)
+    st = serve._grow_cache(cfg, st, 2, 10, "cpu")
+    unrolled = serve._grow_cache(cfg, {"len": st["len"], "main": {
+        k: [t[:, :8].clone() for t in v] for k, v in st["main"].items()}},
+        2, 10, "cpu")
+    lg, _ = M.decode_step(params, cfg, tokens[:, 8:], st)
+    lg_u, st_u = M.decode_step(params, cfg, tokens[:, 8:], unrolled,
+                               unroll=True)
+    assert torch.equal(lg, lg_u) and isinstance(st_u["main"]["k"], list)
+    assert bool(lg.isfinite().all())
+    with contextlib.redirect_stdout(io.StringIO()):
+        toks = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "5", "--gen", "3"])
+    assert toks.shape == (2, 3)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_dense_lm_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", DENSE_WITHOUT_JAX],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

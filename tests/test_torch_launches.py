@@ -1,9 +1,13 @@
 """The kernel wrappers' launch counters (``repro_torch.kernels.launches``)
 on the CPU: no count is lost when 8 threads count at once (the sharded
 runner launches from one thread per card), a recording diverts only its
-own thread's counts, and every wrapper counts through the helper."""
+own thread's counts, and every wrapper counts through the helper. Every
+CUDA graph capture of the port runs with Python's cyclic collector
+paused (``_build.gc_paused``): a graph it frees mid-capture invalidates
+the capture."""
 from __future__ import annotations
 
+import gc
 import importlib
 import inspect
 import re
@@ -12,7 +16,7 @@ import threading
 
 import pytest
 
-from repro_torch.kernels import launches
+from repro_torch.kernels import _build, launches
 
 THREADS, PER_THREAD = 8, 20_000
 
@@ -88,3 +92,26 @@ def test_every_wrapper_counts_through_the_helper(module):
     src = inspect.getsource(importlib.import_module(f"repro_torch.{module}"))
     assert not re.search(r"\.launches\s*\+=", src)
     assert "count_launch(" in src
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_gc_paused_restores_the_collector(enabled):
+    was = gc.isenabled()
+    try:
+        (gc.enable if enabled else gc.disable)()
+        with _build.gc_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(RuntimeError):
+            with _build.gc_paused():
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
+@pytest.mark.parametrize("module", ["core.engine_torch", "train.steps"])
+def test_every_capture_pauses_the_collector(module):
+    src = inspect.getsource(importlib.import_module(f"repro_torch.{module}"))
+    captures = re.findall(r"with ([^:]*?)torch\.cuda\.graph\(", src, re.S)
+    assert captures and all("gc_paused()" in c for c in captures)

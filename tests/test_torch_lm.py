@@ -1,5 +1,6 @@
-"""The port's language models (rwkv6-3b, ``ssm``; zamba2-7b, ``hybrid``)
-against the JAX package, at reduced size on the CPU.
+"""The port's language models (rwkv6-3b, ``ssm``; zamba2-7b, ``hybrid``;
+stablelm-12b, glm4-9b, chatglm3-6b and qwen2-1.5b, ``dense``) against
+the JAX package, at reduced size on the CPU.
 
 The JAX package's ``init_model`` parameters are carried into the port by
 ``params_from_numpy``; prompts are numpy token ids. On the CPU the port
@@ -37,7 +38,8 @@ from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-NAMES = ["rwkv6-3b", "zamba2-7b"]
+NAMES = ["rwkv6-3b", "zamba2-7b", "stablelm-12b", "glm4-9b", "chatglm3-6b",
+         "qwen2-1.5b"]
 B, S, PROMPT, STEPS = 2, 12, 8, 4
 F32 = dict(rtol=2e-4, atol=2e-4)
 BF16_LEAF = dict(rtol=2 ** -7, atol=2e-4)       # one bf16 ulp
@@ -248,8 +250,9 @@ def test_init_model_matches_the_reference_tree(name):
     assert shapes == jax.tree.map(lambda a: (a.shape, a.dtype.name), want)
     again = M.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
     M.tree_map(lambda a, b: assert_equal(a, b), got, again)   # seeded
-    w = (got["layers"]["time_mix"]["wr"] if name == "rwkv6-3b"
-         else got["mamba"]["in_proj"]).float()
+    w = {"ssm": lambda: got["layers"]["time_mix"]["wr"],
+         "hybrid": lambda: got["mamba"]["in_proj"],
+         "dense": lambda: got["layers"]["attn"]["wq"]}[cfg.family]().float()
     std = 1.0 / np.sqrt(cfg.d_model)
     assert float(w.abs().max()) <= 2 * std * (1 + 2 ** -7)   # cut at 2 sigma
     assert abs(float(w.std()) / std - 0.88) < 0.1            # trunc. normal
@@ -262,13 +265,14 @@ def test_configs_and_the_families_not_ported():
         assert dataclasses.astuple(get_reduced(name)) == \
             dataclasses.astuple(jax_get_reduced(name))
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("glm4-9b")
+        get_config("musicgen-medium")
     with pytest.raises(KeyError, match="unknown arch"):
         get_reduced("gpt-2")
-    dense = ArchConfig(**{f.name: getattr(jax_get_reduced("glm4-9b"), f.name)
-                          for f in dataclasses.fields(ArchConfig)})
+    moe = ArchConfig(**{f.name: getattr(jax_get_reduced("qwen3-moe-30b-a3b"),
+                                        f.name)
+                        for f in dataclasses.fields(ArchConfig)})
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        M.init_model(dense, torch.Generator(), "cpu")
+        M.init_model(moe, torch.Generator(), "cpu")
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
