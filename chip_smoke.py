@@ -157,6 +157,27 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    prefill of 1023 tokens and one decode step (reported, not gated: a
    randomly initialised 40-layer model amplifies rounding); times, peak
    memory and the card's time by kernel; then the same graphed decode.
+8. train the language models on the card (``phase_lm_train``), the
+   launch counts set to 0 just before and read just after: the training
+   path launches none of the six kernels. qwen2-1.5b (``TRAIN_LM``) at
+   full width (1.544 B bf16 parameters; B = 8, S = 1024; remat, loss
+   chunk 512, float32 Adam moments) takes 5 steps through the training
+   CLI's calls (``synthetic_batch``, ``make_train_step``): finite
+   losses, every parameter leaf updated, ms per step (first and warm,
+   the host clock ending in the loss's read), tokens/s, the card's time
+   by kernel and its busy share, peak memory; its (params, opt_state)
+   is saved by ``CheckpointManager`` and restored onto the card bit for
+   bit (seconds and bytes printed); then one step through
+   ``launch.train.main`` with ``--micro 2`` and one with int8 moments,
+   each from the same seed: the first loss within ``BF16_LOSS_RTOL`` of
+   the 5-step run's, peaks printed. Then its first step at 2 layers (B =
+   ``CUT_B``, S = ``CUT_S``) on the card and on the card machine's CPU
+   from the same parameters: the loss within ``BF16_LOSS_RTOL`` and
+   every gradient within a relative norm of ``BF16_GRAD_RTOL``. Then
+   rwkv6-3b (2 layers) and zamba2-7b (6 layers: one shared-block
+   period) at full width, B = ``CUT_B``, S = ``CUT_S``, one step each
+   through the chunked recurrences: every gradient finite and non-zero.
+   Last, ``wkv6`` and ``ssd`` must raise on an input that requires grad.
 
 Last, a capture that fails (a loop that copies to the host) must raise
 and leave no graph. The last two lines are the kernels' JSON record (a
@@ -1807,6 +1828,267 @@ def phase_lm(dev: torch.device) -> dict[str, int]:
     return launches
 
 
+# LM training (phase 8): qwen2-1.5b at full width through the training
+# CLI's calls; the depth-cut checks run at CUT_B x CUT_S tokens (the
+# card machine's CPU takes the same step in (b))
+TRAIN_LM, TRAIN_B, TRAIN_S, TRAIN_LM_STEPS = "qwen2-1.5b", 8, 1024, 5
+CUT_B, CUT_S = 2, 256
+CUT_LAYERS = {"qwen2-1.5b": 2, "rwkv6-3b": 2, "zamba2-7b": None}  # None: one
+#                                              attn_layer_period of layers
+# the card's bf16 step against the CPU's: the bounds tests/
+# test_torch_lm_train.py holds the port's bf16 gradients to the
+# reference's (the loss, relative; each leaf's gradient, relative norm)
+BF16_LOSS_RTOL, BF16_GRAD_RTOL = 5e-3, 0.1
+
+
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    g, w = got.double().cpu(), want.double().cpu()
+    return float((g - w).norm() / max(float(w.norm()), 1e-30))
+
+
+def step_timed(step, params, opt, batch) -> tuple:
+    """One train step; the host clock ends in a sync (the loss read)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    return params, opt, loss, time.perf_counter() - t0
+
+
+def depth_cut(name: str):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    n = CUT_LAYERS[name] or cfg.attn_layer_period
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def train_full_width(dev: torch.device) -> None:
+    """(a) TRAIN_LM_STEPS steps of qwen2-1.5b at full width, B = TRAIN_B,
+    S = TRAIN_S, making the training CLI's calls; (d) a checkpoint save
+    and restore of its (params, opt_state); then one step through the
+    CLI itself with ``--micro 2`` and one with int8 Adam moments."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+    from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                         make_train_step)
+
+    cfg = get_config(TRAIN_LM)
+    hp = TrainHParams(lr=3e-4, loss_chunk=min(512, TRAIN_S))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    start = tree_map(torch.clone, params)
+    opt = init_opt_state(params, hp)
+    step = make_train_step(cfg, None, hp)
+    losses, secs = [], []
+    for i in range(TRAIN_LM_STEPS):
+        batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, i, 0, dev)
+        params, opt, loss, dt = step_timed(step, params, opt, batch)
+        losses.append(loss)
+        secs.append(dt)
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect(all(np.isfinite(losses)), f"{TRAIN_LM} losses {losses}")
+    before = dict(leaves(start))
+    same = [k for k, a in leaves(params) if torch.equal(a, before[k])]
+    expect(not same, f"{TRAIN_LM}: leaves not updated: {same}")
+    n_params = sum(t.numel() for _, t in leaves(params))
+    warm = statistics.median(secs[1:])
+    tokens = TRAIN_B * TRAIN_S
+    print(f"train {TRAIN_LM} (full width: {n_params / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}; cut: none, B = "
+          f"{TRAIN_B}, S = {TRAIN_S}; remat, loss chunk {hp.loss_chunk}, "
+          f"Adam float32 moments): losses {[round(x, 4) for x in losses]}; "
+          f"every one of the {len(leaves(start))} parameter leaves "
+          f"updated; ms per step (host clock "
+          f"ending in a sync): first {secs[0] * 1e3:.1f}, then "
+          + ", ".join(f"{t * 1e3:.1f}" for t in secs[1:])
+          + f"; warm median {warm * 1e3:.1f} ms, {tokens / warm:.0f} "
+          f"tokens/s; max memory allocated {peak / 2**30:.2f} GiB")
+    batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, TRAIN_LM_STEPS, 0, dev)
+    print(f"  {TRAIN_LM} one warm train step: " + device_breakdown(
+        lambda: step(params, opt, batch), warm))
+    del start, before, batch
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_LM_STEPS - 1, (params, opt))
+        t_snap = time.perf_counter() - t0
+        mgr.wait()
+        t_save = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file())
+        t0 = time.perf_counter()
+        (p2, o2), _ = mgr.restore((params, opt))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        got = dict(leaves({"p": p2, "m": o2.m, "v": o2.v}))
+        want = leaves({"p": params, "m": opt.m, "v": opt.v})
+        diff = [k for k, b in want if got[k].dtype != b.dtype
+                or got[k].device != b.device or not torch.equal(got[k], b)]
+        expect(not diff and o2.step == opt.step == TRAIN_LM_STEPS,
+               f"{TRAIN_LM} checkpoint: restored leaves differ: {diff[:5]}")
+        print(f"  {TRAIN_LM} checkpoint of (params, opt_state): "
+              f"{n_bytes / 1e9:.3f} GB on disk ({len(want)} tensors + the "
+              f"step); save {t_save:.2f} s (host copy {t_snap:.2f} s, then "
+              f"the write on a thread), restore onto the card {t_load:.2f} "
+              f"s (SHA-256 verified); every leaf bit for bit")
+        del p2, o2, got, want
+    del params, opt
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    micro = train_main(["--arch", TRAIN_LM, "--steps", "1", "--batch",
+                        str(TRAIN_B), "--seq", str(TRAIN_S), "--micro", "2"])
+    peak_micro = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hp_q = TrainHParams(lr=3e-4, loss_chunk=hp.loss_chunk,
+                        quantized_opt_state=True)
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = init_opt_state(params, hp_q)
+    _, _, loss_q, t_q = step_timed(
+        make_train_step(cfg, None, hp_q), params, opt,
+        synthetic_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, dev))
+    peak_q = torch.cuda.max_memory_allocated(dev)
+    del params, opt
+    torch.cuda.empty_cache()
+    gaps = [abs(x - losses[0]) / abs(losses[0]) for x in (micro[0], loss_q)]
+    expect(all(g <= BF16_LOSS_RTOL for g in gaps),
+           f"{TRAIN_LM}: the first loss with --micro 2 / int8 moments "
+           f"{micro[0]} / {loss_q} against {losses[0]}")
+    print(f"  {TRAIN_LM} first step through the CLI with --micro 2 (2 x "
+          f"{TRAIN_B // 2} sequences): loss {micro[0]:.6f}, max memory "
+          f"allocated {peak_micro / 2**30:.2f} GiB; with int8 Adam moments: "
+          f"loss {loss_q:.6f}, {t_q * 1e3:.1f} ms (first step), max memory "
+          f"allocated {peak_q / 2**30:.2f} GiB; relative gaps to the first "
+          f"loss above {gaps[0]:.2e} / {gaps[1]:.2e} (limit "
+          f"{BF16_LOSS_RTOL})")
+
+
+def train_card_vs_cpu(dev: torch.device) -> None:
+    """(b) The first step of qwen2-1.5b at full width, depth cut, on the
+    card and on the CPU from the same parameters and batch."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+    from repro_torch.train.steps import TrainHParams, loss_and_grads
+
+    cfg = depth_cut(TRAIN_LM)
+    hp = TrainHParams(loss_chunk=min(512, CUT_S))
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = synthetic_batch(cfg, CUT_B, CUT_S, 0, 0, dev)
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(params, cfg, batch, hp)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    loss_c, _, grads_c = loss_and_grads(
+        tree_map(lambda t: t.to(cpu), params), cfg,
+        {k: v.to(cpu) for k, v in batch.items()}, hp)
+    t_cpu = time.perf_counter() - t0
+    gap = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    on_cpu = dict(leaves(grads_c))
+    worst = max((rel_norm(a, on_cpu[k]), k) for k, a in leaves(grads))
+    print(f"train {TRAIN_LM} card vs CPU (full width; cut: {cfg.n_layers} "
+          f"layers, B = {CUT_B}, S = {CUT_S}; bf16 parameters): loss "
+          f"{float(loss):.6f} / {float(loss_c):.6f}, relative gap {gap:.2e} "
+          f"(limit {BF16_LOSS_RTOL}); largest per-leaf gradient relative "
+          f"norm {worst[0]:.2e} at {worst[1]} (limit {BF16_GRAD_RTOL}); "
+          f"forward + backward {t_card * 1e3:.1f} ms on the card (first), "
+          f"{t_cpu:.2f} s on the CPU")
+    expect(gap <= BF16_LOSS_RTOL and worst[0] <= BF16_GRAD_RTOL,
+           f"{TRAIN_LM}: the card's step differs from the CPU's")
+
+
+def train_recurrent(name: str, dev: torch.device) -> None:
+    """(c) One train step of a recurrent model at full width, depth cut:
+    every leaf's gradient finite and non-zero (the time-mix / SSM leaves
+    included: the recurrences run their chunked forms under autograd)."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.optimizer.adam import AdamConfig, adam_update
+    from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                         loss_and_grads)
+
+    cfg = depth_cut(name)
+    hp = TrainHParams(loss_chunk=min(512, CUT_S))
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = synthetic_batch(cfg, CUT_B, CUT_S, 0, 0, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = loss_and_grads(params, cfg, batch, hp)
+    new, _ = adam_update(grads, init_opt_state(params, hp), params,
+                         AdamConfig(lr=hp.lr))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    bad = [k for k, g in leaves(grads)
+           if not bool(g.isfinite().all()) or not bool(g.ne(0).any())]
+    start = dict(leaves(params))
+    moved = sum(not torch.equal(a, start[k]) for k, a in leaves(new))
+    print(f"train {name} (full width; cut: {cfg.n_layers} layers, B = "
+          f"{CUT_B}, S = {CUT_S}): loss {float(loss):.6f}; "
+          f"{len(leaves(grads)) - len(bad)} of {len(leaves(grads))} "
+          f"gradients finite and non-zero; {moved} leaves updated; one step "
+          f"{dt * 1e3:.1f} ms (first)")
+    expect(np.isfinite(float(loss)) and not bad,
+           f"{name}: zero or non-finite gradients: {bad}")
+
+
+def check_kernels_refuse_grad(dev: torch.device) -> None:
+    """The wkv6 / ssd wrappers raise on an input that requires grad."""
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv6 import wkv6
+
+    z = dict(device=dev)
+    w_args = (torch.zeros(1, 8, 1, 64, **z, requires_grad=True),
+              *[torch.zeros(1, 8, 1, 64, **z) for _ in range(2)],
+              -torch.ones(1, 8, 1, 64, **z), torch.zeros(1, 64, **z),
+              torch.zeros(1, 1, 64, 64, **z))
+    s_args = (torch.zeros(1, 8, 1, 64, **z, requires_grad=True),
+              torch.ones(1, 8, 1, **z), torch.zeros(1, **z),
+              torch.zeros(1, 8, 64, **z), torch.zeros(1, 8, 64, **z),
+              torch.zeros(1, 1, 64, 64, **z))
+    for fn, args in ((wkv6, w_args), (ssd, s_args)):
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            msg = None
+        expect(msg is not None and "no backward" in msg,
+               f"{fn.__name__} launched on an input that requires grad")
+    print("wkv6 and ssd on an input that requires grad raised: "
+          f"{msg[:80]}")
+
+
+def phase_lm_train(dev: torch.device) -> None:
+    """Train the LMs on the card: (a) + (d) qwen2-1.5b at full width,
+    (b) its depth-cut first step against the CPU, (c) rwkv6-3b and
+    zamba2-7b at full width, depth cut; the six kernels' counts set to 0
+    just before and read just after: the training path launches none."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    train_full_width(dev)
+    train_card_vs_cpu(dev)
+    for name in ("rwkv6-3b", "zamba2-7b"):
+        train_recurrent(name, dev)
+        torch.cuda.empty_cache()
+    counts = {k: f.launches for k, f in fns.items()}
+    expect(not any(counts.values()), f"the LM training phase launched "
+           f"{counts}")
+    check_kernels_refuse_grad(dev)
+    print(f"LM training phase launches: {counts}")
+
+
 def phase_golden() -> None:
     from repro_torch.core import ExecutionSpec, Program
     for name in ("tiny", "shd"):
@@ -2826,6 +3108,7 @@ def main() -> int:
     phase_graphs(smi)
     launches.update(phase_train(dev))
     launches.update(phase_lm(dev))
+    phase_lm_train(dev)
     check_failed_capture()
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",

@@ -128,6 +128,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a launch of a kernel that has
+    no backward: its output would carry no gradient, and every
+    parameter before it would train on none, silently."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel has no "
+            f"backward; run the chunked form under autograd (the models "
+            f"route there themselves) or call under torch.no_grad()")
+
+
 def stream_handle(device: torch.device) -> int:
     """The raw handle of ``device``'s current stream: what
     ``torch.cuda.current_stream(device).cuda_stream`` gives, without

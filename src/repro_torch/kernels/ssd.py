@@ -83,7 +83,9 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     [B, S, H, P] in x's dtype (``y_t = S_t c_t``, without the D-skip) and
     the final state [B, H, P, N] float32. CUDA tensors launch
     ``csrc/ssd.cu`` (counted in ``ssd.launches``); CPU tensors run
-    :func:`~repro_torch.kernels.ref.ssd_ref`.
+    :func:`~repro_torch.kernels.ref.ssd_ref`. The kernel has no
+    backward: on the card, an input that requires grad under grad mode
+    raises ``RuntimeError``.
     """
     if x.ndim != 4 or b.ndim != 3:
         raise ValueError(f"x {tuple(x.shape)}, b {tuple(b.shape)}: want "
@@ -104,6 +106,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 "state0": (torch.float32,)})
     if x.device.type == "cpu":
         return ssd_ref(x, dt, a_log, b, c, state0)
+    _build.refuse_grad("ssd", x, dt, a_log, b, c, state0)
     y = torch.empty_like(x)
     state = torch.empty_like(state0)
     if bsz * h:

@@ -170,7 +170,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32; all contiguous on one device; N in ``HEAD_SIZES``. Returns
     y [B, S, H, N] in r's dtype and the final state [B, H, N, N] float32.
     CUDA tensors launch ``csrc/wkv6.cu`` (counted in ``wkv6.launches``);
-    CPU tensors run :func:`~repro_torch.kernels.ref.wkv6_ref`.
+    CPU tensors run :func:`~repro_torch.kernels.ref.wkv6_ref`. The
+    kernel has no backward: on the card, an input that requires grad
+    under grad mode raises ``RuntimeError``.
     """
     if r.ndim != 4:
         raise ValueError(f"r shape {tuple(r.shape)}: want [B, S, H, N]")
@@ -188,6 +190,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "state0": (torch.float32,)})
     if r.device.type == "cpu":
         return wkv6_ref(r, k, v, w_log, u, state0)
+    _build.refuse_grad("wkv6", r, k, v, w_log, u, state0)
     y = torch.empty_like(r)
     state = torch.empty_like(state0)
     if b * h:

@@ -25,11 +25,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._build import needs_grad
 
 Params = dict  # nested dict of tensors
 
 NOT_PORTED = "not ported yet; see ROADMAP Queue A item 8"
 NEG_INF = -1e30
+
+
+def use_kernel(kernels: bool, *tensors: torch.Tensor) -> bool:
+    """Whether a whole-sequence recurrence (``wkv6``, ``ssd``) on
+    ``tensors`` runs its CUDA kernel: on the card, unless ``kernels`` is
+    False or autograd records the call. The kernels have no backward; the
+    chunked forms, which autograd differentiates, run instead."""
+    return kernels and tensors[0].is_cuda and not needs_grad(*tensors)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd import ssd
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
-                                       init_rmsnorm, rmsnorm)
+                                       init_rmsnorm, rmsnorm, use_kernel)
 from repro_torch.models.rwkv import _pad_seq
 
 
@@ -151,7 +151,9 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
 
     state = {"ssm": [B, H, P, N] f32, "conv": [B, K-1, C_conv]}. A
     prefill on the card runs the ``ssd`` kernel unless ``kernels`` is
-    False; elsewhere, and then, it runs :func:`ssd_chunked`.
+    False or autograd records it
+    (:func:`~repro_torch.models.layers.use_kernel`); elsewhere, and
+    then, it runs :func:`ssd_chunked`.
     """
     s = cfg.ssm
     bsz, seq, d = x.shape
@@ -174,7 +176,7 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
         y, ssm = ssd_step(xh[:, 0], dt[:, 0], p["a_log"], b[:, 0], c[:, 0],
                           state["ssm"])
         y = y[:, None]
-    elif kernels and xh.is_cuda:
+    elif use_kernel(kernels, xh, dt, p["a_log"], b, c, state["ssm"]):
         y, ssm = ssd(xh.contiguous(), dt, p["a_log"], b.contiguous(),
                      c.contiguous(), state["ssm"])
     else:

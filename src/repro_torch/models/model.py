@@ -6,21 +6,30 @@ One model definition driven by ``ArchConfig``. Parameters keep the
 reference's tree: every layer's leaves STACKED on a leading [L] axis, so
 :func:`params_from_numpy` carries the reference's parameters across as
 they are. Where the reference scans the stack with ``lax.scan``, the
-port loops over the layers in Python and indexes each leaf (a view, no
-copy). Three modes share the code: ``train`` (the stateless forward,
-behind :func:`full_logits`), ``prefill`` (emit the decode state for the
-whole prompt) and ``decode`` (one token: O(1) recurrent state, plus
-the shared attention's K/V cache for ``hybrid``; the K/V cache of every
-layer for ``dense``). A prefill on the card runs the recurrences through
-the ``wkv6`` / ``ssd`` CUDA kernels, one launch per layer; on the CPU it
-runs the chunked einsum forms, as the reference's model does; decode
-runs the single-step recurrences in plain torch, as the reference does.
-The ``dense`` family has no kernel: its attention is the reference's
-plain chunked attention, on the card as on the CPU. The sharding
-constraints of the reference fall away on one card.
+port loops over the layers in Python, each leaf unbound into per-layer
+views (:func:`_unstack`). Three modes share the code: ``train`` (the
+stateless forward, behind :func:`loss_fn` and :func:`full_logits`),
+``prefill`` (emit the decode state for the whole prompt) and ``decode``
+(one token: O(1) recurrent state, plus the shared attention's K/V cache
+for ``hybrid``; the K/V cache of every layer for ``dense``). A prefill
+on the card runs the recurrences through the ``wkv6`` / ``ssd`` CUDA
+kernels, one launch per layer; on the CPU, and wherever autograd records
+the forward (the kernels have no backward), it runs the chunked einsum
+forms, as the reference's model always does; decode runs the
+single-step recurrences in plain torch, as the reference does. The
+``dense`` family has no kernel: its attention is the reference's plain
+chunked attention, on the card as on the CPU. The sharding constraints
+of the reference fall away on one card.
 
-Other families (MoE/MLA, audio, VLM) and the loss are not ported yet
-(ROADMAP Queue A item 8); they raise ``NotImplementedError``.
+Training (``mode="train"`` under autograd) recomputes each layer in
+backward (``remat``, the reference's ``jax.checkpoint`` of its scanned
+layer body: here ``torch.utils.checkpoint`` around each layer of the
+Python loop), and :func:`chunked_xent_loss` recomputes each chunk's
+logits, so that neither the layers' activations nor the [B, S, V]
+logits are held at once.
+
+Other families (MoE/MLA, audio, VLM) are not ported yet (ROADMAP Queue
+A item 8); they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import resolve_device
@@ -59,6 +70,21 @@ def tree_map(fn: Callable, tree, *rest):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views)."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree: one ``unbind`` per
+    leaf (views). Under autograd each leaf's layers then share one
+    backward node that stacks their gradients, where indexing each layer
+    would add ``n`` zero-padded [L, ...] copies."""
+    per_leaf = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[i], per_leaf) for i in range(n)]
+
+
+def _remat(on: bool, fn: Callable, *args):
+    """``fn(*args)``; with ``on``, its activations are recomputed in
+    backward instead of saved (``torch.utils.checkpoint``)."""
+    return checkpoint(fn, *args, use_reentrant=False) if on else fn(*args)
 
 
 def _stack(trees: list):
@@ -228,12 +254,15 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             mode: str = "train",
             state: Optional[dict] = None,
+            remat: bool = True,
             kernels: bool = True,
             unroll_decode: bool = False) -> ForwardOut:
-    """The model over ``tokens`` [B, S]. ``kernels=False`` runs a prefill
-    on the card through the chunked einsum forms instead of the CUDA
-    kernels (the path the kernels are held to). ``unroll_decode``: a
-    ``dense`` decode returns its K/V caches as per-layer lists (see
+    """The model over ``tokens`` [B, S]. ``remat``: in ``train`` mode
+    under autograd, each layer is recomputed in backward (the same bits
+    as without). ``kernels=False`` runs a prefill on the card through
+    the chunked einsum forms instead of the CUDA kernels (the path the
+    kernels are held to). ``unroll_decode``: a ``dense`` decode returns
+    its K/V caches as per-layer lists (see
     :func:`_forward_transformer`)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
@@ -247,15 +276,17 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             positions = cache_len + positions
 
     x = embed_tokens(params, cfg, tokens)
+    ck = remat and mode == "train" and torch.is_grad_enabled()
     if cfg.family == "ssm":
         x, aux, new_state = _forward_rwkv(params, cfg, x, mode, state,
-                                          kernels)
+                                          kernels, ck)
     elif cfg.family == "hybrid":
         x, aux, new_state = _forward_hybrid(params, cfg, x, positions, mode,
-                                            state, kernels)
+                                            state, kernels, ck)
     else:
         x, aux, new_state = _forward_transformer(params, cfg, x, positions,
-                                                 mode, state, unroll_decode)
+                                                 mode, state, unroll_decode,
+                                                 ck)
     x = _norm(params["final_norm"], x, cfg)
     if new_state is not None and cache_len is not None:
         new_state["len"] = cache_len + s
@@ -276,7 +307,11 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     return x, new_kv
 
 
-def _forward_transformer(params, cfg, x, positions, mode, state, unroll):
+def _train_layer(lp: Params, x, cfg, positions):
+    return _attn_mlp_block(lp, x, cfg, positions=positions)[0]
+
+
+def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck):
     """The stacked layers in a Python loop. Prefill returns the rotated
     K/V of every layer as ``state["main"]`` = {"k", "v"}, each [L, B, S,
     Hkv, Dh] bf16. Decode reads layer i's cache as ``state["main"]["k"][i]``,
@@ -287,22 +322,26 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll):
     caches, as per-layer lists when ``unroll``. The reference unrolls
     its decode so that XLA stops copying the stacked cache per layer;
     here the stacked cache is already written in place, so both layouts
-    run the same ops and give the same bits."""
+    run the same ops and give the same bits. ``ck``: each training layer
+    is recomputed in backward."""
     decode = mode == "decode"
     cache = state["main"] if decode else None
     cache_len = state["len"] if decode else None
+    aux = torch.zeros((), device=x.device)
+    layers = _unstack(params["layers"], cfg.n_layers)
+    if mode == "train":
+        for lp in layers:
+            x = _remat(ck, _train_layer, lp, x, cfg, positions)
+        return x, aux, None
     ks, vs = [], []
-    for i in range(cfg.n_layers):
+    for i, lp in enumerate(layers):
         x, kv = _attn_mlp_block(
-            _layer(params["layers"], i), x, cfg, positions=positions,
+            lp, x, cfg, positions=positions,
             kv=(cache["k"][i], cache["v"][i]) if decode else None,
             cache_len=cache_len, return_kv=mode == "prefill")
         if mode == "prefill":
             ks.append(kv[0])
             vs.append(kv[1])
-    aux = torch.zeros((), device=x.device)
-    if mode == "train":
-        return x, aux, None
     if decode:
         k, v = cache["k"], cache["v"]
         if unroll:
@@ -315,11 +354,21 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll):
 # -- rwkv ---------------------------------------------------------------------
 
 
-def _forward_rwkv(params, cfg, x, mode, state, kernels):
+def _rwkv_train_layer(lp: Params, x, cfg, kernels):
+    st = RW.init_rwkv_state(cfg, x.shape[0], device=x.device)
+    return RW.rwkv_block(lp, x, cfg, st, kernels=kernels)[0]
+
+
+def _forward_rwkv(params, cfg, x, mode, state, kernels, ck):
     b = x.shape[0]
+    layers = _unstack(params["layers"], cfg.n_layers)
+    aux = torch.zeros((), device=x.device)
+    if mode == "train":
+        for lp in layers:
+            x = _remat(ck, _rwkv_train_layer, lp, x, cfg, kernels)
+        return x, aux, None
     sts = []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+    for i, lp in enumerate(layers):
         if mode == "decode":
             x, st = RW.rwkv_block(lp, x, cfg, _layer(state["rwkv"], i),
                                   single_step=True)
@@ -328,8 +377,7 @@ def _forward_rwkv(params, cfg, x, mode, state, kernels):
                                   RW.init_rwkv_state(cfg, b, device=x.device),
                                   kernels=kernels)
         sts.append(st)
-    aux = torch.zeros((), device=x.device)
-    return x, aux, (None if mode == "train" else {"rwkv": _stack(sts)})
+    return x, aux, {"rwkv": _stack(sts)}
 
 
 # -- zamba2 hybrid -------------------------------------------------------------
@@ -342,22 +390,54 @@ def _hybrid_layout(cfg: ArchConfig):
     return period, n_groups, tail
 
 
-def _forward_hybrid(params, cfg, x, positions, mode, state, kernels):
+def _shared_block(sh: Params, x, cfg, positions, kv=None, cache_len=None,
+                  return_kv=False):
+    """The ONE shared attention + MLP block. Returns (x, new_kv)."""
+    h, new_kv = L.attention(sh["shared_attn"], _norm(sh["ln1"], x, cfg), cfg,
+                            positions=positions, kv_cache=kv,
+                            cache_len=cache_len, return_kv=return_kv)
+    x = x + h
+    x = x + L.mlp(sh["shared_mlp"], _norm(sh["ln2"], x, cfg), cfg.mlp_style)
+    return x, new_kv
+
+
+def _mamba_train_layer(lp: Params, x, cfg, kernels):
+    st = M2.init_mamba2_state(cfg, x.shape[0], x.device)
+    return M2.mamba2_block(lp, x, cfg, st, kernels=kernels)[0]
+
+
+def _shared_train(sh: Params, x, cfg, positions):
+    return _shared_block(sh, x, cfg, positions)[0]
+
+
+def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck):
     """Groups of ``period`` Mamba-2 layers, each followed by the ONE
     shared attention + MLP block, then the tail layers. Decode writes the
     shared block's K/V caches of ``state`` in place (see
-    :func:`repro_torch.models.layers.attention`)."""
+    :func:`repro_torch.models.layers.attention`). ``ck``: each training
+    Mamba-2 layer and each call of the shared block is recomputed in
+    backward."""
     b = x.shape[0]
     period, n_groups, tail = _hybrid_layout(cfg)
     sh = params["shared_attn_block"]
     decode = mode == "decode"
     cache_len = state["len"] if decode else None
+    layers = _unstack(params["mamba"], cfg.n_layers)
+    aux = torch.zeros((), device=x.device)
+    if mode == "train":
+        for g in range(n_groups):
+            for lp in layers[g * period:(g + 1) * period]:
+                x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels)
+            x = _remat(ck, _shared_train, sh, x, cfg, positions)
+        for lp in layers[n_groups * period:]:
+            x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels)
+        return x, aux, None
 
     def mamba_layer(x, i):
         st = (_layer(state["mamba"], i) if decode
               else M2.init_mamba2_state(cfg, b, x.device))
-        return M2.mamba2_block(_layer(params["mamba"], i), x, cfg, st,
-                               single_step=decode, kernels=kernels)
+        return M2.mamba2_block(layers[i], x, cfg, st, single_step=decode,
+                               kernels=kernels)
 
     g_states, kvs = [], []
     for g in range(n_groups):
@@ -366,23 +446,15 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels):
             x, st = mamba_layer(x, g * period + j)
             grp.append(st)
         g_states.append(grp)
-        h, kv = L.attention(sh["shared_attn"], _norm(sh["ln1"], x, cfg), cfg,
-                            positions=positions,
-                            kv_cache=((state["k"][g], state["v"][g])
-                                      if decode else None),
-                            cache_len=cache_len,
-                            return_kv=mode == "prefill")
-        x = x + h
-        x = x + L.mlp(sh["shared_mlp"], _norm(sh["ln2"], x, cfg),
-                      cfg.mlp_style)
+        x, kv = _shared_block(
+            sh, x, cfg, positions,
+            kv=(state["k"][g], state["v"][g]) if decode else None,
+            cache_len=cache_len, return_kv=mode == "prefill")
         kvs.append(kv)
     t_states = []
     for j in range(tail):
         x, st = mamba_layer(x, n_groups * period + j)
         t_states.append(st)
-    aux = torch.zeros((), device=x.device)
-    if mode == "train":
-        return x, aux, None
     if decode:
         k, v = state["k"], state["v"]
     else:
@@ -451,8 +523,50 @@ def init_decode_state(cfg: ArchConfig, batch: int, capacity: int,
 
 
 # ---------------------------------------------------------------------------
-# Public entry points
+# Loss (chunked cross-entropy) and public entry points
 # ---------------------------------------------------------------------------
+
+
+def _xent_chunk(params: Params, cfg: ArchConfig, h: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Summed NLL of one chunk: h [B, C, D], labels [B, C]."""
+    logp = F.log_softmax(unembed_hidden(params, cfg, h), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long()).sum()
+
+
+def chunked_xent_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
+                      labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Next-token CE over the sequence in chunks of ``chunk`` tokens (the
+    largest that divides S, at most ``chunk``: the reference's choice).
+
+    hidden [B, S, D]; labels [B, S] integer. Under autograd each chunk
+    is recomputed in backward: only the hidden chunk is saved, and the
+    float32 [B, C, V] logits exist for one chunk at a time. Returns the
+    summed NLL over ``labels.numel()``, float32.
+    """
+    s = hidden.shape[1]
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    ck = torch.is_grad_enabled()
+    total = torch.zeros((), device=hidden.device)
+    for lo in range(0, s, chunk):
+        total = total + _remat(ck, _xent_chunk, params, cfg,
+                               hidden[:, lo:lo + chunk],
+                               labels[:, lo:lo + chunk])
+    return total / labels.numel()
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
+            remat: bool = True, loss_chunk: int = 512) -> tuple:
+    """batch: {"tokens", "labels", optional "positions"} -> (loss,
+    {"ce", "aux"}): the training forward and :func:`chunked_xent_loss`."""
+    out = forward(params, cfg, batch["tokens"],
+                  positions=batch.get("positions"), mode="train",
+                  remat=remat)
+    ce = chunked_xent_loss(params, cfg, out.hidden, batch["labels"],
+                           chunk=loss_chunk)
+    return ce + out.aux, {"ce": ce, "aux": out.aux}
 
 
 def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -460,7 +574,7 @@ def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                 kernels: bool = True) -> tuple:
     """Small-scale helper (tests): full [B, S, V] logits and the aux loss."""
     out = forward(params, cfg, tokens, positions=positions, mode="train",
-                  kernels=kernels)
+                  remat=False, kernels=kernels)
     return unembed_hidden(params, cfg, out.hidden), out.aux
 
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
-                                       init_rmsnorm, rmsnorm)
+                                       init_rmsnorm, rmsnorm, use_kernel)
 
 # ---------------------------------------------------------------------------
 # Parameter init
@@ -177,8 +177,9 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
     x_prev [B, D]: last token of the previous call (token shift across
     boundaries); state [B, H, N, N]. A prefill on the card runs the
-    ``wkv6`` kernel unless ``kernels`` is False; elsewhere, and then, it
-    runs :func:`wkv6_chunked`.
+    ``wkv6`` kernel unless ``kernels`` is False or autograd records it
+    (:func:`~repro_torch.models.layers.use_kernel`); elsewhere, and
+    then, it runs :func:`wkv6_chunked`.
     """
     b, s, d = x.shape
     hd = cfg.ssm.head_dim
@@ -199,7 +200,7 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         y, state = wkv6_step(r[:, 0], k[:, 0], v[:, 0], w_log[:, 0],
                              p["u"], state)
         y = y[:, None]
-    elif kernels and r.is_cuda:
+    elif use_kernel(kernels, r, k, v, w_log, p["u"], state):
         y, state = wkv6(r, k, v, w_log, p["u"], state)
     else:
         y, state = wkv6_chunked(r, k, v, w_log, p["u"], state)

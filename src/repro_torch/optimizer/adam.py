@@ -1,5 +1,7 @@
-"""Adam/AdamW on dicts of tensors, with optional int8-quantized moments;
-port of ``repro/optimizer/adam.py``.
+"""Adam/AdamW on trees of tensors (nested dicts: the SNN's flat dict of
+weights, the LM's parameter tree), with optional int8-quantized moments;
+port of ``repro/optimizer/adam.py``. The moments mirror the tree of the
+parameters, as the reference's do.
 
 The int8 variant ("Adam-8bit") stores m and v block-quantized to int8
 with a per-block float32 absmax scale, blocks formed by splitting the
@@ -73,33 +75,61 @@ def _deq(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     return (q.to(torch.float32) * scale).reshape(shape)
 
 
-def adam_init(params: dict[str, torch.Tensor], cfg: AdamConfig) -> AdamState:
+def _flat(tree: dict, prefix: tuple = ()) -> dict:
+    """Nested dicts -> {path tuple: leaf}, in the tree's order."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    """:func:`_flat`'s inverse."""
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def adam_init(params: dict, cfg: AdamConfig) -> AdamState:
+    flat = _flat(params)
+
+    def each(fn):
+        return _nest({k: fn(p) for k, p in flat.items()})
+
     if cfg.quantized_state:
         b = cfg.block
-        return AdamState(0, {k: _q_init(p, b) for k, p in params.items()},
-                         {k: _q_init(p, b) for k, p in params.items()},
-                         {k: _q_scale_init(p, b) for k, p in params.items()},
-                         {k: _q_scale_init(p, b) for k, p in params.items()})
-    return AdamState(
-        0, {k: torch.zeros_like(p, dtype=torch.float32)
-            for k, p in params.items()},
-        {k: torch.zeros_like(p, dtype=torch.float32)
-         for k, p in params.items()})
+        return AdamState(0, each(lambda p: _q_init(p, b)),
+                         each(lambda p: _q_init(p, b)),
+                         each(lambda p: _q_scale_init(p, b)),
+                         each(lambda p: _q_scale_init(p, b)))
+    return AdamState(0, each(lambda p: torch.zeros_like(p,
+                                                        dtype=torch.float32)),
+                     each(lambda p: torch.zeros_like(p, dtype=torch.float32)))
 
 
 @torch.no_grad()
-def adam_update(grads: dict[str, torch.Tensor], state: AdamState,
-                params: dict[str, torch.Tensor], cfg: AdamConfig
-                ) -> tuple[dict[str, torch.Tensor], AdamState]:
-    """Returns (new_params, new_state)."""
+def adam_update(grads: dict, state: AdamState, params: dict,
+                cfg: AdamConfig) -> tuple[dict, AdamState]:
+    """Returns (new_params, new_state), trees like ``params``; ``grads``
+    holds a leaf for each of them (and may hold more)."""
     t = state.step + 1
     tf = torch.tensor(float(t), dtype=torch.float32)
     bc1 = 1.0 - cfg.b1 ** tf
     bc2 = 1.0 - cfg.b2 ** tf
 
+    grads = _flat(grads)
+    state = AdamState(state.step, *(None if x is None else _flat(x)
+                                    for x in state[1:]))
     new_p, new_m, new_v = {}, {}, {}
     new_ms, new_vs = {}, {}
-    for k, p in params.items():
+    for k, p in _flat(params).items():
         g = grads[k].to(torch.float32)
         m, v = state.m[k], state.v[k]
         quantized = cfg.quantized_state and state.m_scale[k].numel() > 0
@@ -120,5 +150,6 @@ def adam_update(grads: dict[str, torch.Tensor], state: AdamState,
             if cfg.quantized_state:
                 new_ms[k], new_vs[k] = state.m_scale[k], state.v_scale[k]
     if cfg.quantized_state:
-        return new_p, AdamState(t, new_m, new_v, new_ms, new_vs)
-    return new_p, AdamState(t, new_m, new_v)
+        return _nest(new_p), AdamState(t, _nest(new_m), _nest(new_v),
+                                       _nest(new_ms), _nest(new_vs))
+    return _nest(new_p), AdamState(t, _nest(new_m), _nest(new_v))

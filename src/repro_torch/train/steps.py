@@ -1,9 +1,19 @@
-"""prefill_step / serve_step builders; port of ``repro/train/steps.py``.
+"""train_step / prefill_step / serve_step builders; port of
+``repro/train/steps.py``.
 
 The reference builds pure functions for ``jit`` and enters its sharding
 rules inside them; on one card there are no rules, and the port's steps
-are plain functions. ``make_train_step`` (the LM loss, microbatching and
-Adam) is not ported yet (ROADMAP Queue A item 8).
+are plain functions. ``make_train_step`` takes ``rules=None`` only (the
+sharding rules are ROADMAP Queue A item 9). Its step:
+
+    for each microbatch (a Python loop when n_micro > 1):
+        loss, grads += loss_and_grads(...)      # remat'd forward, autograd
+    grads /= n_micro
+    params, opt = adam_update(...)
+
+The reference jits its train step with the parameters and optimizer
+state donated; the port's step returns new trees (``adam_update`` is
+functional), and the caller's rebinding frees the old ones.
 
 The reference jits its serve step with the state donated
 (``jax.jit(serve_step, donate_argnums=(2,))``). The port's counterpart
@@ -27,6 +37,95 @@ from repro_torch.core.execution import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import model as M
 from repro_torch.models.model import tree_map
+from repro_torch.optimizer.adam import AdamConfig, adam_init, adam_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    lr: float = 3e-4
+    weight_decay: float = 0.0
+    n_micro: int = 1                  # gradient-accumulation microbatches
+    accum_dtype: torch.dtype = torch.float32   # grad accumulator dtype
+    quantized_opt_state: bool = False  # int8 Adam m/v
+    remat: bool = True
+    loss_chunk: int = 512             # chunked-xent sequence chunk
+
+
+def _adam_cfg(hp: TrainHParams) -> AdamConfig:
+    return AdamConfig(lr=hp.lr, weight_decay=hp.weight_decay,
+                      quantized_state=hp.quantized_opt_state)
+
+
+def init_opt_state(params, hp: TrainHParams):
+    """Adam's state for ``params`` (``AdamState``; its moments mirror the
+    parameter tree)."""
+    return adam_init(params, _adam_cfg(hp))
+
+
+def loss_and_grads(params, cfg: ArchConfig, batch: dict,
+                   hp: TrainHParams) -> tuple:
+    """One forward and backward of ``models.model.loss_fn``: (loss,
+    metrics, grads), detached; ``grads`` mirrors ``params``, each leaf
+    in its parameter's dtype (zeros for a leaf the loss does not read,
+    as ``jax.grad`` gives)."""
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    flat: list = []
+    tree_map(flat.append, leaves)
+    with torch.enable_grad():
+        loss, metrics = M.loss_fn(leaves, cfg, batch, remat=hp.remat,
+                                  loss_chunk=hp.loss_chunk)
+        grads = iter(torch.autograd.grad(loss, flat, allow_unused=True,
+                                         materialize_grads=True))
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            tree_map(lambda _: next(grads), leaves))
+
+
+def _split(x: torch.Tensor, n_micro: int) -> torch.Tensor:
+    """[B, ...] -> [n_micro, B / n_micro, ...]; positions [3, B, S]
+    carry the batch on dim 1 (the reference's rule, as it stands)."""
+    if x.ndim >= 2 and x.shape[0] == 3 and x.shape[1] % n_micro == 0 \
+            and x.shape[0] != x.shape[1]:
+        return x.reshape(3, n_micro, -1, *x.shape[2:]).transpose(0, 1)
+    return x.reshape(n_micro, -1, *x.shape[1:])
+
+
+def make_train_step(cfg: ArchConfig, rules, hp: TrainHParams):
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics), metrics {"loss", "ce", "aux"} (0-d float32 tensors).
+
+    ``batch``: {"tokens", "labels", optional "positions"} with a leading
+    batch dim divisible by ``hp.n_micro``. With ``n_micro > 1`` the
+    microbatches' gradients are summed in ``hp.accum_dtype`` and divided
+    by ``n_micro``; the loss and every metric are their means. ``rules``
+    must be None.
+    """
+    if rules is not None:
+        raise NotImplementedError("sharding rules are not ported yet; see "
+                                  "ROADMAP Queue A item 9")
+    opt_cfg = _adam_cfg(hp)
+
+    def train_step(params, opt_state, batch):
+        if hp.n_micro == 1:
+            loss, metrics, grads = loss_and_grads(params, cfg, batch, hp)
+        else:
+            micro = {k: _split(v, hp.n_micro) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=hp.accum_dtype, device=p.device), params)
+            losses, seen = [], []
+            for i in range(hp.n_micro):
+                mb = {k: v[i] for k, v in micro.items()}
+                l, metrics, g = loss_and_grads(params, cfg, mb, hp)
+                tree_map(lambda a, b: a.add_(b.to(hp.accum_dtype)), grads, g)
+                losses.append(l)
+                seen.append(metrics)
+            tree_map(lambda g: g.div_(hp.n_micro), grads)
+            loss = sum(losses) / hp.n_micro          # in order, as a scan
+            metrics = {k: torch.stack([m[k] for m in seen]).mean()
+                       for k in seen[0]}
+        params, opt_state = adam_update(grads, opt_state, params, opt_cfg)
+        return params, opt_state, {"loss": loss, **metrics}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, kernels: bool = True):

@@ -22,7 +22,13 @@ order), as ``chip_smoke.recurrence_tol``; each launched twice, bit for
 bit the same. A reduced dense LM (no kernel) on the card against the
 same model on the CPU with float32-cast weights: logits within the
 float32 recurrence tolerance, bf16 K/V caches within one bf16 ulp
-(rtol 2^-7: values agreeing to 1e-6 can round to neighbours).
+(rtol 2^-7: values agreeing to 1e-6 can round to neighbours). LM
+training: a reduced model's loss and gradients on the card against the
+CPU with float32-cast weights (loss within relative 1e-5, gradients
+within a relative norm of 1e-4, ``tests/test_torch_lm_train.py``'s
+bounds), ``remat`` bit for bit, the ``wkv6`` / ``ssd`` wrappers refusing
+an input that requires grad, and a checkpoint of card tensors restored
+on the CPU bit for bit.
 """
 from pathlib import Path
 
@@ -917,3 +923,128 @@ def test_verify_gate_refuses_before_any_capture(cuda_device):
     assert "SCHED006" in str(info.value)
     assert "bad" not in reg and not bad._engines
     assert fused_step.launches == before
+
+
+# -- LM training on the card --------------------------------------------------
+
+TRAIN_ARCHS = ["qwen2-1.5b", "rwkv6-3b", "zamba2-7b"]
+
+
+def _train_case(name, dev, f32=True):
+    """A reduced LM, its parameters cast to float32 (``f32``) or in their
+    own dtypes, on the CPU and on ``dev`` (the same values), and a seeded
+    2 x 24 batch for each."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+
+    cfg = get_reduced(name)
+    p_cpu = tree_map(lambda a: a.float() if f32 else a,
+                     M.init_model(cfg, torch.Generator().manual_seed(0),
+                                  "cpu"))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    return (cfg, p_cpu, {"tokens": tokens, "labels": tokens},
+            tree_map(lambda a: a.to(dev), p_cpu),
+            {"tokens": tokens.to(dev), "labels": tokens.to(dev)})
+
+
+def _leaves(tree):
+    from repro_torch.models.model import tree_map
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_lm_train_step_on_card_matches_cpu(cuda_device, name):
+    """A reduced model with float32-cast weights: ``loss_and_grads`` and
+    one train step (``n_micro`` 2) on the card against the CPU, the loss
+    within relative 1e-5 and each gradient within a relative norm of
+    1e-4 (``tests/test_torch_lm_train.py``'s float32 bounds); the
+    recurrences run their chunked forms, so no kernel launches."""
+    from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                         loss_and_grads, make_train_step)
+
+    cfg, p_cpu, b_cpu, p_gpu, b_gpu = _train_case(name, cuda_device)
+    hp = TrainHParams(loss_chunk=10, n_micro=2)
+    before = (wkv6.launches, ssd.launches)
+    (l_g, _, g_g), (l_c, _, g_c) = (loss_and_grads(p, cfg, b, hp) for p, b in
+                                    ((p_gpu, b_gpu), (p_cpu, b_cpu)))
+    assert abs(float(l_g) - float(l_c)) <= 1e-5 * abs(float(l_c))
+    for a, b in zip(_leaves(g_g), _leaves(g_c)):
+        assert a.is_cuda and bool(a.ne(0).any())
+        assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm())
+    step = make_train_step(cfg, None, hp)
+    (pg, _, mg), (pc, _, mc) = (step(p, init_opt_state(p, hp), b)
+                                for p, b in ((p_gpu, b_gpu), (p_cpu, b_cpu)))
+    torch.cuda.synchronize()
+    assert (wkv6.launches, ssd.launches) == before
+    assert abs(float(mg["loss"]) - float(mc["loss"])) <= \
+        1e-5 * abs(float(mc["loss"]))
+    for a, b, p0 in zip(_leaves(pg), _leaves(pc), _leaves(p_cpu)):
+        assert not torch.equal(a.cpu(), p0)                 # updated
+        # Adam's first step moves each weight by lr * sign(g): at most
+        # 2 lr apart where a gradient at rounding noise flips its sign
+        assert float((a.cpu() - b).abs().max()) <= 2 * hp.lr * 1.001
+
+
+@pytest.mark.parametrize("name", TRAIN_ARCHS)
+def test_remat_changes_no_bit_on_card(cuda_device, name):
+    from repro_torch.train.steps import TrainHParams, loss_and_grads
+
+    cfg, _, _, params, batch = _train_case(name, cuda_device, f32=False)
+    (l1, _, g1), (l0, _, g0) = (
+        loss_and_grads(params, cfg, batch,
+                       TrainHParams(remat=remat, loss_chunk=10))
+        for remat in (True, False))
+    assert torch.equal(l1, l0)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(g1), _leaves(g0)))
+
+
+def test_recurrence_kernels_refuse_grad(cuda_device):
+    """``wkv6`` / ``ssd`` have no backward: an input that requires grad
+    raises under grad mode, and launches under ``torch.no_grad()``."""
+    dev = cuda_device
+    r = torch.randn(1, 8, 1, 64, device=dev)
+    w = (r, r, r, -torch.ones_like(r), torch.zeros(1, 64, device=dev),
+         torch.zeros(1, 1, 64, 64, device=dev))
+    x = torch.randn(1, 8, 1, 64, device=dev)
+    s = (x, torch.ones(1, 8, 1, device=dev), torch.zeros(1, device=dev),
+         torch.randn(1, 8, 64, device=dev), torch.randn(1, 8, 64, device=dev),
+         torch.zeros(1, 1, 64, 64, device=dev))
+    for fn, args in ((wkv6, w), (ssd, s)):
+        leaf = args[0].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(leaf, *args[1:])
+        before = fn.launches
+        with torch.no_grad():
+            y, _ = fn(leaf, *args[1:])
+        assert fn.launches == before + 1 and not y.requires_grad
+
+
+def test_checkpoint_of_card_tensors_restores_on_cpu(cuda_device, tmp_path):
+    """A reduced qwen2-1.5b's (params, opt_state) on the card after one
+    step, saved asynchronously; restored into a CPU tree bit for bit."""
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                         make_train_step)
+
+    cfg, p_cpu, _, params, batch = _train_case("qwen2-1.5b", cuda_device,
+                                               f32=False)
+    hp = TrainHParams(loss_chunk=8)
+    params, opt, _ = make_train_step(cfg, None, hp)(
+        params, init_opt_state(params, hp), batch)
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(0, (params, opt))
+    want = [t.cpu() for t in _leaves([params, opt.m, opt.v])]
+    mgr.wait()
+    like = (M.init_model(cfg, torch.Generator().manual_seed(3), "cpu"),
+            init_opt_state(p_cpu, hp))
+    (p2, o2), _ = mgr.restore(like)
+    got = _leaves([p2, o2.m, o2.v])
+    assert o2.step == 1 and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.device.type == "cpu" and a.dtype == b.dtype
+        assert torch.equal(a, b)

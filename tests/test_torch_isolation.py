@@ -17,8 +17,10 @@ the SHD golden's graph to its content hash, the portfolio search, a
 the serving CLI on a missing artifact) and runs what it compiled;
 another imports the four dense LM configs and runs a reduced dense
 model's prefill and stacked and unrolled decode on the CPU, and the LM
-serving CLI. ``chip_smoke.py`` must fail, and print no result, without a CUDA card
-and outside the repo.
+serving CLI; another imports the checkpoints, the straggler monitor and
+the training CLI and trains a reduced qwen2-1.5b 2 steps on the CPU,
+checkpointed, then resumes it one more. ``chip_smoke.py`` must fail, and
+print no result, without a CUDA card and outside the repo.
 """
 import ast
 import os
@@ -91,7 +93,11 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.core.passes",
                                    "repro_torch.core.schedule",
                                    "repro_torch.configs.snn_paper",
-                                   "repro_torch.kernels.launches"])
+                                   "repro_torch.kernels.launches",
+                                   "repro_torch.distributed",
+                                   "repro_torch.distributed.checkpoint",
+                                   "repro_torch.launch.train",
+                                   "repro_torch.optimizer.adam"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
@@ -314,6 +320,42 @@ print("ok")
 
 def test_dense_lm_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", DENSE_WITHOUT_JAX],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+TRAIN_WITHOUT_JAX = """
+import contextlib, io, os, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import torch
+import repro_torch.distributed as D
+import repro_torch.distributed.checkpoint
+import repro_torch.distributed.straggler
+from repro_torch.launch import train
+from repro_torch.train import TrainHParams, init_opt_state, make_train_step
+assert set(D.__all__) == {"save_checkpoint", "load_checkpoint", "latest_step",
+                          "CheckpointManager", "StragglerMonitor",
+                          "StepJournal"}
+with tempfile.TemporaryDirectory() as d:
+    args = ["--arch", "qwen2-1.5b", "--reduced", "--batch", "2", "--seq",
+            "16", "--device", "cpu", "--ckpt-dir", d]
+    with contextlib.redirect_stdout(io.StringIO()):
+        losses = train.main(args + ["--steps", "2"])
+        more = train.main(args + ["--steps", "3", "--resume"])
+    assert len(losses) == 2 and len(more) == 1 and D.latest_step(d) == 2
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_training_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", TRAIN_WITHOUT_JAX],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
