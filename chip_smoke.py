@@ -157,6 +157,18 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    prefill of 1023 tokens and one decode step (reported, not gated: a
    randomly initialised 40-layer model amplifies rounding); times, peak
    memory and the card's time by kernel; then the same graphed decode.
+   Then the last four families the same way (``LM_FAMILIES``, each
+   freed before the next is made; every count 0; graphed = eager and
+   unrolled = stacked bit for bit): qwen3-moe-30b-a3b at full width and
+   depth (48 MoE layers of 128 experts, top 8; 30.53 B, 56.9 GiB) at
+   B = 8; deepseek-v3-671b at full width cut to 4 layers (its 3 dense MLA
+   layers and 1 MLA MoE layer of 256 experts and the shared expert;
+   15.11 B; the init's peak printed) at B = 4, its unrolled step over
+   both stacks' latent caches; qwen2-vl-7b (M-RoPE, the prompts' three
+   position streams arange(P), the decode's from the cache length on
+   the card) at B = 8; musicgen-medium (4 codebooks: [B, P, 4] prompts,
+   [B, 4] greedy tokens a step) at B = 8. The MoE prefills' capacity
+   drops are printed with the last-logits agreement.
 8. train the language models on the card (``phase_lm_train``), the
    launch counts set to 0 just before and read just after: the training
    path launches none of the six kernels. qwen2-1.5b (``TRAIN_LM``) at
@@ -176,7 +188,15 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    every gradient within a relative norm of ``BF16_GRAD_RTOL``. Then
    rwkv6-3b (2 layers) and zamba2-7b (6 layers: one shared-block
    period) at full width, B = ``CUT_B``, S = ``CUT_S``, one step each
-   through the chunked recurrences: every gradient finite and non-zero.
+   through the chunked recurrences, then qwen3-moe-30b-a3b, qwen2-vl-7b
+   and musicgen-medium (2 layers each) and deepseek-v3-671b (1 dense + 1
+   MoE layer; gradients only, ``NO_ADAM``): every gradient finite and
+   non-zero. Then a 2-layer full-width qwen3-moe-30b-a3b prefill (B =
+   ``CUT_B``, S = ``CUT_S``) on the card and on the card machine's CPU
+   from the same weights cast to float32: at most ``ROUTE_FLIP_FRAC`` of
+   the (layer, token) top-k route sets differ, and the logits of the
+   tokens whose routes and drops agree in every layer are within
+   ``LM_TOL``; the same in bf16 is reported, not gated.
    Last, ``wkv6`` and ``ssd`` must raise on an input that requires grad.
 
 Last, a capture that fails (a loop that copies to the host) must raise
@@ -292,6 +312,12 @@ def recurrence_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
 # LM serving (phase 7): (arch, batch); prompt and generated tokens
 LM_RUNS = (("rwkv6-3b", 8), ("zamba2-7b", 4))
 LM_DENSE = ("stablelm-12b", 8)   # the dense family's largest; no kernel
+# the MoE / MLA, VLM and audio families (no kernel): (arch, batch, depth
+# cut or None); deepseek-v3-671b's 61 layers (1.25 TiB) cannot be held on
+# one card: 4 layers, its 3 dense MLA layers and 1 MoE layer (256
+# experts and the shared expert), 15.11 B parameters
+LM_FAMILIES = (("qwen3-moe-30b-a3b", 8, None), ("deepseek-v3-671b", 4, 4),
+               ("qwen2-vl-7b", 8, None), ("musicgen-medium", 8, None))
 LM_PROMPT, LM_GEN = 1024, 32
 # each layer of the kernel prefill against the chunked path on the same
 # input (its output and every state leaf), and the last-position logits:
@@ -1408,7 +1434,7 @@ def decode(serve, params, logits, state, batch: int) -> tuple[list, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(LM_GEN):
-        tok, state = serve(params, tok.reshape(batch, 1), state)
+        tok, state = serve(params, tok[:, None], state)
         toks.append(tok)
     torch.cuda.synchronize()
     return toks, time.perf_counter() - t0
@@ -1485,23 +1511,36 @@ def device_breakdown(fn, host_s: float) -> str:
             f"by op: {top(by_op, 100)}")
 
 
-def make_lm(name: str, batch: int, dev: torch.device) -> tuple:
-    """The full-width model ``name`` made on the card from seed 0 (the
-    peak memory count reset first) and ``batch`` seeded LM_PROMPT-token
-    prompts: (cfg, params, {"tokens": prompts}, init s, parameters)."""
+def make_lm(name: str, batch: int, dev: torch.device,
+            n_layers: int | None = None) -> tuple:
+    """The full-width model ``name`` (its depth cut to ``n_layers`` if
+    given) made on the card from seed 0 (the peak memory count reset
+    first) and ``batch`` seeded LM_PROMPT-token prompts ([B, P, K] over K
+    codebooks; M-RoPE's three streams arange(P), as the serving CLI
+    gives them): (cfg, params, batch_in, init s, parameters, the peak
+    memory of the init)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
     cfg = get_config(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
     n_params = sum(t.numel() for _, t in leaves(params))
+    k = (cfg.n_codebooks,) if cfg.n_codebooks else ()
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (batch, LM_PROMPT))).to(dev)
-    return cfg, params, {"tokens": prompts}, t_init, n_params
+        0, cfg.vocab_size, (batch, LM_PROMPT, *k))).to(dev)
+    batch_in = {"tokens": prompts}
+    if cfg.mrope_sections:
+        batch_in["positions"] = torch.arange(LM_PROMPT, device=dev).expand(
+            3, batch, LM_PROMPT)
+    return cfg, params, batch_in, t_init, n_params, init_peak
 
 
 def lm_breakdowns(name: str, cfg, params, batch_in: dict, logits, st,
@@ -1542,7 +1581,7 @@ def serve_lm(name: str, batch: int, dev: torch.device) -> int:
     from repro_torch.launch.serve import _grow_cache
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-    cfg, params, batch_in, t_init, n_params = make_lm(name, batch, dev)
+    cfg, params, batch_in, t_init, n_params, _ = make_lm(name, batch, dev)
     kernel = "wkv6" if cfg.family == "ssm" else "ssd"
     prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
     capacity = LM_PROMPT + LM_GEN
@@ -1664,12 +1703,12 @@ def graphed_decode(name: str, cfg, params, logits, st_prefill, batch: int,
 
     g_state, tok, toks_g = tree_map(torch.clone, grown), tok0, []
     for _ in range(LM_GEN):
-        tok, g_state = step(params, tok.reshape(batch, 1), g_state)
+        tok, g_state = step(params, tok[:, None], g_state)
         toks_g.append(tok.clone())
     logits_g = step.last_logits.clone()
     e_state, tok, toks_e = tree_map(torch.clone, grown), tok0, []
     for _ in range(LM_GEN):
-        logits_e, e_state = M.decode_step(params, cfg, tok.reshape(batch, 1),
+        logits_e, e_state = M.decode_step(params, cfg, tok[:, None],
                                           e_state)
         tok = torch.argmax(logits_e[:, -1], dim=-1).to(torch.int32)
         toks_e.append(tok)
@@ -1687,9 +1726,9 @@ def graphed_decode(name: str, cfg, params, logits, st_prefill, batch: int,
     expect(not diff, f"{name}: graphed decode differs from eager (max |err| "
            f"by leaf): {diff}")
     for what, call in (("past capacity", lambda: step(
-            params, tok.reshape(batch, 1), g_state)),
+            params, tok[:, None], g_state)),
             ("another params tree", lambda: step(
-                dict(params), tok0.reshape(batch, 1), grown))):
+                dict(params), tok0[:, None], grown))):
         try:
             call()
         except ValueError as e:
@@ -1703,13 +1742,13 @@ def graphed_decode(name: str, cfg, params, logits, st_prefill, batch: int,
 
     def run(serve) -> tuple[float, float]:
         st = tree_map(torch.clone, grown)
-        t, st = serve(params, tok0.reshape(batch, 1), st)
+        t, st = serve(params, tok0[:, None], st)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
         for _ in range(LM_GEN - 1):
-            t, st = serve(params, t.reshape(batch, 1), st)
+            t, st = serve(params, t[:, None], st)
         ev[1].record()
         torch.cuda.synchronize()
         n = LM_GEN - 1
@@ -1729,27 +1768,50 @@ def graphed_decode(name: str, cfg, params, logits, st_prefill, batch: int,
           + f"; tokens/s graphed {batch * 1e3 / g_ms:.1f}, eager "
           f"{batch * 1e3 / e_ms:.1f}")
     st = tree_map(torch.clone, grown)
-    tok, st = step(params, tok0.reshape(batch, 1), st)
+    tok, st = step(params, tok0[:, None], st)
     print(f"  {name} one graphed decode step: " + device_breakdown(
-        lambda: step(params, tok.reshape(batch, 1), st), g_ms / 1e3))
+        lambda: step(params, tok[:, None], st), g_ms / 1e3))
     del step
 
 
-def serve_dense(name: str, batch: int, dev: torch.device) -> None:
-    """Serve one full-width dense transformer as ``serve_lm`` serves the
-    recurrent ones: prefill LM_PROMPT tokens of ``batch`` seeded
-    prompts, grow the cache, decode LM_GEN tokens greedily, the counts
-    set to 0 just before and read just after: its path reaches no kernel
-    wrapper, so every count must stay 0. Then one decode step over
-    per-layer cache lists (``unroll=True``) against the stacked step, bit
+def moe_plans(fn) -> tuple:
+    """``fn()`` with every MoE layer's routing recorded (a wrapper around
+    ``models.moe._plan``): its result and, per layer, (top-k indices,
+    keep mask, capacity)."""
+    from repro_torch.models import moe as MOE
+    plans, plan = [], MOE._plan
+
+    def record(*args, **kwargs):
+        out = plan(*args, **kwargs)
+        plans.append((out[1], out[3], out[4]))
+        return out
+    MOE._plan = record
+    try:
+        return fn(), plans
+    finally:
+        MOE._plan = plan
+
+
+def serve_transformer(name: str, batch: int, dev: torch.device,
+                      n_layers: int | None = None) -> None:
+    """Serve one full-width transformer (depth cut to ``n_layers`` if
+    given) as ``serve_lm`` serves the recurrent ones: prefill LM_PROMPT
+    tokens of ``batch`` seeded prompts, grow the cache, decode LM_GEN
+    tokens greedily, the counts set to 0 just before and read just after:
+    its path reaches no kernel wrapper, so every count must stay 0. Then
+    one decode step over per-layer cache lists (``unroll=True``, every
+    part: K/V or MLA's latent and RoPE key) against the stacked step, bit
     for bit; the prefill's last logits against a prefill of LM_PROMPT - 1
-    tokens and one decode step (reported, not gated); times, memory and
-    the card's time by kernel; and the graphed decode."""
+    tokens and one decode step (reported, not gated: a randomly
+    initialised model amplifies rounding, and at full width the MoE
+    capacity drops routes, differently for another token count); times,
+    memory and the card's time by kernel; and the graphed decode."""
     from repro_torch.launch.serve import _grow_cache
     from repro_torch.models import model as M
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-    cfg, params, batch_in, t_init, n_params = make_lm(name, batch, dev)
+    cfg, params, batch_in, t_init, n_params, init_peak = make_lm(
+        name, batch, dev, n_layers)
     prompts = batch_in["tokens"]
     prefill, serve = make_prefill_step(cfg), make_serve_step(cfg)
     capacity = LM_PROMPT + LM_GEN
@@ -1765,10 +1827,11 @@ def serve_dense(name: str, batch: int, dev: torch.device) -> None:
     toks, t_decode = decode(serve, params, logits, state, batch)
     counts = {k: f.launches for k, f in fns.items()}
     expect(not any(counts.values()), f"{name}: prefill and decode launched "
-           f"{counts}; the dense path has no kernel")
+           f"{counts}; the transformer path has no kernel")
     expect(all(bool(t.isfinite().all()) for t in (logits, *toks))
            and all(((t >= 0) & (t < cfg.vocab_size)).all() for t in toks),
            f"{name}: non-finite logits or tokens out of range")
+    del state
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1778,34 +1841,47 @@ def serve_dense(name: str, batch: int, dev: torch.device) -> None:
 
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     stacked = _grow_cache(cfg, st, batch, capacity, dev)
-    unrolled = {"len": stacked["len"].clone(), "main": {
-        k: [t.clone() for t in v] for k, v in stacked["main"].items()}}
+    parts = [p for p in ("dense", "main") if p in stacked]
+    unrolled = {"len": stacked["len"].clone(), **{
+        p: {k: [t.clone() for t in v] for k, v in stacked[p].items()}
+        for p in parts}}
     lg_s, st_s = M.decode_step(params, cfg, tok, stacked)
     lg_u, st_u = M.decode_step(params, cfg, tok, unrolled, unroll=True)
     expect(torch.equal(lg_u, lg_s) and all(
-        torch.equal(a, st_s["main"][k][i]) for k in ("k", "v")
-        for i, a in enumerate(st_u["main"][k])),
+        torch.equal(a, st_s[p][k][i]) for p in parts for k in st_s[p]
+        for i, a in enumerate(st_u[p][k])),
         f"{name}: the unrolled decode step differs from the stacked step")
     del stacked, unrolled, st_s, st_u
 
-    _, st_short = prefill(params, {"tokens": prompts[:, :-1]})
+    short = {k: v[..., :-1] for k, v in batch_in.items()}
+    short["tokens"] = prompts[:, :-1]
+    (_, st_short), plans = moe_plans(lambda: prefill(params, short))
     st_short = _grow_cache(cfg, st_short, batch, LM_PROMPT, dev)
     stepped, _ = M.decode_step(params, cfg, prompts[:, -1:], st_short)
     del st_short
     agree = float((stepped.argmax(-1) == logits.argmax(-1)).float().mean())
     mem = torch.cuda.max_memory_allocated(dev)
-    print(f"{name}: one unrolled decode step (per-layer cache lists) equal "
-          f"to the stacked step bit for bit (logits, every layer's K/V); "
-          f"prefill of {LM_PROMPT - 1} tokens + one decode step vs the "
-          f"prefill's last logits (not gated): max |err| "
+    drops = ""
+    if plans:
+        kept = float(torch.stack([keep.float().mean()
+                                  for _, keep, _ in plans]).mean())
+        drops = (f"; MoE capacity {plans[0][2]} a (group, expert) in that "
+                 f"prefill, {1 - kept:.4f} of its routes dropped")
+    print(f"{name}: one unrolled decode step (per-layer {'/'.join(parts)} "
+          f"cache lists) equal to the stacked step bit for bit (logits, "
+          f"every layer's cache); prefill of {LM_PROMPT - 1} tokens + one "
+          f"decode step vs the prefill's last logits (not gated): max |err| "
           f"{max_err_f(stepped, logits):.3g} (logits up to "
           f"{float(logits.abs().max()):.3g}), greedy token agreeing "
-          f"{agree:.3f}")
+          f"{agree:.3f}{drops}")
+    cut = (f"cut to {cfg.n_layers} layers" if n_layers is not None
+           else f"{cfg.n_layers} layers")
     print(f"serve {name} (full width, {n_params / 1e9:.3f} B params, "
-          f"{cfg.n_layers} layers) B={batch} prompt {LM_PROMPT} gen "
-          f"{LM_GEN}: init {t_init:.2f} s on the card; prefill "
-          f"{t_prefill * 1e3:.1f} ms (first), {t_prefill_warm * 1e3:.1f} ms "
-          f"(warm); decode {t_decode / LM_GEN * 1e3:.2f} ms per token step "
+          f"{cut}) B={batch} prompt {LM_PROMPT} gen {LM_GEN}: init "
+          f"{t_init:.2f} s on the card, its peak {init_peak / 2**30:.2f} GiB;"
+          f" prefill {t_prefill * 1e3:.1f} ms (first), "
+          f"{t_prefill_warm * 1e3:.1f} ms (warm); decode "
+          f"{t_decode / LM_GEN * 1e3:.2f} ms per token step "
           f"({LM_GEN * batch / t_decode:.1f} tokens/s); launches: 0 in "
           f"prefill and decode (no kernel on this path); max memory "
           f"allocated {mem / 2**30:.2f} GiB")
@@ -1815,16 +1891,20 @@ def serve_dense(name: str, batch: int, dev: torch.device) -> None:
 
 
 def phase_lm(dev: torch.device) -> dict[str, int]:
-    """Serve rwkv6-3b, then zamba2-7b, then the dense stablelm-12b (each
-    freed before the next is made); return each kernel's launches in its
-    model's counted run (the dense model launches none)."""
+    """Serve rwkv6-3b, then zamba2-7b, then the dense stablelm-12b, then
+    the MoE, MLA, VLM and audio models of ``LM_FAMILIES`` (each freed
+    before the next is made); return each kernel's launches in its
+    model's counted run (the transformers launch none)."""
     launches = {}
     for name, batch in LM_RUNS:
         n = serve_lm(name, batch, dev)
         launches["wkv6" if name.startswith("rwkv") else "ssd"] = n
         torch.cuda.empty_cache()
-    serve_dense(*LM_DENSE, dev)
+    serve_transformer(*LM_DENSE, dev)
     torch.cuda.empty_cache()
+    for name, batch, n_layers in LM_FAMILIES:
+        serve_transformer(name, batch, dev, n_layers)
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1833,8 +1913,22 @@ def phase_lm(dev: torch.device) -> dict[str, int]:
 # card machine's CPU takes the same step in (b))
 TRAIN_LM, TRAIN_B, TRAIN_S, TRAIN_LM_STEPS = "qwen2-1.5b", 8, 1024, 5
 CUT_B, CUT_S = 2, 256
-CUT_LAYERS = {"qwen2-1.5b": 2, "rwkv6-3b": 2, "zamba2-7b": None}  # None: one
-#                                              attn_layer_period of layers
+CUT_LAYERS = {"qwen2-1.5b": 2, "rwkv6-3b": 2, "zamba2-7b": None,  # None: one
+              "qwen3-moe-30b-a3b": 2,          # attn_layer_period of layers
+              "deepseek-v3-671b": 2,           # 1 dense + 1 MoE layer
+              "qwen2-vl-7b": 2, "musicgen-medium": 2}
+# deepseek-v3's cut step holds 13.9 B bf16 parameters and their
+# gradients (56 GB): Adam's float32 moments (111 GB) do not fit beside
+# them, so that step stops at the gradients
+NO_ADAM = ("deepseek-v3-671b",)
+# the 2-layer full-width MoE prefill on the card against the card
+# machine's CPU, float32-cast weights: the share of (layer, token) top-k
+# route sets that may differ (rounding flips a near-tie route); the
+# logits are held to LM_TOL on the tokens whose routes and drops agree in
+# every layer. Measured in bf16 on an H100: 2.1 % and 9.8 % of the two
+# layers' route sets differ (random weights nearly collapse the router),
+# so the bf16 run is reported, not gated
+MOE_VS_CPU, ROUTE_FLIP_FRAC = "qwen3-moe-30b-a3b", 0.01
 # the card's bf16 step against the CPU's: the bounds tests/
 # test_torch_lm_train.py holds the port's bf16 gradients to the
 # reference's (the loss, relative; each leaf's gradient, relative norm)
@@ -1861,6 +1955,9 @@ def depth_cut(name: str):
     from repro_torch.configs import get_config
     cfg = get_config(name)
     n = CUT_LAYERS[name] or cfg.attn_layer_period
+    if cfg.moe is not None and cfg.moe.n_dense_layers:   # one of each stack
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_dense_layers=1))
     return dataclasses.replace(cfg, n_layers=n)
 
 
@@ -2008,10 +2105,12 @@ def train_card_vs_cpu(dev: torch.device) -> None:
            f"{TRAIN_LM}: the card's step differs from the CPU's")
 
 
-def train_recurrent(name: str, dev: torch.device) -> None:
-    """(c) One train step of a recurrent model at full width, depth cut:
-    every leaf's gradient finite and non-zero (the time-mix / SSM leaves
-    included: the recurrences run their chunked forms under autograd)."""
+def train_cut(name: str, dev: torch.device) -> None:
+    """(c) One train step of a model at full width, depth cut: every
+    leaf's gradient finite and non-zero (the recurrences' time-mix / SSM
+    leaves through their chunked forms under autograd; the MoE router,
+    the experts and the shared expert through the gathers' backward),
+    then Adam (but for ``NO_ADAM``)."""
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import model as M
     from repro_torch.optimizer.adam import AdamConfig, adam_update
@@ -2020,26 +2119,100 @@ def train_recurrent(name: str, dev: torch.device) -> None:
 
     cfg = depth_cut(name)
     hp = TrainHParams(loss_chunk=min(512, CUT_S))
+    torch.cuda.reset_peak_memory_stats(dev)
     params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
     batch = synthetic_batch(cfg, CUT_B, CUT_S, 0, 0, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss, _, grads = loss_and_grads(params, cfg, batch, hp)
-    new, _ = adam_update(grads, init_opt_state(params, hp), params,
-                         AdamConfig(lr=hp.lr))
+    loss, metrics, grads = loss_and_grads(params, cfg, batch, hp)
+    moved = "Adam not run (its moments do not fit beside the gradients)"
+    if name not in NO_ADAM:
+        new, _ = adam_update(grads, init_opt_state(params, hp), params,
+                             AdamConfig(lr=hp.lr))
+        start = dict(leaves(params))
+        moved = (f"{sum(not torch.equal(a, start[k]) for k, a in leaves(new))}"
+                 f" leaves updated")
+        del new, start
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     bad = [k for k, g in leaves(grads)
            if not bool(g.isfinite().all()) or not bool(g.ne(0).any())]
-    start = dict(leaves(params))
-    moved = sum(not torch.equal(a, start[k]) for k, a in leaves(new))
+    n_params = sum(t.numel() for _, t in leaves(params))
     print(f"train {name} (full width; cut: {cfg.n_layers} layers, B = "
-          f"{CUT_B}, S = {CUT_S}): loss {float(loss):.6f}; "
+          f"{CUT_B}, S = {CUT_S}; {n_params / 1e9:.3f} B params): loss "
+          f"{float(loss):.6f} (aux {float(metrics['aux']):.3g}); "
           f"{len(leaves(grads)) - len(bad)} of {len(leaves(grads))} "
-          f"gradients finite and non-zero; {moved} leaves updated; one step "
-          f"{dt * 1e3:.1f} ms (first)")
+          f"gradients finite and non-zero; {moved}; one step "
+          f"{dt * 1e3:.1f} ms (first); max memory allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     expect(np.isfinite(float(loss)) and not bad,
            f"{name}: zero or non-finite gradients: {bad}")
+
+
+def moe_card_vs_cpu(dev: torch.device) -> None:
+    """(e) A 2-layer full-width MoE prefill (``MOE_VS_CPU``, B = CUT_B,
+    S = CUT_S) on the card and on the card machine's CPU from the same
+    parameters, in their bf16 and cast to float32. Gated in float32: at
+    most ``ROUTE_FLIP_FRAC`` of the (layer, token) top-k route sets
+    differ, and every position's logits are within ``LM_TOL`` on the
+    tokens whose routes and drops agree in every layer (a flipped route
+    moves its token's output by O(1), and a drop follows from every
+    earlier route of the group). The bf16 run's shares are reported:
+    with random weights every token's hidden state is nearly the same
+    (tiny embeddings under a position-averaged attention output), the
+    router nearly collapses and near-ties abound, so bf16 rounding
+    flips routes."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+
+    cfg = depth_cut(MOE_VS_CPU)
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = synthetic_batch(cfg, CUT_B, CUT_S, 0, 0, dev)["tokens"]
+    cpu = torch.device("cpu")
+
+    def run(p, toks):
+        with torch.no_grad():
+            out = M.forward(p, cfg, toks, mode="prefill")
+            return M.unembed_hidden(p, cfg, out.hidden)
+
+    def compare(p_card, what: str) -> bool:
+        t0 = time.perf_counter()
+        got, card = moe_plans(lambda: run(p_card, tokens))
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want, host = moe_plans(lambda: run(
+            tree_map(lambda t: t.to(cpu), p_card), tokens.to(cpu)))
+        t_cpu = time.perf_counter() - t0
+        flips, agree = [], torch.ones(CUT_B * CUT_S, dtype=torch.bool)
+        for (i_g, k_g, _), (i_c, k_c, _) in zip(card, host):
+            same = (i_g.cpu().sort(-1).values == i_c.sort(-1).values).all(-1)
+            flips.append(float((~same).float().mean()))
+            agree &= (same.reshape(-1)
+                      & (k_g.cpu() == k_c).all(-1).reshape(-1))
+        rows = agree.reshape(CUT_B, CUT_S)
+        g, w = got.cpu()[rows], want[rows]
+        dropped = 1 - float(torch.stack([k.float().mean()
+                                         for _, k, _ in card]).mean())
+        ok = (sum(flips) / len(flips) <= ROUTE_FLIP_FRAC
+              and torch.allclose(g, w, **LM_TOL))
+        print(f"{MOE_VS_CPU} MoE prefill card vs CPU, {what} (full width; "
+              f"cut: {cfg.n_layers} layers, B = {CUT_B}, S = {CUT_S}; "
+              f"capacity {card[0][2]}, {dropped:.4f} of the card's routes "
+              f"dropped): top-k route sets differing by layer "
+              f"{[round(f, 5) for f in flips]} (limit {ROUTE_FLIP_FRAC}); "
+              f"{int(rows.sum())} of {rows.numel()} tokens agree in every "
+              f"layer, their logits max |err| {max_err_f(g, w):.3g} (limit "
+              f"rtol = atol = {LM_TOL['rtol']}); all tokens "
+              f"{max_err_f(got.cpu(), want):.3g}; {t_card * 1e3:.1f} ms on "
+              f"the card (first), {t_cpu:.2f} s on the CPU")
+        return ok
+
+    compare(params, "bf16 (reported, not gated)")
+    params = tree_map(lambda t: t.float(), params)
+    expect(compare(params, "float32-cast weights (gated)"),
+           f"{MOE_VS_CPU}: the card's MoE prefill differs from the CPU's")
 
 
 def check_kernels_refuse_grad(dev: torch.device) -> None:
@@ -2071,17 +2244,22 @@ def check_kernels_refuse_grad(dev: torch.device) -> None:
 
 def phase_lm_train(dev: torch.device) -> None:
     """Train the LMs on the card: (a) + (d) qwen2-1.5b at full width,
-    (b) its depth-cut first step against the CPU, (c) rwkv6-3b and
-    zamba2-7b at full width, depth cut; the six kernels' counts set to 0
-    just before and read just after: the training path launches none."""
+    (b) its depth-cut first step against the CPU, (c) rwkv6-3b,
+    zamba2-7b and the MoE, MLA, VLM and audio models at full width,
+    depth cut, (e) a 2-layer MoE prefill against the CPU; the six
+    kernels' counts set to 0 just before and read just after: the
+    training path launches none."""
     fns = counters()
     for f in fns.values():
         f.launches = 0
     train_full_width(dev)
     train_card_vs_cpu(dev)
-    for name in ("rwkv6-3b", "zamba2-7b"):
-        train_recurrent(name, dev)
+    for name in ("rwkv6-3b", "zamba2-7b", "qwen3-moe-30b-a3b",
+                 "deepseek-v3-671b", "qwen2-vl-7b", "musicgen-medium"):
+        train_cut(name, dev)
         torch.cuda.empty_cache()
+    moe_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
     counts = {k: f.launches for k, f in fns.items()}
     expect(not any(counts.values()), f"the LM training phase launched "
            f"{counts}")

@@ -1,12 +1,14 @@
 """Config registry for the language models; port of
 ``repro/configs/__init__.py``.
 
-``get_config(name)`` / ``get_reduced(name)`` know the ported archs:
-``rwkv6-3b`` (family ``ssm``), ``zamba2-7b`` (family ``hybrid``) and
-the four ``dense`` GQA transformers (``stablelm-12b``, ``glm4-9b``,
-``chatglm3-6b``, ``qwen2-1.5b``). The reference's other four names raise
-a ``KeyError`` saying the family is not ported yet (ROADMAP Queue A item
-8); any other name raises as in the reference.
+``get_config(name)`` / ``get_reduced(name)`` know the reference's ten
+archs, in its order: the ``dense`` GQA transformers (``stablelm-12b``,
+``glm4-9b``, ``chatglm3-6b``, ``qwen2-1.5b``), ``musicgen-medium``
+(``audio``: codebooks, sinusoidal positions), ``rwkv6-3b`` (``ssm``),
+``zamba2-7b`` (``hybrid``), the ``moe`` pair ``deepseek-v3-671b`` (MLA,
+a shared expert, leading dense layers) and ``qwen3-moe-30b-a3b``, and
+``qwen2-vl-7b`` (``vlm``: M-RoPE). Any other name raises a ``KeyError``,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -20,22 +22,18 @@ _MODULES = {
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "musicgen-medium": "repro_torch.configs.musicgen_medium",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
-}
-# the reference's other archs and their families, none ported yet
-_NOT_PORTED = {
-    "musicgen-medium": "audio", "deepseek-v3-671b": "moe",
-    "qwen3-moe-30b-a3b": "moe", "qwen2-vl-7b": "vlm",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
 }
 
 ARCH_NAMES = tuple(_MODULES)
 
 
 def _module(name: str):
-    if name in _NOT_PORTED:
-        raise KeyError(f"arch {name!r} (family {_NOT_PORTED[name]!r}) is not "
-                       f"ported yet; see ROADMAP Queue A item 8")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCH_NAMES}")
     return importlib.import_module(_MODULES[name])

@@ -1,9 +1,7 @@
 """Unified architecture configuration for the language models; port of
 ``repro/configs/base.py``.
 
-The dataclasses are the reference's, field for field. ``MoEConfig`` and
-``MLAConfig`` come across as the plain dataclasses they are; the model
-families that use them are not ported yet (ROADMAP Queue A item 8).
+The dataclasses are the reference's, field for field.
 """
 from __future__ import annotations
 

@@ -1,14 +1,18 @@
 """Batched serving launcher: prefill a prompt batch, then decode tokens
 greedily with the recurrent (and K/V) state; port of
-``repro/launch/serve.py`` for the ported families (rwkv6-3b, zamba2-7b,
-and the dense stablelm-12b, glm4-9b, chatglm3-6b and qwen2-1.5b).
+``repro/launch/serve.py`` for every arch of ``repro_torch.configs``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
         --reduced --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
 It runs on the card unless ``--device cpu`` is given. Parameters are
 drawn from ``--seed`` on the run's device (no checkpoint is read);
-prompts are numpy token ids from the same seed. On the card the decode
+prompts are numpy token ids from the same seed ([B, P, K] over K
+codebooks; M-RoPE's three position streams all arange(P), as the
+reference's CLI gives them). With codebooks each step feeds back every
+codebook's own greedy token, [B, 1, K]: the reference's CLI broadcasts
+one token id over the codebooks and fails on the [B, K] its serve step
+returns (ROADMAP Queue C). On the card the decode
 steps replay one CUDA graph of the step, captured after the cache is
 grown (:func:`~repro_torch.train.steps.make_graphed_serve_step`, the
 counterpart of the reference's jitted, donated serve step); the CPU
@@ -26,12 +30,13 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.execution import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.model import tree_map
-from repro_torch.train.steps import (make_graphed_serve_step,
+from repro_torch.train.steps import (greedy, make_graphed_serve_step,
                                      make_prefill_step, make_serve_step)
 
 
 def main(argv=None) -> np.ndarray:
-    """Serve one batch; returns the generated tokens, int32 [batch, gen]."""
+    """Serve one batch; returns the generated tokens, int32 [batch, gen]
+    ([batch, gen, K] over K codebooks)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -48,15 +53,20 @@ def main(argv=None) -> np.ndarray:
     params = M.init_model(cfg, torch.Generator(dev).manual_seed(args.seed),
                           dev)
     rng = np.random.default_rng(args.seed)
-    prompts = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+    shape = ((args.batch, args.prompt_len, cfg.n_codebooks)
+             if cfg.n_codebooks else (args.batch, args.prompt_len))
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+    batch_in = {"tokens": prompts}
+    if cfg.mrope_sections:
+        batch_in["positions"] = torch.arange(args.prompt_len, device=dev) \
+            .expand(3, args.batch, args.prompt_len)
 
     # prefill fills a capacity == prompt_len cache; decoding continues in
     # a capacity prompt_len + gen cache (copied once, written in place)
     prefill = make_prefill_step(cfg)
     capacity = args.prompt_len + args.gen
     t0 = time.perf_counter()
-    logits, state = prefill(params, {"tokens": prompts})
+    logits, state = prefill(params, batch_in)
     state = _grow_cache(cfg, state, args.batch, capacity, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -72,15 +82,14 @@ def main(argv=None) -> np.ndarray:
     else:
         serve = make_serve_step(cfg)
 
-    next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    toks_d = torch.empty((args.gen, args.batch), dtype=torch.int32,
+    next_tok = greedy(logits)                          # [B] or [B, K]
+    toks_d = torch.empty((args.gen, *next_tok.shape), dtype=torch.int32,
                          device=dev)
     t0 = time.perf_counter()
     for i in range(args.gen):
-        next_tok, state = serve(params, next_tok.reshape(args.batch, 1),
-                                state)
+        next_tok, state = serve(params, next_tok[:, None], state)
         toks_d[i].copy_(next_tok)      # a graphed step reuses next_tok
-    toks = toks_d.T.cpu().numpy()
+    toks = toks_d.transpose(0, 1).cpu().numpy()
     t_decode = time.perf_counter() - t0
 
     print(f"[prefill] {args.batch}x{args.prompt_len} in {t_prefill:.3f}s "
@@ -100,14 +109,16 @@ def _grow_cache(cfg, state: dict, batch: int, capacity: int,
     """Copy a prefill-sized state into a decode state of K/V capacity
     ``capacity`` (zero-padded on the capacity axis; every leaf in
     :func:`~repro_torch.models.model.init_decode_state`'s dtype). A
-    ``dense`` state with per-layer cache lists grows into lists."""
-    unrolled = isinstance(state.get("main", {}).get("k"), list)
+    transformer state with per-layer cache lists (K/V or MLA's latent
+    and RoPE key, in each part) grows into lists."""
+    unrolled = any(isinstance(c, list) for c in
+                   state.get("main", {}).values())
     fresh = M.init_decode_state(cfg, batch, capacity, device, unrolled)
 
     def graft(f, s):
         if f.ndim >= 3 and s.ndim == f.ndim and f.shape != s.shape:
-            # K/V caches differ on the capacity axis (axis 2 stacked,
-            # axis 1 in a per-layer list)
+            # caches differ on the capacity axis (axis 2 stacked, axis 1
+            # in a per-layer list)
             f[tuple(slice(0, n) for n in s.shape)] = s
             return f
         return s.to(f.dtype)

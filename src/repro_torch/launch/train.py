@@ -45,12 +45,19 @@ def synthetic_batch(cfg, batch: int, seq: int, step: int, offset: int = 0,
                     device: str | torch.device = "cpu") -> dict:
     """Deterministic synthetic LM data, seeded by the global data offset
     so that skip-and-replay reproduces the exact stream: the reference's
-    numpy draws, int32 tokens [batch, seq] on ``device``; labels are the
-    same tensor."""
+    numpy draws, int32 tokens [batch, seq] ([batch, seq, K] over K
+    codebooks) on ``device``; labels are the same tensor. For M-RoPE the
+    three position streams are arange(seq), [3, batch, seq]."""
     rng = np.random.default_rng(1234 + offset + step)
-    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    shape = ((batch, seq, cfg.n_codebooks) if cfg.n_codebooks
+             else (batch, seq))
+    tokens = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     t = torch.from_numpy(tokens).to(device)
-    return {"tokens": t, "labels": t}
+    out = {"tokens": t, "labels": t}
+    if cfg.mrope_sections:
+        out["positions"] = torch.arange(seq, dtype=torch.int32,
+                                        device=device).expand(3, batch, seq)
+    return out
 
 
 def main(argv=None) -> list[float]:

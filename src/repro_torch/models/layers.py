@@ -1,6 +1,7 @@
 """Building blocks of the language models; port of
-``repro/models/layers.py``, what the ``ssm``, ``hybrid`` and ``dense``
-families use.
+``repro/models/layers.py``: norms, RoPE (partial, and M-RoPE's three
+position streams), sinusoidal positions, chunked attention, GQA
+attention, MLA (Multi-head Latent Attention), the MLPs and the heads.
 
 Parameters are nested dicts of tensors, as the reference's pytrees are,
 made by ``init_*`` functions from a ``torch.Generator`` on ``device``
@@ -10,17 +11,17 @@ with float32 islands for norms, softmax and the recurrent states, and
 attention over a long prompt is chunked (the online-softmax recurrence
 over KV chunks, never the [S, S] score matrix).
 
-Not ported: M-RoPE (it raises ``NotImplementedError``) and MLA
-(ROADMAP Queue A item 8). The reference names a
-``repro.kernels.flash_attention`` Pallas kernel that does not exist, so
-attention has no kernel to port: :func:`chunked_attention` is plain
-torch.
+The reference names a ``repro.kernels.flash_attention`` Pallas kernel
+that does not exist, so attention has no kernel to port:
+:func:`chunked_attention` is plain torch, and so are MLA, M-RoPE and the
+sinusoidal positions, which the reference computes in plain ``jnp``.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,7 +30,6 @@ from repro_torch.kernels._build import needs_grad
 
 Params = dict  # nested dict of tensors
 
-NOT_PORTED = "not ported yet; see ROADMAP Queue A item 8"
 NEG_INF = -1e30
 
 
@@ -60,7 +60,9 @@ def _dense_init(gen: Optional[torch.Generator], shape: tuple,
     fan_in = shape[-2] if len(shape) > 1 else shape[0]
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * (1.0 / math.sqrt(fan_in))).to(dtype)
+    # scaled in place: one float32 copy of the leaf at a time (deepseek-v3's
+    # [256, 7168, 2048] expert leaf is 15 GB in float32)
+    return t.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
 
 
 def _normal(gen: Optional[torch.Generator], shape: tuple,
@@ -108,7 +110,7 @@ def apply_norm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings: standard and partial
+# Rotary position embeddings: standard, partial and M-RoPE
 # ---------------------------------------------------------------------------
 
 
@@ -122,24 +124,49 @@ def rope_frequencies(dim: int, theta: float,
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                rotary_dim: Optional[int] = None,
                mrope_sections: Optional[tuple] = None) -> torch.Tensor:
-    """Rotate ``x`` [..., S, H, D] by ``positions`` [..., S] (1-D RoPE).
+    """Rotate ``x`` [..., S, H, D] by ``positions``: [..., S] integers
+    for 1-D RoPE, or [3, ..., S] for M-RoPE (the (t, h, w) position
+    streams of qwen2-vl, arXiv:2409.12191: ``mrope_sections`` splits the
+    rd / 2 frequency slots, each section driven by its own stream).
 
     rotary_dim: rotate only the first ``rotary_dim`` features (partial
     RoPE); the rest passes through unchanged.
     """
-    if mrope_sections is not None:
-        raise NotImplementedError(f"M-RoPE is {NOT_PORTED}")
     d = x.shape[-1]
     rd = rotary_dim or d
     x_rot, x_pass = x[..., :rd], x[..., rd:]
     inv_freq = rope_frequencies(rd, theta, x.device)           # [rd/2]
-    freqs = positions[..., None].to(torch.float32) * inv_freq
+    if mrope_sections is not None:
+        if positions.shape[0] != 3:
+            raise ValueError(f"M-RoPE needs [3, ...] positions, got "
+                             f"{tuple(positions.shape)}")
+        freqs, start = [], 0
+        for sec, pos in zip(mrope_sections, positions):
+            freqs.append(pos[..., None].to(torch.float32)
+                         * inv_freq[start:start + sec])
+            start += sec
+        freqs = torch.cat(freqs, dim=-1)                       # [..., S, rd/2]
+    else:
+        freqs = positions[..., None].to(torch.float32) * inv_freq
     cos = torch.cos(freqs)[..., None, :]                       # [..., S, 1, rd/2]
     sin = torch.sin(freqs)[..., None, :]
     x1, x2 = x_rot.to(torch.float32).chunk(2, dim=-1)
     rot = torch.cat([x1 * cos - x2 * sin,
                      x1 * sin + x2 * cos], dim=-1).to(x.dtype)
     return torch.cat([rot, x_pass], dim=-1) if rd < d else rot
+
+
+def sinusoidal_positions(seq_len: int, d: int,
+                         device: torch.device | None = None) -> torch.Tensor:
+    """MusicGen-style additive sinusoidal embedding [S, D] float32 (the
+    reference's numpy table: sin on the even features, cos on the odd)."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(0, d, 2)[None, :]
+    angle = pos / np.power(10000.0, dim / d)
+    out = np.zeros((seq_len, d), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return torch.from_numpy(out).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +298,104 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
     out = dot(out.reshape(b, s, h * dh), p["wo"])
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V3, arXiv:2412.19437)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(cfg: ArchConfig, gen: Optional[torch.Generator],
+             device: torch.device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": _dense_init(gen, (d, m.q_lora_rank), device),
+        "q_a_norm": init_rmsnorm(m.q_lora_rank, device),
+        "wq_b": _dense_init(gen, (m.q_lora_rank, h * qk_dim), device),
+        "wkv_a": _dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                             device),
+        "kv_a_norm": init_rmsnorm(m.kv_lora_rank, device),
+        "wkv_b": _dense_init(gen, (m.kv_lora_rank,
+                                   h * (m.qk_nope_head_dim + m.v_head_dim)),
+                             device),
+        "wo": _dense_init(gen, (h * m.v_head_dim, d), device),
+    }
+
+
+def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+                  positions: torch.Tensor,
+                  kv_cache: Optional[tuple] = None,
+                  cache_len: Optional[torch.Tensor] = None,
+                  chunk: int = 1024,
+                  return_kv: bool = False
+                  ) -> tuple[torch.Tensor, Optional[tuple]]:
+    """MLA. x [B, S, D]. Queries, keys and values pass through low-rank
+    latents; the cache holds only the normed KV latent [B, C, r] and the
+    decoupled RoPE key [B, C, rope_d], both bf16.
+
+    Prefill: kv_cache None -> the latent expanded to per-head K/V once
+    and causal chunked attention with scale 1/sqrt(nope + rope_d); with
+    ``return_kv`` the (latent, k_rope) cache of capacity S. Decode: the
+    WEIGHT-ABSORBED form over the latent cache, never expanded per head
+    (``wkv_b`` folded into the query and output sides, arXiv:2412.19437
+    §2.1); the new rows are written into the cache IN PLACE, as
+    :func:`attention` writes its K/V. The scores and the weighted sum
+    over the cache are the reference's bf16 products summed in float32,
+    here as float32 einsums over the cache cast to float32.
+    """
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vdim, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                             m.v_head_dim, m.kv_lora_rank)
+
+    q = dot(rmsnorm(p["q_a_norm"], dot(x, p["wq_a"]), cfg.norm_eps),
+            p["wq_b"]).reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = dot(x, p["wkv_a"])                          # [B, S, r + rope_d]
+    latent = rmsnorm(p["kv_a_norm"], kv_a[..., :r], cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., r:][..., None, :], positions,
+                        cfg.rope_theta)                # [B, S, 1, rope_d]
+    scale = 1.0 / math.sqrt(nope + rope_d)
+
+    if kv_cache is None:
+        kv = dot(latent, p["wkv_b"]).reshape(b, s, h, nope + vdim)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k_rope_h = k_rope.to(k_nope.dtype).expand(b, s, h, rope_d)
+        k = torch.cat([k_nope, k_rope_h], dim=-1)
+        out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                                causal=True, chunk=chunk, scale=scale)
+        out = dot(out.reshape(b, s, h * vdim), p["wo"])
+        new_cache = ((latent.to(torch.bfloat16),
+                      k_rope[:, :, 0].to(torch.bfloat16))
+                     if return_kv else None)
+        return out, new_cache
+
+    c_lat, c_kr = kv_cache
+    new_pos = cache_len + torch.arange(s, device=x.device)
+    c_lat.index_copy_(1, new_pos, latent.to(c_lat.dtype))
+    c_kr.index_copy_(1, new_pos, k_rope[:, :, 0].to(c_kr.dtype))
+    w_b = p["wkv_b"].reshape(r, h, nope + vdim)
+    w_bk, w_bv = w_b[..., :nope], w_b[..., nope:]
+    dt = torch.promote_types(q_nope.dtype, w_bk.dtype)
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(dt), w_bk.to(dt))
+    f32 = torch.float32
+    scores = (torch.einsum("bshr,bkr->bhsk", q_abs.to(f32), c_lat.to(f32))
+              + torch.einsum("bshd,bkd->bhsk", q_rope.to(f32),
+                             c_kr.to(f32))) * scale
+    valid = (torch.arange(c_lat.shape[1], device=x.device)[None, :]
+             <= new_pos[:, None])
+    scores = torch.where(valid[None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    lat_out = torch.einsum("bhsk,bkr->bshr", probs, c_lat.to(f32))
+    dt = torch.promote_types(x.dtype, w_bv.dtype)
+    out = torch.einsum("bshr,rhv->bshv", lat_out.to(x.dtype).to(dt),
+                       w_bv.to(dt))
+    out = dot(out.reshape(b, s, h * vdim), p["wo"])
+    return out, (c_lat, c_kr)
 
 
 # ---------------------------------------------------------------------------

@@ -1,35 +1,39 @@
-"""The causal LM of the ``ssm`` (rwkv6-3b), ``hybrid`` (zamba2-7b) and
-``dense`` (stablelm-12b, glm4-9b, chatglm3-6b, qwen2-1.5b) families;
-port of ``repro/models/model.py``.
+"""The causal LM of every family of the reference: ``ssm`` (rwkv6-3b),
+``hybrid`` (zamba2-7b), ``dense`` (stablelm-12b, glm4-9b, chatglm3-6b,
+qwen2-1.5b), ``moe`` (qwen3-moe-30b-a3b; deepseek-v3-671b with MLA, a
+shared expert and leading dense layers), ``audio`` (musicgen-medium: K
+codebooks summed in, K heads out, sinusoidal positions) and ``vlm``
+(qwen2-vl-7b: M-RoPE); port of ``repro/models/model.py``.
 
 One model definition driven by ``ArchConfig``. Parameters keep the
-reference's tree: every layer's leaves STACKED on a leading [L] axis, so
-:func:`params_from_numpy` carries the reference's parameters across as
-they are. Where the reference scans the stack with ``lax.scan``, the
-port loops over the layers in Python, each leaf unbound into per-layer
-views (:func:`_unstack`). Three modes share the code: ``train`` (the
-stateless forward, behind :func:`loss_fn` and :func:`full_logits`),
-``prefill`` (emit the decode state for the whole prompt) and ``decode``
-(one token: O(1) recurrent state, plus the shared attention's K/V cache
-for ``hybrid``; the K/V cache of every layer for ``dense``). A prefill
-on the card runs the recurrences through the ``wkv6`` / ``ssd`` CUDA
-kernels, one launch per layer; on the CPU, and wherever autograd records
-the forward (the kernels have no backward), it runs the chunked einsum
-forms, as the reference's model always does; decode runs the
-single-step recurrences in plain torch, as the reference does. The
-``dense`` family has no kernel: its attention is the reference's plain
-chunked attention, on the card as on the CPU. The sharding constraints
-of the reference fall away on one card.
+reference's tree: every layer's leaves STACKED on a leading [L] axis
+(the ``moe`` family's leading dense layers in a ``dense_layers`` stack
+of their own), so :func:`params_from_numpy` carries the reference's
+parameters across as they are. Where the reference scans a stack with
+``lax.scan``, the port loops over the layers in Python, each leaf
+unbound into per-layer views (:func:`_unstack`). Three modes share the
+code: ``train`` (the stateless forward, behind :func:`loss_fn` and
+:func:`full_logits`), ``prefill`` (emit the decode state for the whole
+prompt) and ``decode`` (one token: O(1) recurrent state, plus the shared
+attention's K/V cache for ``hybrid``; the K/V cache of every layer for
+the transformers, or MLA's latent cache). A prefill on the card runs the
+recurrences through the ``wkv6`` / ``ssd`` CUDA kernels, one launch per
+layer; on the CPU, and wherever autograd records the forward (the
+kernels have no backward), it runs the chunked einsum forms, as the
+reference's model always does; decode runs the single-step recurrences
+in plain torch, as the reference does. The transformer families have no
+kernel: attention, MLA and the experts are the reference's plain
+computations (the experts as gathers and ``bmm``, see ``moe.py``), on
+the card as on the CPU. The sharding constraints of the reference fall
+away on one card.
 
 Training (``mode="train"`` under autograd) recomputes each layer in
 backward (``remat``, the reference's ``jax.checkpoint`` of its scanned
 layer body: here ``torch.utils.checkpoint`` around each layer of the
 Python loop), and :func:`chunked_xent_loss` recomputes each chunk's
 logits, so that neither the layers' activations nor the [B, S, V]
-logits are held at once.
-
-Other families (MoE/MLA, audio, VLM) are not ported yet (ROADMAP Queue
-A item 8); they raise ``NotImplementedError``.
+logits are held at once. The MoE layers' load-balancing loss is summed
+over the layers in every mode and added to the loss.
 """
 from __future__ import annotations
 
@@ -45,10 +49,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RW
-from repro_torch.models.layers import NOT_PORTED, Params
+from repro_torch.models.layers import Params
 
-FAMILIES = ("ssm", "hybrid", "dense")
+FAMILIES = ("ssm", "hybrid", "dense", "moe", "audio", "vlm")
 
 # ---------------------------------------------------------------------------
 # Trees of tensors
@@ -94,13 +99,8 @@ def _stack(trees: list):
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is "
-                                  f"{NOT_PORTED}")
-    if cfg.n_codebooks or cfg.mrope_sections or cfg.moe or cfg.mla \
-            or cfg.pos_embed != "rope":
-        raise NotImplementedError(f"{cfg.name}: codebooks, M-RoPE, MoE, "
-                                  f"MLA and sinusoidal positions are "
-                                  f"{NOT_PORTED}")
+        raise ValueError(f"family {cfg.family!r} ({cfg.name}): want one of "
+                         f"{FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -110,12 +110,17 @@ def _check_family(cfg: ArchConfig) -> None:
 
 def _stack_init(fn: Callable[[], Params], n: int) -> Params:
     """Make n layers with ``fn`` and stack every leaf on a leading axis,
-    one layer at a time into the stacked leaves."""
-    first = fn()
-    out = tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    one layer at a time into the stacked leaves; each layer is freed
+    once copied, and a stack of one is its layer's views."""
+    layer = fn()
+    if n == 1:
+        return tree_map(lambda a: a[None], layer)
+    out = tree_map(lambda a: a.new_empty((n, *a.shape)), layer)
     for i in range(n):
-        layer = first if i == 0 else fn()
+        if i:
+            layer = fn()
         tree_map(lambda o, a: o[i].copy_(a), out, layer)
+        del layer
     return out
 
 
@@ -127,14 +132,24 @@ def _init_norm(cfg: ArchConfig, device: torch.device) -> Params:
 def _init_attn_block(cfg: ArchConfig, gen: Optional[torch.Generator],
                      device: torch.device) -> Params:
     return {"ln1": _init_norm(cfg, device),
-            "attn": L.init_attention(cfg, gen, device),
+            "attn": (L.init_mla if cfg.mla else L.init_attention)(
+                cfg, gen, device),
             "ln2": _init_norm(cfg, device)}
 
 
 def _init_dense_layer(cfg: ArchConfig, gen: Optional[torch.Generator],
-                      device: torch.device) -> Params:
+                      device: torch.device,
+                      d_ff: Optional[int] = None) -> Params:
     p = _init_attn_block(cfg, gen, device)
-    p["mlp"] = L.init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_style, gen, device)
+    p["mlp"] = L.init_mlp(cfg.d_model, d_ff or cfg.d_ff, cfg.mlp_style, gen,
+                          device)
+    return p
+
+
+def _init_moe_layer(cfg: ArchConfig, gen: Optional[torch.Generator],
+                    device: torch.device) -> Params:
+    p = _init_attn_block(cfg, gen, device)
+    p["moe"] = MOE.init_moe(cfg, gen, device)
     return p
 
 
@@ -142,10 +157,16 @@ def _init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
                  device: torch.device) -> Params:
     _check_family(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    params: Params = {"final_norm": _init_norm(cfg, device),
-                      "embed": L.init_embedding(v, d, gen, device)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = L._dense_init(gen, (d, v), device)
+    params: Params = {"final_norm": _init_norm(cfg, device)}
+    if cfg.n_codebooks:
+        params["embed_codebooks"] = L._embed_init(
+            gen, (cfg.n_codebooks, v, d), device)
+        params["lm_heads"] = L._dense_init(gen, (cfg.n_codebooks, d, v),
+                                           device)
+    else:
+        params["embed"] = L.init_embedding(v, d, gen, device)
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L._dense_init(gen, (d, v), device)
     if cfg.family == "ssm":                       # rwkv6
         params["layers"] = _stack_init(
             lambda: RW.init_rwkv_block(cfg, gen, device), cfg.n_layers)
@@ -157,7 +178,15 @@ def _init_params(cfg: ArchConfig, gen: Optional[torch.Generator],
         params["shared_attn_block"] = {
             "ln1": shared["ln1"], "shared_attn": shared["attn"],
             "ln2": shared["ln2"], "shared_mlp": shared["mlp"]}
-    else:                                         # dense
+    elif cfg.moe is not None:                     # deepseek-v3 / qwen3-moe
+        nd = cfg.moe.n_dense_layers
+        if nd:
+            dff = cfg.moe.d_ff_dense or cfg.d_ff
+            params["dense_layers"] = _stack_init(
+                lambda: _init_dense_layer(cfg, gen, device, dff), nd)
+        params["layers"] = _stack_init(
+            lambda: _init_moe_layer(cfg, gen, device), cfg.n_layers - nd)
+    else:                                         # dense / audio / vlm
         params["layers"] = _stack_init(
             lambda: _init_dense_layer(cfg, gen, device), cfg.n_layers)
     return params
@@ -221,15 +250,45 @@ def params_from_numpy(np_tree: dict, cfg: ArchConfig,
 # ---------------------------------------------------------------------------
 
 
-def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    """tokens [B, S] -> x [B, S, D]."""
-    return L.embed(params["embed"], tokens)
+def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B, S] (or [B, S, K] over K codebooks) -> x [B, S, D]. The
+    codebooks' rows are summed in float32 and rounded once with the
+    sinusoidal positions (``positions`` [S] or [B, S]; arange(S) if
+    None) added, as XLA's fusion of the reference's chain computes it."""
+    if cfg.n_codebooks:
+        tbl = params["embed_codebooks"]                       # [K, V, D]
+        x = sum(L.embed(tbl[k], tokens[..., k]).to(torch.float32)
+                for k in range(cfg.n_codebooks))
+        dtype = tbl.dtype
+    else:
+        x = L.embed(params["embed"], tokens)
+        dtype = x.dtype
+    if cfg.pos_embed == "sinusoidal":
+        pos = (positions if positions is not None
+               else torch.arange(x.shape[1], device=x.device))
+        x = x + _sinusoidal(pos, cfg.d_model).to(dtype)
+    return x.to(dtype)
+
+
+def _sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embedding of integer positions [..., S] -> [..., S, D]
+    float32: sin on the even features, cos on the odd."""
+    half = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    angle = pos[..., None].to(torch.float32) / torch.pow(10000.0, half / d)
+    out = torch.empty((*pos.shape, d), device=pos.device)
+    out[..., 0::2] = torch.sin(angle)
+    out[..., 1::2] = torch.cos(angle)
+    return out
 
 
 def unembed_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor
                    ) -> torch.Tensor:
-    """x [B, S, D] -> logits float32 [B, S, V]."""
+    """x [B, S, D] -> logits float32 [B, S, V] (or [B, S, K, V], one
+    head per codebook)."""
+    if cfg.n_codebooks:
+        return torch.einsum("bsd,kdv->bskv", x.to(torch.float32),
+                            params["lm_heads"].to(torch.float32))
     tied = cfg.tie_embeddings
     return L.unembed(params["embed"] if tied else params["lm_head"], x, tied)
 
@@ -246,8 +305,21 @@ def _norm(p, x, cfg):
 @dataclasses.dataclass
 class ForwardOut:
     hidden: torch.Tensor            # [B, S, D] final-normed hidden states
-    aux: torch.Tensor               # scalar aux loss (0: no MoE here)
+    aux: torch.Tensor               # scalar aux loss (MoE balance; else 0)
     state: Optional[dict]           # decode state (prefill/decode modes)
+
+
+def default_positions(cfg: ArchConfig, batch: int, s: int,
+                      device: torch.device,
+                      cache_len: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The reference's positions when none are given: arange(S), after
+    ``cache_len`` in decode (a 0-dim tensor, read on the device); for
+    M-RoPE the same in all three streams, [3, B, S]."""
+    pos = torch.arange(s, device=device)
+    if cache_len is not None:
+        pos = cache_len + pos
+    return pos.expand(3, batch, s) if cfg.mrope_sections else pos
 
 
 def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -257,25 +329,28 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             remat: bool = True,
             kernels: bool = True,
             unroll_decode: bool = False) -> ForwardOut:
-    """The model over ``tokens`` [B, S]. ``remat``: in ``train`` mode
+    """The model over ``tokens`` [B, S] ([B, S, K] codebook ids for
+    ``audio``); ``positions`` [S] or [B, S] ([3, B, S] for M-RoPE),
+    :func:`default_positions` if None. ``remat``: in ``train`` mode
     under autograd, each layer is recomputed in backward (the same bits
     as without). ``kernels=False`` runs a prefill on the card through
     the chunked einsum forms instead of the CUDA kernels (the path the
-    kernels are held to). ``unroll_decode``: a ``dense`` decode returns
-    its K/V caches as per-layer lists (see
+    kernels are held to). ``unroll_decode``: a transformer's decode
+    returns its caches as per-layer lists (see
     :func:`_forward_transformer`)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
     _check_family(cfg)
-    s = tokens.shape[1]
+    b, s = tokens.shape[:2]
     cache_len = state["len"] if (mode == "decode" and state is not None
                                  and "len" in state) else None
     if positions is None:
-        positions = torch.arange(s, device=tokens.device)
-        if mode == "decode":
-            positions = cache_len + positions
+        positions = default_positions(cfg, b, s, tokens.device, cache_len)
+    emb_pos = positions
+    if mode == "decode" and cfg.pos_embed == "sinusoidal":
+        emb_pos = cache_len + torch.arange(s, device=tokens.device)
 
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, emb_pos)
     ck = remat and mode == "train" and torch.is_grad_enabled()
     if cfg.family == "ssm":
         x, aux, new_state = _forward_rwkv(params, cfg, x, mode, state,
@@ -293,62 +368,92 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return ForwardOut(x, aux, new_state)
 
 
-# -- dense transformer ----------------------------------------------------------
+# -- transformers: dense, moe, audio, vlm ---------------------------------
 
 
 def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
-                    cache_len=None, return_kv=False):
-    """Pre-norm attention + MLP. Returns (x, new_kv)."""
-    h, new_kv = L.attention(lp["attn"], _norm(lp["ln1"], x, cfg), cfg,
-                            positions=positions, kv_cache=kv,
-                            cache_len=cache_len, return_kv=return_kv)
+                    cache_len=None, moe_layer=False, return_kv=False):
+    """Pre-norm attention (MLA where ``cfg.mla``) + MLP or MoE. Returns
+    (x, aux, new_kv); aux is the MoE layer's balance loss, else None."""
+    attn = L.mla_attention if cfg.mla else L.attention
+    h, new_kv = attn(lp["attn"], _norm(lp["ln1"], x, cfg), cfg,
+                     positions=positions, kv_cache=kv, cache_len=cache_len,
+                     return_kv=return_kv)
     x = x + h
-    x = x + L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style)
-    return x, new_kv
+    if moe_layer:
+        y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg)
+    else:
+        y = L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style)
+        aux = None
+    return x + y, aux, new_kv
 
 
-def _train_layer(lp: Params, x, cfg, positions):
-    return _attn_mlp_block(lp, x, cfg, positions=positions)[0]
+def _train_layer(lp: Params, x, cfg, positions, moe_layer):
+    return _attn_mlp_block(lp, x, cfg, positions=positions,
+                           moe_layer=moe_layer)[:2]
+
+
+def _cache_keys(cfg: ArchConfig) -> tuple[str, str]:
+    return ("latent", "krope") if cfg.mla else ("k", "v")
+
+
+def _transformer_parts(cfg: ArchConfig) -> list[tuple[str, str, int, bool]]:
+    """(state part, params stack, layers, MoE layers?) in order: the
+    ``moe`` family's leading dense layers, then the main stack."""
+    nd = cfg.moe.n_dense_layers if cfg.moe else 0
+    parts = [("dense", "dense_layers", nd, False)] if nd else []
+    return parts + [("main", "layers", cfg.n_layers - nd, cfg.moe is not None)]
 
 
 def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck):
-    """The stacked layers in a Python loop. Prefill returns the rotated
-    K/V of every layer as ``state["main"]`` = {"k", "v"}, each [L, B, S,
-    Hkv, Dh] bf16. Decode reads layer i's cache as ``state["main"]["k"][i]``,
-    which is a view of a stacked [L, ...] cache or element i of a
-    per-layer list (the reference's ``_decode_transformer_unrolled``
-    layout, ``init_decode_state(unrolled=True)``), and writes the new
-    entries in place either way; the returned state holds the given
-    caches, as per-layer lists when ``unroll``. The reference unrolls
-    its decode so that XLA stops copying the stacked cache per layer;
-    here the stacked cache is already written in place, so both layouts
-    run the same ops and give the same bits. ``ck``: each training layer
-    is recomputed in backward."""
+    """Each stack's layers in a Python loop: the leading dense layers
+    (``"dense"``, the ``moe`` family's), then the main stack (``"main"``).
+    Prefill returns each part's cache as ``state[part]`` = {"k", "v"}
+    ([L, B, S, Hkv, Dh] bf16), or MLA's {"latent", "krope"} ([L, B, S,
+    r] and [L, B, S, rope_d] bf16). Decode reads layer i's cache as
+    ``state[part]["k"][i]``, which is a view of a stacked [L, ...] cache
+    or element i of a per-layer list (the reference's
+    ``_decode_transformer_unrolled`` layout,
+    ``init_decode_state(unrolled=True)``), and writes the new entries in
+    place either way; the returned state holds the given caches, as
+    per-layer lists when ``unroll``. The reference unrolls its decode so
+    that XLA stops copying the stacked cache per layer; here the stacked
+    cache is already written in place, so both layouts run the same ops
+    and give the same bits. The aux losses are summed over the layers in
+    every mode (the reference's unrolled decode keeps only its last
+    layer's, ROADMAP Queue C). ``ck``: each training layer is recomputed
+    in backward."""
     decode = mode == "decode"
-    cache = state["main"] if decode else None
     cache_len = state["len"] if decode else None
+    keys = _cache_keys(cfg)
     aux = torch.zeros((), device=x.device)
-    layers = _unstack(params["layers"], cfg.n_layers)
-    if mode == "train":
-        for lp in layers:
-            x = _remat(ck, _train_layer, lp, x, cfg, positions)
-        return x, aux, None
-    ks, vs = [], []
-    for i, lp in enumerate(layers):
-        x, kv = _attn_mlp_block(
-            lp, x, cfg, positions=positions,
-            kv=(cache["k"][i], cache["v"][i]) if decode else None,
-            cache_len=cache_len, return_kv=mode == "prefill")
-        if mode == "prefill":
-            ks.append(kv[0])
-            vs.append(kv[1])
-    if decode:
-        k, v = cache["k"], cache["v"]
-        if unroll:
-            k, v = list(k), list(v)
-    else:
-        k, v = torch.stack(ks), torch.stack(vs)
-    return x, aux, {"main": {"k": k, "v": v}}
+    new_state = {}
+    for part, stack, n, moe_layer in _transformer_parts(cfg):
+        layers = _unstack(params[stack], n)
+        if mode == "train":
+            for lp in layers:
+                x, a = _remat(ck, _train_layer, lp, x, cfg, positions,
+                              moe_layer)
+                aux = aux + a if moe_layer else aux
+            continue
+        cache = state[part] if decode else None
+        caches = ([], [])
+        for i, lp in enumerate(layers):
+            x, a, kv = _attn_mlp_block(
+                lp, x, cfg, positions=positions,
+                kv=tuple(cache[k][i] for k in keys) if decode else None,
+                cache_len=cache_len, moe_layer=moe_layer,
+                return_kv=mode == "prefill")
+            aux = aux + a if moe_layer else aux
+            if mode == "prefill":
+                for c, t in zip(caches, kv):
+                    c.append(t)
+        if decode:
+            new_state[part] = {k: list(cache[k]) if unroll else cache[k]
+                               for k in keys}
+        else:
+            new_state[part] = {k: torch.stack(c) for k, c in zip(keys, caches)}
+    return x, aux, (None if mode == "train" else new_state)
 
 
 # -- rwkv ---------------------------------------------------------------------
@@ -481,23 +586,30 @@ def init_decode_state(cfg: ArchConfig, batch: int, capacity: int,
                       unrolled: bool = False) -> dict:
     """Zero-initialized decode state with K/V capacity ``capacity``: the
     reference's keys, leaf shapes and dtypes, on ``device`` (``None``:
-    the card). ``unrolled``: a ``dense`` state's caches as per-layer
-    LISTS of [B, C, Hkv, Dh] tensors, each its own buffer (the other
-    families have no per-layer cache and ignore it, as the reference
-    does)."""
+    the card). A transformer's state holds a cache per part (``"dense"``
+    for the ``moe`` family's leading dense layers, then ``"main"``):
+    {"k", "v"} of [L, B, C, Hkv, Dh], or MLA's {"latent", "krope"} of
+    [L, B, C, r] and [L, B, C, rope_d], all bf16. ``unrolled``: those
+    caches as per-layer LISTS of [B, C, ...] tensors, each its own
+    buffer (the recurrent families have no per-layer cache and ignore
+    it, as the reference does)."""
     _check_family(cfg)
     dev = resolve_device(device)
     length = torch.zeros((), dtype=torch.int32, device=dev)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
-    if cfg.family == "dense":
-        shape = (batch, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
-        if unrolled:
-            main = {k: [torch.zeros(shape, **bf16)
-                        for _ in range(cfg.n_layers)] for k in ("k", "v")}
+    if cfg.family not in ("ssm", "hybrid"):
+        if cfg.mla:
+            shapes = {"latent": (batch, capacity, cfg.mla.kv_lora_rank),
+                      "krope": (batch, capacity, cfg.mla.qk_rope_head_dim)}
         else:
-            main = {k: torch.zeros((cfg.n_layers, *shape), **bf16)
-                    for k in ("k", "v")}
-        return {"len": length, "main": main}
+            kv = (batch, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
+            shapes = {"k": kv, "v": kv}
+        st = {"len": length}
+        for part, _, n, _ in _transformer_parts(cfg):
+            st[part] = {k: ([torch.zeros(sh, **bf16) for _ in range(n)]
+                            if unrolled else torch.zeros((n, *sh), **bf16))
+                        for k, sh in shapes.items()}
+        return st
     if cfg.family == "ssm":
         hd = cfg.ssm.head_dim
         h = cfg.d_model // hd
@@ -529,7 +641,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, capacity: int,
 
 def _xent_chunk(params: Params, cfg: ArchConfig, h: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
-    """Summed NLL of one chunk: h [B, C, D], labels [B, C]."""
+    """Summed NLL of one chunk: h [B, C, D], labels [B, C] (or [B, C, K])."""
     logp = F.log_softmax(unembed_hidden(params, cfg, h), dim=-1)
     return -torch.gather(logp, -1, labels[..., None].long()).sum()
 
@@ -539,7 +651,8 @@ def chunked_xent_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
     """Next-token CE over the sequence in chunks of ``chunk`` tokens (the
     largest that divides S, at most ``chunk``: the reference's choice).
 
-    hidden [B, S, D]; labels [B, S] integer. Under autograd each chunk
+    hidden [B, S, D]; labels [B, S] integer (or [B, S, K] over K
+    codebooks, one head each). Under autograd each chunk
     is recomputed in backward: only the hidden chunk is saved, and the
     float32 [B, C, V] logits exist for one chunk at a time. Returns the
     summed NLL over ``labels.numel()``, float32.
@@ -572,7 +685,8 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
 def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
                 kernels: bool = True) -> tuple:
-    """Small-scale helper (tests): full [B, S, V] logits and the aux loss."""
+    """Small-scale helper (tests): full [B, S, V] (or [B, S, K, V])
+    logits and the aux loss."""
     out = forward(params, cfg, tokens, positions=positions, mode="train",
                   remat=False, kernels=kernels)
     return unembed_hidden(params, cfg, out.hidden), out.aux
@@ -581,11 +695,11 @@ def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                 state: dict, *, positions: Optional[torch.Tensor] = None,
                 unroll: bool = False) -> tuple:
-    """One decode step. tokens [B, 1] -> (logits [B, 1, V], state). The
-    recurrent leaves of the returned state are new tensors; a ``hybrid``
-    or ``dense`` state's K/V caches are the given ones, written in place.
-    ``unroll``: a ``dense`` state comes back with per-layer cache lists
-    (the reference's unrolled decode)."""
+    """One decode step. tokens [B, 1] ([B, 1, K]) -> (logits [B, 1, V]
+    ([B, 1, K, V]), state). The recurrent leaves of the returned state
+    are new tensors; a ``hybrid`` or transformer state's caches are the
+    given ones, written in place. ``unroll``: a transformer's state comes
+    back with per-layer cache lists (the reference's unrolled decode)."""
     out = forward(params, cfg, tokens, positions=positions, mode="decode",
                   state=state, unroll_decode=unroll)
     return unembed_hidden(params, cfg, out.hidden), out.state

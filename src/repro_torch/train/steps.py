@@ -131,8 +131,9 @@ def make_train_step(cfg: ArchConfig, rules, hp: TrainHParams):
 def make_prefill_step(cfg: ArchConfig, kernels: bool = True):
     """prefill_step(params, batch) -> (last-token logits, decode state).
 
-    ``batch``: {"tokens" [B, S], optional "positions"}. On the card the
-    recurrences run through the CUDA kernels unless ``kernels`` is False.
+    ``batch``: {"tokens" [B, S] ([B, S, K] codebook ids), optional
+    "positions" ([3, B, S] for M-RoPE)}. On the card the recurrences run
+    through the CUDA kernels unless ``kernels`` is False.
     """
     def prefill_step(params, batch):
         return M.prefill(params, cfg, batch["tokens"],
@@ -140,21 +141,30 @@ def make_prefill_step(cfg: ArchConfig, kernels: bool = True):
     return prefill_step
 
 
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The greedy next token of the last position: [B] int32 ([B, K]
+    from [B, S, K, V] codebook logits, each codebook's own argmax)."""
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
 def make_serve_step(cfg: ArchConfig, unroll: bool = False):
     """serve_step(params, tokens, state) -> (next token ids, new state).
 
     One decode step for the whole request batch: the greedy next token
-    (int32 [B]). A ``hybrid`` or ``dense`` state's K/V caches are updated
-    in place, as the reference's caller donates the state to its jitted
-    step. ``unroll``: a ``dense`` state's caches come back as per-layer
+    (int32 [B]; [B, K] for K codebooks, fed back as [B, 1, K]). The
+    positions are the model's default, which for M-RoPE are the three
+    streams at ``state["len"]``, read on the device (the reference's
+    serve step builds the same). A ``hybrid`` or transformer state's
+    caches are updated in place, as the reference's caller donates the
+    state to its jitted step.
+    ``unroll``: a transformer state's caches come back as per-layer
     lists (``init_decode_state(unrolled=True)``; the reference's
     unrolled decode).
     """
     def serve_step(params, tokens, state):
         logits, new_state = M.decode_step(params, cfg, tokens, state,
                                           unroll=unroll)
-        next_tok = torch.argmax(logits[:, -1], dim=-1)
-        return next_tok.to(torch.int32), new_state
+        return greedy(logits), new_state
     return serve_step
 
 
@@ -163,18 +173,19 @@ def serve_step_into(cfg: ArchConfig, params, tokens: torch.Tensor,
     """One decode step written back into its buffers: what a graphed
     step captures.
 
-    Reads ``tokens`` [B, 1] int32 and ``state``; copies the new
-    recurrent leaves and ``len`` back into ``state`` (``decode_step``
-    returns new tensors for them; a ``hybrid`` or ``dense`` state's K/V
+    Reads ``tokens`` [B, 1] int32 ([B, 1, K]) and ``state``; copies the
+    new recurrent leaves and ``len`` back into ``state`` (``decode_step``
+    returns new tensors for them; a ``hybrid`` or transformer state's
     caches are written in place by the step itself) and the greedy token
-    into ``next_tok`` [B] int32, which ``tokens`` may view. Returns the
-    step's logits [B, 1, V]. Nothing here reads the card from the host.
-    A ``dense`` state keeps its layout, stacked or per-layer lists.
+    into ``next_tok`` [B] ([B, K]) int32, which ``tokens`` may view.
+    Returns the step's logits [B, 1, V] ([B, 1, K, V]). Nothing here
+    reads the card from the host. A transformer state keeps its layout,
+    stacked or per-layer lists.
     """
     logits, new_state = M.decode_step(params, cfg, tokens, state)
     tree_map(lambda dst, src: dst if dst is src else dst.copy_(src),
              state, new_state)
-    next_tok.copy_(torch.argmax(logits[:, -1], dim=-1))
+    next_tok.copy_(greedy(logits))
     return logits
 
 
@@ -196,10 +207,10 @@ class _StaticShape:
     filled, tracked on the host."""
     batch: int
     capacity: int
-    next_tok: torch.Tensor               # [B] int32
-    tokens: torch.Tensor                 # [B, 1] int32, views next_tok
+    next_tok: torch.Tensor               # [B] ([B, K]) int32
+    tokens: torch.Tensor                 # [B, 1] ([B, 1, K]), views next_tok
     state: dict
-    logits: torch.Tensor | None = None   # [B, 1, V] float32
+    logits: torch.Tensor | None = None   # [B, 1, V] ([B, 1, K, V]) float32
     length: int = 0
     graph: "torch.cuda.CUDAGraph | None" = None
 
@@ -227,8 +238,10 @@ class StaticServeStep:
     float32, as the plain step returns them. A state copied in is cast
     to those dtypes (bf16 into float32 is exact).
 
-    ``unroll``: the step of ``make_serve_step(cfg, unroll=True)``, its
-    ``dense`` static state allocated as per-layer cache lists.
+    ``unroll``: the step of ``make_serve_step(cfg, unroll=True)``, a
+    transformer's static state allocated as per-layer cache lists.
+    With K codebooks the tokens are [B, 1, K] and the step's output
+    [B, K].
     """
 
     def __init__(self, cfg: ArchConfig, params,
@@ -252,12 +265,14 @@ class StaticServeStep:
         key = (int(batch), int(capacity))
         if key in self._shapes:
             return False
-        next_tok = torch.zeros(key[0], dtype=torch.int32, device=self.device)
+        tok_shape = self._token_shape(key[0])
+        next_tok = torch.zeros((tok_shape[0], *tok_shape[2:]),
+                               dtype=torch.int32, device=self.device)
         state = tree_map(lambda a, d: a.to(d),
                          M.init_decode_state(self.cfg, key[0], key[1],
                                              self.device, self.unroll),
                          self._state_dtypes())
-        shape = _StaticShape(*key, next_tok, next_tok.view(key[0], 1), state)
+        shape = _StaticShape(*key, next_tok, next_tok.view(tok_shape), state)
         self._prepare(shape)
         self._shapes[key] = shape
         return True
@@ -269,11 +284,16 @@ class StaticServeStep:
             with _build.on_device(self.device):
                 probe = M.init_decode_state(self.cfg, 1, 1, self.device,
                                             self.unroll)
-                tok = torch.zeros((1, 1), dtype=torch.int32,
+                tok = torch.zeros(self._token_shape(1), dtype=torch.int32,
                                   device=self.device)
                 _, new = M.decode_step(self.params, self.cfg, tok, probe)
             self._dtypes = tree_map(lambda a: a.dtype, new)
         return self._dtypes
+
+    def _token_shape(self, batch: int) -> tuple:
+        """A step's input tokens: [B, 1], or [B, 1, K] for K codebooks."""
+        k = self.cfg.n_codebooks
+        return (batch, 1, k) if k else (batch, 1)
 
     def _prepare(self, shape: _StaticShape) -> None:
         """Make the shape runnable (the graphed step captures here)."""
@@ -288,12 +308,12 @@ class StaticServeStep:
                 return shape
         if self.cfg.family == "hybrid":
             batch, capacity = state["k"].shape[1], state["k"].shape[2]
-        elif self.cfg.family == "dense":
-            k = state["main"]["k"]        # [L, B, C, ...] or L x [B, C, ...]
-            batch, capacity = (k[0].shape[:2] if isinstance(k, list)
-                               else k.shape[1:3])
-        else:                    # a recurrent state has no capacity axis
+        elif self.cfg.family == "ssm":   # a recurrent state has no capacity
             batch, capacity = state["rwkv"]["tm_x"].shape[1], None
+        else:          # {"k", "v"} or MLA's {"latent", "krope"} per part
+            c = next(iter(state["main"].values()))   # [L, B, C, ...] or
+            batch, capacity = (c[0].shape[:2] if isinstance(c, list)  # L x
+                               else c.shape[1:3])                     # [B, C]
         hits = [s for (b, c), s in self._shapes.items()
                 if b == batch and capacity in (None, c)]
         if len(hits) != 1:
@@ -310,9 +330,9 @@ class StaticServeStep:
                              "(a graph reads the captured parameters' "
                              "addresses); build a step for these params")
         shape = self._shape_of(state)
-        if tuple(tokens.shape) != (shape.batch, 1):
+        if tuple(tokens.shape) != self._token_shape(shape.batch):
             raise ValueError(f"tokens shape {tuple(tokens.shape)} != "
-                             f"({shape.batch}, 1)")
+                             f"{self._token_shape(shape.batch)}")
         if state is not shape.state:
             tree_map(lambda dst, src: dst.copy_(src), shape.state, state)
             shape.length = int(state["len"])

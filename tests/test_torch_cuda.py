@@ -28,7 +28,10 @@ CPU with float32-cast weights (loss within relative 1e-5, gradients
 within a relative norm of 1e-4, ``tests/test_torch_lm_train.py``'s
 bounds), ``remat`` bit for bit, the ``wkv6`` / ``ssd`` wrappers refusing
 an input that requires grad, and a checkpoint of card tensors restored
-on the CPU bit for bit.
+on the CPU bit for bit. The MoE, MLA, codebook and M-RoPE families: the
+graphed decode step equal to eager bit for bit (stacked and per-layer
+caches), and the MoE layer's gathers giving the same bits run to run,
+forward and backward (no atomic adds).
 """
 from pathlib import Path
 
@@ -775,6 +778,86 @@ def test_graphed_decode_matches_eager(cuda_device, name):
     assert (wkv6.launches, ssd.launches) == before
     with pytest.raises(ValueError, match="past capacity"):
         step(params, tg.reshape(2, 1), sg)
+
+
+@pytest.mark.parametrize("unroll", [False, True])
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "deepseek-v3-671b",
+                                  "musicgen-medium", "qwen2-vl-7b"])
+def test_graphed_decode_of_the_new_families_matches_eager(cuda_device, name,
+                                                          unroll):
+    """MoE, MLA (both stacks), codebooks ([B, 1, K] in, [B, K] out) and
+    M-RoPE (decode positions from the state's length, on the card): 6
+    greedy tokens graphed and eager, the same tokens and state bits, no
+    kernel-wrapper launch."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import _grow_cache
+    from repro_torch.models import model as M
+    from repro_torch.models.model import tree_map
+    from repro_torch.train.steps import (greedy, make_graphed_serve_step,
+                                         make_serve_step)
+
+    cfg = get_reduced(name)
+    params = M.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          cuda_device)
+    k = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16, *k))).to(cuda_device)
+    logits, st = M.prefill(params, cfg, tokens)
+    if unroll:
+        st = {"len": st["len"], **{p: {key: [t.clone() for t in v]
+                                       for key, v in st[p].items()}
+                                   for p in ("dense", "main") if p in st}}
+    grown = _grow_cache(cfg, st, 2, 22, cuda_device)
+    step = make_graphed_serve_step(cfg, params, cuda_device, unroll=unroll)
+    assert step.precompile(2, 22)
+    before = (wkv6.launches, ssd.launches)
+    eager = make_serve_step(cfg, unroll=unroll)
+    tg = te = greedy(logits)
+    sg, se = tree_map(torch.clone, grown), tree_map(torch.clone, grown)
+    for _ in range(6):
+        tg, sg = step(params, tg[:, None], sg)
+        te, se = eager(params, te[:, None], se)
+        assert torch.equal(tg, te) and tg.shape == (2, *k)
+    tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0),
+             sg, se)
+    torch.cuda.synchronize()
+    assert (wkv6.launches, ssd.launches) == before
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "deepseek-v3-671b"])
+def test_moe_gathers_repeat_bit_for_bit(cuda_device, name):
+    """The MoE layer at reduced width with capacity drops (capacity factor
+    0.5), forward and backward twice: the same output, aux loss and
+    gradients bit for bit; the output within the float32 bound of the
+    CPU's on float32 weights."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import tree_map
+
+    cfg = get_reduced(name)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    p_cpu = tree_map(lambda a: a.float(), MOE.init_moe(
+        cfg, torch.Generator().manual_seed(0), torch.device("cpu")))
+    x_cpu = torch.randn(4, 64, cfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+
+    def run(p, x):
+        p = tree_map(lambda a: a.detach().clone().requires_grad_(), p)
+        x = x.detach().clone().requires_grad_()
+        y, aux = MOE.moe_mlp(p, x, cfg)
+        (y.square().sum() + aux).backward()
+        return [y.detach(), aux.detach(), x.grad] + _leaves(
+            tree_map(lambda a: a.grad, p))
+
+    p_gpu = tree_map(lambda a: a.to(cuda_device), p_cpu)
+    first = run(p_gpu, x_cpu.to(cuda_device))
+    second = run(p_gpu, x_cpu.to(cuda_device))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    on_cpu = run(p_cpu, x_cpu)
+    torch.testing.assert_close(first[0].cpu(), on_cpu[0], rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_captures_keep_the_cycle_collector_off(cuda_device, monkeypatch):

@@ -19,7 +19,10 @@ another imports the four dense LM configs and runs a reduced dense
 model's prefill and stacked and unrolled decode on the CPU, and the LM
 serving CLI; another imports the checkpoints, the straggler monitor and
 the training CLI and trains a reduced qwen2-1.5b 2 steps on the CPU,
-checkpointed, then resumes it one more. ``chip_smoke.py`` must fail, and
+checkpointed, then resumes it one more; another (one per module it
+imports first) imports the MoE layer and the four configs of the MoE,
+audio and VLM families, and runs each reduced model's prefill, stacked
+and unrolled decode, the static serve step, and both CLIs. ``chip_smoke.py`` must fail, and
 print no result, without a CUDA card and outside the repo.
 """
 import ast
@@ -77,6 +80,7 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.kernels.ssd",
                                    "repro_torch.models.mamba2",
                                    "repro_torch.models.model",
+                                   "repro_torch.models.moe",
                                    "repro_torch.launch.serve",
                                    "repro_torch.serve",
                                    "repro_torch.launch.serve_snn",
@@ -320,6 +324,73 @@ print("ok")
 
 def test_dense_lm_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", DENSE_WITHOUT_JAX],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+FAMILIES_WITHOUT_JAX = """
+import contextlib, importlib, io, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+__import__(sys.argv[1])
+import torch
+from repro_torch.configs import get_config, get_reduced
+from repro_torch.launch import serve, train
+from repro_torch.models import model as M
+from repro_torch.models.moe import moe_mlp, route_topk
+from repro_torch.train.steps import StaticServeStep, make_serve_step
+families = {"qwen3-moe-30b-a3b": "moe", "deepseek-v3-671b": "moe",
+            "musicgen-medium": "audio", "qwen2-vl-7b": "vlm"}
+for name, family in families.items():
+    mod = importlib.import_module(
+        "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
+    assert mod.CONFIG is get_config(name) and mod.CONFIG.family == family
+    cfg = get_reduced(name)
+    params = M.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    k = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    tokens = torch.randint(0, cfg.vocab_size, (2, 9, *k),
+                           generator=torch.Generator().manual_seed(1))
+    logits, st = M.prefill(params, cfg, tokens[:, :8])
+    st = serve._grow_cache(cfg, st, 2, 10, "cpu")
+    unrolled = {"len": st["len"], **{p: {key: [t.clone() for t in v]
+                                         for key, v in st[p].items()}
+                                     for p in ("dense", "main") if p in st}}
+    lg, _ = M.decode_step(params, cfg, tokens[:, 8:], M.tree_map(
+        torch.clone, st))
+    lg_u, st_u = M.decode_step(params, cfg, tokens[:, 8:], unrolled,
+                               unroll=True)
+    assert torch.equal(lg, lg_u) and bool(lg.isfinite().all())
+    assert all(isinstance(c, list) for c in st_u["main"].values())
+    step = StaticServeStep(cfg, params, "cpu")
+    step.precompile(2, 10)
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    a, _ = step(params, tok[:, None], M.tree_map(torch.clone, st))
+    b, _ = make_serve_step(cfg)(params, tok[:, None], st)
+    assert torch.equal(a, b)
+    with contextlib.redirect_stdout(io.StringIO()):
+        toks = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "5", "--gen", "3"])
+        assert toks.shape == (2, 3, *k)
+        with tempfile.TemporaryDirectory() as d:
+            losses = train.main(["--arch", name, "--reduced", "--device",
+                                 "cpu", "--batch", "2", "--seq", "8",
+                                 "--steps", "1", "--ckpt-dir", d])
+    assert len(losses) == 1
+assert callable(moe_mlp) and callable(route_topk)
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("first", ["repro_torch.models.moe",
+                                   "repro_torch.configs.deepseek_v3_671b"])
+def test_moe_audio_and_vlm_families_run_without_jax(first):
+    out = subprocess.run([sys.executable, "-c", FAMILIES_WITHOUT_JAX, first],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

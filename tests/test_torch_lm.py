@@ -33,7 +33,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_reduced as jax_get_reduced
 from repro.launch.serve import _grow_cache as jax_grow_cache
 from repro.models import model as JM
-from repro_torch.configs import ArchConfig, get_config, get_reduced
+from repro_torch.configs import get_config, get_reduced
 from repro_torch.launch import serve
 from repro_torch.models import model as M
 from repro_torch.train.steps import make_prefill_step, make_serve_step
@@ -259,20 +259,26 @@ def test_init_model_matches_the_reference_tree(name):
 
 
 def test_configs_and_the_families_not_ported():
-    for name in NAMES:
+    """No family is left unported: every one of the reference's
+    ``ARCH_NAMES`` resolves, full and reduced, to the reference's config,
+    in its order, and builds a tree; an unknown arch still raises."""
+    from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
+    from repro_torch.configs import ARCH_NAMES
+    assert ARCH_NAMES == JAX_ARCH_NAMES and len(ARCH_NAMES) == 10
+    for name in ARCH_NAMES:
         assert dataclasses.astuple(get_config(name)) == \
             dataclasses.astuple(jax_get_config(name))
         assert dataclasses.astuple(get_reduced(name)) == \
             dataclasses.astuple(jax_get_reduced(name))
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("musicgen-medium")
+        assert M.init_model(get_config(name), None, "meta")
+    assert {get_config(n).family for n in ARCH_NAMES} == set(M.FAMILIES)
     with pytest.raises(KeyError, match="unknown arch"):
         get_reduced("gpt-2")
-    moe = ArchConfig(**{f.name: getattr(jax_get_reduced("qwen3-moe-30b-a3b"),
-                                        f.name)
-                        for f in dataclasses.fields(ArchConfig)})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        M.init_model(moe, torch.Generator(), "cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
+    odd = dataclasses.replace(get_reduced("qwen2-1.5b"), family="encoder")
+    with pytest.raises(ValueError, match="family 'encoder'"):
+        M.init_model(odd, torch.Generator(), "cpu")
 
 
 def test_entry_points_need_a_card_unless_told_cpu(monkeypatch):
