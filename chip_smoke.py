@@ -198,6 +198,23 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    tokens whose routes and drops agree in every layer are within
    ``LM_TOL``; the same in bf16 is reported, not gated.
    Last, ``wkv6`` and ``ssd`` must raise on an input that requires grad.
+9. the mesh side (``phase_mesh``), the launch counts set to 0 just
+   before and read just after (none of the six kernels is on it): a
+   one-rank nccl process group (a ``HashStore``; ``NCCL_SOCKET_IFNAME``
+   set to ``lo`` unless given) and ``init_device_mesh("cuda", (1, 1),
+   ("data", "model"))`` with ``pick_strategy``'s fsdp rules for
+   qwen2-1.5b's ``train_4k`` cell; ``MESH_STEPS`` ruled steps of
+   qwen2-1.5b at full width (B = 8, S = 1024; every parameter and Adam
+   leaf a DTensor, placed before the steps), then as many plain steps
+   from the same seed, in turn: the losses and every parameter leaf
+   equal bit for bit; ms per step and the steps' peak memory of each,
+   beside the card's name and power limit. Then
+   ``compress_error_feedback`` over the model's real gradient tree, two
+   rounds, on the card and on the card machine's CPU: q, scales and the
+   carried error bit for bit; ms per round. Then the ruled run's state
+   after two steps (its host snapshot) resharded by ``reshard_tree``
+   onto ``replan_mesh(1, model_parallel=1)`` and stepped once: equal to
+   the ruled run's third step bit for bit.
 
 Last, a capture that fails (a loop that copies to the host) must raise
 and leave no graph. The last two lines are the kernels' JSON record (a
@@ -1685,7 +1702,7 @@ def graphed_decode(name: str, cfg, params, logits, st_prefill, batch: int,
     busy share under the profiler."""
     from repro_torch.launch.serve import _grow_cache
     from repro_torch.models import model as M
-    from repro_torch.models.model import tree_map
+    from repro_torch.distributed.sharding import tree_map
     from repro_torch.train.steps import (make_graphed_serve_step,
                                          make_serve_step)
 
@@ -1972,7 +1989,7 @@ def train_full_width(dev: torch.device) -> None:
     from repro_torch.launch.train import main as train_main
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import model as M
-    from repro_torch.models.model import tree_map
+    from repro_torch.distributed.sharding import tree_map
     from repro_torch.train.steps import (TrainHParams, init_opt_state,
                                          make_train_step)
 
@@ -2074,7 +2091,7 @@ def train_card_vs_cpu(dev: torch.device) -> None:
     card and on the CPU from the same parameters and batch."""
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import model as M
-    from repro_torch.models.model import tree_map
+    from repro_torch.distributed.sharding import tree_map
     from repro_torch.train.steps import TrainHParams, loss_and_grads
 
     cfg = depth_cut(TRAIN_LM)
@@ -2164,7 +2181,7 @@ def moe_card_vs_cpu(dev: torch.device) -> None:
     flips routes."""
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import model as M
-    from repro_torch.models.model import tree_map
+    from repro_torch.distributed.sharding import tree_map
 
     cfg = depth_cut(MOE_VS_CPU)
     params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
@@ -2265,6 +2282,178 @@ def phase_lm_train(dev: torch.device) -> None:
            f"{counts}")
     check_kernels_refuse_grad(dev)
     print(f"LM training phase launches: {counts}")
+
+
+MESH_STEPS = 3       # ruled, then plain, steps of phase 9
+
+
+def mesh_train(cfg, hp, rules, dev: torch.device, steps: int,
+               keep_at: int | None = None) -> dict:
+    """``steps`` train steps of ``cfg`` from seed 0 (B = TRAIN_B, S =
+    TRAIN_S) with ``rules`` (None: the plain step), each timed; the
+    state after ``keep_at`` steps is kept as a host snapshot (its global
+    tensors, what a checkpoint writes). A ruled run's state is placed on
+    the mesh before the steps. Returns losses, seconds, the steps' peak
+    (from the placed state on), the final parameters on the host and the
+    snapshot."""
+    from repro_torch.distributed.sharding import (gather_tree,
+                                                  tree_map_with_path)
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import (init_opt_state, make_train_step,
+                                         place_train_state)
+
+    torch.cuda.empty_cache()
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = init_opt_state(params, hp)
+    if rules is not None:              # placed before the steps
+        params, opt = place_train_state(params, opt, rules)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = make_train_step(cfg, rules, hp)
+    out = {"losses": [], "secs": [], "snapshot": None}
+    for i in range(steps):
+        if i == keep_at:
+            out["snapshot"] = tree_map_with_path(   # leaf by leaf
+                lambda _, t: gather_tree(t).cpu()
+                if isinstance(t, torch.Tensor) else t, (params, opt))
+        batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, i, 0, dev)
+        params, opt, loss, dt = step_timed(step, params, opt, batch)
+        out["losses"].append(loss)
+        out["secs"].append(dt)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["params"] = {k: v.cpu() for k, v in leaves(gather_tree(params))}
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(dev: torch.device, smi: str) -> None:
+    """9. The mesh side on the one card: a one-rank nccl process group
+    (a ``HashStore``, no network) and ``init_device_mesh("cuda", (1, 1),
+    ("data", "model"))`` with ``pick_strategy``'s rules for qwen2-1.5b's
+    ``train_4k`` cell (fsdp). MESH_STEPS ruled steps of qwen2-1.5b at full
+    width (B = TRAIN_B, S = TRAIN_S), then the same plain steps from the
+    same seed, in turn (one model on the card at a time): the losses and
+    every parameter leaf equal bit for bit; ms per step and the peaks.
+    Then ``compress_error_feedback`` over the model's real gradient tree,
+    two rounds (the second carries the first's error), on the card,
+    bit for bit with the same calls on the card machine's CPU; its ms.
+    Then the elastic resume: the ruled run's state after its second step
+    (host snapshot), ``replan_mesh(1, model_parallel=1)``,
+    ``reshard_tree``, one step: equal to the ruled run's third step bit
+    for bit. The six kernels' counts are set to 0 just before and read
+    just after: this path launches none."""
+    import os
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.compression import (compress_error_feedback,
+                                                     init_error)
+    from repro_torch.distributed.elastic import (replan_mesh, reshard_tree,
+                                                 rules_for)
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_distributed("cuda", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config(TRAIN_LM)
+        strat = pick_strategy(cfg, SHAPES["train_4k"])
+        hp = strat.hparams
+        expect(strat.name == "fsdp", f"{TRAIN_LM} train_4k: {strat}")
+        rules = make_mesh_rules(mesh, strat)
+        ruled = mesh_train(cfg, hp, rules, dev, MESH_STEPS, keep_at=2)
+        plain = mesh_train(cfg, hp, None, dev, MESH_STEPS)
+        diff = [k for k, v in plain["params"].items()
+                if not torch.equal(v, ruled["params"][k])]
+        expect(ruled["losses"] == plain["losses"] and not diff,
+               f"ruled {ruled['losses']} vs plain {plain['losses']}; "
+               f"leaves differ: {diff[:5]}")
+
+        def ms(r):
+            return (f"first {r['secs'][0] * 1e3:.1f}, then "
+                    + ", ".join(f"{t * 1e3:.1f}" for t in r["secs"][1:]))
+        print(f"mesh {TRAIN_LM} (full width, B = {TRAIN_B}, S = {TRAIN_S}; "
+              f"one-rank nccl mesh (1, 1) data x model, rules "
+              f"{strat.name}): ruled losses {ruled['losses']} equal the "
+              f"plain steps' and every one of the {len(plain['params'])} "
+              f"parameter leaves bit for bit; ms per step ruled {ms(ruled)}"
+              f" / plain {ms(plain)}; max memory allocated ruled "
+              f"{ruled['peak'] / 2**30:.2f} GiB / plain "
+              f"{plain['peak'] / 2**30:.2f} GiB; card: {smi}")
+
+        # int8 error-feedback compression of the real gradient tree
+        params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+        _, _, grads = loss_and_grads(
+            params, cfg, synthetic_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, dev),
+            hp)
+        del params
+        err, secs, rounds = init_error(grads), [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comp, _, err = compress_error_feedback(grads, err)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rounds.append([dict(leaves(t)) for t in (comp.q, comp.scale,
+                                                     err)])
+        bad, n_values = [], 0
+        for k, g in leaves(grads):          # the same calls, leaf by leaf
+            g_c, e_c = {"g": g.cpu()}, {"g": torch.zeros(g.shape)}
+            n_values += g.numel()
+            for q, scale, e in rounds:
+                c_c, _, e_c = compress_error_feedback(g_c, e_c)
+                if not (torch.equal(c_c.q["g"], q[k].cpu())
+                        and torch.equal(c_c.scale["g"], scale[k].cpu())
+                        and torch.equal(e_c["g"], e[k].cpu())):
+                    bad.append(k)
+        expect(not bad, f"compression: card and CPU differ at {bad[:5]}")
+        print(f"  compress_error_feedback over the {len(leaves(grads))} "
+              f"gradient leaves ({n_values / 1e9:.3f} B values, blocks "
+              f"of 1024): two rounds on the card {secs[0] * 1e3:.1f} / "
+              f"{secs[1] * 1e3:.1f} ms; q, scales and the carried error "
+              f"bit for bit with the card machine's CPU")
+        del grads, err, rounds, comp
+        torch.cuda.empty_cache()
+
+        # elastic: the snapshot after two steps, re-meshed, resharded
+        new_mesh = replan_mesh(1, model_parallel=1)
+        expect(tuple(new_mesh.shape) == (1, 1)
+               and new_mesh.mesh_dim_names == ("data", "model"),
+               f"replan_mesh(1, model_parallel=1): {new_mesh}")
+        t0 = time.perf_counter()
+        params, opt = reshard_tree(ruled.pop("snapshot"), new_mesh)
+        t_place = time.perf_counter() - t0
+        step = make_train_step(cfg, rules_for(new_mesh), hp)
+        params, opt, loss, dt = step_timed(
+            step, params, opt,
+            synthetic_batch(cfg, TRAIN_B, TRAIN_S, 2, 0, dev))
+        got = {k: v for k, v in leaves(gather_tree(params))}
+        diff = [k for k, v in got.items()
+                if not torch.equal(v.cpu(), ruled["params"][k])]
+        expect(loss == ruled["losses"][2] and not diff,
+               f"elastic resume: loss {loss} vs {ruled['losses'][2]}, "
+               f"leaves differ {diff[:5]}")
+        print(f"  elastic: the ruled run's state after 2 steps (host "
+              f"snapshot) resharded onto replan_mesh(1, model_parallel=1) "
+              f"in {t_place:.2f} s, one step ({dt * 1e3:.1f} ms): loss "
+              f"{loss} and every leaf equal to the uninterrupted third step")
+        del params, opt, got
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    counts = {k: f.launches for k, f in fns.items()}
+    expect(not any(counts.values()), f"the mesh phase launched {counts}")
+    print(f"mesh phase launches: {counts}")
 
 
 def phase_golden() -> None:
@@ -3287,6 +3476,7 @@ def main() -> int:
     launches.update(phase_train(dev))
     launches.update(phase_lm(dev))
     phase_lm_train(dev)
+    phase_mesh(dev, smi)
     check_failed_capture()
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",

@@ -8,7 +8,8 @@ archs, in its order: the ``dense`` GQA transformers (``stablelm-12b``,
 ``zamba2-7b`` (``hybrid``), the ``moe`` pair ``deepseek-v3-671b`` (MLA,
 a shared expert, leading dense layers) and ``qwen3-moe-30b-a3b``, and
 ``qwen2-vl-7b`` (``vlm``: M-RoPE). Any other name raises a ``KeyError``,
-as in the reference.
+as in the reference. ``all_cells()`` is the reference's grid of every
+applicable (arch, shape) pair.
 """
 from __future__ import annotations
 
@@ -47,6 +48,13 @@ def get_reduced(name: str) -> ArchConfig:
     return _module(name).reduced()
 
 
+def all_cells() -> list[tuple[str, str]]:
+    """All applicable (arch, shape) pairs: the dry-run grid, 32 cells
+    (the reference's docstring says 40)."""
+    return [(a, s) for a in ARCH_NAMES for s in SHAPES
+            if applicable(get_config(a), s)]
+
+
 __all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig", "SHAPES",
            "ShapeSpec", "applicable", "smoke_shape", "ARCH_NAMES",
-           "get_config", "get_reduced"]
+           "get_config", "get_reduced", "all_cells"]

@@ -5,10 +5,10 @@ Two pieces, both host-side (the device program stays SPMD/deterministic):
 
 * ``StragglerMonitor`` — tracks per-step wall time; a step slower than
   ``threshold`` x the trailing median flags a straggler event. The
-  reference launcher's policy on repeated events is: snapshot -> shrink
-  the mesh around the slow host (``elastic.replan_mesh``, not ported
-  yet: ROADMAP Queue A item 9) -> resume; the port's launcher, on one
-  card, reports the event.
+  launcher's policy on repeated events is: snapshot -> re-plan the mesh
+  over the ranks (``elastic.replan_mesh``) -> reshard -> resume
+  (``launch.train.remesh``, with the event or-ed over the ranks so that
+  all take it); on one rank it reports the event.
   Detection must be cheap and false-positive-robust, hence median +
   hysteresis rather than mean.
 

@@ -17,6 +17,14 @@ steps replay one CUDA graph of the step, captured after the cache is
 grown (:func:`~repro_torch.train.steps.make_graphed_serve_step`, the
 counterpart of the reference's jitted, donated serve step); the CPU
 runs the step eagerly.
+
+Run as more than one rank (``torchrun``, or a process group started
+before :func:`main`), it serves under rules, as the reference does when
+it sees more than one device, on the serving mesh (every rank on
+``data``) where the reference takes its debug mesh: the port computes
+no tensor-parallel layer, so a ``model`` axis would hold replicas. Each
+rank prefills and decodes its shard of the batch with the eager ruled
+steps, the tokens are gathered on every rank, and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -28,9 +36,12 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.execution import resolve_device
+from repro_torch.distributed.sharding import tree_map
+from repro_torch.launch.mesh import make_rules, make_serving_mesh
+from repro_torch.launch.train import n_ranks
 from repro_torch.models import model as M
-from repro_torch.models.model import tree_map
-from repro_torch.train.steps import (greedy, make_graphed_serve_step,
+from repro_torch.train.steps import (batch_shard, greedy,
+                                     make_graphed_serve_step,
                                      make_prefill_step, make_serve_step)
 
 
@@ -48,8 +59,11 @@ def main(argv=None) -> np.ndarray:
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
+    ranks = n_ranks(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     dev = resolve_device(args.device)
+    rules = make_rules(make_serving_mesh()) if ranks > 1 else None
+    lead = ranks == 1 or torch.distributed.get_rank() == 0
     params = M.init_model(cfg, torch.Generator(dev).manual_seed(args.seed),
                           dev)
     rng = np.random.default_rng(args.seed)
@@ -63,24 +77,26 @@ def main(argv=None) -> np.ndarray:
 
     # prefill fills a capacity == prompt_len cache; decoding continues in
     # a capacity prompt_len + gen cache (copied once, written in place)
-    prefill = make_prefill_step(cfg)
+    prefill = make_prefill_step(cfg, rules=rules)
     capacity = args.prompt_len + args.gen
     t0 = time.perf_counter()
     logits, state = prefill(params, batch_in)
-    state = _grow_cache(cfg, state, args.batch, capacity, dev)
+    rows = (args.batch if rules is None else
+            batch_shard(batch_in, rules)[0]["tokens"].shape[0])
+    state = _grow_cache(cfg, state, rows, capacity, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_prefill = time.perf_counter() - t0
 
     t_capture = None
-    if dev.type == "cuda":      # one graph for the grown cache's shape
+    if dev.type == "cuda" and rules is None:   # one graph for the cache
         t0 = time.perf_counter()
         serve = make_graphed_serve_step(cfg, params, dev)
         serve.precompile(args.batch, capacity)
         torch.cuda.synchronize(dev)
         t_capture = time.perf_counter() - t0
     else:
-        serve = make_serve_step(cfg)
+        serve = make_serve_step(cfg, rules=rules)
 
     next_tok = greedy(logits)                          # [B] or [B, K]
     toks_d = torch.empty((args.gen, *next_tok.shape), dtype=torch.int32,
@@ -92,6 +108,8 @@ def main(argv=None) -> np.ndarray:
     toks = toks_d.transpose(0, 1).cpu().numpy()
     t_decode = time.perf_counter() - t0
 
+    if not lead:
+        return toks
     print(f"[prefill] {args.batch}x{args.prompt_len} in {t_prefill:.3f}s "
           f"on {dev}")
     if t_capture is not None:

@@ -24,8 +24,11 @@ reference's model always does; decode runs the single-step recurrences
 in plain torch, as the reference does. The transformer families have no
 kernel: attention, MLA and the experts are the reference's plain
 computations (the experts as gathers and ``bmm``, see ``moe.py``), on
-the card as on the CPU. The sharding constraints of the reference fall
-away on one card.
+the card as on the CPU. The reference's six sharding constraints
+(``distributed.sharding.logical_constraint``) stand where it has them:
+the embedding's output, the logits, the attention and MLP residuals,
+the shared block's output. Outside a ``mesh_rules`` context each is a
+no-op, and inside one a plain tensor comes back as it is.
 
 Training (``mode="train"`` under autograd) recomputes each layer in
 backward (``remat``, the reference's ``jax.checkpoint`` of its scanned
@@ -47,6 +50,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import resolve_device
+from repro_torch.distributed.sharding import (flat_tree, logical_constraint,
+                                              tree_map, tree_map_with_path)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -60,18 +65,6 @@ FAMILIES = ("ssm", "hybrid", "dense", "moe", "audio", "vlm")
 # ---------------------------------------------------------------------------
 
 
-def tree_map(fn: Callable, tree, *rest):
-    """``fn`` on every leaf of nested dicts and lists (and the matching
-    leaves of ``rest``), keeping the structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
-    return fn(tree, *rest)
-
-
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree (views)."""
     return tree_map(lambda a: a[i], tree)
@@ -82,8 +75,9 @@ def _unstack(tree, n: int) -> list:
     leaf (views). Under autograd each leaf's layers then share one
     backward node that stacks their gradients, where indexing each layer
     would add ``n`` zero-padded [L, ...] copies."""
-    per_leaf = tree_map(lambda a: a.unbind(0), tree)
-    return [tree_map(lambda t: t[i], per_leaf) for i in range(n)]
+    per_leaf = {k: a.unbind(0) for k, a in flat_tree(tree).items()}
+    return [tree_map_with_path(lambda k, _: per_leaf[k][i], tree)
+            for i in range(n)]
 
 
 def _remat(on: bool, fn: Callable, *args):
@@ -268,7 +262,7 @@ def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
         pos = (positions if positions is not None
                else torch.arange(x.shape[1], device=x.device))
         x = x + _sinusoidal(pos, cfg.d_model).to(dtype)
-    return x.to(dtype)
+    return logical_constraint(x.to(dtype), "batch", "seq", None)
 
 
 def _sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -287,10 +281,13 @@ def unembed_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor
     """x [B, S, D] -> logits float32 [B, S, V] (or [B, S, K, V], one
     head per codebook)."""
     if cfg.n_codebooks:
-        return torch.einsum("bsd,kdv->bskv", x.to(torch.float32),
-                            params["lm_heads"].to(torch.float32))
+        logits = torch.einsum("bsd,kdv->bskv", x.to(torch.float32),
+                              params["lm_heads"].to(torch.float32))
+        return logical_constraint(logits, "batch", "seq", None, "tensor")
     tied = cfg.tie_embeddings
-    return L.unembed(params["embed"] if tied else params["lm_head"], x, tied)
+    logits = L.unembed(params["embed"] if tied else params["lm_head"], x,
+                       tied)
+    return logical_constraint(logits, "batch", "seq", "tensor")
 
 
 def _norm(p, x, cfg):
@@ -379,13 +376,13 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     h, new_kv = attn(lp["attn"], _norm(lp["ln1"], x, cfg), cfg,
                      positions=positions, kv_cache=kv, cache_len=cache_len,
                      return_kv=return_kv)
-    x = x + h
+    x = logical_constraint(x + h, "batch", "seq", None)
     if moe_layer:
         y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg)
     else:
         y = L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style)
         aux = None
-    return x + y, aux, new_kv
+    return logical_constraint(x + y, "batch", "seq", None), aux, new_kv
 
 
 def _train_layer(lp: Params, x, cfg, positions, moe_layer):
@@ -503,7 +500,7 @@ def _shared_block(sh: Params, x, cfg, positions, kv=None, cache_len=None,
                             cache_len=cache_len, return_kv=return_kv)
     x = x + h
     x = x + L.mlp(sh["shared_mlp"], _norm(sh["ln2"], x, cfg), cfg.mlp_style)
-    return x, new_kv
+    return logical_constraint(x, "batch", "seq", None), new_kv
 
 
 def _mamba_train_layer(lp: Params, x, cfg, kernels):
@@ -592,9 +589,11 @@ def init_decode_state(cfg: ArchConfig, batch: int, capacity: int,
     [L, B, C, r] and [L, B, C, rope_d], all bf16. ``unrolled``: those
     caches as per-layer LISTS of [B, C, ...] tensors, each its own
     buffer (the recurrent families have no per-layer cache and ignore
-    it, as the reference does)."""
+    it, as the reference does). ``device="meta"`` gives the shapes and
+    dtypes alone (the reference's ``jax.eval_shape`` of it)."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     length = torch.zeros((), dtype=torch.int32, device=dev)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     if cfg.family not in ("ssm", "hybrid"):

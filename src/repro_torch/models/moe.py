@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import BatchSplit, current_split
 from repro_torch.models.layers import Params, _dense_init, dot, mlp
 
 
@@ -100,10 +101,15 @@ def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return pad.index_select(0, idx)
 
 
-def _plan(p: Params, xt: torch.Tensor, cfg: ArchConfig):
+def _plan(p: Params, xt: torch.Tensor, cfg: ArchConfig,
+          split: Optional[BatchSplit] = None):
     """The reference's routing of the grouped tokens xt [G, T_g, D]:
     (weights [G, T_g, k] float32, indices [G, T_g, k], positions in the
-    expert buffers [G, T_g, k], keep [G, T_g, k] bool, capacity, aux)."""
+    expert buffers [G, T_g, k], keep [G, T_g, k] bool, capacity, aux).
+    With ``split``, xt is one shard's whole groups: each expert's share
+    of the routes is counted over every shard's groups, and the aux is
+    this shard's term of the batch's (its mean over the shards is the
+    whole batch's aux)."""
     mo = cfg.moe
     g, tg, _ = xt.shape
     e, k = mo.n_experts, mo.top_k
@@ -125,7 +131,10 @@ def _plan(p: Params, xt: torch.Tensor, cfg: ArchConfig):
     keep = pos < capacity
 
     # load-balancing aux loss (GShard/Switch): E * sum_e f_e * P_e
-    f = onehot.sum((0, 2)).to(torch.float32) / (g * tg)
+    counts = onehot.sum((0, 2))
+    if split is not None:
+        counts, g = split.sum(counts), g * split.n
+    f = counts.to(torch.float32) / (g * tg)
     aux = e * torch.sum(f * probs.mean((0, 1))) * mo.router_aux_coef
     return weights, idx, pos, keep, capacity, aux
 
@@ -135,15 +144,35 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE MLP. x [B, S, D] -> (y [B, S, D], aux loss, float32 scalar),
     in groups of ``group_size`` tokens (the reference's
-    :func:`_pick_group_size` by default); capacity per (group, expert)."""
+    :func:`_pick_group_size` by default); capacity per (group, expert).
+
+    Under a :func:`~repro_torch.distributed.sharding.batch_split` of n
+    shards, x is this rank's shard of an n-times larger batch, and the
+    groups are the whole batch's: a shard of whole groups routes them
+    here (the expert shares of the aux counted over all shards); where
+    a group spans shards, the batch is gathered and this shard's rows of
+    the whole layer's output are returned."""
+    split = current_split()
+    if split is None or split.n == 1:
+        return _moe(p, x, cfg, group_size or _pick_group_size(
+            x.shape[0] * x.shape[1]))
+    tg = group_size or _pick_group_size(x.shape[0] * x.shape[1] * split.n)
+    if (x.shape[0] * x.shape[1]) % tg:         # a group spans shards
+        y, aux = _moe(p, split.gather(x), cfg, tg)
+        return split.local(y), aux
+    return _moe(p, x, cfg, tg, split)
+
+
+def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
+         split: Optional[BatchSplit] = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
     mo = cfg.moe
     b, s, d = x.shape
     t = b * s
-    tg = group_size or _pick_group_size(t)
     g = t // tg
     e, k = mo.n_experts, mo.top_k
     xt = x.reshape(g, tg, d)
-    weights, idx, pos, keep, cap, aux = _plan(p, xt, cfg)
+    weights, idx, pos, keep, cap, aux = _plan(p, xt, cfg, split)
 
     # slot ids e * (G * C) + g * C + pos: the buffers come out [E, G*C, D]
     n_slots, n_entries = e * g * cap, t * k

@@ -10,7 +10,10 @@ Entries whose last axis the block size does not divide stay in float32;
 a zero-size scale marks them.
 
 Functional, as the reference is: :func:`adam_update` returns new params
-and a new state and changes neither argument. It updates every entry of
+and a new state and changes neither argument. It updates each leaf with
+:func:`adam_leaf`, elementwise in the moments' block view, which the
+ruled train step (``train/steps.py``) also runs on each rank's
+block-aligned pieces of a leaf. It updates every entry of
 ``params`` it is given; a caller passes the trainable entries only (the
 SNN's masks are buffers and take no update, where the reference gets the
 same result by zeroing their gradients).
@@ -21,6 +24,8 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.distributed.sharding import flat_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,33 +66,22 @@ def _q_scale_init(p: torch.Tensor, block: int) -> torch.Tensor:
                        dtype=torch.float32, device=p.device)
 
 
-def _quantize(x: torch.Tensor, block: int
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """[..., F] f32 -> ([..., F/B, B] int8, [..., F/B, 1] f32 scales)."""
-    xb = x.reshape(*x.shape[:-1], x.shape[-1] // block, block)
+def _quantize(xb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocks [..., B] f32 -> (int8 [..., B], f32 absmax scales [..., 1])."""
     scale = torch.amax(torch.abs(xb), dim=-1, keepdim=True) / 127.0
     scale = torch.clamp(scale, min=1e-12)
     q = torch.clamp(torch.round(xb / scale), -127, 127).to(torch.int8)
     return q, scale
 
 
-def _deq(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
-    return (q.to(torch.float32) * scale).reshape(shape)
-
-
-def _flat(tree: dict, prefix: tuple = ()) -> dict:
-    """Nested dicts -> {path tuple: leaf}, in the tree's order."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = v
-    return out
+def _deq(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 blocks [..., B] and their scales [..., 1] -> float32."""
+    return q.to(torch.float32) * scale
 
 
 def _nest(flat: dict) -> dict:
-    """:func:`_flat`'s inverse."""
+    """:func:`~repro_torch.distributed.sharding.flat_tree`'s inverse
+    for nested dicts."""
     out: dict = {}
     for path, v in flat.items():
         node = out
@@ -98,7 +92,7 @@ def _nest(flat: dict) -> dict:
 
 
 def adam_init(params: dict, cfg: AdamConfig) -> AdamState:
-    flat = _flat(params)
+    flat = flat_tree(params)
 
     def each(fn):
         return _nest({k: fn(p) for k, p in flat.items()})
@@ -114,42 +108,65 @@ def adam_init(params: dict, cfg: AdamConfig) -> AdamState:
                      each(lambda p: torch.zeros_like(p, dtype=torch.float32)))
 
 
+def blocked_shape(shape, block: int) -> tuple:
+    """A quantized leaf's block view: [..., F] -> [..., F/B, B] (the
+    moments' own shape)."""
+    return (*shape[:-1], shape[-1] // block, block)
+
+
+def bias_corrections(step: int, cfg: AdamConfig) -> tuple:
+    """(1 - b1^t, 1 - b2^t) for the step after ``step``, float32."""
+    tf = torch.tensor(float(step + 1), dtype=torch.float32)
+    return 1.0 - cfg.b1 ** tf, 1.0 - cfg.b2 ** tf
+
+
+@torch.no_grad()
+def adam_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+              v: torch.Tensor, m_scale, v_scale, bc1, bc2, cfg: AdamConfig,
+              quantized: bool) -> tuple:
+    """One leaf's update, elementwise: (new p, m, v, m_scale, v_scale).
+    For a ``quantized`` leaf, ``p`` and ``g`` come in the moments' block
+    view ([..., F/B, B], :func:`blocked_shape`), so that any block-aligned
+    piece of a leaf updates as the whole leaf does; otherwise the scales
+    pass through."""
+    g = g.to(torch.float32)
+    if quantized:
+        m, v = _deq(m, m_scale), _deq(v, v_scale)
+    m = cfg.b1 * m + (1 - cfg.b1) * g
+    v = cfg.b2 * v + (1 - cfg.b2) * g * g
+    update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    if cfg.weight_decay:
+        update = update + cfg.weight_decay * p.to(torch.float32)
+    p_new = (p.to(torch.float32) - cfg.lr * update).to(p.dtype)
+    if quantized:
+        (m, m_scale), (v, v_scale) = _quantize(m), _quantize(v)
+    return p_new, m, v, m_scale, v_scale
+
+
 @torch.no_grad()
 def adam_update(grads: dict, state: AdamState, params: dict,
                 cfg: AdamConfig) -> tuple[dict, AdamState]:
     """Returns (new_params, new_state), trees like ``params``; ``grads``
     holds a leaf for each of them (and may hold more)."""
-    t = state.step + 1
-    tf = torch.tensor(float(t), dtype=torch.float32)
-    bc1 = 1.0 - cfg.b1 ** tf
-    bc2 = 1.0 - cfg.b2 ** tf
-
-    grads = _flat(grads)
-    state = AdamState(state.step, *(None if x is None else _flat(x)
+    bc1, bc2 = bias_corrections(state.step, cfg)
+    grads = flat_tree(grads)
+    state = AdamState(state.step, *(None if x is None else flat_tree(x)
                                     for x in state[1:]))
+    q = cfg.quantized_state
     new_p, new_m, new_v = {}, {}, {}
     new_ms, new_vs = {}, {}
-    for k, p in _flat(params).items():
-        g = grads[k].to(torch.float32)
-        m, v = state.m[k], state.v[k]
-        quantized = cfg.quantized_state and state.m_scale[k].numel() > 0
-        if quantized:
-            m = _deq(m, state.m_scale[k], p.shape)
-            v = _deq(v, state.v_scale[k], p.shape)
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        update = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if cfg.weight_decay:
-            update = update + cfg.weight_decay * p.to(torch.float32)
-        new_p[k] = (p.to(torch.float32) - cfg.lr * update).to(p.dtype)
-        if quantized:
-            (new_m[k], new_ms[k]), (new_v[k], new_vs[k]) = (
-                _quantize(m, cfg.block), _quantize(v, cfg.block))
-        else:
-            new_m[k], new_v[k] = m, v
-            if cfg.quantized_state:
-                new_ms[k], new_vs[k] = state.m_scale[k], state.v_scale[k]
-    if cfg.quantized_state:
+    for k, p in flat_tree(params).items():
+        quantized = q and state.m_scale[k].numel() > 0
+        view = blocked_shape(p.shape, cfg.block) if quantized else p.shape
+        out = adam_leaf(p.reshape(view), grads[k].reshape(view),
+                        state.m[k], state.v[k],
+                        state.m_scale[k] if q else None,
+                        state.v_scale[k] if q else None, bc1, bc2, cfg,
+                        quantized)
+        new_p[k] = out[0].reshape(p.shape)
+        new_m[k], new_v[k], new_ms[k], new_vs[k] = out[1:]
+    t = state.step + 1
+    if q:
         return _nest(new_p), AdamState(t, _nest(new_m), _nest(new_v),
                                        _nest(new_ms), _nest(new_vs))
     return _nest(new_p), AdamState(t, _nest(new_m), _nest(new_v))

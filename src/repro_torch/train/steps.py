@@ -2,14 +2,29 @@
 ``repro/train/steps.py``.
 
 The reference builds pure functions for ``jit`` and enters its sharding
-rules inside them; on one card there are no rules, and the port's steps
-are plain functions. ``make_train_step`` takes ``rules=None`` only (the
-sharding rules are ROADMAP Queue A item 9). Its step:
+rules (``mesh_rules``) inside them; the port's steps are plain functions
+that enter the same context. Without rules a train step is:
 
     for each microbatch (a Python loop when n_micro > 1):
         loss, grads += loss_and_grads(...)      # remat'd forward, autograd
     grads /= n_micro
     params, opt = adam_update(...)
+
+With ``rules`` (a :class:`~repro_torch.distributed.sharding.MeshRules`
+on a ``DeviceMesh``; :func:`make_train_step`) every parameter and Adam
+leaf is a DTensor held with the rules' placements (``param_pspec``; the
+moments as ``launch/specs.py``'s ``_opt_shardings`` lays them out), and
+the batch is split over the ``batch`` axis (``input_shardings``). Each
+rank gathers the parameters, computes its batch shard's loss and
+gradients with the plain code above, and reduces the gradients onto the
+moments' placements (a reduce-scatter); Adam then updates the local
+blocks, and each new block goes to its parameter's placements. Data
+parallelism and ZeRO-3 sharding of the state, then: the tensor- and
+expert-parallel COMPUTE of the reference's GSPMD program (each layer in
+shards, an expert-parallel MoE) is not ported (ROADMAP Queue A, item
+9's levers), so every rank runs whole layers. The ruled prefill and
+serve steps split the request batch the same way: each rank serves its
+shard, and the logits and tokens are gathered.
 
 The reference jits its train step with the parameters and optimizer
 state donated; the port's step returns new trees (``adam_update`` is
@@ -34,10 +49,18 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import resolve_device
+from repro_torch.distributed.sharding import (AbstractMesh, BatchSplit,
+                                              MeshRules, NamedSharding,
+                                              _axis_size, _is_dtensor, _names,
+                                              batch_split, flat_tree,
+                                              gather_tree, input_shardings,
+                                              mesh_rules, param_shardings,
+                                              tree_map, tree_map_with_path)
 from repro_torch.kernels import _build
 from repro_torch.models import model as M
-from repro_torch.models.model import tree_map
-from repro_torch.optimizer.adam import AdamConfig, adam_init, adam_update
+from repro_torch.optimizer.adam import (AdamConfig, AdamState, adam_init,
+                                        adam_leaf, adam_update,
+                                        bias_corrections, blocked_shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +112,31 @@ def _split(x: torch.Tensor, n_micro: int) -> torch.Tensor:
     return x.reshape(n_micro, -1, *x.shape[1:])
 
 
+def _accumulate(params, cfg: ArchConfig, batch: dict, hp: TrainHParams,
+                local=lambda b: b) -> tuple:
+    """(loss, metrics, grads) over ``hp.n_micro`` microbatches of
+    ``batch``: the gradients summed in ``hp.accum_dtype`` and divided by
+    ``n_micro``, the loss and every metric their means. ``local`` maps
+    each (micro)batch to what this rank computes."""
+    if hp.n_micro == 1:
+        return loss_and_grads(params, cfg, local(batch), hp)
+    micro = {k: _split(v, hp.n_micro) for k, v in batch.items()}
+    grads = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=hp.accum_dtype, device=p.device), params)
+    losses, seen = [], []
+    for i in range(hp.n_micro):
+        l, metrics, g = loss_and_grads(
+            params, cfg, local({k: v[i] for k, v in micro.items()}), hp)
+        tree_map(lambda a, b: a.add_(b.to(hp.accum_dtype)), grads, g)
+        losses.append(l)
+        seen.append(metrics)
+    tree_map(lambda g: g.div_(hp.n_micro), grads)
+    loss = sum(losses) / hp.n_micro              # in order, as a scan
+    metrics = {k: torch.stack([m[k] for m in seen]).mean()
+               for k in seen[0]}
+    return loss, metrics, grads
+
+
 def make_train_step(cfg: ArchConfig, rules, hp: TrainHParams):
     """Returns train_step(params, opt_state, batch) -> (params, opt,
     metrics), metrics {"loss", "ce", "aux"} (0-d float32 tensors).
@@ -96,49 +144,249 @@ def make_train_step(cfg: ArchConfig, rules, hp: TrainHParams):
     ``batch``: {"tokens", "labels", optional "positions"} with a leading
     batch dim divisible by ``hp.n_micro``. With ``n_micro > 1`` the
     microbatches' gradients are summed in ``hp.accum_dtype`` and divided
-    by ``n_micro``; the loss and every metric are their means. ``rules``
-    must be None.
+    by ``n_micro``; the loss and every metric are their means.
+
+    ``rules``: None, or a ``MeshRules`` on a ``DeviceMesh`` (every rank
+    of the mesh calls the step with the same arguments): the step of
+    :func:`_ruled_train_step`.
     """
     if rules is not None:
-        raise NotImplementedError("sharding rules are not ported yet; see "
-                                  "ROADMAP Queue A item 9")
+        return _ruled_train_step(cfg, rules, hp)
     opt_cfg = _adam_cfg(hp)
 
     def train_step(params, opt_state, batch):
-        if hp.n_micro == 1:
-            loss, metrics, grads = loss_and_grads(params, cfg, batch, hp)
-        else:
-            micro = {k: _split(v, hp.n_micro) for k, v in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=hp.accum_dtype, device=p.device), params)
-            losses, seen = [], []
-            for i in range(hp.n_micro):
-                mb = {k: v[i] for k, v in micro.items()}
-                l, metrics, g = loss_and_grads(params, cfg, mb, hp)
-                tree_map(lambda a, b: a.add_(b.to(hp.accum_dtype)), grads, g)
-                losses.append(l)
-                seen.append(metrics)
-            tree_map(lambda g: g.div_(hp.n_micro), grads)
-            loss = sum(losses) / hp.n_micro          # in order, as a scan
-            metrics = {k: torch.stack([m[k] for m in seen]).mean()
-                       for k in seen[0]}
+        loss, metrics, grads = _accumulate(params, cfg, batch, hp)
         params, opt_state = adam_update(grads, opt_state, params, opt_cfg)
         return params, opt_state, {"loss": loss, **metrics}
 
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, kernels: bool = True):
+def opt_state_shardings(opt_shapes: AdamState, param_shapes,
+                        rules: MeshRules) -> AdamState:
+    """Adam m/v mirror the param shardings. int8-quantized moments are
+    [..., F/B, B] (last-axis block split, optimizer/adam.py), so their
+    spec = the param's leading-dim spec + (None, None), with the axis of
+    the param's last dim re-homed onto the first leading dim that stays
+    divisible; float32 fallbacks and same-shape moments reuse the param
+    spec; [0]-sentinel scales and the step counter are replicated (the
+    reference's ``launch/specs.py::_opt_shardings``)."""
+    psh = param_shardings(param_shapes, rules)
+
+    def one(_, leaf, p_leaf, p_sh):
+        shape, p_shape = tuple(leaf.shape), tuple(p_leaf.shape)
+        if shape == p_shape:                           # f32 moment
+            return p_sh
+        if len(shape) == len(p_shape) + 1:
+            r = len(p_shape)
+            spec = list(p_sh.spec) + [None] * (r - len(p_sh.spec))
+            dropped = spec[r - 1]                      # axis on the block dim
+            spec = spec[:r - 1] + [None, None]
+            if dropped is not None:
+                # re-home the dropped axis: merge into the first leading
+                # dim that stays divisible
+                for i in range(len(spec)):
+                    cur = spec[i]
+                    cand = ((tuple(cur) if isinstance(cur, tuple)
+                             else (cur,)) if cur else ()) + \
+                        (tuple(dropped) if isinstance(dropped, tuple)
+                         else (dropped,))
+                    if shape[i] % (_axis_size(rules.mesh, cur)
+                                   * _axis_size(rules.mesh, dropped)) == 0:
+                        spec[i] = cand if len(cand) > 1 else cand[0]
+                        break
+            return NamedSharding(rules.mesh, tuple(spec))
+        return NamedSharding(rules.mesh, ())           # sentinel / scalar
+
+    def follow(tree):
+        return tree_map_with_path(one, tree, param_shapes, psh)
+
+    return AdamState(NamedSharding(rules.mesh, ()),
+                     follow(opt_shapes.m), follow(opt_shapes.v),
+                     follow(opt_shapes.m_scale), follow(opt_shapes.v_scale))
+
+
+def _place(x, mesh, pl: list):
+    """``x`` as a DTensor with placements ``pl``: a plain tensor (the
+    same global value on every rank) keeps this rank's block; a DTensor
+    is redistributed (nothing moves when it is placed already)."""
+    from torch.distributed.tensor import distribute_tensor
+    if _is_dtensor(x):
+        return x if list(x.placements) == pl else x.redistribute(mesh, pl)
+    return distribute_tensor(x, mesh, pl, src_data_rank=None)
+
+
+def place_train_state(params, opt_state: AdamState, rules: MeshRules
+                      ) -> tuple:
+    """(params, opt_state) with every tensor leaf a DTensor on
+    ``rules.mesh``: parameters with ``param_pspec``'s placements, Adam's
+    moments with :func:`opt_state_shardings`' (the ruled step's layout).
+    A plain leaf (the same global value on every rank) keeps this rank's
+    block; a DTensor is redistributed where its placements differ. The
+    ruled step does this on every call (a no-op once placed); a caller
+    that places first can free its plain trees before the step."""
+    mesh = rules.mesh
+    psh = param_shardings(params, rules)
+    osh = opt_state_shardings(opt_state, params, rules)
+
+    def place(_, x, sh):
+        return x if isinstance(x, int) else _place(x, mesh, sh.placements)
+    return (tree_map_with_path(place, params, psh),
+            AdamState(opt_state.step, *(tree_map_with_path(place, t, ts)
+                                        for t, ts in zip(opt_state[1:],
+                                                         osh[1:]))))
+
+
+def batch_shard(batch: dict, rules: MeshRules) -> tuple:
+    """(this rank's shard of a global ``batch``, the
+    :class:`~repro_torch.distributed.sharding.BatchSplit` that cut it):
+    every leaf split over the ``batch`` axis as ``input_shardings`` lays
+    it out (``positions`` on dim 1), as the reference's GSPMD program
+    splits it; a batch the axis does not divide stays whole on every
+    rank (a split of one shard)."""
+    mesh = rules.mesh
+    sh = input_shardings(batch, rules, batch_axes={"positions": 1})
+    split = BatchSplit(mesh, tuple(n for n in mesh.mesh_dim_names
+                                   if n in _names(sh["tokens"].spec[0])))
+    return ({k: _place(v, mesh, sh[k].placements).to_local()
+             for k, v in batch.items()}, split)
+
+
+def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
+    """The train step on a mesh. Every rank of ``rules.mesh`` calls it
+    with the same global ``batch`` (plain tensors, or DTensors) and the
+    same trees; plain parameter and Adam leaves are placed on the first
+    call, DTensors of other placements are redistributed. Returns
+    (params, opt_state) with DTensor leaves (the step an ``int``) and
+    the metrics, the whole batch's means, on every rank.
+
+    Each microbatch is split over the ``batch`` axis
+    (:func:`batch_shard`).
+    Each rank runs :func:`loss_and_grads` on its shard with the gathered
+    parameters, under ``mesh_rules`` and a
+    :class:`~repro_torch.distributed.sharding.BatchSplit`, so that the
+    MoE layer routes the whole batch's groups. The loss and metrics are
+    the means over the shards (a shard's loss is its own tokens' mean,
+    and the shards are equal). The gradients, summed over the shards
+    and divided by their number, are reduced straight onto the moments'
+    placements (an int8 moment's in its block view, with its block dim
+    whole), where Adam updates the local blocks elementwise
+    (``adam_leaf``); each new parameter block then goes to its
+    parameter's placements. On a one-rank mesh this is the plain step,
+    bit for bit.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if isinstance(rules.mesh, AbstractMesh):
+        raise ValueError("a ruled train step runs on a DeviceMesh; an "
+                         "AbstractMesh only lays out specs")
+    mesh = rules.mesh
+    names = tuple(mesh.mesh_dim_names)
+    opt_cfg = _adam_cfg(hp)
+    q = opt_cfg.quantized_state
+
+    def train_step(params, opt_state, batch):
+        params, opt_state = place_train_state(params, opt_state, rules)
+        psh = flat_tree(param_shardings(params, rules))
+        osh = opt_state_shardings(opt_state, params, rules)
+        state = [flat_tree(t) for t in opt_state[1:]]
+        m_sh, ms_sh = flat_tree(osh.m), flat_tree(osh.m_scale)
+        batch = gather_tree(batch)
+        first = batch if hp.n_micro == 1 else \
+            {k: _split(v, hp.n_micro)[0] for k, v in batch.items()}
+        split = batch_shard(first, rules)[1]
+        part = [Partial() if n in split.dims else Replicate()
+                for n in names]
+
+        full = gather_tree(params)
+        with mesh_rules(rules), batch_split(split):
+            loss, metrics, grads = _accumulate(
+                full, cfg, batch, hp, lambda b: batch_shard(b, rules)[0])
+        grads, full = flat_tree(grads), flat_tree(full)
+
+        def mean(t):
+            return DTensor.from_local(t, mesh, part).full_tensor() / split.n
+
+        bc1, bc2 = bias_corrections(opt_state.step, opt_cfg)
+
+        def update(k, p):
+            m, v, ms, vs = (st.get(k) for st in state)
+            quantized = q and ms.numel() > 0
+            view = (blocked_shape(p.shape, opt_cfg.block) if quantized
+                    else tuple(p.shape))
+            # Adam's layout: the moments', with an int8 block whole
+            pl = [Replicate() if quantized and isinstance(x, Shard)
+                  and x.dim == len(view) - 1 else x
+                  for x in m_sh[k].placements]
+            # the gathered weight and the local gradient are freed here
+            g = DTensor.from_local(grads.pop(k).reshape(view), mesh, part) \
+                .redistribute(mesh, pl).to_local() / split.n
+            blk = _place(full.pop(k).reshape(view), mesh, pl).to_local()
+            scales = (ms, vs) if quantized else (None, None)
+            out = adam_leaf(blk, g, *(_place(x, mesh, pl).to_local()
+                                      for x in (m, v)),
+                            *(x if x is None else _place(x, mesh, pl)
+                              .to_local() for x in scales),
+                            bc1, bc2, opt_cfg, quantized)
+
+            def put(o, sh):            # a local block of Adam's layout
+                return _place(DTensor.from_local(o, mesh, pl), mesh,
+                              sh.placements)
+            p_new = out[0].reshape(*out[0].shape[:-2], -1) if quantized \
+                else out[0]
+            return [put(p_new, psh[k]), put(out[1], m_sh[k]),
+                    put(out[2], m_sh[k])] + (
+                [put(out[3], ms_sh[k]), put(out[4], ms_sh[k])] if quantized
+                else [ms, vs])
+
+        new = {k: update(k, p) for k, p in flat_tree(params).items()}
+
+        def pick(i):
+            return tree_map_with_path(lambda k, _: new[k][i], params)
+
+        new_state = AdamState(opt_state.step + 1, pick(1), pick(2),
+                              *((pick(3), pick(4)) if q else ()))
+        return pick(0), new_state, {"loss": mean(loss),
+                                    **{k: mean(v) for k, v in
+                                       metrics.items()}}
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, kernels: bool = True, *,
+                      rules: MeshRules | None = None):
     """prefill_step(params, batch) -> (last-token logits, decode state).
 
     ``batch``: {"tokens" [B, S] ([B, S, K] codebook ids), optional
     "positions" ([3, B, S] for M-RoPE)}. On the card the recurrences run
     through the CUDA kernels unless ``kernels`` is False.
+
+    ``rules``: a ``MeshRules`` on a ``DeviceMesh``; every rank calls the
+    step with the same global batch and parameters (DTensor leaves are
+    gathered). Each rank prefills its own shard of the batch
+    (:func:`batch_shard`) under ``mesh_rules`` and the shard's
+    ``batch_split``, and the logits are gathered: the whole batch's, on
+    every rank. The decode state is this rank's shard's, for
+    :func:`make_serve_step` with the same rules. Every rank runs whole
+    layers (tensor- and expert-parallel compute is not ported).
     """
     def prefill_step(params, batch):
-        return M.prefill(params, cfg, batch["tokens"],
-                         positions=batch.get("positions"), kernels=kernels)
+        if rules is None:
+            return M.prefill(params, cfg, batch["tokens"],
+                             positions=batch.get("positions"),
+                             kernels=kernels)
+        mine, split = batch_shard(gather_tree(batch), rules)
+        with mesh_rules(rules), batch_split(split):
+            logits, state = M.prefill(gather_tree(params), cfg,
+                                      mine["tokens"],
+                                      positions=mine.get("positions"),
+                                      kernels=kernels)
+        return _gather_rows(logits, split), state
     return prefill_step
+
+
+def _gather_rows(x: torch.Tensor, split: BatchSplit) -> torch.Tensor:
+    """The shards' rows of ``x`` concatenated (dim 0), on every rank."""
+    return split.gather(x) if split.n > 1 else x
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -147,7 +395,8 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
-def make_serve_step(cfg: ArchConfig, unroll: bool = False):
+def make_serve_step(cfg: ArchConfig, unroll: bool = False, *,
+                    rules: MeshRules | None = None):
     """serve_step(params, tokens, state) -> (next token ids, new state).
 
     One decode step for the whole request batch: the greedy next token
@@ -160,11 +409,21 @@ def make_serve_step(cfg: ArchConfig, unroll: bool = False):
     ``unroll``: a transformer state's caches come back as per-layer
     lists (``init_decode_state(unrolled=True)``; the reference's
     unrolled decode).
+    ``rules``: as :func:`make_prefill_step`'s. ``tokens`` is the whole
+    batch's and ``state`` this rank's shard's (the ruled prefill's); the
+    rank decodes its shard, and the next tokens are gathered.
     """
     def serve_step(params, tokens, state):
-        logits, new_state = M.decode_step(params, cfg, tokens, state,
-                                          unroll=unroll)
-        return greedy(logits), new_state
+        if rules is None:
+            logits, new_state = M.decode_step(params, cfg, tokens, state,
+                                              unroll=unroll)
+            return greedy(logits), new_state
+        mine, split = batch_shard({"tokens": gather_tree(tokens)}, rules)
+        with mesh_rules(rules), batch_split(split):
+            logits, new_state = M.decode_step(gather_tree(params), cfg,
+                                              mine["tokens"], state,
+                                              unroll=unroll)
+        return _gather_rows(greedy(logits), split), new_state
     return serve_step
 
 

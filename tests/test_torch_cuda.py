@@ -31,8 +31,13 @@ an input that requires grad, and a checkpoint of card tensors restored
 on the CPU bit for bit. The MoE, MLA, codebook and M-RoPE families: the
 graphed decode step equal to eager bit for bit (stacked and per-layer
 caches), and the MoE layer's gathers giving the same bits run to run,
-forward and backward (no atomic adds).
+forward and backward (no atomic adds). The mesh side on a one-rank nccl
+group (a ``HashStore``): the ruled train step of a reduced qwen2-1.5b
+and qwen3-moe-30b-a3b on ``init_device_mesh("cuda", (1, 1))`` equal to
+the plain step bit for bit, every leaf a DTensor on ``cuda:0``, and
+``reshard_tree`` placing a host tree on the card.
 """
+import os
 from pathlib import Path
 
 import numpy as np
@@ -1131,3 +1136,69 @@ def test_checkpoint_of_card_tensors_restores_on_cpu(cuda_device, tmp_path):
     for a, b in zip(got, want):
         assert a.device.type == "cpu" and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank nccl process group and its (1, 1) (data, model) mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import init_distributed
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init_distributed("cuda", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "qwen3-moe-30b-a3b"])
+def test_ruled_step_on_one_rank_equals_plain(cuda_device, nccl_mesh, name):
+    from repro_torch.configs import SHAPES, get_reduced
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                         make_train_step)
+
+    cfg = get_reduced(name)
+    rules = make_mesh_rules(nccl_mesh, pick_strategy(cfg, SHAPES["train_4k"]))
+    hp = TrainHParams(loss_chunk=16, n_micro=2)
+    runs = []
+    for r in (rules, None):
+        params = M.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                              cuda_device)
+        opt, step, losses = init_opt_state(params, hp), \
+            make_train_step(cfg, r, hp), []
+        for i in range(2):
+            params, opt, met = step(params, opt, synthetic_batch(
+                cfg, 4, 32, i, 0, cuda_device))
+            losses.append(float(met["loss"]))
+        runs.append((losses, params, opt))
+    (l_r, p_r, o_r), (l_p, p_p, o_p) = runs
+    assert l_r == l_p
+    for a, b in zip(_leaves(p_r), _leaves(p_p)):
+        assert a.to_local().device == cuda_device
+        assert torch.equal(a.full_tensor(), b)
+    for a, b in zip(_leaves(o_r.m), _leaves(o_p.m)):
+        assert torch.equal(a.full_tensor(), b)
+    assert o_r.step == o_p.step == 2
+    assert all(torch.equal(a, b) for a, b in zip(
+        _leaves(gather_tree(p_r)), _leaves(p_p)))
+
+
+def test_reshard_tree_places_on_the_card(cuda_device, nccl_mesh):
+    from repro_torch.distributed.elastic import reshard_tree
+    tree = {"w": np.arange(24, dtype=np.float32).reshape(4, 6),
+            "b": torch.ones(5), "step": 3}
+    got = reshard_tree(tree, nccl_mesh)
+    assert got["step"] == 3
+    for k in ("w", "b"):
+        assert got[k].to_local().device == cuda_device
+    assert torch.equal(got["w"].full_tensor().cpu(),
+                       torch.from_numpy(tree["w"]))

@@ -22,7 +22,10 @@ the training CLI and trains a reduced qwen2-1.5b 2 steps on the CPU,
 checkpointed, then resumes it one more; another (one per module it
 imports first) imports the MoE layer and the four configs of the MoE,
 audio and VLM families, and runs each reduced model's prefill, stacked
-and unrolled decode, the static serve step, and both CLIs. ``chip_smoke.py`` must fail, and
+and unrolled decode, the static serve step, and both CLIs; another
+imports the mesh side (sharding rules, compression, elastic re-mesh,
+meshes, strategies, specs) and runs a reduced ruled train step on a
+one-rank gloo mesh, equal to the plain step. ``chip_smoke.py`` must fail, and
 print no result, without a CUDA card and outside the repo.
 """
 import ast
@@ -101,7 +104,11 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.distributed",
                                    "repro_torch.distributed.checkpoint",
                                    "repro_torch.launch.train",
-                                   "repro_torch.optimizer.adam"])
+                                   "repro_torch.optimizer.adam",
+                                   "repro_torch.distributed.sharding",
+                                   "repro_torch.distributed.elastic",
+                                   "repro_torch.launch.specs",
+                                   "repro_torch.launch.strategy"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
@@ -408,9 +415,10 @@ import repro_torch.distributed.checkpoint
 import repro_torch.distributed.straggler
 from repro_torch.launch import train
 from repro_torch.train import TrainHParams, init_opt_state, make_train_step
-assert set(D.__all__) == {"save_checkpoint", "load_checkpoint", "latest_step",
+assert set(D.__all__) >= {"save_checkpoint", "load_checkpoint", "latest_step",
                           "CheckpointManager", "StragglerMonitor",
                           "StepJournal"}
+assert len(D.__all__) == 20            # the reference's __all__ whole
 with tempfile.TemporaryDirectory() as d:
     args = ["--arch", "qwen2-1.5b", "--reduced", "--batch", "2", "--seq",
             "16", "--device", "cpu", "--ckpt-dir", d]
@@ -427,6 +435,71 @@ print("ok")
 
 def test_training_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", TRAIN_WITHOUT_JAX],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+MESH_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import torch
+import torch.distributed as dist
+import repro_torch.distributed.compression as C
+import repro_torch.distributed.elastic as E
+import repro_torch.distributed.sharding as SH
+import repro_torch.launch.mesh as LM
+import repro_torch.launch.specs as SP
+import repro_torch.launch.strategy as ST
+from repro_torch.configs import SHAPES, all_cells, get_config, get_reduced
+from repro_torch.launch.train import synthetic_batch
+from repro_torch.models import model as M
+from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                     make_train_step)
+assert len(all_cells()) == 32
+LM.init_distributed("cpu", store=dist.HashStore(), rank=0, world_size=1)
+mesh = LM.make_debug_mesh()
+assert tuple(mesh.shape) == (1, 1) and mesh.mesh_dim_names == ("data", "model")
+assert tuple(LM.make_serving_mesh().shape) == (1, 1)
+try:
+    LM.make_debug_mesh(2)              # more ranks than the group has
+except ValueError:
+    pass
+else:
+    raise AssertionError("a 2-rank mesh on a 1-rank group")
+cfg = get_reduced("qwen2-1.5b")
+rules = ST.make_mesh_rules(mesh, ST.pick_strategy(cfg, SHAPES["train_4k"]))
+hp = TrainHParams(loss_chunk=8)
+out = []
+for r in (rules, None):
+    params = M.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    params, opt, met = make_train_step(cfg, r, hp)(
+        params, init_opt_state(params, hp), synthetic_batch(cfg, 2, 16, 0))
+    out.append((float(met["loss"]), SH.gather_tree(params)))
+assert out[0][0] == out[1][0]
+assert torch.equal(out[0][1]["embed"], out[1][1]["embed"])
+big = get_config("deepseek-v3-671b")
+st = ST.pick_strategy(big, SHAPES["train_4k"])
+p, o = SP.model_specs(big, ST.make_mesh_rules(LM.make_production_mesh(), st),
+                      st.hparams)
+assert p["embed"].shard_shape == (129280 // 16, 7168 // 16)
+g = {"w": torch.randn(3, 700)}
+comp, deq, err = C.compress_error_feedback(g, C.init_error(g))
+assert comp.q["w"].dtype == torch.int8 and err["w"].shape == (3, 700)
+assert E.plan_mesh(512) == ((2, 16, 16), ("pod", "data", "model"))
+dist.destroy_process_group()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_mesh_side_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", MESH_WITHOUT_JAX],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

@@ -280,8 +280,14 @@ def test_two_microbatches_give_one_batch_loss():
 
 
 def test_train_step_takes_no_sharding_rules():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(get_reduced("qwen2-1.5b"), object(), TrainHParams())
+    """A ruled train step runs on a ``DeviceMesh``: rules on the
+    device-free production mesh (an ``AbstractMesh``, which lays out
+    specs only) are refused. The ruled step itself is held to the plain
+    step in ``tests/test_torch_ranks.py``."""
+    from repro_torch.launch.mesh import make_production_mesh, make_rules
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        make_train_step(get_reduced("qwen2-1.5b"),
+                        make_rules(make_production_mesh()), TrainHParams())
 
 
 def test_recurrences_route_to_the_chunked_form_under_autograd():
