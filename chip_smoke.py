@@ -215,6 +215,22 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    after two steps (its host snapshot) resharded by ``reshard_tree``
    onto ``replan_mesh(1, model_parallel=1)`` and stepped once: equal to
    the ruled run's third step bit for bit.
+10. the dry run (``phase_dryrun``), the launch counts set to 0 just
+   before and read just after (it launches none): the plain qwen2-1.5b
+   step of phase 8's cell analysed on meta by ``launch.hlo_analysis.
+   analyze`` (its FLOPs, HBM bytes and peak of live bytes), then run on
+   the card under the same analysis, its inputs resident: the FLOP counts
+   equal, the predicted peak within ``PEAK_TOL`` of
+   ``max_memory_allocated`` above what the process held before, the
+   modeled compute and memory times (H100 datasheet) beside a measured
+   warm step; then ``python -m repro_torch.launch.dryrun`` as four
+   subprocesses started together that see no card (``DRYRUN_CELLS``:
+   qwen2-1.5b ``train_4k`` single, stablelm-12b ``prefill_32k`` single,
+   deepseek-v3-671b ``decode_32k`` multi, zamba2-7b ``long_500k``
+   single; a fake process group of 256 or 512 ranks each), each exiting
+   0 with its JSON, its ``argument_bytes`` equal to the sum of its
+   stand-ins' shard bytes (``stand_in_bytes``); seconds, per-card peak,
+   FLOPs, collective bytes and the dominant term printed.
 
 Last, a capture that fails (a loop that copies to the host) must raise
 and leave no graph. The last two lines are the kernels' JSON record (a
@@ -2456,6 +2472,139 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     print(f"mesh phase launches: {counts}")
 
 
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"),
+                ("stablelm-12b", "prefill_32k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"),
+                ("zamba2-7b", "long_500k", "single"))
+PEAK_TOL = 0.15      # predicted peak against the card's, relative
+
+
+def predict_on_card(dev: torch.device) -> None:
+    """10a. The plain qwen2-1.5b step of phase 8's cell analysed on meta
+    and then run on the card under the same analysis."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import HBM_BW, PEAK_FLOPS
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                         make_train_step)
+
+    cfg = get_config(TRAIN_LM)
+    hp = TrainHParams(lr=3e-4, loss_chunk=min(512, TRAIN_S))
+    step = make_train_step(cfg, None, hp)
+    batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, "cpu")
+    params = M.init_model(cfg, None, "meta")
+    t0 = time.perf_counter()
+    _, meta = analyze(step, params, init_opt_state(params, hp),
+                      tree_map(lambda t: t.to("meta"), batch))
+    t_meta = time.perf_counter() - t0
+    del params
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = init_opt_state(params, hp)
+    batch = tree_map(lambda t: t.to(dev), batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, card = analyze(step, params, opt, batch)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    params, opt, loss, dt = step_timed(step, params, opt, batch)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    ratio = meta["peak_bytes"] / peak
+    expect(meta["flops"] == card["flops"],
+           f"FLOPs on meta {meta['flops']:.6e} vs on the card "
+           f"{card['flops']:.6e}")
+    expect(abs(ratio - 1) <= PEAK_TOL,
+           f"predicted peak {meta['peak_bytes'] / 2**30:.3f} GiB vs the "
+           f"card's {peak / 2**30:.3f} GiB (ratio {ratio:.4f})")
+    expect(np.isfinite(loss), f"{TRAIN_LM} loss {loss}")
+    print(f"dryrun {TRAIN_LM} plain step (B = {TRAIN_B}, S = {TRAIN_S}, "
+          f"phase 8's hparams): FLOPs meta {meta['flops']:.6e} = card "
+          f"{card['flops']:.6e} ({meta['ops']} / {card['ops']} ops); HBM "
+          f"bytes meta {meta['bytes']:.6e} / card {card['bytes']:.6e}; "
+          f"predicted peak {meta['peak_bytes'] / 2**30:.3f} GiB vs max "
+          f"memory allocated {peak / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB held before (ratio {ratio:.4f}); "
+          f"modeled (H100 datasheet) t_compute "
+          f"{meta['flops'] / PEAK_FLOPS * 1e3:.1f} ms, t_memory "
+          f"{meta['bytes'] / HBM_BW * 1e3:.1f} ms vs a warm step "
+          f"{dt * 1e3:.1f} ms (host clock ending in a sync); analysis "
+          f"{t_meta:.1f} s on meta, {t_card:.1f} s on the card")
+
+
+def dryrun_cli() -> None:
+    """10b. ``python -m repro_torch.launch.dryrun`` on DRYRUN_CELLS, as
+    subprocesses started together that see no card."""
+    import os
+    import tempfile
+    from repro_torch.launch.dryrun import stand_in_bytes
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        for arch, shape, mesh in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", mesh,
+                   "--out", out]
+            procs.append((time.perf_counter(), subprocess.Popen(
+                cmd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+        for (arch, shape, mesh), (t0, p) in zip(DRYRUN_CELLS, procs):
+            try:
+                stdout, stderr = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                stdout, stderr = p.communicate()
+            secs = time.perf_counter() - t0
+            path = Path(out) / f"{arch}_{shape}_{mesh}.json"
+            expect(p.returncode == 0 and path.exists(),
+                   f"dryrun {arch} {shape} {mesh}: exit {p.returncode}\n"
+                   f"{stdout[-2000:]}\n{stderr[-4000:]}")
+            r = json.loads(path.read_text())
+            want = stand_in_bytes(arch, shape, mesh)
+            mem, rf = r["memory"], r["roofline"]
+            expect(mem["argument_bytes"] == want,
+                   f"dryrun {arch} {shape} {mesh}: argument bytes "
+                   f"{mem['argument_bytes']} vs the stand-ins' {want}")
+            coll = ", ".join(f"{k} {v['bytes'] / 2**30:.2f} GiB"
+                             for k, v in r["collectives"].items()
+                             if isinstance(v, dict) and v["count"])
+            print(f"  dryrun {arch} x {shape} x {mesh} ({r['chips']} cards, "
+                  f"{r['strategy']}): {secs:.1f} s (trace {r['trace_s']} "
+                  f"s); arguments {mem['argument_bytes'] / 2**30:.3f} GiB "
+                  f"= the stand-ins'; peak {mem['peak_bytes'] / 2**30:.2f} "
+                  f"GiB per card; FLOPs {r['cost']['flops_per_device']:.3e}"
+                  f"; collectives {coll or 'none'}; {rf['dominant']}-bound "
+                  f"(modeled), useful-flop ratio "
+                  f"{rf['useful_flop_ratio']:.3f}")
+
+
+def phase_dryrun(dev: torch.device, smi: str) -> None:
+    """10. The dry run (``launch/dryrun.py``, ``launch/hlo_analysis.py``):
+    (a) the predicted peak and FLOPs against the card; (b) the CLI on
+    four production cells. The six kernels' counts are set to 0 just
+    before and read just after: the dry run launches none (``analyze``
+    raises if one moves)."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    predict_on_card(dev)
+    dryrun_cli()
+    counts = {k: f.launches for k, f in fns.items()}
+    expect(not any(counts.values()), f"the dry-run phase launched {counts}")
+    print(f"dryrun phase: {time.perf_counter() - t0:.1f} s; launches "
+          f"{counts}; card: {smi}")
+
+
 def phase_golden() -> None:
     from repro_torch.core import ExecutionSpec, Program
     for name in ("tiny", "shd"):
@@ -3477,6 +3626,7 @@ def main() -> int:
     launches.update(phase_lm(dev))
     phase_lm_train(dev)
     phase_mesh(dev, smi)
+    phase_dryrun(dev, smi)
     check_failed_capture()
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",

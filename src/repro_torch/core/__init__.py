@@ -25,7 +25,8 @@ from repro_torch.core.engine import (CycleModel, CycleReport,
 from repro_torch.core.engine_torch import (TorchMappedEngine,
                                            finalize_outputs,
                                            normalize_ext_spikes)
-from repro_torch.core.execution import ExecutionSpec, as_spec
+from repro_torch.core.execution import (ENGINES, KERNELS, ExecutionSpec,
+                                        as_spec)
 from repro_torch.core.graph import SNNGraph, from_quantized, random_graph
 from repro_torch.core.memory_model import (HardwareConfig, bram_count,
                                            scores_from_assignment,
@@ -67,6 +68,7 @@ __all__ = [
     "partition_pass", "schedule_pass", "search_pass", "validate_pass",
     "PROGRAM_FORMAT_VERSION", "Program", "ProfileReport", "compile",
     "compile_snn", "compile_quantized",
-    "ExecutionSpec", "as_spec", "content_hash", "finalize_outputs",
+    "ENGINES", "KERNELS", "ExecutionSpec", "as_spec", "content_hash",
+    "finalize_outputs",
     "normalize_buckets", "normalize_ext_spikes",
 ]

@@ -13,7 +13,9 @@
 * ``ssm_chunks``   — the host side of ``csrc/ssm_sm90.cuh``, the chunked
   tensor-core design ``wkv6`` and ``ssd`` share (their emulations);
 * ``_build``       — nvcc build at first use, ctypes binding;
-* ``launches``     — the wrappers' launch counters, safe across threads.
+* ``launches``     — the wrappers' launch counters, safe across threads;
+* ``ops``          — the reference's public wrappers (``repro.kernels.ops``:
+  its names, tile keywords and ``interpret``) over these modules.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 torch version (``*_ref``, in the same module or in ``ref``) for CPU

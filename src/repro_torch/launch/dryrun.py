@@ -1,0 +1,380 @@
+"""Multi-pod dry run; port of ``repro/launch/dryrun.py``.
+
+For one (architecture x input shape x mesh) cell on a production mesh
+(``launch/mesh.py``: 16 x 16 = 256 cards, or 2 x 16 x 16 = 512), run the
+port's own ruled step once on ``meta`` tensors, as rank 0 of that mesh,
+and report what one card holds, computes and sends: the arguments'
+bytes and the peak of live bytes, FLOPs and HBM bytes per device, the
+collectives' bytes, and the three roofline terms.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b \\
+        --shape train_4k --mesh single
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all  # whole grid
+
+It needs no card: meta tensors have shapes and no data, and the
+process group is torch's fake backend (``"fake"``, registered by
+``torch.testing._internal.distributed.fake_pg``), which runs every
+collective as a no-op. In place of the reference's 512 XLA host
+devices, the process starts a fake group of the mesh's size and takes
+rank 0; the ``DeviceMesh`` has the production shape and axis names, on
+device type ``"cpu"``.
+
+* **Inputs** are built on ``meta`` from ``launch/specs.py``'s stand-ins
+  (the initializers ``init_model``, ``init_opt_state`` and
+  ``init_decode_state``, and the batch shapes of ``batch_specs`` /
+  ``decode_specs``): each leaf a DTensor with its stand-in's placements
+  whose local tensor is this rank's shard, a storage of its own. Placing
+  them sends nothing and happens before the counted run, as the
+  reference lowers its step on inputs that are sharded already.
+* **The counted run** (:func:`~repro_torch.launch.hlo_analysis.analyze`)
+  is the port's ruled step: ``make_train_step(cfg, rules, hp)``,
+  ``make_prefill_step(cfg, rules=rules)`` or the eager
+  ``make_serve_step(cfg, unroll, rules=rules)`` (a graphed step cannot
+  run on meta). The port's ruled steps gather every parameter on every
+  rank and split only the batch (``train/steps.py``), so the counts are
+  those of that design, not of the reference's sharded compute. The
+  serve step holds a rank's batch shard of the decode state with whole
+  heads; where the stand-ins shard a state leaf over another axis too,
+  the counted run first brings it to its batch-only placement, and what
+  that moves is counted.
+
+The result has the reference's keys, but:
+
+* ``lower_s`` and ``compile_s`` are ``place_s`` (building and placing
+  the inputs) and ``trace_s`` (the counted run); ``analyze_s`` is gone
+  (the count is taken during the run);
+* ``memory.argument_bytes`` is this rank's shards of every input (the
+  port's Adam step is a host ``int``, the one stand-in not on the
+  device); ``peak_bytes`` and ``hbm_estimate_bytes`` are the tracked
+  peak of live bytes, arguments included; ``temp_bytes`` = peak -
+  arguments; ``output_bytes`` the result's local tensors; and
+  ``alias_bytes`` is 0: the port donates nothing (``ExecutionSpec.donate``
+  is not ported);
+* ``cost`` has ``flops_per_device`` and ``bytes_per_device`` only: the
+  ``xla_*_no_trip`` keys have no counterpart.
+
+``bytes_by_op``, ``collectives`` and ``roofline`` keep the reference's
+fields and its ``model_flops`` formula. The roofline constants are the
+H100's (SXM5, 80 GB HBM3, 700 W), from NVIDIA's datasheet: modeled
+times, not measurements.
+
+``run_cell`` (through :func:`production_mesh`) refuses to run when a
+default process group of another size exists, and destroys the group it
+started when it returns: call it in a process of its own (``--all``
+runs each cell as a subprocess).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate
+
+from repro_torch.configs import SHAPES, all_cells, applicable, get_config
+from repro_torch.distributed.sharding import _names, tree_map
+from repro_torch.launch.hlo_analysis import analyze, tensors
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.specs import (Spec, batch_specs, decode_specs,
+                                      model_specs)
+from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+from repro_torch.train.steps import (_place, make_prefill_step,
+                                     make_serve_step, make_train_step)
+
+# NVIDIA H100 SXM5 datasheet figures (dense bf16, HBM3), not measurements
+PEAK_FLOPS = 989e12          # bf16 FLOP/s per card
+HBM_BW = 3.35e12             # bytes/s per card
+# one 400 Gb/s InfiniBand NIC per card: what a 256-card mesh's collectives
+# cross (NVLink's 450 GB/s a direction reaches only the 8 cards of a node)
+LINK_BW = 50e9               # bytes/s per card
+CARD_BYTES = 80e9
+
+
+@contextlib.contextmanager
+def production_mesh(mesh_kind: str):
+    """The production ``DeviceMesh`` of ``mesh_kind`` ("single": (16,
+    16) data x model; "multi": (2, 16, 16) pod x data x model) on device
+    type "cpu", this process rank 0 of a fake default group of its size.
+    The group is started here and destroyed on exit; one of that size
+    that exists already is used and left, one of another size raises."""
+    prod = make_production_mesh(multi_pod=mesh_kind == "multi")
+    sizes = tuple(prod.shape.values())
+    world = math.prod(sizes)
+    started = False
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise RuntimeError(f"a process group of {dist.get_world_size()} "
+                               f"ranks exists; the mesh needs {world}")
+    else:         # importing fake_pg registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+        started = True
+    try:
+        yield init_device_mesh("cpu", sizes,
+                               mesh_dim_names=tuple(prod.shape))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def materialize(specs, mesh):
+    """A tree of :class:`~repro_torch.launch.specs.Spec` as meta
+    DTensors on ``mesh``: each local tensor this rank's shard, with a
+    storage of its own (``distribute_tensor`` would keep a view of the
+    global tensor); a Spec without sharding as a plain meta tensor."""
+    def one(s):
+        if not isinstance(s, Spec):
+            return s
+        if s.sharding is None:
+            return torch.empty(s.shape, dtype=s.dtype, device="meta")
+        local = torch.empty(s.shard_shape, dtype=s.dtype, device="meta")
+        stride = torch.empty(s.shape, device="meta").stride()
+        return DTensor.from_local(local, mesh, s.sharding.placements,
+                                  run_check=False, shape=s.shape,
+                                  stride=stride)
+    return tree_map(one, specs)
+
+
+def cell_specs(cfg, shape, rules, strat, *, unroll_decode: bool = False
+               ) -> tuple:
+    """The stand-ins of a cell's step arguments (``launch/specs.py``):
+    (params, opt_state, batch) for train, (params, batch) for prefill,
+    (params, tokens, state) for decode; the Adam step the host int 0."""
+    if shape.kind == "train":
+        pspecs, ospecs = model_specs(cfg, rules, strat.hparams)
+        return pspecs, ospecs._replace(step=0), batch_specs(cfg, shape, rules)
+    pspecs, _ = model_specs(cfg, rules)
+    if shape.kind == "prefill":
+        return pspecs, batch_specs(cfg, shape, rules)
+    return (pspecs, *decode_specs(cfg, shape, rules, unrolled=unroll_decode))
+
+
+def cell_step(cfg, shape, rules, strat, *, unroll_decode: bool = False):
+    """The port's ruled step of a cell, called on :func:`cell_specs`'
+    arguments."""
+    if shape.kind == "train":
+        return make_train_step(cfg, rules, strat.hparams)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, rules=rules)
+    return _batch_only_state(
+        make_serve_step(cfg, unroll_decode, rules=rules), rules)
+
+
+def cell(arch: str, shape_name: str, mesh_kind: str, mesh=None, *,
+         profile=None, micro=None, seq_shard=None) -> tuple:
+    """(cfg, shape, strategy, rules) of a cell on ``mesh`` (default: the
+    device-free production mesh)."""
+    cfg = get_config(arch)
+    if not applicable(cfg, shape_name):
+        raise ValueError(f"{arch} x {shape_name} skipped (full attention, "
+                         f"DESIGN.md)")
+    multi = mesh_kind == "multi"
+    shape = SHAPES[shape_name]
+    strat = pick_strategy(cfg, shape, multi_pod=multi,
+                          override_profile=profile, override_micro=micro)
+    if seq_shard:
+        strat.logical_rules["seq"] = "model"
+    mesh = make_production_mesh(multi_pod=multi) if mesh is None else mesh
+    return cfg, shape, strat, make_mesh_rules(mesh, strat)
+
+
+def stand_in_bytes(arch: str, shape_name: str, mesh_kind: str) -> int:
+    """One device's bytes of a cell's stand-ins on the device-free
+    production mesh: the sum of prod(shard_shape) x itemsize over
+    :func:`cell_specs`' leaves, what :func:`run_cell`'s
+    ``argument_bytes`` must be."""
+    cfg, shape, strat, rules = cell(arch, shape_name, mesh_kind)
+    sizes: list = []
+    tree_map(lambda s: sizes.append(math.prod(s.shard_shape)
+                                    * s.dtype.itemsize)
+             if isinstance(s, Spec) else None,
+             cell_specs(cfg, shape, rules, strat))
+    return sum(sizes)
+
+
+def _batch_only_state(serve_step, rules):
+    """``serve_step`` on a decode state placed as the stand-ins lay it
+    out: each leaf first brought to its batch-only placement (the other
+    axes gathered), and its local shard passed on."""
+    mesh = rules.mesh
+    batch_axes = set(_names(rules.rules.get("batch")))
+
+    def local(t):
+        pl = [p if n in batch_axes else Replicate()
+              for n, p in zip(mesh.mesh_dim_names, t.placements)]
+        return _place(t, mesh, pl).to_local()
+
+    def step(params, tokens, state):
+        return serve_step(params, tokens, tree_map(local, state))
+    return step
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
+             profile=None, micro=None, seq_shard=None,
+             unroll_decode: bool = False,
+             verbose: bool = True) -> dict:
+    with production_mesh(mesh_kind) as mesh:
+        chips = mesh.size()
+        cfg, shape, strat, rules = cell(
+            arch, shape_name, mesh_kind, mesh, profile=profile, micro=micro,
+            seq_shard=seq_shard)
+        t0 = time.time()
+        args = materialize(cell_specs(cfg, shape, rules, strat,
+                                      unroll_decode=unroll_decode), mesh)
+        step = cell_step(cfg, shape, rules, strat,
+                         unroll_decode=unroll_decode)
+        t_place = time.time() - t0
+
+        t0 = time.time()
+        out, acc = analyze(step, *args)
+        t_trace = time.time() - t0
+        out_bytes = sum({t.untyped_storage()._cdata: t.untyped_storage()
+                         .nbytes() for t in tensors(out)}.values())
+        del out, args
+    coll = acc["coll"]
+    flops_dev = float(acc["flops"])
+    bytes_dev = float(acc["bytes"])
+    coll_dev = float(coll["total_bytes"])
+
+    b, s = shape.global_batch, shape.seq_len
+    n_active = cfg.n_active_params()
+    if shape.kind == "train":
+        model_flops = 6 * n_active * b * s
+    elif shape.kind == "prefill":
+        model_flops = 2 * n_active * b * s
+    else:
+        model_flops = 2 * n_active * b
+    model_flops_dev = model_flops / chips
+
+    t_compute = flops_dev / PEAK_FLOPS
+    t_memory = bytes_dev / HBM_BW
+    t_coll = coll_dev / LINK_BW
+    dominant = max((("compute", t_compute), ("memory", t_memory),
+                    ("collective", t_coll)), key=lambda kv: kv[1])[0]
+    bound = max(t_compute, t_memory, t_coll)
+    arg_b, peak_b = acc["argument_bytes"], acc["peak_bytes"]
+    result = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_kind,
+        "chips": int(chips), "strategy": strat.name,
+        "n_micro": strat.hparams.n_micro,
+        "params": int(cfg.n_params()), "active_params": int(n_active),
+        "place_s": round(t_place, 2), "trace_s": round(t_trace, 2),
+        "memory": {
+            "argument_bytes": arg_b,
+            "output_bytes": out_bytes,
+            "temp_bytes": peak_b - arg_b,
+            "peak_bytes": peak_b,
+            "alias_bytes": 0,
+            "hbm_estimate_bytes": peak_b,
+        },
+        "cost": {"flops_per_device": flops_dev,
+                 "bytes_per_device": bytes_dev},
+        "bytes_by_op": dict(sorted(acc["bytes_by_op"].items(),
+                                   key=lambda kv: -kv[1])[:20]),
+        "collectives": coll,
+        "roofline": {
+            "t_compute_s": t_compute, "t_memory_s": t_memory,
+            "t_collective_s": t_coll, "dominant": dominant,
+            "model_flops": model_flops,
+            "model_flops_per_device": model_flops_dev,
+            "useful_flop_ratio": (model_flops_dev / flops_dev
+                                  if flops_dev else 0.0),
+            "roofline_fraction": ((model_flops_dev / PEAK_FLOPS) / bound
+                                  if bound else 0.0),
+        },
+    }
+    if verbose:
+        print(f"== {arch} x {shape_name} x {mesh_kind} "
+              f"[{strat.name}, {chips} cards] ==")
+        print(f"  place {t_place:.1f}s trace {t_trace:.1f}s "
+              f"({acc['ops']} ops)")
+        print(f"  memory: arguments {arg_b / 2**30:.2f} GiB, peak "
+              f"{peak_b / 2**30:.2f} GiB/card (the card holds "
+              f"{CARD_BYTES / 1e9:.0f} GB)")
+        print(f"  cost: flops/dev={flops_dev:.3e} bytes/dev={bytes_dev:.3e}")
+        print("  collectives: " + ", ".join(
+            f"{k}:{v['bytes']/2**20:.1f}MiB/{v['count']}"
+            for k, v in coll.items() if isinstance(v, dict) and v["count"]))
+        r = result["roofline"]
+        print(f"  roofline (H100 datasheet, modeled): compute "
+              f"{r['t_compute_s']*1e3:.2f}ms | memory "
+              f"{r['t_memory_s']*1e3:.2f}ms | collective "
+              f"{r['t_collective_s']*1e3:.2f}ms -> {r['dominant']}-bound, "
+              f"useful-flop ratio {r['useful_flop_ratio']:.2f}, "
+              f"roofline fraction {r['roofline_fraction']:.2f}")
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape")
+    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--profile", default=None,
+                    help="override strategy profile (fsdp | tp_ep)")
+    ap.add_argument("--micro", type=int, default=None)
+    ap.add_argument("--seq-shard", action="store_true",
+                    help="bind logical 'seq' axis to 'model' (SP variant)")
+    ap.add_argument("--unroll-decode", action="store_true",
+                    help="unrolled-layer decode, per-layer cache leaves")
+    ap.add_argument("--out", default="results/dryrun_torch")
+    ap.add_argument("--all", action="store_true",
+                    help="run the full (arch x shape x mesh) grid as "
+                         "subprocesses")
+    ap.add_argument("--meshes", default="single,multi")
+    args = ap.parse_args(argv)
+
+    os.makedirs(args.out, exist_ok=True)
+    if args.all:
+        cells = all_cells()
+        meshes = args.meshes.split(",")
+        failures = []
+        for mesh_kind in meshes:
+            for arch, shape in cells:
+                tag = f"{arch}_{shape}_{mesh_kind}"
+                out_file = os.path.join(args.out, tag + ".json")
+                if os.path.exists(out_file):
+                    print(f"[skip] {tag} (cached)")
+                    continue
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape,
+                       "--mesh", mesh_kind, "--out", args.out]
+                print(f"[run ] {tag}", flush=True)
+                r = subprocess.run(cmd, capture_output=True, text=True)
+                if r.returncode != 0:
+                    failures.append(tag)
+                    print(f"[FAIL] {tag}\n{r.stdout[-2000:]}"
+                          f"\n{r.stderr[-4000:]}", flush=True)
+                else:
+                    print(r.stdout.rstrip(), flush=True)
+        print(f"\n{len(cells) * len(meshes) - len(failures)} ok, "
+              f"{len(failures)} failed: {failures}")
+        sys.exit(1 if failures else 0)
+
+    if not (args.arch and args.shape):
+        ap.error("--arch/--shape or --all")
+    result = run_cell(args.arch, args.shape, args.mesh,
+                      profile=args.profile, micro=args.micro,
+                      seq_shard=args.seq_shard,
+                      unroll_decode=args.unroll_decode)
+    tag = f"{args.arch}_{args.shape}_{args.mesh}"
+    suffix = ""
+    if args.profile or args.micro or args.seq_shard or args.unroll_decode:
+        suffix = f"__{args.profile or ''}m{args.micro or ''}" + \
+            ("sp" if args.seq_shard else "") + \
+            ("ur" if args.unroll_decode else "")
+    with open(os.path.join(args.out, tag + suffix + ".json"), "w") as f:
+        json.dump(result, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,8 +14,8 @@ device and no process group.
   or a spawned group): nccl on the card, gloo on the CPU. JAX's one
   process sees every device; torch's mesh is one rank per process.
 
-The dry run over the production meshes (``repro/launch/dryrun.py``) is
-ROADMAP Queue A item 9b, not ported yet.
+The dry run (``launch/dryrun.py``) builds a ``DeviceMesh`` of the
+production shape on a fake process group of its size, on the host.
 """
 from __future__ import annotations
 

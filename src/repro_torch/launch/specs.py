@@ -10,8 +10,8 @@ with K/V capacity = ``shape.seq_len``. The reference builds
 device (``init_model``, ``init_decode_state``, ``init_opt_state``), so
 the trees are exactly those the launcher would allocate. The meshes are
 usually :func:`~repro_torch.launch.mesh.make_production_mesh`'s
-device-free ones. What reads these (a dry run's memory accounting) is
-ROADMAP Queue A item 9b, not ported yet.
+device-free ones. The dry run (``launch/dryrun.py``) places these
+stand-ins as meta DTensors and runs each cell's step on them.
 """
 from __future__ import annotations
 

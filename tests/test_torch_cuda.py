@@ -1202,3 +1202,67 @@ def test_reshard_tree_places_on_the_card(cuda_device, nccl_mesh):
         assert got[k].to_local().device == cuda_device
     assert torch.equal(got["w"].full_tensor().cpu(),
                        torch.from_numpy(tree["w"]))
+
+
+# -- the public wrappers (kernels/ops.py) and the dry run's counter -----------
+
+@pytest.mark.parametrize("interpret", [None, False, True])
+def test_ops_wrappers_on_card(cuda_device, interpret):
+    """Each ``kernels.ops`` wrapper on the card equals its plain version
+    within this file's tolerances; ``interpret=True`` runs the plain
+    version on the card (no launch), else the kernel launches once."""
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    s = (torch.rand((8, 513), device=cuda_device, generator=g) < 0.25
+         ).float()
+    w = torch.randn((513, 257), device=cuda_device, generator=g)
+    v = torch.randn((32, 300), device=cuda_device, generator=g)
+    cur = torch.randn((32, 300), device=cuda_device, generator=g) * 2.0
+    vi = torch.randint(-50, 50, (17, 126), device=cuda_device,
+                       dtype=torch.int32, generator=g)
+    ci = torch.randint(-30, 30, (17, 126), device=cuda_device,
+                       dtype=torch.int32, generator=g)
+    p = LIFIntParams(2, 15, -3)
+    rec = _wkv6_args(cuda_device, (2, 37, 3, 8), torch.float32)
+    ssm = _ssd_args(cuda_device, (2, 29, 3, 4, 8), torch.float32)
+    kw = {"interpret": interpret}
+    fns = (spike_accum, lif_update, lif_update_int, wkv6, ssd)
+    before = [f.launches for f in fns]
+    cases = [
+        (ops.spike_accum(s, w, block_b=16, **kw), (spike_accum_ref(s, w),),
+         dict(rtol=1e-5, atol=1e-5)),
+        (ops.lif_update(v, cur, alpha=0.25, v_reset=0.1, **kw),
+         lif_update_ref(v, cur, 0.25, 1.0, 0.1), dict(rtol=0, atol=0)),
+        (ops.lif_update_int(vi, ci, p, block=(16, 256), **kw),
+         lif_update_int_ref(vi, ci, p), dict(rtol=0, atol=0)),
+        (ops.wkv6(*rec, chunk=32, **kw), wkv6_ref(*rec), None),
+        (ops.ssd(*ssm, chunk=16, **kw), ssd_ref(*ssm), None),
+    ]
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == \
+        [0 if interpret else 1] * len(fns)
+    for got, want, tol in cases:
+        got = got if isinstance(got, tuple) else (got,)
+        for a, b in zip(got, want):
+            assert a.device == cuda_device and a.dtype == b.dtype
+            torch.testing.assert_close(
+                a, b, **(tol or _recurrence_tol(torch.float32, b)))
+
+
+def test_analyze_raises_around_a_kernel_launch(cuda_device):
+    """A dispatch mode cannot see a ctypes launch: ``analyze`` of a
+    reduced rwkv6-3b prefill through the ``wkv6`` kernel raises, naming
+    it; the same prefill with ``kernels=False`` is counted."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.models import model as M
+
+    cfg = get_reduced("rwkv6-3b")
+    params = M.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(cuda_device)
+    with pytest.raises(RuntimeError, match="wkv6"):
+        analyze(M.prefill, params, cfg, tokens, kernels=True)
+    _, counts = analyze(M.prefill, params, cfg, tokens, kernels=False)
+    assert counts["flops"] > 0 and counts["peak_bytes"] > 0

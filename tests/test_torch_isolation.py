@@ -25,8 +25,12 @@ audio and VLM families, and runs each reduced model's prefill, stacked
 and unrolled decode, the static serve step, and both CLIs; another
 imports the mesh side (sharding rules, compression, elastic re-mesh,
 meshes, strategies, specs) and runs a reduced ruled train step on a
-one-rank gloo mesh, equal to the plain step. ``chip_smoke.py`` must fail, and
-print no result, without a CUDA card and outside the repo.
+one-rank gloo mesh, equal to the plain step; another (one per module it
+imports first) imports the dry run, its counter and the public kernel
+wrappers, calls the wrappers and runs a reduced model's dry-run cell
+(``train_4k`` on the 256-rank fake group) through the CLI.
+``chip_smoke.py`` must fail, and print no result, without a CUDA card
+and outside the repo.
 """
 import ast
 import os
@@ -108,7 +112,10 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.distributed.sharding",
                                    "repro_torch.distributed.elastic",
                                    "repro_torch.launch.specs",
-                                   "repro_torch.launch.strategy"])
+                                   "repro_torch.launch.strategy",
+                                   "repro_torch.launch.dryrun",
+                                   "repro_torch.launch.hlo_analysis",
+                                   "repro_torch.kernels.ops"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
@@ -500,6 +507,54 @@ print("ok")
 
 def test_mesh_side_runs_without_jax():
     out = subprocess.run([sys.executable, "-c", MESH_WITHOUT_JAX],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+DRYRUN_WITHOUT_JAX = """
+import contextlib, io, json, sys, tempfile
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+__import__(sys.argv[1])
+import torch
+import repro_torch.configs as CF
+import repro_torch.core as C
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun
+from repro_torch.launch.hlo_analysis import analyze
+from repro_torch.snn.lif import LIFIntParams
+assert {"ENGINES", "KERNELS"} <= set(C.__all__)
+_, c = analyze(lambda w, x: x @ w, torch.ones(8, 8), torch.ones(8, 8))
+assert c["flops"] == 2 * 8 ** 3
+v, s = ops.lif_update_int(torch.zeros(4, dtype=torch.int32),
+                          torch.full((4,), 20, dtype=torch.int32),
+                          LIFIntParams(2, 15, 0), block=(16, 256))
+assert s.tolist() == [1, 1, 1, 1]
+assert ops.spike_accum(torch.ones(2, 3), torch.ones(3, 4),
+                       interpret=True).sum() == 24
+dryrun.get_config = CF.get_reduced      # a reduced cell, full-size shapes
+with tempfile.TemporaryDirectory() as d:
+    with contextlib.redirect_stdout(io.StringIO()):
+        dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k",
+                     "--mesh", "single", "--out", d])
+    r = json.load(open(d + "/qwen2-1.5b_train_4k_single.json"))
+assert r["chips"] == 256 and r["cost"]["flops_per_device"] > 0
+assert r["memory"]["peak_bytes"] >= r["memory"]["argument_bytes"] > 0
+assert not torch.distributed.is_initialized()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("first", ["repro_torch.launch.dryrun",
+                                   "repro_torch.kernels.ops"])
+def test_dry_run_and_ops_run_without_jax(first):
+    out = subprocess.run([sys.executable, "-c", DRYRUN_WITHOUT_JAX, first],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
