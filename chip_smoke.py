@@ -214,7 +214,21 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    carried error bit for bit; ms per round. Then the ruled run's state
    after two steps (its host snapshot) resharded by ``reshard_tree``
    onto ``replan_mesh(1, model_parallel=1)`` and stepped once: equal to
-   the ruled run's third step bit for bit.
+   the ruled run's third step bit for bit. Then qwen3-moe-30b-a3b at full
+   width, depth-cut as in phase 8 (B = ``CUT_B``, S = ``CUT_S``, two
+   microbatches), one step under its ``train_4k`` rules (``tp_ep``) on
+   the same (1, 1) mesh: equal to the plain step bit for bit (every axis
+   has one rank, so nothing is split). Last (``fake_group_prefill``), the
+   nccl group gone, rank 0 of a fake process group of
+   ``FAKE_RANKS`` ranks (``"fake"``: its collectives do nothing, so the
+   values are not checked) on a ``"cuda"`` (1, 8) mesh prefills the
+   full-depth, full-width qwen3-moe-30b-a3b (B = 8, S = ``LM_PROMPT``)
+   under ``prefill_32k``'s rules from its own blocks (random, made on the
+   card: 1/8 of the experts, heads and vocabulary): the FLOPs of
+   ``launch.hlo_analysis.analyze`` of that run equal the same rank's
+   count on meta, and the meta peak is within ``PEAK_TOL`` of
+   ``max_memory_allocated``; ms (warm) and device ms by op printed beside
+   phase 7's whole-model prefill.
 10. the dry run (``phase_dryrun``), the launch counts set to 0 just
    before and read just after (it launches none): the plain qwen2-1.5b
    step of phase 8's cell analysed on meta by ``launch.hlo_analysis.
@@ -229,8 +243,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    deepseek-v3-671b ``decode_32k`` multi, zamba2-7b ``long_500k``
    single; a fake process group of 256 or 512 ranks each), each exiting
    0 with its JSON, its ``argument_bytes`` equal to the sum of its
-   stand-ins' shard bytes (``stand_in_bytes``); seconds, per-card peak,
-   FLOPs, collective bytes and the dominant term printed.
+   stand-ins' shard bytes (``stand_in_bytes``) and its FLOPs equal to
+   the committed ``results/dryrun_torch`` JSON's; seconds, per-card peak
+   (beside the committed one), FLOPs, collective bytes and the dominant
+   term printed.
 
 Last, a capture that fails (a loop that copies to the host) must raise
 and leave no graph. The last two lines are the kernels' JSON record (a
@@ -352,6 +368,7 @@ LM_DENSE = ("stablelm-12b", 8)   # the dense family's largest; no kernel
 LM_FAMILIES = (("qwen3-moe-30b-a3b", 8, None), ("deepseek-v3-671b", 4, 4),
                ("qwen2-vl-7b", 8, None), ("musicgen-medium", 8, None))
 LM_PROMPT, LM_GEN = 1024, 32
+PREFILL_WARM_S: dict = {}        # phase 7's warm prefill of each arch, s
 # each layer of the kernel prefill against the chunked path on the same
 # input (its output and every state leaf), and the last-position logits:
 # the bound the JAX package holds its own prefill to (tests/test_lm_archs.py);
@@ -1871,6 +1888,7 @@ def serve_transformer(name: str, batch: int, dev: torch.device,
     prefill(params, batch_in)                 # warm: not counted, timed
     torch.cuda.synchronize()
     t_prefill_warm = time.perf_counter() - t0
+    PREFILL_WARM_S[name] = t_prefill_warm
 
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     stacked = _grow_cache(cfg, st, batch, capacity, dev)
@@ -2357,8 +2375,9 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     Then the elastic resume: the ruled run's state after its second step
     (host snapshot), ``replan_mesh(1, model_parallel=1)``,
     ``reshard_tree``, one step: equal to the ruled run's third step bit
-    for bit. The six kernels' counts are set to 0 just before and read
-    just after: this path launches none."""
+    for bit. Then :func:`tp_ep_one_rank` on the same mesh and, the nccl
+    group gone, :func:`fake_group_prefill`. The six kernels' counts are
+    set to 0 just before and read just after: this path launches none."""
     import os
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2465,11 +2484,175 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
               f"{loss} and every leaf equal to the uninterrupted third step")
         del params, opt, got
         torch.cuda.empty_cache()
+        tp_ep_one_rank(mesh, dev)
     finally:
         dist.destroy_process_group()
+    fake_group_prefill(dev, smi)
     counts = {k: f.launches for k, f in fns.items()}
     expect(not any(counts.values()), f"the mesh phase launched {counts}")
     print(f"mesh phase launches: {counts}")
+
+
+FAKE_RANKS = 8       # phase 9's fake group: the (1, 8) mesh's ranks
+
+
+def tp_ep_one_rank(mesh, dev: torch.device) -> None:
+    """9b. qwen3-moe-30b-a3b depth-cut (CUT_B, CUT_S, two microbatches)
+    under its train_4k (tp_ep) rules on the one-rank mesh against the
+    plain step: loss and every parameter bit for bit."""
+    import dataclasses
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import (init_opt_state, make_train_step,
+                                         place_train_state)
+
+    name = "qwen3-moe-30b-a3b"
+    cfg = depth_cut(name)
+    strat = pick_strategy(cfg, SHAPES["train_4k"])
+    expect(strat.name == "tp_ep", f"{name} train_4k: {strat}")
+    hp = dataclasses.replace(strat.hparams, n_micro=CUT_B,
+                             loss_chunk=min(512, CUT_S))
+    rules = make_mesh_rules(mesh, strat)
+    runs = []
+    for r in (rules, None):
+        torch.cuda.empty_cache()
+        params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+        opt = init_opt_state(params, hp)
+        if r is not None:
+            params, opt = place_train_state(params, opt, r)
+        step = make_train_step(cfg, r, hp)
+        params, opt, loss, dt = step_timed(
+            step, params, opt, synthetic_batch(cfg, CUT_B, CUT_S, 0, 0, dev))
+        runs.append((loss, dt, {k: v.cpu() for k, v in
+                                leaves(gather_tree(params))}))
+        del params, opt
+    torch.cuda.empty_cache()
+    diff = [k for k, v in runs[1][2].items() if not torch.equal(v,
+                                                                runs[0][2][k])]
+    expect(runs[0][0] == runs[1][0] and not diff,
+           f"{name} tp_ep on (1, 1): loss {runs[0][0]} vs plain "
+           f"{runs[1][0]}; leaves differ: {diff[:5]}")
+    print(f"  {name} (full width, cut to {cfg.n_layers} layers, B = "
+          f"{CUT_B}, S = {CUT_S}, {hp.n_micro} microbatches) under its "
+          f"train_4k rules ({strat.name}) on the one-rank (1, 1) mesh: loss "
+          f"{runs[0][0]} and every one of the {len(runs[1][2])} parameter "
+          f"leaves equal to the plain step's bit for bit; one step "
+          f"{runs[0][1] * 1e3:.1f} ms ruled / {runs[1][1] * 1e3:.1f} ms "
+          f"plain (first steps)")
+
+
+def rank_blocks(specs, mesh, dev: torch.device, gen=None):
+    """A tree of ``launch/specs.py`` stand-ins as DTensors on ``mesh``
+    holding this rank's blocks: on meta (no data), or made on ``dev``
+    from ``gen`` (float leaves N(0, 0.02^2) in their dtype, integer
+    leaves token ids below ``vocab``)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch.specs import Spec
+
+    def one(sp):
+        if not isinstance(sp, Spec):
+            return sp
+        shape = sp.shard_shape
+        if dev.type == "meta":
+            local = torch.empty(shape, dtype=sp.dtype, device=dev)
+        elif sp.dtype.is_floating_point:
+            local = (torch.randn(shape, generator=gen, device=dev)
+                     * 0.02).to(sp.dtype)
+        else:
+            local = torch.randint(0, 1000, shape, generator=gen,
+                                  device=dev, dtype=sp.dtype)
+        return DTensor.from_local(local, mesh, sp.sharding.placements,
+                                  run_check=False, shape=torch.Size(sp.shape),
+                                  stride=torch.empty(sp.shape,
+                                                     device="meta").stride())
+    return tree_map(one, specs)
+
+
+def fake_group_prefill(dev: torch.device, smi: str) -> None:
+    """9c. Rank 0 of a fake group of FAKE_RANKS on a "cuda" (1, 8) mesh:
+    the full qwen3-moe-30b-a3b prefill (B = 8, S = LM_PROMPT) under
+    prefill_32k's rules, from rank 0's own blocks: FLOPs equal to the
+    meta count of the same rank, the meta peak within PEAK_TOL of the
+    card's; ms and device ms by op beside phase 7's whole-model prefill.
+    The fake group's collectives do nothing (an all-gather leaves its
+    output unwritten), so the values are not checked."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import cell_specs
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+    from repro_torch.train.steps import make_prefill_step
+
+    name, batch = "qwen3-moe-30b-a3b", 8
+    cfg = get_config(name)
+    strat = pick_strategy(cfg, SHAPES["prefill_32k"])
+    shape = ShapeSpec("fake_rank0", LM_PROMPT, batch, "prefill")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=FAKE_RANKS)
+    try:
+        meshes = {d: init_device_mesh(d, (1, FAKE_RANKS),
+                                      mesh_dim_names=("data", "model"))
+                  for d in ("cpu", "cuda")}
+        rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
+        t0 = time.perf_counter()
+        _, meta = analyze(make_prefill_step(cfg, rules["cpu"]), *rank_blocks(
+            cell_specs(cfg, shape, rules["cpu"], strat), meshes["cpu"],
+            torch.device("meta")))
+        t_meta = time.perf_counter() - t0
+
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        args = rank_blocks(cell_specs(cfg, shape, rules["cuda"], strat),
+                           meshes["cuda"], dev,
+                           torch.Generator(dev).manual_seed(0))
+        step = make_prefill_step(cfg, rules["cuda"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, card = analyze(step, *args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        held = sum(t.to_local().nbytes for _, t in leaves(args[0]))
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        warm = min(secs)
+        breakdown = device_breakdown(lambda: step(*args), warm)
+        del args
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    ratio = meta["peak_bytes"] / peak
+    expect(meta["flops"] == card["flops"],
+           f"fake-group prefill: FLOPs on meta {meta['flops']:.6e} vs on "
+           f"the card {card['flops']:.6e}")
+    expect(abs(ratio - 1) <= PEAK_TOL,
+           f"fake-group prefill: predicted peak "
+           f"{meta['peak_bytes'] / 2**30:.3f} GiB vs the card's "
+           f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f})")
+    whole = PREFILL_WARM_S.get(name)
+    print(f"  {name} prefill (full depth and width, B = {batch}, S = "
+          f"{LM_PROMPT}, prefill_32k's rules {strat.name}) as rank 0 of a "
+          f"fake group of {FAKE_RANKS} on a cuda (1, {FAKE_RANKS}) mesh "
+          f"(values not checked: the fake collectives do nothing): its "
+          f"blocks {held / 2**30:.2f} GiB; FLOPs meta {meta['flops']:.6e} "
+          f"= card {card['flops']:.6e}; predicted peak "
+          f"{meta['peak_bytes'] / 2**30:.3f} GiB vs max memory allocated "
+          f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f}); warm "
+          f"{warm * 1e3:.1f} ms (runs {', '.join(f'{t * 1e3:.1f}' for t in secs)})"
+          f" against phase 7's whole-model prefill "
+          + (f"{whole * 1e3:.1f} ms" if whole else "(not run)")
+          + f"; meta analysis {t_meta:.1f} s; {breakdown}; card: {smi}")
 
 
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"),
@@ -2574,6 +2757,13 @@ def dryrun_cli() -> None:
             expect(mem["argument_bytes"] == want,
                    f"dryrun {arch} {shape} {mesh}: argument bytes "
                    f"{mem['argument_bytes']} vs the stand-ins' {want}")
+            kept = json.loads((ROOT / "results" / "dryrun_torch" /
+                               path.name).read_text())
+            expect(r["cost"]["flops_per_device"]
+                   == kept["cost"]["flops_per_device"],
+                   f"dryrun {arch} {shape} {mesh}: FLOPs "
+                   f"{r['cost']['flops_per_device']:.6e} vs the committed "
+                   f"{kept['cost']['flops_per_device']:.6e}")
             coll = ", ".join(f"{k} {v['bytes'] / 2**30:.2f} GiB"
                              for k, v in r["collectives"].items()
                              if isinstance(v, dict) and v["count"])
@@ -2581,7 +2771,9 @@ def dryrun_cli() -> None:
                   f"{r['strategy']}): {secs:.1f} s (trace {r['trace_s']} "
                   f"s); arguments {mem['argument_bytes'] / 2**30:.3f} GiB "
                   f"= the stand-ins'; peak {mem['peak_bytes'] / 2**30:.2f} "
-                  f"GiB per card; FLOPs {r['cost']['flops_per_device']:.3e}"
+                  f"GiB per card (committed "
+                  f"{kept['memory']['peak_bytes'] / 2**30:.2f}); FLOPs "
+                  f"{r['cost']['flops_per_device']:.3e} = the committed"
                   f"; collectives {coll or 'none'}; {rf['dominant']}-bound "
                   f"(modeled), useful-flop ratio "
                   f"{rf['useful_flop_ratio']:.3f}")

@@ -2,8 +2,9 @@
 ``DeviceMesh`` (``sharding``), int8 gradient compression with error
 feedback (``compression``), checkpoints, elastic re-meshing
 (``elastic``), the straggler monitor and the step journal; the
-reference's ``__all__`` whole. What each module leaves out (the tensor-
-and expert-parallel compute of sharded layers) its docstring says."""
+reference's ``__all__`` whole. ``tensor_parallel`` is the port's own:
+how the ruled steps compute each layer in shards, which the reference's
+GSPMD derives from its partition specs."""
 from repro_torch.distributed.sharding import (LOGICAL_RULES_1POD,
                                               LOGICAL_RULES_2POD, MeshRules,
                                               input_shardings,

@@ -38,11 +38,11 @@ What the port uses in place of JAX's types:
 
 ``logical_constraint`` redistributes a DTensor to the constrained
 placements; a plain tensor comes back unchanged after the reference's
-rank check. The port's ruled train step (``train/steps.py``) runs the
-model on each rank's batch shard as plain tensors, so the six
-constraints of ``models/model.py`` cost a rank check there. Computing
-tensor- and expert-parallel layers in shards (the constraints' purpose
-under GSPMD) is not ported: ROADMAP Queue A, item 9's levers.
+rank check. The port's ruled steps (``train/steps.py``) run the model on
+each rank's batch shard with local tensors, so the six constraints of
+``models/model.py`` cost a rank check there: what GSPMD derives from
+them and from ``param_pspec`` (each layer in shards over ``tensor`` and
+``expert``) the port computes by hand in ``tensor_parallel.py``.
 """
 from __future__ import annotations
 

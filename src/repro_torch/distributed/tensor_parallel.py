@@ -1,0 +1,358 @@
+"""How the ruled steps split each layer's compute over the mesh: per-layer
+gathers of the ZeRO-3 shards, tensor-parallel attention, MLP and
+vocabulary, and an expert-parallel MoE. The port's own module: the
+reference's GSPMD builds the same split from its partition specs and
+the logits' ``"tensor"`` constraint (``repro/models/model.py:163-166``),
+its rules binding ``tensor`` to "TP: heads / mlp / vocab (partial-sum
+merges == the paper's ME tree)" and ``expert`` to "EP: MoE expert dim
+(dispatch == MC tree)" (``repro/distributed/sharding.py:17-19``).
+
+Under a ``mesh_rules`` context and a ``batch_split`` (the ruled train,
+prefill and serve steps of ``train/steps.py``) the model gets the
+parameter tree as DTensors placed by ``param_pspec``. :func:`hold` wraps
+each leaf in a :class:`Held`, this rank's block and how the layers use
+it; a stacked leaf unbinds into per-layer held leaves. Inside each layer
+(inside its remat'd function, so that the backward gathers again),
+:func:`use` turns held leaves into plain local tensors:
+
+* every mesh axis the leaf is sharded over is gathered (``redistribute``
+  to ``Replicate``) except the ``tensor`` / ``expert`` axis of a leaf the
+  layer computes in shards: the column-parallel projections (``wq``,
+  ``bq``, and ``wk``/``wv``/``bk``/``bv`` where the K/V heads divide;
+  ``w_gate``/``w_up``), the row-parallel ones (``wo``, ``w_down``), the
+  experts' stacks, and the vocabulary rows of the embedding and head;
+* the gather's backward is DTensor's: the gradient, ``Partial`` over the
+  mesh dims of the batch (and over ``tensor`` for a replicated leaf used
+  inside a tensor-parallel region: the q / k norms, and the K/V
+  projections where each rank attends with its own q heads' groups), is
+  reduced onto the leaf's placements (a reduce-scatter where the leaf is
+  sharded, an all-reduce where it is not).
+
+The layers compute in shards with Megatron's pair of autograd ops:
+:func:`copy_to` (identity forward, all-reduce backward) on the input of
+a column-parallel region, :func:`reduce_from` (all-reduce forward,
+identity backward) on the partial output of a row-parallel one: the
+paper's ME tree, the partial sums merged. The MoE (``models/moe.py``)
+routes every token on every rank of the ``expert`` axis (the tokens are
+replicated there), runs its own experts' slots only (the MC tree) and
+reduces its partial output the same way: no all-to-all, as the
+reference's compiled program has none. The vocabulary-parallel loss
+(:func:`vocab_nll`) takes the max and the log-sum-exp across the ranks
+and the target's logit from the rank that owns it; greedy decoding
+(:func:`vocab_argmax`) takes the argmax across them, ties to the lowest
+global index.
+
+Where an axis has one rank nothing is split, and the plain code runs:
+a one-rank mesh gives the plain step bit for bit. Attention is split
+only where the heads divide over the axis and each rank's q heads fall
+in whole K/V groups (or share one); MLA, the codebook heads and the
+recurrent layers (RWKV-6, Mamba-2, zamba2's shared block) are gathered
+per layer and computed whole on each rank (ROADMAP Queue A, item 9c).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import (_current, _is_dtensor, _names,
+                                              _path_str, current_split,
+                                              flat_tree, mesh_axis_names,
+                                              mesh_shape, tree_map,
+                                              tree_map_with_path)
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """This rank's row along one mesh dim ``dim``: ``size`` ranks, this
+    one the ``index``-th (DTensor's chunk order along that dim)."""
+    mesh: Any
+    dim: str
+    size: int
+    index: int
+
+    def _name(self) -> str:
+        return self.mesh.get_group(self.dim).group_name
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        f = torch.ops._c10d_functional
+        return f.wait_tensor(f.all_reduce(t.contiguous(), op, self._name()))
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[size, *t.shape]: every rank's ``t``, in index order."""
+        f = torch.ops._c10d_functional
+        out = f.wait_tensor(f.all_gather_into_tensor(
+            t.contiguous(), self.size, self._name()))
+        return out.view(self.size, *t.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What a model's layers split on this mesh: the mesh dims of the
+    batch, the ``tensor`` and ``expert`` groups (None: one rank, or no
+    axis), and whether attention (its heads; ``kv``: its K/V heads too)
+    and the vocabulary are split."""
+    batch_dims: tuple
+    tp: Optional[Group]
+    ep: Optional[Group]
+    attn: bool
+    kv: bool
+    vocab: bool
+
+
+def _group(rules, logical: str, batch_dims: tuple) -> Optional[Group]:
+    """The group of a logical axis: its mesh dims that are not the
+    batch's and have more than one rank; None unless exactly one."""
+    mesh = rules.mesh
+    sizes = mesh_shape(mesh)
+    dims = [d for d in _names(rules.rules.get(logical))
+            if d not in batch_dims and sizes[d] > 1]
+    if len(dims) != 1:
+        return None
+    coord = dict(zip(mesh_axis_names(mesh), mesh.get_coordinate()))
+    return Group(mesh, dims[0], sizes[dims[0]], coord[dims[0]])
+
+
+def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
+    """The split of ``cfg``'s layers under ``rules`` (default: the active
+    ``mesh_rules``) with the batch over ``batch_dims`` (default: the
+    active ``batch_split``'s dims)."""
+    rules = rules if rules is not None else _current()
+    if batch_dims is None:
+        split = current_split()
+        batch_dims = split.dims if split is not None else ()
+    tp = _group(rules, "tensor", batch_dims)
+    ep = _group(rules, "expert", batch_dims)
+    if cfg.moe is None or (ep is not None
+                           and cfg.moe.n_experts % ep.size):
+        ep = None
+    attn = kv = False
+    if tp is not None and not cfg.mla and cfg.n_heads % tp.size == 0:
+        local, rep = cfg.n_heads // tp.size, cfg.n_heads // cfg.n_kv_heads
+        attn = local % rep == 0 or rep % local == 0
+        kv = attn and cfg.n_kv_heads % tp.size == 0
+    vocab = (tp is not None and not cfg.n_codebooks
+             and cfg.vocab_size % tp.size == 0)
+    return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab)
+
+
+class Held:
+    """A parameter leaf as this rank holds it (``t``, a DTensor) and as a
+    layer uses it: gathered to the placements ``use``, its gradient
+    arriving with ``grad`` (``to_local(grad_placements=...)``), computed
+    over ``group`` (None: whole). ``use`` None: nothing to gather or
+    reduce on any mesh dim of more than one rank, so the layer uses the
+    local block as it is (``t`` may then be that plain block)."""
+    __slots__ = ("t", "use", "grad", "group")
+
+    def __init__(self, t, use: Optional[list], grad: Optional[list],
+                 group: Optional[Group]):
+        self.t, self.use, self.grad, self.group = t, use, grad, group
+
+    def unbind(self, dim: int = 0) -> list:
+        """A stacked leaf's per-layer held leaves (this rank's block
+        unbound; the layer axis is never sharded)."""
+        from torch.distributed.tensor import DTensor, Shard
+        if self.use is None:
+            return [Held(x, None, None, self.group)
+                    for x in local_block(self.t).unbind(dim)]
+        if dim != 0 or any(isinstance(p, Shard) and p.dim == 0
+                           for p in self.t.placements):
+            raise ValueError(f"a held leaf unbinds its unsharded dim 0, "
+                             f"not {dim} of {self.t.placements}")
+
+        def shift(pl):
+            return [Shard(p.dim - 1) if isinstance(p, Shard) else p
+                    for p in pl]
+        mesh = self.t.device_mesh
+        pl, use, grad = shift(self.t.placements), shift(self.use), \
+            shift(self.grad)
+        return [Held(DTensor.from_local(x, mesh, pl, run_check=False), use,
+                     grad, self.group)
+                for x in self.t.to_local().unbind(0)]
+
+    def value(self) -> torch.Tensor:
+        """The local tensor the layer computes with (a collective)."""
+        if self.use is None:
+            return local_block(self.t)
+        return self.t.redistribute(self.t.device_mesh, self.use).to_local(
+            grad_placements=self.grad)
+
+
+def local_block(t) -> torch.Tensor:
+    """A DTensor's local block (a view: in-place ops on it are the
+    DTensor's), or ``t``."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+# leaf paths of the split modules (the tree's '/'-joined keys)
+_COLUMN_Q = re.compile(r"(^|/)attn/(wq|bq|wo)$")
+_COLUMN_KV = re.compile(r"(^|/)attn/(wk|wv|bk|bv)$")
+_QK_NORM = re.compile(r"(^|/)attn/[qk]_norm/scale$")
+_MLP = re.compile(r"(^|/)(mlp|moe/shared)/w_(gate|up|down)$")
+_EXPERTS = re.compile(r"(^|/)moe/w_(gate|up|down)$")
+_VOCAB = re.compile(r"^(embed|lm_head)$")
+
+
+def _layout(path: str, t, plan: Plan) -> tuple:
+    """(use placements, gradient placements, group) of one leaf."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    group, partial = None, False
+    if plan.attn and _COLUMN_Q.search(path):
+        group = plan.tp
+    elif plan.attn and _COLUMN_KV.search(path):
+        group, partial = (plan.tp, False) if plan.kv else (None, True)
+    elif plan.attn and _QK_NORM.search(path):
+        partial = True
+    elif _MLP.search(path) or (plan.vocab and _VOCAB.search(path)):
+        group = plan.tp
+    elif _EXPERTS.search(path):
+        group = plan.ep
+    names = mesh_axis_names(t.device_mesh)
+    if group is not None and not isinstance(
+            t.placements[names.index(group.dim)], Shard):
+        if not _MLP.search(path):
+            raise ValueError(f"{path}: split over {group.dim!r} but held "
+                             f"as {t.placements}")
+        group = None              # an MLP whose d_ff does not divide
+    use, grad = [], []
+    for n, p in zip(names, t.placements):
+        if group is not None and n == group.dim:
+            use.append(p)
+            grad.append(p)
+        else:
+            use.append(Replicate())
+            grad.append(Partial() if n in plan.batch_dims or (
+                partial and plan.tp is not None and n == plan.tp.dim)
+                else Replicate())
+    sizes = mesh_shape(t.device_mesh)
+    if all(sizes[n] == 1 or (u == p and not isinstance(g, Partial))
+           for n, p, u, g in zip(names, t.placements, use, grad)):
+        return None, None, group          # the local block as it is
+    return use, grad, group
+
+
+def hold(params, cfg):
+    """``params`` with every DTensor leaf a :class:`Held` (the active
+    ``mesh_rules`` and ``batch_split`` decide the split); a tree of plain
+    tensors, or one held already, comes back as it is."""
+    if not any(_is_dtensor(t) for t in flat_tree(params).values()):
+        return params
+    plan = plan_for(cfg)
+
+    def one(path, t):
+        if not _is_dtensor(t):
+            return t
+        return Held(t, *_layout(_path_str(path), t, plan))
+    return tree_map_with_path(one, params)
+
+
+def use(tree):
+    """The plain tensors of a (held) tree: each held leaf gathered for
+    the layer that calls this."""
+    return tree_map(lambda t: t.value() if isinstance(t, Held) else t, tree)
+
+
+def group_of(tree, *keys) -> Optional[Group]:
+    """The group the held leaf at ``tree[k0][k1]...`` is computed over
+    (None: whole, plain, or absent)."""
+    for k in keys:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree.group if isinstance(tree, Held) else None
+
+
+# ---------------------------------------------------------------------------
+# Megatron's pair of ops
+# ---------------------------------------------------------------------------
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """The input of a column-parallel region: ``x`` forward, its gradient
+    summed over ``group`` backward (``x`` itself without a group)."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """A row-parallel region's partial output summed over ``group``; the
+    gradient passes through (``x`` itself without a group)."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# The vocabulary split over the tensor axis
+# ---------------------------------------------------------------------------
+
+
+def _local_ids(ids: torch.Tensor, v: int, group: Group) -> tuple:
+    local = ids.long() - group.index * v
+    inside = (local >= 0) & (local < v)
+    return torch.where(inside, local, 0), inside
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
+                group: Group) -> torch.Tensor:
+    """Rows of a vocabulary-split ``table`` [V / n, D]: each rank looks
+    up the tokens in its range, zeroes the rest, and the rows are summed
+    over ``group`` (exact: one term is not zero)."""
+    local, inside = _local_ids(tokens, table.shape[0], group)
+    rows = F.embedding(local, table)
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return reduce_from(rows, group)
+
+
+def vocab_nll(logits: torch.Tensor, labels: torch.Tensor,
+              group: Group) -> torch.Tensor:
+    """The summed negative log-likelihood of ``labels`` under float32
+    logits split on the vocabulary (this rank's [..., V / n]): the max
+    and the sum of exponentials taken across ``group``, the target's
+    logit from the rank that owns it."""
+    m = group.all_reduce(logits.detach().amax(-1), "max")
+    se = reduce_from(torch.exp(logits - m[..., None]).sum(-1), group)
+    local, inside = _local_ids(labels, logits.shape[-1], group)
+    picked = torch.gather(logits, -1, local[..., None])[..., 0]
+    picked = reduce_from(torch.where(inside, picked, 0.0), group)
+    return (torch.log(se) + m - picked).sum()
+
+
+def vocab_argmax(logits: torch.Tensor, group: Group) -> torch.Tensor:
+    """The global argmax over the last dim of vocabulary-split logits
+    (int64): each rank's max and its index, gathered; ties go to the
+    lowest global index, as ``torch.argmax`` gives them."""
+    v = logits.shape[-1]
+    idx = torch.argmax(logits, -1)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    vals, idxs = group.all_gather(val), group.all_gather(idx + group.index
+                                                         * v)
+    return torch.gather(idxs, 0, torch.argmax(vals, 0)[None])[0]
+
+
+def vocab_gather(logits: torch.Tensor, group: Group) -> torch.Tensor:
+    """Vocabulary-split logits [..., V / n] -> [..., V] on every rank."""
+    parts = group.all_gather(logits)                # [n, ..., V / n]
+    return torch.cat(parts.unbind(0), dim=-1)

@@ -1,5 +1,9 @@
-"""Plain torch versions of the state-space kernels, token by token; port
-of ``repro/kernels/ref.py`` (``wkv6_ref``) with ``ssd_ref`` added.
+"""Plain torch versions of the kernels; port of ``repro/kernels/ref.py``
+(``spike_accum_ref``, ``lif_update_ref``, ``wkv6_ref``) with ``ssd_ref``
+added. The first two are defined beside their kernels
+(``kernels/spike_accum.py``, ``kernels/lif_update.py``) and exported
+here under the reference's names; the state-space ones run token by
+token.
 
 Each runs its recurrence one token at a time in float32, exactly as
 written, and is what :func:`repro_torch.kernels.wkv6.wkv6` and
@@ -55,3 +59,9 @@ def ssd_ref(x, dt, a_log, b, c, state0):
         ys.append(y)
     y = torch.stack(ys, 1) if ys else x.new_zeros(x.shape)
     return y, st
+
+
+# the reference's names, defined beside their kernels (imported last: those
+# modules import nothing from here)
+from repro_torch.kernels.lif_update import lif_update_ref  # noqa: E402
+from repro_torch.kernels.spike_accum import spike_accum_ref  # noqa: E402

@@ -9,7 +9,7 @@ collectives' bytes, and the three roofline terms.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b \\
         --shape train_4k --mesh single
-    PYTHONPATH=src python -m repro_torch.launch.dryrun --all  # whole grid
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 6
 
 It needs no card: meta tensors have shapes and no data, and the
 process group is torch's fake backend (``"fake"``, registered by
@@ -28,15 +28,18 @@ device type ``"cpu"``.
   reference lowers its step on inputs that are sharded already.
 * **The counted run** (:func:`~repro_torch.launch.hlo_analysis.analyze`)
   is the port's ruled step: ``make_train_step(cfg, rules, hp)``,
-  ``make_prefill_step(cfg, rules=rules)`` or the eager
-  ``make_serve_step(cfg, unroll, rules=rules)`` (a graphed step cannot
-  run on meta). The port's ruled steps gather every parameter on every
-  rank and split only the batch (``train/steps.py``), so the counts are
-  those of that design, not of the reference's sharded compute. The
-  serve step holds a rank's batch shard of the decode state with whole
-  heads; where the stand-ins shard a state leaf over another axis too,
-  the counted run first brings it to its batch-only placement, and what
-  that moves is counted.
+  ``make_prefill_step(cfg, rules)`` or the eager
+  ``make_serve_step(cfg, rules, unroll)`` (a graphed step cannot run on
+  meta). The ruled steps gather each layer's leaves where it runs and
+  compute attention, the MLPs, the experts and the vocabulary in shards
+  (``distributed/tensor_parallel.py``); MLA, the codebook heads and the
+  recurrent layers are gathered per layer and computed whole on every
+  rank. The serve step holds a rank's batch shard of the decode state,
+  and its K/V heads where attention splits them
+  (:func:`compute_state_placements`); where the stand-ins shard a state
+  leaf over another axis (the capacity, or the recurrent states' heads),
+  the counted run first gathers that axis, and what that moves is
+  counted.
 
 The result has the reference's keys, but:
 
@@ -73,6 +76,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.distributed as dist
@@ -80,7 +84,9 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs import SHAPES, all_cells, applicable, get_config
-from repro_torch.distributed.sharding import _names, tree_map
+from repro_torch.distributed.sharding import (_names, tree_map,
+                                              tree_map_with_path)
+from repro_torch.distributed.tensor_parallel import plan_for
 from repro_torch.launch.hlo_analysis import analyze, tensors
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import (Spec, batch_specs, decode_specs,
@@ -119,11 +125,39 @@ def production_mesh(mesh_kind: str):
                                 world_size=world)
         started = True
     try:
-        yield init_device_mesh("cpu", sizes,
-                               mesh_dim_names=tuple(prod.shape))
+        with _card_alltoall():
+            yield init_device_mesh("cpu", sizes,
+                                   mesh_dim_names=tuple(prod.shape))
     finally:
         if started:
             dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _card_alltoall():
+    """DTensor moves a shard to another dim (``Shard(i)`` to ``Shard(j)``)
+    with an all-to-all, but on a "cpu" mesh it falls back to an
+    all-gather of the whole dim and a chunk, since gloo has none. The dry
+    run models the card's NCCL: in this block the all-to-all op runs on
+    the "cpu" mesh too (the fake group runs it as a no-op). Without the
+    block, the int8 Adam moments' reshard of deepseek-v3-671b's
+    ``w_down`` gathered 406 GiB a rank."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+
+    def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+        group = funcol._resolve_group((mesh, mesh_dim))
+        return torch.ops._dtensor.shard_dim_alltoall(
+            input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+    before = getattr(placement_types, "shard_dim_alltoall", None)
+    if before is None:                 # another torch: left as it is
+        yield
+        return
+    placement_types.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = before
 
 
 def materialize(specs, mesh):
@@ -164,9 +198,9 @@ def cell_step(cfg, shape, rules, strat, *, unroll_decode: bool = False):
     if shape.kind == "train":
         return make_train_step(cfg, rules, strat.hparams)
     if shape.kind == "prefill":
-        return make_prefill_step(cfg, rules=rules)
-    return _batch_only_state(
-        make_serve_step(cfg, unroll_decode, rules=rules), rules)
+        return make_prefill_step(cfg, rules)
+    return _compute_state(make_serve_step(cfg, rules, unroll_decode), cfg,
+                          rules)
 
 
 def cell(arch: str, shape_name: str, mesh_kind: str, mesh=None, *,
@@ -201,20 +235,37 @@ def stand_in_bytes(arch: str, shape_name: str, mesh_kind: str) -> int:
     return sum(sizes)
 
 
-def _batch_only_state(serve_step, rules):
-    """``serve_step`` on a decode state placed as the stand-ins lay it
-    out: each leaf first brought to its batch-only placement (the other
-    axes gathered), and its local shard passed on."""
+def compute_state_placements(cfg, rules, path: tuple, t) -> list:
+    """The placements the ruled serve step computes a decode-state leaf
+    ``t`` (a DTensor at ``path``) with: its shards over the ``batch``
+    axes, and over the ``tensor`` axis the K/V heads of a GQA cache
+    where attention splits them; every other axis gathered."""
+    from torch.distributed.tensor import Shard
     mesh = rules.mesh
     batch_axes = set(_names(rules.rules.get("batch")))
+    plan = plan_for(cfg, rules, tuple(n for n in mesh.mesh_dim_names
+                                      if n in batch_axes))
+    # a K/V cache: [L, B, C, Hkv, Dh] stacked, [B, C, Hkv, Dh] per layer
+    kv_cache = (plan.kv and cfg.family not in ("ssm", "hybrid")
+                and any(k in ("k", "v") for k in path[-2:]))
+    return [p if n in batch_axes or (
+        kv_cache and n == plan.tp.dim and isinstance(p, Shard)
+        and p.dim == t.ndim - 2) else Replicate()
+        for n, p in zip(mesh.mesh_dim_names, t.placements)]
 
-    def local(t):
-        pl = [p if n in batch_axes else Replicate()
-              for n, p in zip(mesh.mesh_dim_names, t.placements)]
+
+def _compute_state(serve_step, cfg, rules):
+    """``serve_step`` on a decode state placed as the stand-ins lay it
+    out: each leaf first brought to :func:`compute_state_placements`
+    (the other axes gathered), and its local shard passed on."""
+    mesh = rules.mesh
+
+    def local(path, t):
+        pl = compute_state_placements(cfg, rules, path, t)
         return _place(t, mesh, pl).to_local()
 
     def step(params, tokens, state):
-        return serve_step(params, tokens, tree_map(local, state))
+        return serve_step(params, tokens, tree_map_with_path(local, state))
     return step
 
 
@@ -331,25 +382,33 @@ def main(argv=None):
                     help="run the full (arch x shape x mesh) grid as "
                          "subprocesses")
     ap.add_argument("--meshes", default="single,multi")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --all: cells run at once, each a process")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out, exist_ok=True)
     if args.all:
         cells = all_cells()
         meshes = args.meshes.split(",")
-        failures = []
+        todo = []
         for mesh_kind in meshes:
             for arch, shape in cells:
                 tag = f"{arch}_{shape}_{mesh_kind}"
-                out_file = os.path.join(args.out, tag + ".json")
-                if os.path.exists(out_file):
+                if os.path.exists(os.path.join(args.out, tag + ".json")):
                     print(f"[skip] {tag} (cached)")
                     continue
-                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", arch, "--shape", shape,
-                       "--mesh", mesh_kind, "--out", args.out]
-                print(f"[run ] {tag}", flush=True)
-                r = subprocess.run(cmd, capture_output=True, text=True)
+                todo.append((tag, [sys.executable, "-m",
+                                   "repro_torch.launch.dryrun", "--arch",
+                                   arch, "--shape", shape, "--mesh",
+                                   mesh_kind, "--out", args.out]))
+
+        def run(item):
+            tag, cmd = item
+            print(f"[run ] {tag}", flush=True)
+            return tag, subprocess.run(cmd, capture_output=True, text=True)
+        failures = []
+        with ThreadPoolExecutor(max(1, args.jobs)) as pool:
+            for tag, r in pool.map(run, todo):
                 if r.returncode != 0:
                     failures.append(tag)
                     print(f"[FAIL] {tag}\n{r.stdout[-2000:]}"

@@ -15,7 +15,7 @@ local tensors; a DTensor op is counted through the local ops it runs):
 * **FLOPs** of the dot-like aten ops (``mm``, ``addmm``, ``bmm``,
   ``baddbmm``, the convolutions and attention kernels), by
   ``torch.utils.flop_counter``'s formulas; the reference counts dot FLOPs
-  only;
+  only. ``flops_by_op`` splits them by the aten op's name;
 * **HBM bytes**: each op's operands and result. The port runs eager and
   unfused, so every op is a kernel and the reference's fused-operand
   rule has no counterpart. Views and metadata ops move nothing (the
@@ -28,8 +28,8 @@ local tensors; a DTensor op is counted through the local ops it runs):
   name;
 * **collectives**: result bytes per kind, over the reference's
   ``COLLECTIVE_OPS`` names, for the functional collectives DTensor runs
-  (``_c10d_functional``) and the ``c10d`` ops of ``torch.distributed``'s
-  own calls;
+  (``_c10d_functional``, and ``_dtensor.shard_dim_alltoall``, its
+  all-to-all) and the ``c10d`` ops of ``torch.distributed``'s own calls;
 * **live bytes**: torch has no ``memory_analysis()``. The mode tracks
   the distinct storages alive (a view shares its base's storage and
   counts once; the trees passed in are the arguments, a DTensor by its
@@ -65,7 +65,7 @@ _NO_TRAFFIC = {
 _READ_WINDOW = {"index_select", "gather", "embedding", "index"}
 _WRITE_WINDOW = {"index_copy": 3, "index_copy_": 3, "index_put": 2,
                  "index_put_": 2}       # op -> the argument written
-_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d")
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d", "_dtensor")
 _NO_COLLECTIVE = {"wait_tensor", "barrier", "monitored_barrier_",
                   "_wrap_tensor_autograd"}
 _COLLECTIVE_KIND = (("all_gather", "all-gather"), ("allgather", "all-gather"),
@@ -150,7 +150,7 @@ class LiveBytes:
 
 def _zero() -> dict:
     return {"flops": 0.0, "bytes": 0.0, "bytes_by_op": {},
-            "coll": {op: {"count": 0, "bytes": 0.0}
+            "flops_by_op": {}, "coll": {op: {"count": 0, "bytes": 0.0}
                      for op in COLLECTIVE_OPS}}
 
 
@@ -185,7 +185,9 @@ class CostMode(TorchDispatchMode):
         name = func._schema.name.split("::")[-1]
         flops = flop_registry.get(func._overloadpacket)
         if flops is not None:
-            acc["flops"] += float(flops(*args, **kwargs, out_val=out))
+            f = float(flops(*args, **kwargs, out_val=out))
+            acc["flops"] += f
+            acc["flops_by_op"][name] = acc["flops_by_op"].get(name, 0.0) + f
         if func.namespace in _COLLECTIVE_NAMESPACES:
             kind = collective_kind(name)
             if kind is None:
@@ -223,7 +225,8 @@ def analyze(fn, *args, **kwargs) -> tuple:
     """Run ``fn(*args, **kwargs)`` once and count it: ``(result,
     counts)``. ``counts`` has the reference's keys (``flops``,
     ``bytes``, ``bytes_by_op``, ``coll`` with ``{kind: {"count",
-    "bytes"}}`` and ``total_bytes``), all per device, and
+    "bytes"}}`` and ``total_bytes``), all per device, ``flops_by_op``,
+    and
     ``argument_bytes`` (the distinct storages of the arguments),
     ``peak_bytes`` (the most bytes of distinct storages alive at once,
     the arguments included) and ``ops`` (the ops counted). Raises

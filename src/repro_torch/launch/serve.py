@@ -128,7 +128,8 @@ def _grow_cache(cfg, state: dict, batch: int, capacity: int,
     ``capacity`` (zero-padded on the capacity axis; every leaf in
     :func:`~repro_torch.models.model.init_decode_state`'s dtype). A
     transformer state with per-layer cache lists (K/V or MLA's latent
-    and RoPE key, in each part) grows into lists."""
+    and RoPE key, in each part) grows into lists. A ruled prefill's
+    cache that holds a share of the K/V heads keeps that share."""
     unrolled = any(isinstance(c, list) for c in
                    state.get("main", {}).values())
     fresh = M.init_decode_state(cfg, batch, capacity, device, unrolled)
@@ -136,9 +137,13 @@ def _grow_cache(cfg, state: dict, batch: int, capacity: int,
     def graft(f, s):
         if f.ndim >= 3 and s.ndim == f.ndim and f.shape != s.shape:
             # caches differ on the capacity axis (axis 2 stacked, axis 1
-            # in a per-layer list)
-            f[tuple(slice(0, n) for n in s.shape)] = s
-            return f
+            # in a per-layer list), the first that differs
+            ax = next(i for i, (a, b) in enumerate(zip(f.shape, s.shape))
+                      if a != b)
+            out = f.new_zeros((*s.shape[:ax], f.shape[ax],
+                               *s.shape[ax + 1:]))
+            out[tuple(slice(0, n) for n in s.shape)] = s
+            return out
         return s.to(f.dtype)
 
     out = tree_map(graft, fresh, state)

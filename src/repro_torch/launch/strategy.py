@@ -14,11 +14,16 @@ memory. The most-balanced feasible mapping is picked per workload:
          for MoE and for inference.
 
 Shape kind selects the train or inference strategy; family selects fsdp
-or tp_ep for training. The port's ruled train step holds parameters and
-optimizer state with these rules' placements and computes each batch
-shard with whole (gathered) weights: the tensor- and expert-parallel
-compute that tp_ep implies is not ported (ROADMAP Queue A, item 9's
-levers).
+or tp_ep for training. The port's ruled steps hold parameters and
+optimizer state with these rules' placements and compute as they imply
+(``distributed/tensor_parallel.py``): each layer's leaves gathered where
+it runs over the ``fsdp`` / ``batch`` axes; under tp_ep, GQA attention,
+the MLPs and the vocabulary tensor-parallel over ``model`` and the MoE
+expert-parallel over it, without an all-to-all. MLA, the codebook heads
+and the recurrent layers run whole on each rank, and tp_ep_full's data
+part of the experts is gathered per layer like an fsdp axis (its
+all-to-all form, and the sequence on ``pod``, are ROADMAP Queue A, item
+9c).
 """
 from __future__ import annotations
 

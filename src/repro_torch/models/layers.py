@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.tensor_parallel import (Group, copy_to,
+                                                     reduce_from)
 from repro_torch.kernels._build import needs_grad
 
 Params = dict  # nested dict of tensors
@@ -243,7 +245,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               kv_cache: Optional[tuple] = None,
               cache_len: Optional[torch.Tensor] = None,
               chunk: int = 1024,
-              return_kv: bool = False) -> tuple[torch.Tensor, Optional[tuple]]:
+              return_kv: bool = False,
+              tp: Optional[Group] = None
+              ) -> tuple[torch.Tensor, Optional[tuple]]:
     """GQA attention. x [B, S, D].
 
     Prefill: kv_cache None -> causal self-attention over x; with
@@ -253,11 +257,20 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     new entries are written into the cache IN PLACE (the reference's
     serve step donates the state for the same end) and the cache is
     returned; ``cache_len + S`` must not exceed Smax.
+
+    ``tp``: the heads split over a tensor-parallel group
+    (``distributed/tensor_parallel.py``): ``p`` holds this rank's column
+    blocks of ``wq`` / ``bq`` and row block of ``wo`` (and of the K/V
+    projections where the K/V heads divide, else all of them), the cache
+    the K/V heads the rank holds, and the partial output is summed over
+    the group. Each rank attends with its own q heads, over their groups
+    of K/V heads.
     """
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-
+    dh = cfg.resolved_head_dim
+    x = copy_to(x, tp)
     q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
+    h, hkv = q.shape[-1] // dh, k.shape[-1] // dh    # this rank's heads
     if cfg.qkv_bias:    # the float32 bias cast first, as the reference does
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -273,8 +286,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta, rd, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, rd, cfg.mrope_sections)
 
+    groups = _kv_groups(cfg, tp, h, hkv)
     if kv_cache is None:
-        out = chunked_attention(q, k, v, causal=True, chunk=chunk)
+        out = chunked_attention(q, k[:, :, groups], v[:, :, groups],
+                                causal=True, chunk=chunk)
         new_cache = ((k.to(torch.bfloat16), v.to(torch.bfloat16))
                      if return_kv else None)
     else:
@@ -284,20 +299,33 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         cv.index_copy_(1, new_pos, v.to(cv.dtype))
         # grouped-query einsum: the cache is never repeated to the full
         # head count; the rep axis lives on q and the scores only
-        smax = ck.shape[1]
-        rep = h // hkv
-        qg = q.reshape(b, s, hkv, rep, dh) * (1.0 / math.sqrt(dh))
+        ka, va = ck[:, :, groups], cv[:, :, groups]
+        smax, g = ka.shape[1], ka.shape[2]
+        rep = h // g
+        qg = q.reshape(b, s, g, rep, dh) * (1.0 / math.sqrt(dh))
         scores = torch.einsum("bsgrd,bkgd->bgrsk", qg.to(torch.float32),
-                              ck.to(torch.float32))
+                              ka.to(torch.float32))
         valid = torch.arange(smax, device=x.device)[None, :] <= new_pos[:, None]
         scores = torch.where(valid[None, None, None], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bgrsk,bkgd->bsgrd", probs, cv.to(torch.float32))
+        out = torch.einsum("bgrsk,bkgd->bsgrd", probs, va.to(torch.float32))
         out = out.reshape(b, s, h, dh).to(x.dtype)
         new_cache = (ck, cv)
 
-    out = dot(out.reshape(b, s, h * dh), p["wo"])
-    return out, new_cache
+    return row_dot(out.reshape(b, s, h * dh), p["wo"], tp), new_cache
+
+
+def _kv_groups(cfg: ArchConfig, tp: Optional[Group], h: int,
+               hkv: int) -> slice:
+    """The K/V heads this rank's ``h`` q heads attend with, of the
+    ``hkv`` it holds: all of them, unless the q heads are split over
+    ``tp`` and the K/V heads are not (each rank holds every K/V head and
+    takes its own q heads' groups)."""
+    if tp is None or hkv != cfg.n_kv_heads:
+        return slice(None)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    first = tp.index * h // rep
+    return slice(first, first + max(1, h // rep))
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +441,12 @@ def init_mlp(d: int, d_ff: int, style: str, gen: Optional[torch.Generator],
             "w_down": _dense_init(gen, (d_ff, d), device)}
 
 
-def mlp(p: Params, x: torch.Tensor, style: str) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, style: str,
+        tp: Optional[Group] = None) -> torch.Tensor:
+    """``tp``: d_ff split over a tensor-parallel group (``p`` this
+    rank's column blocks of ``w_gate`` / ``w_up`` and row block of
+    ``w_down``), the partial output summed over the group."""
+    x = copy_to(x, tp)
     if style == "swiglu":
         # silu(g) * u in float32 and rounded once, as XLA's fusion of the
         # reference computes it: rounding silu(g) to bf16 first made a
@@ -421,9 +454,25 @@ def mlp(p: Params, x: torch.Tensor, style: str) -> torch.Tensor:
         # as the reference's own
         g = dot(x, p["w_gate"])
         h = F.silu(g.to(torch.float32)) * dot(x, p["w_up"])
-        return dot(h.to(g.dtype), p["w_down"])
+        return row_dot(h.to(g.dtype), p["w_down"], tp)
     # jax.nn.gelu's default is the tanh form
-    return dot(F.gelu(dot(x, p["w_up"]), approximate="tanh"), p["w_down"])
+    return row_dot(F.gelu(dot(x, p["w_up"]), approximate="tanh"),
+                   p["w_down"], tp)
+
+
+def row_dot(a: torch.Tensor, w: torch.Tensor,
+            tp: Optional[Group] = None) -> torch.Tensor:
+    """``dot(a, w)``; over a tensor-parallel group (``a``'s last dim and
+    ``w``'s rows this rank's block) the partial products are formed in
+    float32, summed over the group and rounded once: the plain product's
+    float32 accumulation, split (rounding each partial to bf16 first
+    moved a reduced qwen3-moe's first loss by 2e-4 through flipped MoE
+    routes)."""
+    if tp is None:
+        return dot(a, w)
+    dt = torch.promote_types(a.dtype, w.dtype)
+    f32 = torch.float32
+    return reduce_from(a.to(f32) @ w.to(f32), tp).to(dt)
 
 
 # ---------------------------------------------------------------------------

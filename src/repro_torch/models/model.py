@@ -30,6 +30,15 @@ the embedding's output, the logits, the attention and MLP residuals,
 the shared block's output. Outside a ``mesh_rules`` context each is a
 no-op, and inside one a plain tensor comes back as it is.
 
+Under the ruled steps (``train/steps.py``) the parameters are DTensors:
+each entry point holds them (``distributed.tensor_parallel.hold``), and
+each layer gathers its own leaves where it runs, inside its remat'd
+function (``use``), keeping the ``tensor`` / ``expert`` shards of the
+layers it computes in shards: GQA attention and the MLPs over the heads
+and d_ff, the MoE over its experts, the embedding, head and loss over
+the vocabulary. The logits then come out this rank's [..., V / n]
+(``unembed_hidden``). Plain tensors run the plain code.
+
 Training (``mode="train"`` under autograd) recomputes each layer in
 backward (``remat``, the reference's ``jax.checkpoint`` of its scanned
 layer body: here ``torch.utils.checkpoint`` around each layer of the
@@ -50,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import resolve_device
+from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (flat_tree, logical_constraint,
                                               tree_map, tree_map_with_path)
 from repro_torch.models import layers as L
@@ -72,9 +82,10 @@ def _layer(tree, i: int):
 
 def _unstack(tree, n: int) -> list:
     """The ``n`` per-layer trees of a stacked tree: one ``unbind`` per
-    leaf (views). Under autograd each leaf's layers then share one
-    backward node that stacks their gradients, where indexing each layer
-    would add ``n`` zero-padded [L, ...] copies."""
+    leaf (views; a held leaf unbinds its local block). Under autograd
+    each leaf's layers then share one backward node that stacks their
+    gradients, where indexing each layer would add ``n`` zero-padded
+    [L, ...] copies."""
     per_leaf = {k: a.unbind(0) for k, a in flat_tree(tree).items()}
     return [tree_map_with_path(lambda k, _: per_leaf[k][i], tree)
             for i in range(n)]
@@ -251,12 +262,15 @@ def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     sinusoidal positions (``positions`` [S] or [B, S]; arange(S) if
     None) added, as XLA's fusion of the reference's chain computes it."""
     if cfg.n_codebooks:
-        tbl = params["embed_codebooks"]                       # [K, V, D]
+        tbl = TP.use(params["embed_codebooks"])               # [K, V, D]
         x = sum(L.embed(tbl[k], tokens[..., k]).to(torch.float32)
                 for k in range(cfg.n_codebooks))
         dtype = tbl.dtype
     else:
-        x = L.embed(params["embed"], tokens)
+        group = TP.group_of(params, "embed")
+        tbl = TP.use(params["embed"])
+        x = (L.embed(tbl, tokens) if group is None
+             else TP.vocab_embed(tbl, tokens, group))
         dtype = x.dtype
     if cfg.pos_embed == "sinusoidal":
         pos = (positions if positions is not None
@@ -279,13 +293,15 @@ def _sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
 def unembed_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor
                    ) -> torch.Tensor:
     """x [B, S, D] -> logits float32 [B, S, V] (or [B, S, K, V], one
-    head per codebook)."""
+    head per codebook); a head held split over the vocabulary gives this
+    rank's [B, S, V / n]."""
     if cfg.n_codebooks:
         logits = torch.einsum("bsd,kdv->bskv", x.to(torch.float32),
-                              params["lm_heads"].to(torch.float32))
+                              TP.use(params["lm_heads"]).to(torch.float32))
         return logical_constraint(logits, "batch", "seq", None, "tensor")
     tied = cfg.tie_embeddings
-    logits = L.unembed(params["embed"] if tied else params["lm_head"], x,
+    head = params["embed"] if tied else params["lm_head"]
+    logits = L.unembed(TP.use(head), TP.copy_to(x, TP.group_of(head)),
                        tied)
     return logical_constraint(logits, "batch", "seq", "tensor")
 
@@ -338,6 +354,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
     _check_family(cfg)
+    params = TP.hold(params, cfg)
     b, s = tokens.shape[:2]
     cache_len = state["len"] if (mode == "decode" and state is not None
                                  and "len" in state) else None
@@ -359,7 +376,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         x, aux, new_state = _forward_transformer(params, cfg, x, positions,
                                                  mode, state, unroll_decode,
                                                  ck)
-    x = _norm(params["final_norm"], x, cfg)
+    x = _norm(TP.use(params["final_norm"]), x, cfg)
     if new_state is not None and cache_len is not None:
         new_state["len"] = cache_len + s
     return ForwardOut(x, aux, new_state)
@@ -371,16 +388,30 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
                     cache_len=None, moe_layer=False, return_kv=False):
     """Pre-norm attention (MLA where ``cfg.mla``) + MLP or MoE. Returns
-    (x, aux, new_kv); aux is the MoE layer's balance loss, else None."""
-    attn = L.mla_attention if cfg.mla else L.attention
-    h, new_kv = attn(lp["attn"], _norm(lp["ln1"], x, cfg), cfg,
-                     positions=positions, kv_cache=kv, cache_len=cache_len,
-                     return_kv=return_kv)
+    (x, aux, new_kv); aux is the MoE layer's balance loss, else None.
+    Held leaves are gathered here, and the attention, MLP and experts run
+    in shards over the groups their leaves are held split over."""
+    tp_attn = TP.group_of(lp, "attn", "wq")
+    tp_mlp = TP.group_of(lp, "mlp", "w_down")
+    ep = TP.group_of(lp, "moe", "w_gate")
+    tp_shared = TP.group_of(lp, "moe", "shared", "w_down")
+    lp = TP.use(lp)
+    if cfg.mla:
+        h, new_kv = L.mla_attention(
+            lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
+            kv_cache=kv, cache_len=cache_len, return_kv=return_kv)
+    else:
+        h, new_kv = L.attention(
+            lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
+            kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
+            tp=tp_attn)
     x = logical_constraint(x + h, "batch", "seq", None)
     if moe_layer:
-        y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg)
+        y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg,
+                             ep=ep, shared_tp=tp_shared)
     else:
-        y = L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style)
+        y = L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style,
+                  tp_mlp)
         aux = None
     return logical_constraint(x + y, "batch", "seq", None), aux, new_kv
 
@@ -458,7 +489,7 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck):
 
 def _rwkv_train_layer(lp: Params, x, cfg, kernels):
     st = RW.init_rwkv_state(cfg, x.shape[0], device=x.device)
-    return RW.rwkv_block(lp, x, cfg, st, kernels=kernels)[0]
+    return RW.rwkv_block(TP.use(lp), x, cfg, st, kernels=kernels)[0]
 
 
 def _forward_rwkv(params, cfg, x, mode, state, kernels, ck):
@@ -471,6 +502,7 @@ def _forward_rwkv(params, cfg, x, mode, state, kernels, ck):
         return x, aux, None
     sts = []
     for i, lp in enumerate(layers):
+        lp = TP.use(lp)
         if mode == "decode":
             x, st = RW.rwkv_block(lp, x, cfg, _layer(state["rwkv"], i),
                                   single_step=True)
@@ -495,6 +527,7 @@ def _hybrid_layout(cfg: ArchConfig):
 def _shared_block(sh: Params, x, cfg, positions, kv=None, cache_len=None,
                   return_kv=False):
     """The ONE shared attention + MLP block. Returns (x, new_kv)."""
+    sh = TP.use(sh)
     h, new_kv = L.attention(sh["shared_attn"], _norm(sh["ln1"], x, cfg), cfg,
                             positions=positions, kv_cache=kv,
                             cache_len=cache_len, return_kv=return_kv)
@@ -505,7 +538,7 @@ def _shared_block(sh: Params, x, cfg, positions, kv=None, cache_len=None,
 
 def _mamba_train_layer(lp: Params, x, cfg, kernels):
     st = M2.init_mamba2_state(cfg, x.shape[0], x.device)
-    return M2.mamba2_block(lp, x, cfg, st, kernels=kernels)[0]
+    return M2.mamba2_block(TP.use(lp), x, cfg, st, kernels=kernels)[0]
 
 
 def _shared_train(sh: Params, x, cfg, positions):
@@ -538,8 +571,8 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck):
     def mamba_layer(x, i):
         st = (_layer(state["mamba"], i) if decode
               else M2.init_mamba2_state(cfg, b, x.device))
-        return M2.mamba2_block(layers[i], x, cfg, st, single_step=decode,
-                               kernels=kernels)
+        return M2.mamba2_block(TP.use(layers[i]), x, cfg, st,
+                               single_step=decode, kernels=kernels)
 
     g_states, kvs = [], []
     for g in range(n_groups):
@@ -640,8 +673,15 @@ def init_decode_state(cfg: ArchConfig, batch: int, capacity: int,
 
 def _xent_chunk(params: Params, cfg: ArchConfig, h: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
-    """Summed NLL of one chunk: h [B, C, D], labels [B, C] (or [B, C, K])."""
-    logp = F.log_softmax(unembed_hidden(params, cfg, h), dim=-1)
+    """Summed NLL of one chunk: h [B, C, D], labels [B, C] (or [B, C, K]);
+    over a head held split on the vocabulary, :func:`~repro_torch.
+    distributed.tensor_parallel.vocab_nll` of this rank's logits."""
+    logits = unembed_hidden(params, cfg, h)
+    group = None if cfg.n_codebooks else TP.group_of(
+        params, "embed" if cfg.tie_embeddings else "lm_head")
+    if group is not None:
+        return TP.vocab_nll(logits, labels, group)
+    logp = F.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, labels[..., None].long()).sum()
 
 
@@ -660,6 +700,7 @@ def chunked_xent_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
     chunk = min(chunk, s)
     while s % chunk:
         chunk -= 1
+    params = TP.hold(params, cfg)
     ck = torch.is_grad_enabled()
     total = torch.zeros((), device=hidden.device)
     for lo in range(0, s, chunk):
@@ -673,6 +714,7 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
             remat: bool = True, loss_chunk: int = 512) -> tuple:
     """batch: {"tokens", "labels", optional "positions"} -> (loss,
     {"ce", "aux"}): the training forward and :func:`chunked_xent_loss`."""
+    params = TP.hold(params, cfg)
     out = forward(params, cfg, batch["tokens"],
                   positions=batch.get("positions"), mode="train",
                   remat=remat)
@@ -683,11 +725,13 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
 
 def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                 positions: Optional[torch.Tensor] = None,
-                kernels: bool = True) -> tuple:
+                remat: bool = False, kernels: bool = True) -> tuple:
     """Small-scale helper (tests): full [B, S, V] (or [B, S, K, V])
-    logits and the aux loss."""
+    logits and the aux loss. ``remat``: under autograd each layer is
+    recomputed in backward (the reference's keyword; the same bits)."""
+    params = TP.hold(params, cfg)
     out = forward(params, cfg, tokens, positions=positions, mode="train",
-                  remat=False, kernels=kernels)
+                  remat=remat, kernels=kernels)
     return unembed_hidden(params, cfg, out.hidden), out.aux
 
 
@@ -699,6 +743,7 @@ def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     are new tensors; a ``hybrid`` or transformer state's caches are the
     given ones, written in place. ``unroll``: a transformer's state comes
     back with per-layer cache lists (the reference's unrolled decode)."""
+    params = TP.hold(params, cfg)
     out = forward(params, cfg, tokens, positions=positions, mode="decode",
                   state=state, unroll_decode=unroll)
     return unembed_hidden(params, cfg, out.hidden), out.state
@@ -709,6 +754,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             kernels: bool = True) -> tuple:
     """Prompt pass: (last-position logits [B, 1, V], decode state with
     K/V capacity == prompt length)."""
+    params = TP.hold(params, cfg)
     out = forward(params, cfg, tokens, positions=positions, mode="prefill",
                   kernels=kernels)
     logits = unembed_hidden(params, cfg, out.hidden[:, -1:])

@@ -24,6 +24,15 @@ gather and a scatter of rows:
 The gathers are :class:`_RowGather`, whose backward is a gather too: no
 atomic adds, so a step gives the same bits every time, and no host
 sync, so the decode step can be captured as a CUDA graph.
+
+Expert-parallel (``ep``, the ruled steps' ``expert`` group; see
+``distributed/tensor_parallel.py``): the tokens are replicated over the
+group, so every rank routes them all (the same routes, capacity and
+aux); each holds E / n experts and gathers the rows of its own experts'
+slots only (the MC tree), runs their products, weights and sums its own
+routes' outputs into a partial float32 ``y``, and ``y`` is summed over
+the group before the one rounding (the ME tree). No all-to-all, as in
+the reference's compiled program under its ``tp_ep`` rules.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import BatchSplit, current_split
+from repro_torch.distributed.tensor_parallel import (Group, copy_to,
+                                                     reduce_from)
 from repro_torch.models.layers import Params, _dense_init, dot, mlp
 
 
@@ -140,7 +151,8 @@ def _plan(p: Params, xt: torch.Tensor, cfg: ArchConfig,
 
 
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-            group_size: Optional[int] = None
+            group_size: Optional[int] = None, ep: Optional[Group] = None,
+            shared_tp: Optional[Group] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE MLP. x [B, S, D] -> (y [B, S, D], aux loss, float32 scalar),
     in groups of ``group_size`` tokens (the reference's
@@ -151,28 +163,37 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     groups are the whole batch's: a shard of whole groups routes them
     here (the expert shares of the aux counted over all shards); where
     a group spans shards, the batch is gathered and this shard's rows of
-    the whole layer's output are returned."""
+    the whole layer's output are returned.
+
+    ``ep``: the experts split over an expert-parallel group (``p``'s
+    expert stacks are this rank's E / n); ``shared_tp``: the shared
+    experts' d_ff split over a tensor-parallel group."""
     split = current_split()
     if split is None or split.n == 1:
         return _moe(p, x, cfg, group_size or _pick_group_size(
-            x.shape[0] * x.shape[1]))
+            x.shape[0] * x.shape[1]), None, ep, shared_tp)
     tg = group_size or _pick_group_size(x.shape[0] * x.shape[1] * split.n)
     if (x.shape[0] * x.shape[1]) % tg:         # a group spans shards
-        y, aux = _moe(p, split.gather(x), cfg, tg)
+        y, aux = _moe(p, split.gather(x), cfg, tg, None, ep, shared_tp)
         return split.local(y), aux
-    return _moe(p, x, cfg, tg, split)
+    return _moe(p, x, cfg, tg, split, ep, shared_tp)
 
 
 def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
-         split: Optional[BatchSplit] = None
+         split: Optional[BatchSplit] = None, ep: Optional[Group] = None,
+         shared_tp: Optional[Group] = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
     mo = cfg.moe
     b, s, d = x.shape
     t = b * s
     g = t // tg
-    e, k = mo.n_experts, mo.top_k
+    k = mo.top_k
     xt = x.reshape(g, tg, d)
     weights, idx, pos, keep, cap, aux = _plan(p, xt, cfg, split)
+    e = p["w_gate"].shape[0]                       # the experts run here
+    if ep is not None:                 # this rank's experts' routes only
+        idx = idx - ep.index * e
+        keep = keep & (idx >= 0) & (idx < e)
 
     # slot ids e * (G * C) + g * C + pos: the buffers come out [E, G*C, D]
     n_slots, n_entries = e * g * cap, t * k
@@ -189,16 +210,17 @@ def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
     entry_of = entry_of[:n_slots]
     token_of = torch.div(entry_of, k, rounding_mode="floor")  # t (or T)
 
-    buf = _RowGather.apply(xt.reshape(t, d), token_of, slot_of, k)
+    buf = _RowGather.apply(copy_to(xt.reshape(t, d), ep), token_of,
+                           slot_of, k)
     buf = buf.view(e, g * cap, d)
     gate = dot(buf, p["w_gate"])                           # bmm over E
     hidden = F.silu(gate.to(torch.float32)) * dot(buf, p["w_up"])
     out = dot(hidden.to(gate.dtype), p["w_down"])          # [E, G*C, D]
     got = _RowGather.apply(out.reshape(n_slots, d), slot_of, entry_of, 1)
-    w = torch.where(keep, weights.reshape(-1), 0.0)
+    w = torch.where(keep, copy_to(weights, ep).reshape(-1), 0.0)
     yt = (w[:, None] * got.to(torch.float32)).view(t, k, d).sum(1)
 
-    y = yt.to(x.dtype)
+    y = reduce_from(yt, ep).to(x.dtype)
     if mo.n_shared_experts:
-        y = y + mlp(p["shared"], xt, "swiglu").reshape(t, d)
+        y = y + mlp(p["shared"], xt, "swiglu", shared_tp).reshape(t, d)
     return y.reshape(b, s, d), aux

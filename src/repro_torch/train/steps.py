@@ -14,17 +14,22 @@ With ``rules`` (a :class:`~repro_torch.distributed.sharding.MeshRules`
 on a ``DeviceMesh``; :func:`make_train_step`) every parameter and Adam
 leaf is a DTensor held with the rules' placements (``param_pspec``; the
 moments as ``launch/specs.py``'s ``_opt_shardings`` lays them out), and
-the batch is split over the ``batch`` axis (``input_shardings``). Each
-rank gathers the parameters, computes its batch shard's loss and
-gradients with the plain code above, and reduces the gradients onto the
-moments' placements (a reduce-scatter); Adam then updates the local
-blocks, and each new block goes to its parameter's placements. Data
-parallelism and ZeRO-3 sharding of the state, then: the tensor- and
-expert-parallel COMPUTE of the reference's GSPMD program (each layer in
-shards, an expert-parallel MoE) is not ported (ROADMAP Queue A, item
-9's levers), so every rank runs whole layers. The ruled prefill and
-serve steps split the request batch the same way: each rank serves its
-shard, and the logits and tokens are gathered.
+the batch is split over the ``batch`` axis (``input_shardings``). The
+model gets the placed DTensor tree and computes each rank's batch shard
+in shards (``distributed/tensor_parallel.py``): each layer gathers its
+own leaves where it runs, over the ``fsdp`` / ``batch`` axes only
+(ZeRO-3, gathered again in the backward); GQA attention and the MLPs
+run tensor-parallel over the ``tensor`` axis (column- then row-parallel,
+the partial sums reduced: the paper's ME tree), the MoE expert-parallel
+over the ``expert`` axis (each rank its own experts' slots: the MC
+tree), the embedding, head and loss over the vocabulary. The gathers'
+backward reduce-scatters each gradient onto its leaf's placements,
+summed over the batch shards; Adam then updates the local blocks, and
+each new block goes to its parameter's placements. MLA, the codebook
+heads and the recurrent layers are gathered per layer and computed whole
+(ROADMAP Queue A, item 9c). The ruled prefill and serve steps compute
+the same way on each rank's shard of the request batch; the logits and
+tokens are gathered.
 
 The reference jits its train step with the parameters and optimizer
 state donated; the port's step returns new trees (``adam_update`` is
@@ -49,6 +54,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import resolve_device
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.tensor_parallel import local_block as _local
 from repro_torch.distributed.sharding import (AbstractMesh, BatchSplit,
                                               MeshRules, NamedSharding,
                                               _axis_size, _is_dtensor, _names,
@@ -91,7 +98,8 @@ def loss_and_grads(params, cfg: ArchConfig, batch: dict,
     metrics, grads), detached; ``grads`` mirrors ``params``, each leaf
     in its parameter's dtype (zeros for a leaf the loss does not read,
     as ``jax.grad`` gives)."""
-    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    leaves = tree_map(lambda t: _with_local(t, _local(t).detach())
+                      .requires_grad_(), params)
     flat: list = []
     tree_map(flat.append, leaves)
     with torch.enable_grad():
@@ -112,25 +120,39 @@ def _split(x: torch.Tensor, n_micro: int) -> torch.Tensor:
     return x.reshape(n_micro, -1, *x.shape[1:])
 
 
+def _with_local(like: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """``local`` as a DTensor with ``like``'s placements where ``like``
+    is one, else ``local``."""
+    if not _is_dtensor(like):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False)
+
+
 def _accumulate(params, cfg: ArchConfig, batch: dict, hp: TrainHParams,
                 local=lambda b: b) -> tuple:
     """(loss, metrics, grads) over ``hp.n_micro`` microbatches of
     ``batch``: the gradients summed in ``hp.accum_dtype`` and divided by
     ``n_micro``, the loss and every metric their means. ``local`` maps
-    each (micro)batch to what this rank computes."""
+    each (micro)batch to what this rank computes. DTensor leaves are
+    summed through their local blocks: DTensor's sharding propagation
+    would build a tensor of the global shape per op (a 36 GiB meta
+    tensor per expert leaf of qwen3-moe-30b-a3b in the dry run)."""
     if hp.n_micro == 1:
         return loss_and_grads(params, cfg, local(batch), hp)
     micro = {k: _split(v, hp.n_micro) for k, v in batch.items()}
-    grads = tree_map(lambda p: torch.zeros(
-        p.shape, dtype=hp.accum_dtype, device=p.device), params)
+    grads = tree_map(lambda p: _with_local(p, torch.zeros_like(
+        _local(p), dtype=hp.accum_dtype)), params)
     losses, seen = [], []
     for i in range(hp.n_micro):
         l, metrics, g = loss_and_grads(
             params, cfg, local({k: v[i] for k, v in micro.items()}), hp)
-        tree_map(lambda a, b: a.add_(b.to(hp.accum_dtype)), grads, g)
+        tree_map(lambda a, b: _local(a).add_(_local(b).to(hp.accum_dtype)),
+                 grads, g)
         losses.append(l)
         seen.append(metrics)
-    tree_map(lambda g: g.div_(hp.n_micro), grads)
+    tree_map(lambda g: _local(g).div_(hp.n_micro), grads)
     loss = sum(losses) / hp.n_micro              # in order, as a scan
     metrics = {k: torch.stack([m[k] for m in seen]).mean()
                for k in seen[0]}
@@ -216,6 +238,30 @@ def _place(x, mesh, pl: list):
     return distribute_tensor(x, mesh, pl, src_data_rank=None)
 
 
+def place_params(params, rules: MeshRules):
+    """``params`` with every tensor leaf a DTensor with ``param_pspec``'s
+    placements on ``rules.mesh`` (see :func:`place_train_state`)."""
+    psh = param_shardings(params, rules)
+    return tree_map_with_path(
+        lambda _, x, sh: _place(x, rules.mesh, sh.placements), params, psh)
+
+
+def _in_view(x, view: tuple, pl: list) -> torch.Tensor:
+    """This rank's block of DTensor ``x`` reshaped to ``view`` (an int8
+    moment's block view [..., F / B, B] of a [..., F] leaf, or its own
+    shape) under placements ``pl`` of the view; the last dim is gathered
+    first where the view splits it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    if tuple(x.shape) != tuple(view):
+        whole = [Replicate() if isinstance(p, Shard) and p.dim == x.ndim - 1
+                 else p for p in x.placements]
+        loc = _place(x, mesh, whole).to_local()
+        x = DTensor.from_local(loc.reshape(*loc.shape[:-1], *view[-2:]),
+                               mesh, whole, run_check=False)
+    return _place(x, mesh, pl).to_local()
+
+
 def place_train_state(params, opt_state: AdamState, rules: MeshRules
                       ) -> tuple:
     """(params, opt_state) with every tensor leaf a DTensor on
@@ -226,12 +272,11 @@ def place_train_state(params, opt_state: AdamState, rules: MeshRules
     ruled step does this on every call (a no-op once placed); a caller
     that places first can free its plain trees before the step."""
     mesh = rules.mesh
-    psh = param_shardings(params, rules)
     osh = opt_state_shardings(opt_state, params, rules)
 
     def place(_, x, sh):
         return x if isinstance(x, int) else _place(x, mesh, sh.placements)
-    return (tree_map_with_path(place, params, psh),
+    return (place_params(params, rules),
             AdamState(opt_state.step, *(tree_map_with_path(place, t, ts)
                                         for t, ts in zip(opt_state[1:],
                                                          osh[1:]))))
@@ -252,6 +297,76 @@ def batch_shard(batch: dict, rules: MeshRules) -> tuple:
              for k, v in batch.items()}, split)
 
 
+def ruled_loss_and_grads(params, cfg: ArchConfig, batch: dict,
+                         hp: TrainHParams, rules: MeshRules) -> tuple:
+    """The ruled step's (loss, metrics, grads) before Adam: ``params``
+    placed (DTensors), ``batch`` global; the loss and metrics the whole
+    batch's means on every rank, each gradient a DTensor on its
+    parameter's placements: the whole batch's (see
+    :func:`_ruled_train_step`)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = rules.mesh
+    batch = gather_tree(batch)
+    first = batch if hp.n_micro == 1 else \
+        {k: _split(v, hp.n_micro)[0] for k, v in batch.items()}
+    split = batch_shard(first, rules)[1]
+    with mesh_rules(rules), batch_split(split):
+        loss, metrics, grads = _accumulate(
+            params, cfg, batch, hp, lambda b: batch_shard(b, rules)[0])
+    part = [Partial() if n in split.dims else Replicate()
+            for n in mesh.mesh_dim_names]
+
+    def mean(t):
+        return DTensor.from_local(t, mesh, part).full_tensor() / split.n
+    tree_map(lambda g: _local(g).div_(split.n), grads)
+    return mean(loss), {k: mean(v) for k, v in metrics.items()}, grads
+
+
+def _adam_blocks(p, g, m, v, ms=None, vs=None, bc1=None, bc2=None,
+                 opt_cfg: AdamConfig = None) -> list:
+    """Adam on one leaf's DTensors (parameter, gradient, moments, and an
+    int8 leaf's scales, each on its own placements): the new ones, on the
+    same placements. Adam runs on the moments' layout (an int8 moment's
+    in its block view, with its block dim whole), elementwise on the
+    local blocks (``adam_leaf``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, quantized = p.device_mesh, ms is not None
+    view = (blocked_shape(p.shape, opt_cfg.block) if quantized
+            else tuple(p.shape))
+    pl = [Replicate() if quantized and isinstance(x, Shard)
+          and x.dim == len(view) - 1 else x for x in m.placements]
+    out = adam_leaf(_in_view(p, view, pl), _in_view(g, view, pl),
+                    *(_place(x, mesh, pl).to_local() for x in (m, v)),
+                    *(x if x is None else _place(x, mesh, pl).to_local()
+                      for x in (ms, vs)),
+                    bc1, bc2, opt_cfg, quantized)
+
+    def put(o, like):                # a local block of Adam's layout
+        return _place(DTensor.from_local(o, mesh, pl), mesh, like.placements)
+    p_new = out[0].reshape(*out[0].shape[:-2], -1) if quantized else out[0]
+    return [put(p_new, p), put(out[1], m), put(out[2], m)] + (
+        [put(out[3], ms), put(out[4], ms)] if quantized else [])
+
+
+def _unstack_blocks(x) -> list:
+    """A DTensor's per-index DTensors along its unsharded dim 0 (views of
+    its local block)."""
+    from torch.distributed.tensor import DTensor, Shard
+    pl = [Shard(q.dim - 1) if isinstance(q, Shard) else q
+          for q in x.placements]
+    return [DTensor.from_local(t, x.device_mesh, pl, run_check=False)
+            for t in x.to_local().unbind(0)]
+
+
+def _stack_blocks(xs) -> torch.Tensor:
+    """:func:`_unstack_blocks` undone: one DTensor of the stacked blocks."""
+    from torch.distributed.tensor import DTensor, Shard
+    pl = [Shard(q.dim + 1) if isinstance(q, Shard) else q
+          for q in xs[0].placements]
+    return DTensor.from_local(torch.stack([x.to_local() for x in xs]),
+                              xs[0].device_mesh, pl, run_check=False)
+
+
 def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
     """The train step on a mesh. Every rank of ``rules.mesh`` calls it
     with the same global ``batch`` (plain tensors, or DTensors) and the
@@ -262,81 +377,55 @@ def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
 
     Each microbatch is split over the ``batch`` axis
     (:func:`batch_shard`).
-    Each rank runs :func:`loss_and_grads` on its shard with the gathered
+    Each rank runs :func:`loss_and_grads` on its shard with the placed
     parameters, under ``mesh_rules`` and a
-    :class:`~repro_torch.distributed.sharding.BatchSplit`, so that the
-    MoE layer routes the whole batch's groups. The loss and metrics are
-    the means over the shards (a shard's loss is its own tokens' mean,
-    and the shards are equal). The gradients, summed over the shards
-    and divided by their number, are reduced straight onto the moments'
-    placements (an int8 moment's in its block view, with its block dim
-    whole), where Adam updates the local blocks elementwise
-    (``adam_leaf``); each new parameter block then goes to its
-    parameter's placements. On a one-rank mesh this is the plain step,
-    bit for bit.
+    :class:`~repro_torch.distributed.sharding.BatchSplit`: the model
+    gathers each layer's leaves where it runs and computes the tensor-
+    and expert-parallel layers in shards (``distributed/
+    tensor_parallel.py``), and the MoE layer routes the whole batch's
+    groups. The loss and metrics are the means over the shards (a
+    shard's loss is its own tokens' mean, and the shards are equal). The
+    gradients arrive on the parameters' placements, summed over the
+    shards (the gathers' backward); divided by the shards' number, they
+    go to the moments' placements (an int8 moment's in its block view,
+    with its block dim whole), where Adam updates the local blocks
+    elementwise (``adam_leaf``); each new parameter block then goes to
+    its parameter's placements. On a one-rank mesh this is the plain
+    step, bit for bit.
     """
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Shard
     if isinstance(rules.mesh, AbstractMesh):
         raise ValueError("a ruled train step runs on a DeviceMesh; an "
                          "AbstractMesh only lays out specs")
-    mesh = rules.mesh
-    names = tuple(mesh.mesh_dim_names)
     opt_cfg = _adam_cfg(hp)
     q = opt_cfg.quantized_state
 
     def train_step(params, opt_state, batch):
         params, opt_state = place_train_state(params, opt_state, rules)
-        psh = flat_tree(param_shardings(params, rules))
-        osh = opt_state_shardings(opt_state, params, rules)
         state = [flat_tree(t) for t in opt_state[1:]]
-        m_sh, ms_sh = flat_tree(osh.m), flat_tree(osh.m_scale)
-        batch = gather_tree(batch)
-        first = batch if hp.n_micro == 1 else \
-            {k: _split(v, hp.n_micro)[0] for k, v in batch.items()}
-        split = batch_shard(first, rules)[1]
-        part = [Partial() if n in split.dims else Replicate()
-                for n in names]
-
-        full = gather_tree(params)
-        with mesh_rules(rules), batch_split(split):
-            loss, metrics, grads = _accumulate(
-                full, cfg, batch, hp, lambda b: batch_shard(b, rules)[0])
-        grads, full = flat_tree(grads), flat_tree(full)
-
-        def mean(t):
-            return DTensor.from_local(t, mesh, part).full_tensor() / split.n
-
+        loss, metrics, grads = ruled_loss_and_grads(params, cfg, batch, hp,
+                                                    rules)
+        grads = flat_tree(grads)
         bc1, bc2 = bias_corrections(opt_state.step, opt_cfg)
 
         def update(k, p):
             m, v, ms, vs = (st.get(k) for st in state)
             quantized = q and ms.numel() > 0
-            view = (blocked_shape(p.shape, opt_cfg.block) if quantized
-                    else tuple(p.shape))
-            # Adam's layout: the moments', with an int8 block whole
-            pl = [Replicate() if quantized and isinstance(x, Shard)
-                  and x.dim == len(view) - 1 else x
-                  for x in m_sh[k].placements]
-            # the gathered weight and the local gradient are freed here
-            g = DTensor.from_local(grads.pop(k).reshape(view), mesh, part) \
-                .redistribute(mesh, pl).to_local() / split.n
-            blk = _place(full.pop(k).reshape(view), mesh, pl).to_local()
-            scales = (ms, vs) if quantized else (None, None)
-            out = adam_leaf(blk, g, *(_place(x, mesh, pl).to_local()
-                                      for x in (m, v)),
-                            *(x if x is None else _place(x, mesh, pl)
-                              .to_local() for x in scales),
-                            bc1, bc2, opt_cfg, quantized)
-
-            def put(o, sh):            # a local block of Adam's layout
-                return _place(DTensor.from_local(o, mesh, pl), mesh,
-                              sh.placements)
-            p_new = out[0].reshape(*out[0].shape[:-2], -1) if quantized \
-                else out[0]
-            return [put(p_new, psh[k]), put(out[1], m_sh[k]),
-                    put(out[2], m_sh[k])] + (
-                [put(out[3], ms_sh[k]), put(out[4], ms_sh[k])] if quantized
-                else [ms, vs])
+            # the gradient is freed here
+            leaf = [p, grads.pop(k), m, v] + ([ms, vs] if quantized else [])
+            if quantized and p.ndim >= 3 and not any(
+                    isinstance(x, Shard) and x.dim == 0
+                    for t in leaf for x in t.placements):
+                # a stacked int8 leaf one layer at a time: where its
+                # moments split the expert dim over two axes, DTensor
+                # moves a block between the layouts by gathering it whole
+                # (deepseek-v3's w_down: 406 GiB a rank for the stack)
+                new = [_stack_blocks(o) for o in zip(*(
+                    _adam_blocks(*xs, bc1=bc1, bc2=bc2, opt_cfg=opt_cfg)
+                    for xs in zip(*map(_unstack_blocks, leaf))))]
+            else:
+                new = _adam_blocks(*leaf, bc1=bc1, bc2=bc2, opt_cfg=opt_cfg)
+            return new if quantized else new + [ms, vs]
 
         new = {k: update(k, p) for k, p in flat_tree(params).items()}
 
@@ -345,15 +434,13 @@ def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
 
         new_state = AdamState(opt_state.step + 1, pick(1), pick(2),
                               *((pick(3), pick(4)) if q else ()))
-        return pick(0), new_state, {"loss": mean(loss),
-                                    **{k: mean(v) for k, v in
-                                       metrics.items()}}
+        return pick(0), new_state, {"loss": loss, **metrics}
 
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, kernels: bool = True, *,
-                      rules: MeshRules | None = None):
+def make_prefill_step(cfg: ArchConfig, rules: MeshRules | None = None, *,
+                      kernels: bool = True):
     """prefill_step(params, batch) -> (last-token logits, decode state).
 
     ``batch``: {"tokens" [B, S] ([B, S, K] codebook ids), optional
@@ -361,13 +448,14 @@ def make_prefill_step(cfg: ArchConfig, kernels: bool = True, *,
     through the CUDA kernels unless ``kernels`` is False.
 
     ``rules``: a ``MeshRules`` on a ``DeviceMesh``; every rank calls the
-    step with the same global batch and parameters (DTensor leaves are
-    gathered). Each rank prefills its own shard of the batch
-    (:func:`batch_shard`) under ``mesh_rules`` and the shard's
-    ``batch_split``, and the logits are gathered: the whole batch's, on
-    every rank. The decode state is this rank's shard's, for
-    :func:`make_serve_step` with the same rules. Every rank runs whole
-    layers (tensor- and expert-parallel compute is not ported).
+    step with the same global batch and parameters (plain leaves are
+    placed first, keeping this rank's blocks). Each rank prefills its own
+    shard of the batch (:func:`batch_shard`) under ``mesh_rules`` and the
+    shard's ``batch_split``, computing each layer in shards as the ruled
+    train step does, and the logits are gathered (the vocabulary, then
+    the rows): the whole batch's, on every rank. The decode state is this
+    rank's: its batch shard, and its K/V heads where attention splits
+    them; for :func:`make_serve_step` with the same rules.
     """
     def prefill_step(params, batch):
         if rules is None:
@@ -376,12 +464,22 @@ def make_prefill_step(cfg: ArchConfig, kernels: bool = True, *,
                              kernels=kernels)
         mine, split = batch_shard(gather_tree(batch), rules)
         with mesh_rules(rules), batch_split(split):
-            logits, state = M.prefill(gather_tree(params), cfg,
+            logits, state = M.prefill(place_params(params, rules), cfg,
                                       mine["tokens"],
                                       positions=mine.get("positions"),
                                       kernels=kernels)
+            group = _vocab_group(cfg)
+            if group is not None:
+                logits = TP.vocab_gather(logits, group)
         return _gather_rows(logits, split), state
     return prefill_step
+
+
+def _vocab_group(cfg: ArchConfig):
+    """The group the ruled steps split ``cfg``'s vocabulary over (under
+    the active rules and batch split), or None."""
+    plan = TP.plan_for(cfg)
+    return plan.tp if plan.vocab else None
 
 
 def _gather_rows(x: torch.Tensor, split: BatchSplit) -> torch.Tensor:
@@ -389,14 +487,19 @@ def _gather_rows(x: torch.Tensor, split: BatchSplit) -> torch.Tensor:
     return split.gather(x) if split.n > 1 else x
 
 
-def greedy(logits: torch.Tensor) -> torch.Tensor:
+def greedy(logits: torch.Tensor, group=None) -> torch.Tensor:
     """The greedy next token of the last position: [B] int32 ([B, K]
-    from [B, S, K, V] codebook logits, each codebook's own argmax)."""
+    from [B, S, K, V] codebook logits, each codebook's own argmax).
+    ``group``: the logits are this rank's vocabulary shard of a split
+    over it, and the argmax is taken across the shards (ties to the
+    lowest global index, as ``torch.argmax``'s)."""
+    if group is not None:
+        return TP.vocab_argmax(logits[:, -1], group).to(torch.int32)
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
-def make_serve_step(cfg: ArchConfig, unroll: bool = False, *,
-                    rules: MeshRules | None = None):
+def make_serve_step(cfg: ArchConfig, rules: MeshRules | None = None,
+                    unroll: bool = False):
     """serve_step(params, tokens, state) -> (next token ids, new state).
 
     One decode step for the whole request batch: the greedy next token
@@ -410,8 +513,8 @@ def make_serve_step(cfg: ArchConfig, unroll: bool = False, *,
     lists (``init_decode_state(unrolled=True)``; the reference's
     unrolled decode).
     ``rules``: as :func:`make_prefill_step`'s. ``tokens`` is the whole
-    batch's and ``state`` this rank's shard's (the ruled prefill's); the
-    rank decodes its shard, and the next tokens are gathered.
+    batch's and ``state`` this rank's (the ruled prefill's); the rank
+    decodes its shard in shards, and the next tokens are gathered.
     """
     def serve_step(params, tokens, state):
         if rules is None:
@@ -420,10 +523,11 @@ def make_serve_step(cfg: ArchConfig, unroll: bool = False, *,
             return greedy(logits), new_state
         mine, split = batch_shard({"tokens": gather_tree(tokens)}, rules)
         with mesh_rules(rules), batch_split(split):
-            logits, new_state = M.decode_step(gather_tree(params), cfg,
-                                              mine["tokens"], state,
+            logits, new_state = M.decode_step(place_params(params, rules),
+                                              cfg, mine["tokens"], state,
                                               unroll=unroll)
-        return _gather_rows(greedy(logits), split), new_state
+            tok = greedy(logits, _vocab_group(cfg))
+        return _gather_rows(tok, split), new_state
     return serve_step
 
 
@@ -497,7 +601,7 @@ class StaticServeStep:
     float32, as the plain step returns them. A state copied in is cast
     to those dtypes (bf16 into float32 is exact).
 
-    ``unroll``: the step of ``make_serve_step(cfg, unroll=True)``, a
+    ``unroll``: the step of ``make_serve_step(cfg, None, True)``, a
     transformer's static state allocated as per-layer cache lists.
     With K codebooks the tokens are [B, 1, K] and the step's output
     [B, K].
@@ -654,5 +758,6 @@ def make_graphed_serve_step(cfg: ArchConfig, params,
                             unroll: bool = False) -> GraphedServeStep:
     """The serve step as one CUDA graph per ``(batch, capacity)``; call
     ``precompile(batch, capacity)`` for each shape (after the cache is
-    grown), then use it as ``make_serve_step(cfg, unroll)``'s function."""
+    grown), then use it as ``make_serve_step(cfg, None, unroll)``'s
+    function."""
     return GraphedServeStep(cfg, params, device, unroll)

@@ -25,7 +25,10 @@ reference's (``repro/launch/dryrun.py``), with no device:
   (XLA turns some of those einsums into multiplies at T_g = 1). Train
   cells, dense and recurrent: within 5 % (each side's remat recompute);
 * ``--all`` skips the cells whose JSON is cached and runs the rest as
-  subprocesses of the port's own module.
+  subprocesses of the port's own module;
+* the expert-parallel MoE: the reduced qwen3-moe prefill as rank 0 of a
+  fake (1, 4) group counts a quarter of the one-rank prefill's expert
+  products (one subprocess).
 """
 import json
 import os
@@ -263,3 +266,69 @@ def test_all_skips_cached_cells(tmp_path, monkeypatch, capsys):
     text = capsys.readouterr().out
     assert text.count("[skip]") == len(cells) - 2
     assert f"{len(cells)} ok, 0 failed" in text
+
+
+EXPERT_FLOPS = """
+import json
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import SHAPES, get_reduced
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch.dryrun import cell_specs, materialize
+from repro_torch.launch.hlo_analysis import analyze
+from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+from repro_torch.models import model as M
+from repro_torch.models import moe as MOE
+from repro_torch.train.steps import make_prefill_step
+
+
+def experts(a, b):            # the experts' products: the run's only baddbmm
+    if a.ndim < 3:
+        return dot(a, b)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.baddbmm(torch.zeros((), dtype=dt, device=a.device),
+                         a.to(dt), b.to(dt))
+
+
+dot, MOE.dot = MOE.dot, experts
+cfg = get_reduced("qwen3-moe-30b-a3b")
+strat = pick_strategy(cfg, SHAPES["prefill_32k"])
+shape = ShapeSpec("reduced", 256, 4, "prefill")
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+mesh = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+rules = make_mesh_rules(mesh, strat)
+_, ruled = analyze(make_prefill_step(cfg, rules),
+                   *materialize(cell_specs(cfg, shape, rules, strat), mesh))
+dist.destroy_process_group()
+tokens = torch.empty((4, 256), dtype=torch.int32, device="meta")
+_, plain = analyze(make_prefill_step(cfg), M.init_model(cfg, None, "meta"),
+                   {"tokens": tokens})
+print(json.dumps({"ruled": ruled["flops_by_op"],
+                  "plain": plain["flops_by_op"]}))
+"""
+
+
+def test_expert_parallel_prefill_counts_a_quarter_of_the_experts():
+    """The reduced qwen3-moe prefill (B = 4, S = 256) under
+    ``prefill_32k``'s tp_ep rules, rank 0 of a fake (1, 4) group on
+    meta: its experts' products (made the run's only ``baddbmm``) count a
+    quarter of the one-rank plain prefill's, which count 3 products of
+    2·E·(G·C)·D·F FLOPs per MoE layer (G = 1 group of 1024 tokens, C =
+    1024 slots at capacity factor 4)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.moe import _pick_group_size
+    out = subprocess.run([sys.executable, "-c", EXPERT_FLOPS], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    cfg = get_reduced("qwen3-moe-30b-a3b")
+    mo, t = cfg.moe, 4 * 256
+    tg = _pick_group_size(t)
+    cap = max(int(mo.capacity_factor * tg * mo.top_k / mo.n_experts), 4)
+    want = (cfg.n_layers * 3 * 2 * mo.n_experts * (t // tg) * cap
+            * cfg.d_model * mo.d_ff_expert)
+    assert got["plain"]["baddbmm"] == want
+    assert got["ruled"]["baddbmm"] * 4 == want
+    assert sum(got["ruled"].values()) < sum(got["plain"].values())

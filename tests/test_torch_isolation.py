@@ -115,12 +115,14 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.launch.strategy",
                                    "repro_torch.launch.dryrun",
                                    "repro_torch.launch.hlo_analysis",
-                                   "repro_torch.kernels.ops"])
+                                   "repro_torch.kernels.ops",
+                                   "repro_torch.distributed.tensor_parallel"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
             "from repro_torch.kernels import lif_update, spike_accum, ssd\n"
-            "from repro_torch.kernels.ref import ssd_ref, wkv6_ref\n"
+            "from repro_torch.kernels.ref import (ssd_ref, wkv6_ref,\n"
+            "    spike_accum_ref, lif_update_ref)\n"
             "from repro_torch.models.model import prefill\n"
             "assert callable(forward) and callable(quantize)\n"
             "assert callable(lif_update) and callable(spike_accum)\n"
@@ -549,6 +551,68 @@ bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
 assert not bad, bad
 print("ok")
 """
+
+
+TENSOR_PARALLEL_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs import SHAPES, get_reduced
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import (MeshRules, batch_split,
+                                              gather_tree, mesh_rules)
+from repro_torch.launch.mesh import init_distributed
+from repro_torch.launch.strategy import pick_strategy
+from repro_torch.launch.train import synthetic_batch
+from repro_torch.models import model as M
+from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                     make_prefill_step, make_serve_step,
+                                     make_train_step)
+init_distributed("cpu", store=dist.HashStore(), rank=0, world_size=1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+cfg = get_reduced("qwen3-moe-30b-a3b")
+rules = MeshRules(mesh, pick_strategy(cfg, SHAPES["train_4k"]).logical_rules)
+with mesh_rules(rules), batch_split(None):
+    plan = TP.plan_for(cfg)
+assert plan.tp is None and plan.ep is None and not plan.vocab
+hp = TrainHParams(loss_chunk=8)
+out = []
+for r in (rules, None):        # a one-rank tp_ep mesh: the plain step
+    params = M.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt = init_opt_state(params, hp)
+    params, opt, met = make_train_step(cfg, r, hp)(
+        params, opt, synthetic_batch(cfg, 4, 16, 0))
+    out.append((float(met["loss"]), gather_tree(params)))
+assert out[0][0] == out[1][0]
+a, b = M.flat_tree(out[0][1]), M.flat_tree(out[1][1])
+assert all(torch.equal(a[k], b[k]) for k in b)
+params = M.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+toks = torch.randint(0, cfg.vocab_size, (2, 8))
+got = make_prefill_step(cfg, rules)(params, {"tokens": toks})
+want = make_prefill_step(cfg)(params, {"tokens": toks})
+assert torch.equal(got[0], want[0])
+assert torch.equal(got[1]["main"]["k"], want[1]["main"]["k"])
+dist.destroy_process_group()
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_tensor_parallel_runs_without_jax():
+    """The ruled steps' compute split on a one-rank (1, 1) mesh under
+    qwen3-moe's tp_ep rules: nothing split, the plain step bit for bit
+    (loss, every parameter; the prefill's logits and cache)."""
+    out = subprocess.run([sys.executable, "-c", TENSOR_PARALLEL_WITHOUT_JAX],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
 
 
 @pytest.mark.parametrize("first", ["repro_torch.launch.dryrun",

@@ -14,6 +14,8 @@ the float LIF step rtol = atol = 1e-6 with spikes exact
 2e-5 and bf16 5e-2 (``tests/test_torch_wkv6.py``,
 ``tests/test_torch_ssd.py``). The tile keywords and ``interpret`` change
 nothing on the CPU: every variant is bit for bit the default call.
+``repro_torch.kernels.ref`` has the reference's ``spike_accum_ref`` and
+``lif_update_ref``, and ``models.model.full_logits`` its ``remat=``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -165,3 +167,59 @@ def test_engines_and_kernels_exported():
     assert TC.ENGINES == tuple("torch" if e == "jax" else e
                                for e in RC.ENGINES)
     assert {"ENGINES", "KERNELS"} <= set(RC.__all__)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_kernels_ref_has_the_references_names(dtype):
+    """``repro_torch.kernels.ref`` exports the reference's oracles by its
+    names (defined beside their kernels): the same values on the same
+    inputs, integer bit for bit, float32 within 1e-6."""
+    from repro.kernels import ref as RR
+    from repro_torch.kernels.ref import lif_update_ref, spike_accum_ref
+    rng = np.random.default_rng(11)
+    s = (rng.random((4, 33)) < 0.3).astype(np.float32)
+    w = (rng.integers(-50, 50, (33, 7)) if dtype == "int32"
+         else rng.standard_normal((33, 7))).astype(dtype)
+    got = spike_accum_ref(torch.from_numpy(s), torch.from_numpy(w))
+    want = np.asarray(RR.spike_accum_ref(jnp.asarray(s), jnp.asarray(w)))
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    v = rng.standard_normal(64).astype(np.float32)
+    cur = rng.standard_normal(64).astype(np.float32)
+    got = lif_update_ref(torch.from_numpy(v), torch.from_numpy(cur), 0.2,
+                         0.5, 0.0)
+    want = RR.lif_update_ref(jnp.asarray(v), jnp.asarray(cur), 0.2, 0.5, 0.0)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_full_logits_takes_the_references_remat():
+    """``full_logits(..., remat=True)`` as the reference's: the same bits
+    as ``remat=False`` in the port (logits and every gradient), and the
+    reference's logits within float32's 1e-5 (its parameters carried
+    across in float32)."""
+    import jax
+    from repro.configs import get_reduced as jax_get_reduced
+    from repro.models import model as JM
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    jcfg, cfg = jax_get_reduced("qwen2-1.5b"), get_reduced("qwen2-1.5b")
+    p = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                     JM.init_model(jcfg, jax.random.PRNGKey(0)))
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32)
+    want = np.asarray(JM.full_logits(jax.tree.map(jnp.asarray, p), jcfg,
+                                     jnp.asarray(tokens), remat=True)[0])
+    out = []
+    for remat in (True, False):
+        params = {k: v for k, v in M.params_from_numpy(p, cfg, "cpu").items()}
+        leaves = [params["embed"].requires_grad_(),
+                  params["layers"]["attn"]["wq"].requires_grad_()]
+        logits, _ = M.full_logits(params, cfg, torch.from_numpy(tokens),
+                                  remat=remat)
+        out.append((logits.detach(), torch.autograd.grad(
+            logits.square().sum(), leaves)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    np.testing.assert_allclose(out[0][0].numpy(), want, rtol=1e-5, atol=1e-5)

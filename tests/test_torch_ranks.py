@@ -12,9 +12,13 @@ each test reads its part of the results.
   ``MOMENT_RTOL`` of the plain step's (norm-wise), and the updates
   p - p0 element by element: at most ``OFF_SHARE`` of the tree's
   elements off, and none by more than 2 lr a step with float32
-  moments; where it is not split (tp_ep on (1, 2): the model axis
-  holds replicas) parameters and moments bit for bit; and every local
-  block of every parameter and moment has its shard shape;
+  moments. The tp_ep run on (1, 2) splits no batch but computes
+  attention tensor-parallel and the MoE expert-parallel over ``model``
+  (``distributed/tensor_parallel.py``), so its sums run in another
+  order: it is held to the same tolerances. The tp_ep run on a one-rank
+  (1, 1) mesh (rank 0 alone) is the plain step: parameters and moments
+  bit for bit. Every local block of every parameter and moment has its
+  shard shape;
 * the MoE layer under a two-shard ``batch_split``, a routing group
   inside a shard and one spanning both: each rank's output rows equal
   the whole batch's, the shards' aux losses average to the whole batch's,
@@ -25,9 +29,11 @@ each test reads its part of the results.
   placement, and the (3, 5) array left whole on the axis that does not
   divide it;
 * a checkpoint of a (2, 1) run resharded (``reshard_tree``) onto the
-  (1, 2) mesh of ``replan_mesh(2, model_parallel=2)``: the resumed step
-  equals the plain step from the restored state bit for bit, and the
-  uninterrupted run's within ``LOSS_RTOL``; the training CLI's
+  (1, 2) mesh of ``replan_mesh(2, model_parallel=2)``, whose rules split
+  attention and the MLP over ``model``: the resumed step's loss within
+  ``LOSS_RTOL_FIRST`` of the plain step's from the restored state and
+  its updates within ``OFF_SHARE`` of them, and the uninterrupted run's
+  loss within ``LOSS_RTOL``; the training CLI's
   straggler policy (``remesh``) leaves the next step unchanged;
 * the ruled prefill and decode step on the serving mesh: each rank's
   cache holds its half of the batch, and the gathered logits and tokens
@@ -70,7 +76,8 @@ RUNS = (("qwen2-1.5b", (2, 1), {}, 2),
         ("qwen3-moe-30b-a3b", (2, 1), {}, 2),
         ("qwen3-moe-30b-a3b", (1, 2), {"quantized_opt_state": True}, 2),
         ("qwen3-moe-30b-a3b", (2, 1), {"quantized_opt_state": True,
-                                       "n_micro": 2}, 2))
+                                       "n_micro": 2}, 2),
+        ("qwen3-moe-30b-a3b", (1, 1), {"quantized_opt_state": True}, 2))
 
 WORKER = r"""
 import sys
@@ -139,6 +146,8 @@ def init(cfg, hp):
 for arch, shape, kw, steps in RUNS:
     cfg = get_reduced(arch)
     mesh = mesh_over(shape, ("data", "model"))
+    if mesh.get_coordinate() is None:       # a mesh of rank 0 alone
+        continue
     strat = pick_strategy(cfg, SHAPES["train_4k"])
     rules = MeshRules(mesh, strat.logical_rules)
     hp = TrainHParams(loss_chunk=8, **kw)
@@ -242,8 +251,8 @@ p_a, o_a, m_a = step_a(params, opt, batch1)
 p_b = gather_tree(p_b)
 res["resume"] = {
     "mesh": tuple(mesh_b.mesh.shape), "names": mesh_b.mesh_dim_names,
-    "equal_plain": float(m_b["loss"]) == float(m_p["loss"]) and all(
-        torch.equal(a, b) for a, b in zip(leaves(p_b), leaves(p_p))),
+    "loss_plain": float(m_p["loss"]), "params": p_b, "plain": p_p,
+    "restored": restored[0],
     "loss": float(m_b["loss"]), "uninterrupted": float(m_a["loss"])}
 # the straggler policy: snapshot, re-plan over the ranks, reshard
 p_r, o_r, rules_r = remesh(params, opt, rules_a)
@@ -364,10 +373,10 @@ def test_ruled_step_matches_the_plain_step(ranks, run):
     from repro_torch.models import model as M
     arch, shape, kw, steps = run
     got = ranks[0][(arch, shape, str(kw))]
-    assert got["losses"] == ranks[1][(arch, shape, str(kw))]["losses"]
+    if shape != (1, 1):
+        assert got["losses"] == ranks[1][(arch, shape, str(kw))]["losses"]
     want_losses, want_params, want_opt = _plain(arch, kw, steps)
-    split = not (arch.startswith("qwen3-moe") and shape == (1, 2))
-    if not split:             # the model axis holds replicas: the plain step
+    if shape == (1, 1):       # one rank: the plain step
         assert got["losses"] == want_losses
         for (k, a), (_, b) in zip(_leaves(got["params"]),
                                   _leaves(want_params)):
@@ -408,6 +417,8 @@ def test_ruled_step_matches_the_plain_step(ranks, run):
 @pytest.mark.parametrize("rank", [0, 1])
 def test_every_local_block_has_its_shard_shape(ranks, rank):
     for arch, shape, kw, _ in RUNS:
+        if rank and shape == (1, 1):
+            continue
         assert ranks[rank][(arch, shape, str(kw))]["bad_shards"] == [], \
             (arch, shape, kw)
 
@@ -443,7 +454,17 @@ def test_checkpoint_resharded_onto_a_new_mesh(ranks):
     for r in ranks:
         got = r["resume"]
         assert got["mesh"] == (1, 2) and got["names"] == ("data", "model")
-        assert got["equal_plain"] is True
+        assert abs(got["loss"] - got["loss_plain"]) <= \
+            LOSS_RTOL_FIRST * abs(got["loss_plain"])
+        n_off = n_all = 0
+        p0 = dict(_leaves(got["restored"]))
+        for (k, a), (k2, b) in zip(_leaves(got["params"]),
+                                   _leaves(got["plain"])):
+            assert k == k2 and a.shape == b.shape, k
+            err, tol = _update_error(a, b, p0[k])
+            assert bool((err <= 2 * 3e-4 + tol).all()), k
+            n_off, n_all = n_off + int((err > tol).sum()), n_all + a.numel()
+        assert n_off <= OFF_SHARE * n_all, n_off / n_all
         assert abs(got["loss"] - got["uninterrupted"]) <= \
             LOSS_RTOL * abs(got["uninterrupted"])
         assert r["remesh"] == ((2, 1), True)
