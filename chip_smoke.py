@@ -199,7 +199,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    ``LM_TOL``; the same in bf16 is reported, not gated.
    Last, ``wkv6`` and ``ssd`` must raise on an input that requires grad.
 9. the mesh side (``phase_mesh``), the launch counts set to 0 just
-   before and read just after (none of the six kernels is on it): a
+   before and read just after its nccl part, again around the qwen3-moe
+   and MLA fake-group prefills, and again around the split decode (none
+   of the six kernels is on them; the recurrent prefills between count
+   their own): a
    one-rank nccl process group (a ``HashStore``; ``NCCL_SOCKET_IFNAME``
    set to ``lo`` unless given) and ``init_device_mesh("cuda", (1, 1),
    ("data", "model"))`` with ``pick_strategy``'s fsdp rules for
@@ -228,7 +231,23 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    ``launch.hlo_analysis.analyze`` of that run equal the same rank's
    count on meta, and the meta peak is within ``PEAK_TOL`` of
    ``max_memory_allocated``; ms (warm) and device ms by op printed beside
-   phase 7's whole-model prefill.
+   phase 7's whole-model prefill. In the same group, deepseek-v3-671b cut
+   to 4 layers (B = 4) the same way, MLA on 16 of its 128 heads; then the
+   full-width rwkv6-3b (B = 8) and zamba2-7b (B = 4) prefills on rank 0's
+   head shard (5 of 40, 14 of 112 heads; the leaves these layers gather
+   whole over ``model`` held whole, so both runs read defined values):
+   the chunked run (``kernels=False``) counted on meta and on the card
+   (FLOPs equal, peak within ``PEAK_TOL``), the kernel run with the
+   counts set to 0 just before and read just after (32 ``wkv6`` / 81
+   ``ssd`` launches on [B, S, H/8, 64]), every layer of a kernel run
+   within ``LM_TOL`` of the chunked path on the same input, the whole
+   runs' states compared (reported), ms. Last, rank 0 of a fake group of
+   16 on a (1, 16) mesh: one eager stablelm-12b decode step (B = 8)
+   under ``decode_32k``'s rules over its 2,048 capacity rows of all 8
+   K/V heads (the split-capacity decode), ms, peak and device ms by
+   kernel, then one layer's split decode captured as a CUDA graph (equal
+   to eager bit for bit; only the owned row written); the seconds these
+   cases added.
 10. the dry run (``phase_dryrun``), the launch counts set to 0 just
    before and read just after (it launches none): the plain qwen2-1.5b
    step of phase 8's cell analysed on meta by ``launch.hlo_analysis.
@@ -1490,28 +1509,25 @@ def decode(serve, params, logits, state, batch: int) -> tuple[list, float]:
     return toks, time.perf_counter() - t0
 
 
-def layerwise_prefill(params, cfg, batch_in) -> tuple[dict, torch.Tensor,
-                                                     torch.Tensor]:
-    """One more kernel prefill in which every recurrent layer also runs
-    through the chunked path on the same input (the kernel side carries
-    on). Returns, per leaf (the layer's output and each state leaf), the
-    largest |err| over the layers and whether every layer was within
-    LM_TOL; the prefill's last-position logits; and those of the last
-    layer's chunked output."""
-    from repro_torch.models import layers as L
+def layerwise(cfg, run) -> tuple[dict, object, torch.Tensor]:
+    """``run()``, a kernel prefill, in which every recurrent layer also
+    runs through the chunked path on the same input (the kernel side
+    carries on). Returns, per leaf (the layer's output and each state
+    leaf), the largest |err| over the layers and whether every layer was
+    within LM_TOL; what ``run`` returned; and the last layer's chunked
+    output."""
     from repro_torch.models import mamba2 as M2
-    from repro_torch.models import model as M
     from repro_torch.models import rwkv as RW
-    from repro_torch.train.steps import make_prefill_step
 
     mod, attr = (RW, "rwkv_block") if cfg.family == "ssm" \
         else (M2, "mamba2_block")
     block = getattr(mod, attr)
     worst, last = {}, {}
 
-    def both(p, x, cfg, state, single_step=False, kernels=True):
-        out, st = block(p, x, cfg, state, single_step, kernels=True)
-        out_c, st_c = block(p, x, cfg, state, single_step, kernels=False)
+    def both(p, x, cfg, state, single_step=False, kernels=True, **split):
+        out, st = block(p, x, cfg, state, single_step, kernels=True, **split)
+        out_c, st_c = block(p, x, cfg, state, single_step, kernels=False,
+                            **split)
         for k, a, b in [("out", out, out_c)] + [(k, st[k], st_c[k])
                                                for k in st]:
             e, ok = worst.get(k, (0.0, True))
@@ -1522,10 +1538,24 @@ def layerwise_prefill(params, cfg, batch_in) -> tuple[dict, torch.Tensor,
 
     setattr(mod, attr, both)
     try:
-        logits, _ = make_prefill_step(cfg)(params, batch_in)
+        result = run()
     finally:
         setattr(mod, attr, block)
-    x = L.apply_norm(params["final_norm"], last["x"][:, -1:], cfg.norm_eps)
+    return worst, result, last["x"]
+
+
+def layerwise_prefill(params, cfg, batch_in) -> tuple[dict, torch.Tensor,
+                                                     torch.Tensor]:
+    """:func:`layerwise` of the plain kernel prefill. Returns the worst
+    per leaf, the prefill's last-position logits, and those of the last
+    layer's chunked output."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill_step
+
+    worst, (logits, _), x_last = layerwise(
+        cfg, lambda: make_prefill_step(cfg)(params, batch_in))
+    x = L.apply_norm(params["final_norm"], x_last[:, -1:], cfg.norm_eps)
     return worst, logits, M.unembed_hidden(params, cfg, x)
 
 
@@ -2377,7 +2407,8 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     ``reshard_tree``, one step: equal to the ruled run's third step bit
     for bit. Then :func:`tp_ep_one_rank` on the same mesh and, the nccl
     group gone, :func:`fake_group_prefill`. The six kernels' counts are
-    set to 0 just before and read just after: this path launches none."""
+    set to 0 just before and read before the fake group: this path
+    launches none; the fake group gates its own counts."""
     import os
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2487,10 +2518,11 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
         tp_ep_one_rank(mesh, dev)
     finally:
         dist.destroy_process_group()
-    fake_group_prefill(dev, smi)
     counts = {k: f.launches for k, f in fns.items()}
     expect(not any(counts.values()), f"the mesh phase launched {counts}")
     print(f"mesh phase launches: {counts}")
+    split = fake_group_prefill(dev, smi)
+    print(f"mesh phase, the head-split prefills' counted runs: {split}")
 
 
 FAKE_RANKS = 8       # phase 9's fake group: the (1, 8) mesh's ranks
@@ -2572,87 +2604,435 @@ def rank_blocks(specs, mesh, dev: torch.device, gen=None):
     return tree_map(one, specs)
 
 
-def fake_group_prefill(dev: torch.device, smi: str) -> None:
+# phase 9's head-split recurrent prefills (rank 0 of FAKE_RANKS: 5 of
+# rwkv6-3b's 40 heads, 14 of zamba2-7b's 112) and the MLA prefill
+# (deepseek-v3-671b cut to 4 layers, 16 of 128 heads): (arch, batch,
+# depth or None)
+FAKE_RECURRENT = (("rwkv6-3b", 8, None), ("zamba2-7b", 4, None))
+FAKE_MLA = ("deepseek-v3-671b", 4, 4)
+# one decode step over a capacity-split cache: stablelm-12b's 8 K/V heads
+# divide 8 ranks, so its split (8 K/V heads on 16, the production mesh's
+# decode_32k) runs as rank 0 of a fake group of 16, each rank 1/16 of a
+# decode_32k cache (B = 8 rows, all on rank 0's data coordinate)
+FAKE_DECODE = ("stablelm-12b", 8, 16, 32768)
+# the leaves a head-split layer gathers whole over the tensor axis: held
+# whole over "model" in the fake groups (whose all-gather writes nothing)
+# so that the kernel and chunked runs read defined values
+WHOLE_OVER_MODEL = r"(mamba/(in_proj|conv_w|conv_b)|channel_mix/wr)$"
+
+
+def whole_over_model(specs, pattern: str = WHOLE_OVER_MODEL):
+    """``launch/specs.py`` stand-ins with the leaves at ``pattern`` held
+    whole over the "model" axis (their shards over other axes kept)."""
+    import re
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  tree_map_with_path)
+    from repro_torch.launch.specs import Spec
+
+    def drop(ax):
+        if isinstance(ax, tuple):
+            rest = tuple(a for a in ax if a != "model")
+            return rest if len(rest) > 1 else (rest[0] if rest else None)
+        return None if ax == "model" else ax
+
+    def one(path, sp):
+        if not (isinstance(sp, Spec) and sp.sharding is not None
+                and re.search(pattern, "/".join(map(str, path)))):
+            return sp
+        return Spec(sp.shape, sp.dtype, NamedSharding(
+            sp.sharding.mesh, tuple(drop(a) for a in sp.sharding.spec)))
+    return tree_map_with_path(one, specs)
+
+
+def fake_rank_prefill(cfg, batch: int, meshes: dict, rules: dict, strat,
+                      dev: torch.device, kernels: bool = True,
+                      whole: bool = False) -> dict:
+    """Rank 0's prefill of ``cfg`` (B = ``batch``, S = LM_PROMPT) under
+    ``rules`` from its own blocks, on meta and on the card under
+    ``launch.hlo_analysis.analyze`` (``kernels``: the card's run may
+    launch the recurrences' kernels, which meta cannot see; False for a
+    held count), then 3 warm runs. ``whole``: the stand-ins of
+    :func:`whole_over_model`. Returns the counts, the peak, the blocks'
+    bytes, the timings, the step, its arguments and its output."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import cell_specs
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.train.steps import make_prefill_step
+
+    shape = ShapeSpec("fake_rank0", LM_PROMPT, batch, "prefill")
+
+    def specs(d):
+        sp = cell_specs(cfg, shape, rules[d], strat)
+        return whole_over_model(sp) if whole else sp
+    t0 = time.perf_counter()
+    _, meta = analyze(make_prefill_step(cfg, rules["cpu"], kernels=False),
+                      *rank_blocks(specs("cpu"), meshes["cpu"],
+                                   torch.device("meta")))
+    t_meta = time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    args = rank_blocks(specs("cuda"), meshes["cuda"], dev,
+                       torch.Generator(dev).manual_seed(0))
+    step = make_prefill_step(cfg, rules["cuda"], kernels=kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, card = analyze(step, *args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    held = sum(t.to_local().nbytes for _, t in leaves(args[0]))
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"meta": meta, "card": card, "peak": peak, "held": held,
+            "secs": secs, "t_meta": t_meta, "step": step, "args": args,
+            "out": out}
+
+
+def check_fake_counts(name: str, r: dict) -> float:
+    """The meta count of a fake rank's run against the card's: FLOPs
+    equal, the predicted peak within PEAK_TOL; returns the ratio."""
+    meta, card, peak = r["meta"], r["card"], r["peak"]
+    ratio = meta["peak_bytes"] / peak
+    expect(meta["flops"] == card["flops"],
+           f"{name} fake-group prefill: FLOPs on meta {meta['flops']:.6e} "
+           f"vs on the card {card['flops']:.6e}")
+    expect(abs(ratio - 1) <= PEAK_TOL,
+           f"{name} fake-group prefill: predicted peak "
+           f"{meta['peak_bytes'] / 2**30:.3f} GiB vs the card's "
+           f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f})")
+    return ratio
+
+
+def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
+                        strat, dev: torch.device, smi: str) -> dict:
+    """9d. Rank 0's full-width prefill of a recurrent arch on its head
+    shard: the chunked run (``kernels=False``) counted on meta and on the
+    card (FLOPs equal, peak within PEAK_TOL); the kernel run with the
+    counts set to 0 just before and read just after (one launch of the
+    arch's kernel per layer, on this rank's heads); every layer of a
+    kernel run held to the chunked path on the same input within LM_TOL
+    (:func:`layerwise`), and the two whole runs' states compared
+    (reported). The gathered leaves are held whole over
+    "model" (:func:`whole_over_model`) and the fake all-reduces leave
+    each partial sum as it is, so both runs read the same values."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.tensor_parallel import mesh_plan, ssm_heads
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_config(name)
+    kernel = "wkv6" if cfg.family == "ssm" else "ssd"
+    plan = mesh_plan(cfg, rules["cuda"])
+    expect(plan.heads, f"{name}: its heads do not split over "
+           f"{FAKE_RANKS} ranks ({plan})")
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    chunked = fake_rank_prefill(cfg, batch, meshes, rules, strat, dev,
+                                kernels=False, whole=True)
+    ratio = check_fake_counts(name, chunked)
+    expect(not any(f.launches for f in fns.values()),
+           f"{name}: the chunked prefill launched a kernel")
+    args = chunked["args"]
+    step = make_prefill_step(cfg, rules["cuda"])
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, st = step(*args)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launched = {k: f.launches for k, f in fns.items()}
+    want = {k: (cfg.n_layers if k == kernel else 0) for k in fns}
+    expect(launched == want, f"{name} head-split prefill launched "
+           f"{launched}, want {want}")
+    heads = ssm_heads(cfg) // FAKE_RANKS
+    rec = st["rwkv"]["wkv"] if cfg.family == "ssm" else st["mamba"]["ssm"]
+    expect(rec.shape[2] == heads, f"{name}: the state holds "
+           f"{rec.shape[2]} heads, this rank's are {heads}")
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    breakdown = device_breakdown(lambda: step(*args), min(secs))
+    worst, _, _ = layerwise(cfg, lambda: step(*args))
+    # the states (the logits pass through the fake all-gather, unwritten)
+    ref = dict(leaves(chunked["out"][1]))
+    whole_err = {k: max_err_f(t, ref[k]) for k, t in leaves(st)
+                 if k != "/len"}
+    ok = all(ok for _, ok in worst.values())
+    print(f"  {name} prefill (full width and depth, B = {batch}, S = "
+          f"{LM_PROMPT}, prefill_32k's rules {strat.name}) as rank 0 of "
+          f"{FAKE_RANKS}: {heads} of {ssm_heads(cfg)} heads, {kernel} "
+          f"launched {launched[kernel]} times on [B, S, {heads}, "
+          f"{cfg.ssm.head_dim}]; every layer of the kernel run vs the "
+          f"chunked path on the same input (limit rtol = atol = "
+          f"{LM_TOL['rtol']}): " + ", ".join(
+              f"{k} max |err| {e:.3g}{'' if good else ' FAIL'}"
+              for k, (e, good) in worst.items())
+          + "; whole runs (not gated): " + ", ".join(
+              f"{k} {e:.3g}" for k, e in whole_err.items())
+          + f"; chunked FLOPs meta {chunked['meta']['flops']:.6e} = card "
+          f"{chunked['card']['flops']:.6e}, predicted peak "
+          f"{chunked['meta']['peak_bytes'] / 2**30:.3f} GiB vs "
+          f"{chunked['peak'] / 2**30:.3f} GiB (ratio {ratio:.4f}); ms: "
+          f"kernel first {t_first * 1e3:.1f}, warm "
+          + ", ".join(f"{t * 1e3:.1f}" for t in secs)
+          + "; chunked warm " + ", ".join(f"{t * 1e3:.1f}"
+                                          for t in chunked["secs"])
+          + f"; blocks {chunked['held'] / 2**30:.2f} GiB; kernel run: "
+          f"{breakdown}; card: {smi}")
+    expect(ok, f"{name}: a layer of the head-split kernel prefill differs "
+           f"from the chunked path")
+    del chunked, args, logits, st
+    torch.cuda.empty_cache()
+    return launched
+
+
+def fake_rank_decode(dev: torch.device, smi: str) -> None:
+    """9e. One eager decode step of the full-width ``FAKE_DECODE`` arch as
+    rank 0 of a fake group of its size on a "cuda" (1, n) mesh, under
+    decode_32k's rules, over its capacity rows of every K/V head (the
+    split-capacity decode: the new token's q gathered, the partial
+    softmax merged over "model"; no-op collectives, values not checked):
+    ms, peak above the blocks and device ms by kernel; then
+    :func:`check_split_decode_graph` in the same group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.distributed.tensor_parallel import mesh_plan
+    from repro_torch.launch.dryrun import cell_specs
+    from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+    from repro_torch.train.steps import make_serve_step
+
+    name, batch, ranks, capacity = FAKE_DECODE
+    cfg = get_config(name)
+    strat = pick_strategy(cfg, SHAPES["decode_32k"])
+    shape = ShapeSpec("fake_rank0", capacity, batch, "decode")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
+    try:
+        mesh = init_device_mesh("cuda", (1, ranks),
+                                mesh_dim_names=("data", "model"))
+        rules = make_mesh_rules(mesh, strat)
+        plan = mesh_plan(cfg, rules)
+        expect(plan.cap and not plan.kv, f"{name} on (1, {ranks}): {plan}")
+        torch.cuda.empty_cache()
+        gen = torch.Generator(dev).manual_seed(0)
+        params, tokens, state = rank_blocks(
+            cell_specs(cfg, shape, rules, strat), mesh, dev, gen)
+        state = tree_map(lambda t: t.to_local(), state)
+        state["len"] = torch.tensor(capacity // 2, dtype=torch.int32,
+                                    device=dev)
+        tokens = tokens.full_tensor() % cfg.vocab_size
+        rows = capacity // ranks
+        expect(tuple(state["main"]["k"].shape) == (
+            cfg.n_layers, batch, rows, cfg.n_kv_heads,
+            cfg.resolved_head_dim), f"{name}: rank 0's cache "
+            f"{tuple(state['main']['k'].shape)}")
+        held = sum(t.to_local().nbytes for _, t in leaves(params))
+        cache = sum(t.nbytes for _, t in leaves(state))
+        serve = make_serve_step(cfg, rules)
+        with torch.no_grad():
+            serve(params, tokens, state)                   # warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve(params, tokens, state)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            breakdown = device_breakdown(
+                lambda: serve(params, tokens, state), min(secs))
+        del params, state
+        torch.cuda.empty_cache()
+        graphed = check_split_decode_graph(cfg, rules, dev)
+    finally:
+        dist.destroy_process_group()
+    print(f"  {name} decode step (full width and depth, B = {batch}, "
+          f"decode_32k's rules {strat.name}, capacity {capacity}) as rank "
+          f"0 of a fake group of {ranks}: {cfg.n_kv_heads} K/V heads do "
+          f"not split {ranks} ways, so it holds rows [0, {rows}) of every "
+          f"K/V head ({cache / 2**30:.2f} GiB of cache, {held / 2**30:.2f} "
+          f"GiB of blocks); eager ms "
+          + ", ".join(f"{t * 1e3:.2f}" for t in secs)
+          + f"; peak above its inputs {peak / 2**30:.3f} GiB; {breakdown}; "
+          f"{graphed}; card: {smi}")
+
+
+def check_split_decode_graph(cfg, rules, dev: torch.device) -> str:
+    """One layer's attention decode over a capacity-split cache (this
+    rank's 256 rows of every K/V head, B = 8) captured as a CUDA graph:
+    the replay equal to eager bit for bit (output and cache), the row of
+    a position this rank owns written and no other, and with the
+    position moved to another rank's rows, the cache left as it was (the
+    write is a masked local index, no host read)."""
+    from repro_torch.distributed.tensor_parallel import mesh_plan
+    from repro_torch.models import layers as L
+
+    group = mesh_plan(cfg, rules).tp
+    gen = torch.Generator(dev).manual_seed(0)
+    p = L.init_attention(cfg, gen, dev)
+    b, c = 8, 256
+    x = torch.randn((b, 1, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ck = torch.randn((b, c, cfg.n_kv_heads, cfg.resolved_head_dim),
+                     generator=gen, device=dev).to(torch.bfloat16)
+    cv = torch.randn_like(ck)
+    n = torch.tensor(100, dtype=torch.int32, device=dev)
+    pos = n + torch.arange(1, device=dev)
+
+    def run(k, v):
+        with torch.no_grad():
+            return L.attention(p, x, cfg, positions=pos, kv_cache=(k, v),
+                               cache_len=n, cap=group)[0]
+    e_ck, e_cv = ck.clone(), cv.clone()
+    want = run(e_ck, e_cv)
+    s_ck, s_cv = ck.clone(), cv.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        run(s_ck.clone(), s_cv.clone())
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(s_ck, s_cv)
+    graph.replay()
+    torch.cuda.synchronize()
+    row = int(n)
+    others = [i for i in range(c) if i != row]
+    expect(torch.equal(out, want) and torch.equal(s_ck, e_ck)
+           and torch.equal(s_cv, e_cv), "the captured split decode differs "
+           "from eager")
+    expect(not torch.equal(s_ck[:, row], ck[:, row])
+           and torch.equal(s_ck[:, others], ck[:, others]),
+           "the split decode wrote another row than its position's")
+    n.fill_(c + 5)                     # a position another rank owns
+    pos.copy_(n + torch.arange(1, device=dev))
+    before = s_ck.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    expect(torch.equal(before, s_ck), "the split decode wrote a position "
+           "another rank owns")
+    return ("one layer's split decode captured as a CUDA graph: equal to "
+            "eager bit for bit, the owned row written alone, another "
+            "rank's position left unwritten")
+
+
+def fake_group_prefill(dev: torch.device, smi: str) -> dict:
     """9c. Rank 0 of a fake group of FAKE_RANKS on a "cuda" (1, 8) mesh:
     the full qwen3-moe-30b-a3b prefill (B = 8, S = LM_PROMPT) under
     prefill_32k's rules, from rank 0's own blocks: FLOPs equal to the
     meta count of the same rank, the meta peak within PEAK_TOL of the
     card's; ms and device ms by op beside phase 7's whole-model prefill.
     The fake group's collectives do nothing (an all-gather leaves its
-    output unwritten), so the values are not checked."""
+    output unwritten), so the values are not checked. Then, in the same
+    group, FAKE_MLA's prefill the same way (MLA on 16 of 128 heads), and
+    the head-split recurrent prefills of FAKE_RECURRENT
+    (:func:`fake_rank_recurrent`); last :func:`fake_rank_decode`. The
+    six kernels' counts are set to 0 just before the qwen3-moe prefill
+    and read just after the MLA one, and again around the decode: those
+    launch none (the recurrent prefills gate their own). Prints the
+    seconds these added; returns the recurrent kernels' launches."""
+    import dataclasses
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.configs import SHAPES, get_config
-    from repro_torch.configs.shapes import ShapeSpec
-    from repro_torch.launch.dryrun import cell_specs
-    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.distributed.tensor_parallel import mesh_plan
     from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
-    from repro_torch.train.steps import make_prefill_step
 
     name, batch = "qwen3-moe-30b-a3b", 8
     cfg = get_config(name)
     strat = pick_strategy(cfg, SHAPES["prefill_32k"])
-    shape = ShapeSpec("fake_rank0", LM_PROMPT, batch, "prefill")
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=FAKE_RANKS)
+    launched = {}
+    fns = counters()
+
+    def no_launches(what: str) -> None:
+        counts = {k: f.launches for k, f in fns.items()}
+        expect(not any(counts.values()), f"{what} launched {counts}")
+        print(f"  {what}: launches {counts}")
     try:
         meshes = {d: init_device_mesh(d, (1, FAKE_RANKS),
                                       mesh_dim_names=("data", "model"))
                   for d in ("cpu", "cuda")}
         rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
-        t0 = time.perf_counter()
-        _, meta = analyze(make_prefill_step(cfg, rules["cpu"]), *rank_blocks(
-            cell_specs(cfg, shape, rules["cpu"], strat), meshes["cpu"],
-            torch.device("meta")))
-        t_meta = time.perf_counter() - t0
+        for f in fns.values():
+            f.launches = 0
+        r = fake_rank_prefill(cfg, batch, meshes, rules, strat, dev)
+        warm = min(r["secs"])
+        breakdown = device_breakdown(lambda: r["step"](*r["args"]), warm)
+        ratio = check_fake_counts(name, r)
+        meta, card, peak, secs = r["meta"], r["card"], r["peak"], r["secs"]
+        whole = PREFILL_WARM_S.get(name)
+        print(f"  {name} prefill (full depth and width, B = {batch}, S = "
+              f"{LM_PROMPT}, prefill_32k's rules {strat.name}) as rank 0 of "
+              f"a fake group of {FAKE_RANKS} on a cuda (1, {FAKE_RANKS}) "
+              f"mesh (values not checked: the fake collectives do nothing):"
+              f" its blocks {r['held'] / 2**30:.2f} GiB; FLOPs meta "
+              f"{meta['flops']:.6e} = card {card['flops']:.6e}; predicted "
+              f"peak {meta['peak_bytes'] / 2**30:.3f} GiB vs max memory "
+              f"allocated {peak / 2**30:.3f} GiB (ratio {ratio:.4f}); warm "
+              f"{warm * 1e3:.1f} ms (runs "
+              f"{', '.join(f'{t * 1e3:.1f}' for t in secs)}) against phase "
+              f"7's whole-model prefill "
+              + (f"{whole * 1e3:.1f} ms" if whole else "(not run)")
+              + f"; meta analysis {r['t_meta']:.1f} s; {breakdown}; card: "
+              f"{smi}")
+        del r
+        torch.cuda.empty_cache()
 
+        t_added = time.perf_counter()
+        mla, mla_b, mla_layers = FAKE_MLA
+        cfg = dataclasses.replace(get_config(mla), n_layers=mla_layers)
+        plan = mesh_plan(cfg, rules["cuda"])
+        expect(plan.heads, f"{mla}: MLA not split over {FAKE_RANKS} "
+               f"({plan})")
+        r = fake_rank_prefill(cfg, mla_b, meshes, rules, strat, dev)
+        ratio = check_fake_counts(mla, r)
+        print(f"  {mla} prefill (full width, cut to {mla_layers} layers, B "
+              f"= {mla_b}, S = {LM_PROMPT}) as rank 0 of {FAKE_RANKS}: MLA "
+              f"on {cfg.n_heads // FAKE_RANKS} of {cfg.n_heads} heads "
+              f"(values not checked); its blocks "
+              f"{r['held'] / 2**30:.2f} GiB; FLOPs meta "
+              f"{r['meta']['flops']:.6e} = card {r['card']['flops']:.6e}; "
+              f"predicted peak {r['meta']['peak_bytes'] / 2**30:.3f} GiB vs "
+              f"{r['peak'] / 2**30:.3f} GiB (ratio {ratio:.4f}); warm ms "
+              + ", ".join(f"{t * 1e3:.1f}" for t in r["secs"])
+              + f"; meta analysis {r['t_meta']:.1f} s; card: {smi}")
+        del r
         torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated(dev)
-        args = rank_blocks(cell_specs(cfg, shape, rules["cuda"], strat),
-                           meshes["cuda"], dev,
-                           torch.Generator(dev).manual_seed(0))
-        step = make_prefill_step(cfg, rules["cuda"])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        _, card = analyze(step, *args)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated(dev) - base
-        held = sum(t.to_local().nbytes for _, t in leaves(args[0]))
-        secs = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(*args)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        warm = min(secs)
-        breakdown = device_breakdown(lambda: step(*args), warm)
-        del args
-        torch.cuda.empty_cache()
+        no_launches(f"the {name} and {mla} fake-group prefills")
+        for arch, b, _ in FAKE_RECURRENT:
+            got = fake_rank_recurrent(arch, b, meshes, rules, strat, dev,
+                                      smi)
+            launched.update({k: launched.get(k, 0) + n
+                             for k, n in got.items()})
     finally:
         dist.destroy_process_group()
-    ratio = meta["peak_bytes"] / peak
-    expect(meta["flops"] == card["flops"],
-           f"fake-group prefill: FLOPs on meta {meta['flops']:.6e} vs on "
-           f"the card {card['flops']:.6e}")
-    expect(abs(ratio - 1) <= PEAK_TOL,
-           f"fake-group prefill: predicted peak "
-           f"{meta['peak_bytes'] / 2**30:.3f} GiB vs the card's "
-           f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f})")
-    whole = PREFILL_WARM_S.get(name)
-    print(f"  {name} prefill (full depth and width, B = {batch}, S = "
-          f"{LM_PROMPT}, prefill_32k's rules {strat.name}) as rank 0 of a "
-          f"fake group of {FAKE_RANKS} on a cuda (1, {FAKE_RANKS}) mesh "
-          f"(values not checked: the fake collectives do nothing): its "
-          f"blocks {held / 2**30:.2f} GiB; FLOPs meta {meta['flops']:.6e} "
-          f"= card {card['flops']:.6e}; predicted peak "
-          f"{meta['peak_bytes'] / 2**30:.3f} GiB vs max memory allocated "
-          f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f}); warm "
-          f"{warm * 1e3:.1f} ms (runs {', '.join(f'{t * 1e3:.1f}' for t in secs)})"
-          f" against phase 7's whole-model prefill "
-          + (f"{whole * 1e3:.1f} ms" if whole else "(not run)")
-          + f"; meta analysis {t_meta:.1f} s; {breakdown}; card: {smi}")
+    for f in fns.values():
+        f.launches = 0
+    fake_rank_decode(dev, smi)
+    no_launches(f"the {FAKE_DECODE[0]} split decode")
+    print(f"  phase 9's head-split, MLA and capacity-split cases added "
+          f"{time.perf_counter() - t_added:.1f} s")
+    return launched
 
 
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"),

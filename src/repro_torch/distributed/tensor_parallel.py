@@ -19,14 +19,23 @@ it; a stacked leaf unbinds into per-layer held leaves. Inside each layer
   to ``Replicate``) except the ``tensor`` / ``expert`` axis of a leaf the
   layer computes in shards: the column-parallel projections (``wq``,
   ``bq``, and ``wk``/``wv``/``bk``/``bv`` where the K/V heads divide;
-  ``w_gate``/``w_up``), the row-parallel ones (``wo``, ``w_down``), the
-  experts' stacks, and the vocabulary rows of the embedding and head;
+  ``w_gate``/``w_up``; MLA's ``wq_b``/``wkv_b``; RWKV-6's
+  ``wr``/``wk``/``wv``/``wg`` and channel-mix ``wk``), the row-parallel
+  ones (``wo``, ``w_down``, Mamba-2's ``out_proj``, RWKV-6's ``wo`` and
+  channel-mix ``wv``), the per-head leaves (``u``; ``a_log``,
+  ``dt_bias``, ``d_skip``), the experts' stacks, and the vocabulary rows
+  of the embedding and head; zamba2's shared block
+  (``shared_attn/...``, ``shared_mlp/...``) splits as attention and the
+  MLP do;
 * the gather's backward is DTensor's: the gradient, ``Partial`` over the
-  mesh dims of the batch (and over ``tensor`` for a replicated leaf used
-  inside a tensor-parallel region: the q / k norms, and the K/V
-  projections where each rank attends with its own q heads' groups), is
-  reduced onto the leaf's placements (a reduce-scatter where the leaf is
-  sharded, an all-reduce where it is not).
+  mesh dims of the batch (and over ``tensor`` for a leaf used whole
+  inside a tensor-parallel region, or sliced to this rank's heads: the
+  q / k norms, the K/V projections where each rank attends with its own
+  q heads' groups, Mamba-2's ``in_proj`` / ``conv_w`` / ``conv_b`` /
+  ``norm`` (the rules' column blocks of these are not head-aligned, so
+  they are gathered and sliced), RWKV-6's decay ``w0`` / ``w1`` / ``w2``
+  and ``ln_x``), is reduced onto the leaf's placements (a reduce-scatter
+  where the leaf is sharded, an all-reduce where it is not).
 
 The layers compute in shards with Megatron's pair of autograd ops:
 :func:`copy_to` (identity forward, all-reduce backward) on the input of
@@ -45,9 +54,16 @@ global index.
 Where an axis has one rank nothing is split, and the plain code runs:
 a one-rank mesh gives the plain step bit for bit. Attention is split
 only where the heads divide over the axis and each rank's q heads fall
-in whole K/V groups (or share one); MLA, the codebook heads and the
-recurrent layers (RWKV-6, Mamba-2, zamba2's shared block) are gathered
-per layer and computed whole on each rank (ROADMAP Queue A, item 9c).
+in whole K/V groups (or share one); MLA, Mamba-2 and RWKV-6 where their
+heads divide (:class:`Plan`). A GQA decode cache whose K/V heads do not
+divide is split on its capacity instead (``Plan.cap``, the reference's
+``_state_sharding``): each rank holds its rows of every K/V head and
+the decode merges the ranks' partial softmaxes
+(``models/layers.py`` ``_split_decode``). The codebook heads, and
+layers whose heads do not divide, are gathered per layer and computed
+whole on each rank (ROADMAP Queue A, item 9c). MLA's latent cache is
+whole on every rank (the reference splits its latent rank over
+``tensor``).
 """
 from __future__ import annotations
 
@@ -93,14 +109,19 @@ class Group:
 class Plan:
     """What a model's layers split on this mesh: the mesh dims of the
     batch, the ``tensor`` and ``expert`` groups (None: one rank, or no
-    axis), and whether attention (its heads; ``kv``: its K/V heads too)
-    and the vocabulary are split."""
+    axis), and whether GQA attention (its heads; ``kv``: its K/V heads
+    too), the vocabulary and the family's own heads (``heads``: MLA's,
+    Mamba-2's or RWKV-6's, :func:`family_heads`) are split; ``cap``: a
+    GQA decode cache whose K/V heads do not split is split on its
+    capacity instead."""
     batch_dims: tuple
     tp: Optional[Group]
     ep: Optional[Group]
     attn: bool
     kv: bool
     vocab: bool
+    heads: bool
+    cap: bool
 
 
 def _group(rules, logical: str, batch_dims: tuple) -> Optional[Group]:
@@ -116,6 +137,22 @@ def _group(rules, logical: str, batch_dims: tuple) -> Optional[Group]:
     return Group(mesh, dims[0], sizes[dims[0]], coord[dims[0]])
 
 
+def ssm_heads(cfg) -> int:
+    """The recurrent heads of an ``ssm`` (RWKV-6) or ``hybrid`` (Mamba-2)
+    layer; 0 for the other families."""
+    if cfg.family == "ssm":
+        return cfg.d_model // cfg.ssm.head_dim
+    if cfg.family == "hybrid":
+        return cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    return 0
+
+
+def family_heads(cfg) -> int:
+    """The heads ``Plan.heads`` splits: MLA's, else the recurrent
+    layers' (:func:`ssm_heads`); 0 for GQA attention (``Plan.attn``)."""
+    return cfg.n_heads if cfg.mla else ssm_heads(cfg)
+
+
 def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
     """The split of ``cfg``'s layers under ``rules`` (default: the active
     ``mesh_rules``) with the batch over ``batch_dims`` (default: the
@@ -129,14 +166,27 @@ def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
     if cfg.moe is None or (ep is not None
                            and cfg.moe.n_experts % ep.size):
         ep = None
-    attn = kv = False
-    if tp is not None and not cfg.mla and cfg.n_heads % tp.size == 0:
-        local, rep = cfg.n_heads // tp.size, cfg.n_heads // cfg.n_kv_heads
-        attn = local % rep == 0 or rep % local == 0
-        kv = attn and cfg.n_kv_heads % tp.size == 0
+    attn = kv = heads = cap = False
+    if tp is not None:
+        if not cfg.mla and cfg.n_heads % tp.size == 0:
+            local, rep = cfg.n_heads // tp.size, cfg.n_heads // cfg.n_kv_heads
+            attn = local % rep == 0 or rep % local == 0
+            kv = attn and cfg.n_kv_heads % tp.size == 0
+        n = family_heads(cfg)
+        heads = n > 0 and n % tp.size == 0
+        cap = cfg.family != "ssm" and not cfg.mla and not kv
     vocab = (tp is not None and not cfg.n_codebooks
              and cfg.vocab_size % tp.size == 0)
-    return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab)
+    return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab, heads, cap)
+
+
+def mesh_plan(cfg, rules) -> Plan:
+    """:func:`plan_for` with the batch over ``rules``' batch axes (the
+    split a ruled step's decode state was made under, read outside its
+    ``batch_split``)."""
+    batch = set(_names(rules.rules.get("batch")))
+    return plan_for(cfg, rules, tuple(n for n in mesh_axis_names(rules.mesh)
+                                      if n in batch))
 
 
 class Held:
@@ -188,13 +238,24 @@ def local_block(t) -> torch.Tensor:
     return t.to_local() if _is_dtensor(t) else t
 
 
-# leaf paths of the split modules (the tree's '/'-joined keys)
-_COLUMN_Q = re.compile(r"(^|/)attn/(wq|bq|wo)$")
-_COLUMN_KV = re.compile(r"(^|/)attn/(wk|wv|bk|bv)$")
-_QK_NORM = re.compile(r"(^|/)attn/[qk]_norm/scale$")
-_MLP = re.compile(r"(^|/)(mlp|moe/shared)/w_(gate|up|down)$")
+# leaf paths of the split modules (the tree's '/'-joined keys); zamba2's
+# shared block is ``shared_attn_block/shared_attn/...``, ``.../shared_mlp/...``
+_COLUMN_Q = re.compile(r"(^|/)(shared_)?attn/(wq|bq|wo)$")
+_COLUMN_KV = re.compile(r"(^|/)(shared_)?attn/(wk|wv|bk|bv)$")
+_QK_NORM = re.compile(r"(^|/)(shared_)?attn/[qk]_norm/scale$")
+_MLP = re.compile(r"(^|/)(mlp|moe/shared|shared_mlp)/w_(gate|up|down)$")
 _EXPERTS = re.compile(r"(^|/)moe/w_(gate|up|down)$")
 _VOCAB = re.compile(r"^(embed|lm_head)$")
+# ``Plan.heads``' leaves (MLA's, Mamba-2's and RWKV-6's, disjoint by
+# path): split over whole heads (columns, rows or the head dim; RWKV-6's
+# channel mix over d_ff), and used whole but sliced to this rank's heads
+# (a gradient ``Partial`` over tensor)
+_RWKV_FFN = re.compile(r"(^|/)channel_mix/(wk|wv)$")
+_HEADS = re.compile(r"(^|/)(attn/(wq_b|wkv_b|wo)"
+                    r"|mamba/(out_proj|a_log|dt_bias|d_skip)"
+                    r"|time_mix/(wr|wk|wv|wg|wo|u)|channel_mix/(wk|wv))$")
+_SLICED = re.compile(r"(^|/)(mamba/(in_proj|conv_w|conv_b|norm/scale)"
+                     r"|time_mix/(w0|w1|w2|ln_x/(scale|bias)))$")
 
 
 def _layout(path: str, t, plan: Plan) -> tuple:
@@ -207,6 +268,10 @@ def _layout(path: str, t, plan: Plan) -> tuple:
         group, partial = (plan.tp, False) if plan.kv else (None, True)
     elif plan.attn and _QK_NORM.search(path):
         partial = True
+    elif plan.heads and _HEADS.search(path):
+        group = plan.tp
+    elif plan.heads and _SLICED.search(path):
+        partial = True
     elif _MLP.search(path) or (plan.vocab and _VOCAB.search(path)):
         group = plan.tp
     elif _EXPERTS.search(path):
@@ -214,7 +279,7 @@ def _layout(path: str, t, plan: Plan) -> tuple:
     names = mesh_axis_names(t.device_mesh)
     if group is not None and not isinstance(
             t.placements[names.index(group.dim)], Shard):
-        if not _MLP.search(path):
+        if not (_MLP.search(path) or _RWKV_FFN.search(path)):
             raise ValueError(f"{path}: split over {group.dim!r} but held "
                              f"as {t.placements}")
         group = None              # an MLP whose d_ff does not divide
@@ -264,6 +329,93 @@ def group_of(tree, *keys) -> Optional[Group]:
             return None
         tree = tree[k]
     return tree.group if isinstance(tree, Held) else None
+
+
+def capacity_group(params, cfg) -> Optional[Group]:
+    """The group a GQA decode cache's capacity is split over
+    (``Plan.cap``): under the ruled steps (a held tree), the ``tensor``
+    group where the K/V heads do not split over it; else None."""
+    if not any(isinstance(t, Held) for t in flat_tree(params).values()):
+        return None
+    plan = plan_for(cfg)
+    return plan.tp if plan.cap else None
+
+
+def capacity_rows(t: torch.Tensor, group: Optional[Group],
+                  dim: int = 1) -> torch.Tensor:
+    """This rank's rows of a whole cache ``t`` split over ``group`` on
+    its capacity ``dim``: rows [i c, (i + 1) c), c = ceil(C / n), the
+    capacity zero-padded to n c (rows past the cache's length are masked
+    in decode); ``t`` itself without a group. The one rule for a
+    capacity split, whether or not n divides C."""
+    if group is None:
+        return t
+    c = -(-t.shape[dim] // group.size)
+    pad = c * group.size - t.shape[dim]
+    if pad:
+        t = F.pad(t, (0, 0) * (t.ndim - dim - 1) + (0, pad))
+    return t.narrow(dim, group.index * c, c).clone()
+
+
+# a decode-state leaf by its key (the last name of its path; a per-layer
+# list adds an index): the capacity dim, counted from the end, of the K/V
+# caches [.., B, C, Hkv, Dh] and MLA's latent [.., B, C, r] and RoPE key
+# [.., B, C, dr]; the recurrent leaves have none
+_CAPACITY_FROM_END = {"k": 3, "v": 3, "latent": 2, "krope": 2}
+
+
+def _state_key(path: tuple) -> Optional[str]:
+    return next((k for k in reversed(path) if isinstance(k, str)), None)
+
+
+def capacity_dim(path: tuple, t) -> Optional[int]:
+    """The capacity dim of the decode cache ``t`` at ``path`` (None: a
+    recurrent leaf, or ``len``)."""
+    n = _CAPACITY_FROM_END.get(_state_key(path))
+    return None if n is None else t.ndim - n
+
+
+def state_split(cfg, plan: Plan, path: tuple, t) -> Optional[int]:
+    """The dim of the decode-state leaf ``t`` at ``path`` on which this
+    rank holds one block over ``plan.tp``, the decode state's placement
+    policy: a GQA cache's K/V heads where they split (``plan.kv``), else
+    its capacity (``plan.cap``; the reference's ``_state_sharding``); the
+    heads of a Mamba-2 ``ssm`` [.., B, H, P, N] or RWKV-6 ``wkv``
+    [.., B, H, N, N] state where those layers split them. None: whole
+    over ``tensor`` (MLA's latent cache, the token-shift states, no
+    group), or not one block: a Mamba-2 ``conv`` state [.., B, K-1,
+    channels] holds the x channels of this rank's heads and all of B and
+    C. :func:`state_block` cuts this rank's part."""
+    if plan.tp is None:
+        return None
+    key = _state_key(path)
+    if key in ("k", "v") and not cfg.mla:
+        return t.ndim - 2 if plan.kv else t.ndim - 3 if plan.cap else None
+    if plan.heads and key in ("ssm", "wkv"):
+        return t.ndim - 3
+    return None
+
+
+def state_block(cfg, plan: Plan, path: tuple, t: torch.Tensor
+                ) -> torch.Tensor:
+    """This rank's part of the decode-state leaf ``t`` held whole over
+    ``plan.tp``: its block on :func:`state_split`'s dim (of a capacity,
+    :func:`capacity_rows`), or a ``conv`` state's channels; ``t`` itself
+    where the leaf is whole."""
+    if plan.tp is None:
+        return t
+    n, i = plan.tp.size, plan.tp.index
+    if plan.heads and _state_key(path) == "conv":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        di = d_inner // n
+        return torch.cat([t[..., i * di:(i + 1) * di], t[..., d_inner:]], -1)
+    dim = state_split(cfg, plan, path, t)
+    if dim is None:
+        return t
+    if dim == capacity_dim(path, t):
+        return capacity_rows(t, plan.tp, dim)
+    k = t.shape[dim] // n
+    return t.narrow(dim, i * k, k)
 
 
 # ---------------------------------------------------------------------------

@@ -31,15 +31,17 @@ device type ``"cpu"``.
   ``make_prefill_step(cfg, rules)`` or the eager
   ``make_serve_step(cfg, rules, unroll)`` (a graphed step cannot run on
   meta). The ruled steps gather each layer's leaves where it runs and
-  compute attention, the MLPs, the experts and the vocabulary in shards
-  (``distributed/tensor_parallel.py``); MLA, the codebook heads and the
-  recurrent layers are gathered per layer and computed whole on every
-  rank. The serve step holds a rank's batch shard of the decode state,
-  and its K/V heads where attention splits them
-  (:func:`compute_state_placements`); where the stand-ins shard a state
-  leaf over another axis (the capacity, or the recurrent states' heads),
-  the counted run first gathers that axis, and what that moves is
-  counted.
+  compute attention, MLA, the MLPs, the experts, the vocabulary and the
+  Mamba-2 and RWKV-6 heads in shards (``distributed/tensor_parallel.py``)
+  where the ``tensor`` axis divides them; the codebook heads, and layers
+  whose heads do not divide, are gathered per layer and computed whole
+  on every rank. The serve step holds a rank's batch shard of the decode
+  state, its K/V heads where attention splits them, else its capacity
+  rows of every K/V head (the reference's split-capacity decode), and
+  its heads of the recurrent states (:func:`compute_state_placements`);
+  where the stand-ins shard a state leaf over another axis (MLA's latent
+  rank, the recurrent states' inner dims), the counted run first brings
+  that leaf to the compute placement, and what that moves is counted.
 
 The result has the reference's keys, but:
 
@@ -86,7 +88,8 @@ from torch.distributed.tensor import DTensor, Replicate
 from repro_torch.configs import SHAPES, all_cells, applicable, get_config
 from repro_torch.distributed.sharding import (_names, tree_map,
                                               tree_map_with_path)
-from repro_torch.distributed.tensor_parallel import plan_for
+from repro_torch.distributed.tensor_parallel import (mesh_plan, state_block,
+                                                     state_split)
 from repro_torch.launch.hlo_analysis import analyze, tensors
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import (Spec, batch_specs, decode_specs,
@@ -146,9 +149,10 @@ def _card_alltoall():
     from torch.distributed.tensor import placement_types
 
     def alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
-        group = funcol._resolve_group((mesh, mesh_dim))
+        # the group by name: funcol has no _resolve_group in torch 2.11
         return torch.ops._dtensor.shard_dim_alltoall(
-            input, gather_dim, shard_dim, funcol._group_or_group_name(group))
+            input, gather_dim, shard_dim,
+            funcol._resolve_group_name((mesh, mesh_dim)))
     before = getattr(placement_types, "shard_dim_alltoall", None)
     if before is None:                 # another torch: left as it is
         yield
@@ -238,31 +242,43 @@ def stand_in_bytes(arch: str, shape_name: str, mesh_kind: str) -> int:
 def compute_state_placements(cfg, rules, path: tuple, t) -> list:
     """The placements the ruled serve step computes a decode-state leaf
     ``t`` (a DTensor at ``path``) with: its shards over the ``batch``
-    axes, and over the ``tensor`` axis the K/V heads of a GQA cache
-    where attention splits them; every other axis gathered."""
+    axes and, over the ``tensor`` axis, its block on
+    :func:`~repro_torch.distributed.tensor_parallel.state_split`'s dim
+    where that block is DTensor's even chunk (the K/V heads of a GQA
+    cache where attention splits them, else a capacity that the axis
+    divides; the heads of a Mamba-2 ``ssm`` or RWKV-6 ``wkv`` state where
+    those layers split them); every other axis gathered (a ``conv``
+    state, or a capacity the axis does not divide, is then cut to this
+    rank's part by :func:`_compute_state`)."""
     from torch.distributed.tensor import Shard
-    mesh = rules.mesh
     batch_axes = set(_names(rules.rules.get("batch")))
-    plan = plan_for(cfg, rules, tuple(n for n in mesh.mesh_dim_names
-                                      if n in batch_axes))
-    # a K/V cache: [L, B, C, Hkv, Dh] stacked, [B, C, Hkv, Dh] per layer
-    kv_cache = (plan.kv and cfg.family not in ("ssm", "hybrid")
-                and any(k in ("k", "v") for k in path[-2:]))
-    return [p if n in batch_axes or (
-        kv_cache and n == plan.tp.dim and isinstance(p, Shard)
-        and p.dim == t.ndim - 2) else Replicate()
-        for n, p in zip(mesh.mesh_dim_names, t.placements)]
+    plan = mesh_plan(cfg, rules)
+    split = state_split(cfg, plan, path, t)
+    if split is not None and t.shape[split] % plan.tp.size:
+        split = None
+    return [p if n in batch_axes else
+            Shard(split) if split is not None and n == plan.tp.dim
+            else Replicate()
+            for n, p in zip(rules.mesh.mesh_dim_names, t.placements)]
 
 
 def _compute_state(serve_step, cfg, rules):
     """``serve_step`` on a decode state placed as the stand-ins lay it
     out: each leaf first brought to :func:`compute_state_placements`
-    (the other axes gathered), and its local shard passed on."""
+    (the other axes gathered), and its local shard passed on (where that
+    gathered ``tensor``, cut to this rank's part by
+    :func:`~repro_torch.distributed.tensor_parallel.state_block`)."""
+    from torch.distributed.tensor import Shard
     mesh = rules.mesh
+    plan = mesh_plan(cfg, rules)
 
     def local(path, t):
         pl = compute_state_placements(cfg, rules, path, t)
-        return _place(t, mesh, pl).to_local()
+        out = _place(t, mesh, pl).to_local()
+        if plan.tp is None or isinstance(
+                pl[mesh.mesh_dim_names.index(plan.tp.dim)], Shard):
+            return out
+        return state_block(cfg, plan, path, out)
 
     def step(params, tokens, state):
         return serve_step(params, tokens, tree_map_with_path(local, state))

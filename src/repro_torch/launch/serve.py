@@ -21,10 +21,9 @@ runs the step eagerly.
 Run as more than one rank (``torchrun``, or a process group started
 before :func:`main`), it serves under rules, as the reference does when
 it sees more than one device, on the serving mesh (every rank on
-``data``) where the reference takes its debug mesh: the port computes
-no tensor-parallel layer, so a ``model`` axis would hold replicas. Each
-rank prefills and decodes its shard of the batch with the eager ruled
-steps, the tokens are gathered on every rank, and rank 0 prints.
+``data``) where the reference takes its debug mesh. Each rank prefills
+and decodes its shard of the batch with the eager ruled steps, the
+tokens are gathered on every rank, and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -36,7 +35,9 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.execution import resolve_device
-from repro_torch.distributed.sharding import tree_map
+from repro_torch.distributed.sharding import tree_map_with_path
+from repro_torch.distributed.tensor_parallel import (capacity_dim, mesh_plan,
+                                                     state_block, state_split)
 from repro_torch.launch.mesh import make_rules, make_serving_mesh
 from repro_torch.launch.train import n_ranks
 from repro_torch.models import model as M
@@ -83,7 +84,7 @@ def main(argv=None) -> np.ndarray:
     logits, state = prefill(params, batch_in)
     rows = (args.batch if rules is None else
             batch_shard(batch_in, rules)[0]["tokens"].shape[0])
-    state = _grow_cache(cfg, state, rows, capacity, dev)
+    state = _grow_cache(cfg, state, rows, capacity, dev, rules)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_prefill = time.perf_counter() - t0
@@ -123,30 +124,49 @@ def main(argv=None) -> np.ndarray:
 
 
 def _grow_cache(cfg, state: dict, batch: int, capacity: int,
-                device: str | torch.device | None = None) -> dict:
+                device: str | torch.device | None = None,
+                rules=None) -> dict:
     """Copy a prefill-sized state into a decode state of K/V capacity
     ``capacity`` (zero-padded on the capacity axis; every leaf in
     :func:`~repro_torch.models.model.init_decode_state`'s dtype). A
     transformer state with per-layer cache lists (K/V or MLA's latent
     and RoPE key, in each part) grows into lists. A ruled prefill's
-    cache that holds a share of the K/V heads keeps that share."""
+    state keeps its share of the K/V and recurrent heads. A K/V cache
+    split on its capacity (a ruled prefill's under ``rules`` where the
+    K/V heads do not split over ``tensor``,
+    :func:`~repro_torch.distributed.tensor_parallel.state_split`) keeps
+    that layout: its rows are gathered over the group, grown, and this
+    rank's rows of the new capacity kept (``capacity_rows``: rounded up
+    to a multiple of the group); such a cache without its ``rules``
+    raises."""
     unrolled = any(isinstance(c, list) for c in
                    state.get("main", {}).values())
     fresh = M.init_decode_state(cfg, batch, capacity, device, unrolled)
+    plan = mesh_plan(cfg, rules) if rules is not None else None
+    length = int(state["len"])
 
-    def graft(f, s):
-        if f.ndim >= 3 and s.ndim == f.ndim and f.shape != s.shape:
-            # caches differ on the capacity axis (axis 2 stacked, axis 1
-            # in a per-layer list), the first that differs
-            ax = next(i for i, (a, b) in enumerate(zip(f.shape, s.shape))
-                      if a != b)
-            out = f.new_zeros((*s.shape[:ax], f.shape[ax],
-                               *s.shape[ax + 1:]))
-            out[tuple(slice(0, n) for n in s.shape)] = s
-            return out
-        return s.to(f.dtype)
+    def graft(path, f, s):
+        ax = capacity_dim(path, s)
+        if ax is None:
+            return s.to(f.dtype)          # a recurrent leaf: no capacity
+        split = plan is not None and state_split(cfg, plan, path, s) == ax
+        if split:
+            s = torch.cat(plan.tp.all_gather(s).unbind(0), dim=ax)
+        elif s.shape[ax] < length:
+            raise ValueError(
+                f"state{list(path)}: a cache of capacity {s.shape[ax]} "
+                f"holding {length} entries is split on its capacity; grow "
+                f"it with the rules it was split under")
+        if not split and s.shape == f.shape:
+            return s.to(f.dtype)
+        shape = list(s.shape)
+        shape[ax] = capacity
+        out = f.new_zeros(shape)
+        n = min(capacity, s.shape[ax])
+        out.narrow(ax, 0, n).copy_(s.narrow(ax, 0, n))
+        return state_block(cfg, plan, path, out) if split else out
 
-    out = tree_map(graft, fresh, state)
+    out = tree_map_with_path(graft, fresh, state)
     out["len"] = state["len"]
     return out
 

@@ -17,13 +17,13 @@ Shape kind selects the train or inference strategy; family selects fsdp
 or tp_ep for training. The port's ruled steps hold parameters and
 optimizer state with these rules' placements and compute as they imply
 (``distributed/tensor_parallel.py``): each layer's leaves gathered where
-it runs over the ``fsdp`` / ``batch`` axes; under tp_ep, GQA attention,
-the MLPs and the vocabulary tensor-parallel over ``model`` and the MoE
-expert-parallel over it, without an all-to-all. MLA, the codebook heads
-and the recurrent layers run whole on each rank, and tp_ep_full's data
-part of the experts is gathered per layer like an fsdp axis (its
-all-to-all form, and the sequence on ``pod``, are ROADMAP Queue A, item
-9c).
+it runs over the ``fsdp`` / ``batch`` axes; under tp_ep, GQA and MLA
+attention, the MLPs, the Mamba-2 and RWKV-6 heads and the vocabulary
+tensor-parallel over ``model`` and the MoE expert-parallel over it,
+without an all-to-all. The codebook heads run whole on each rank, and
+tp_ep_full's data part of the experts is gathered per layer like an
+fsdp axis (these, and the sequence on ``pod``, are ROADMAP Queue A,
+item 9c).
 """
 from __future__ import annotations
 

@@ -26,8 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.tensor_parallel import (Group, copy_to,
-                                                     reduce_from)
+from repro_torch.distributed.tensor_parallel import (Group, capacity_rows,
+                                                     copy_to, reduce_from)
 from repro_torch.kernels._build import needs_grad
 
 Params = dict  # nested dict of tensors
@@ -246,7 +246,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               cache_len: Optional[torch.Tensor] = None,
               chunk: int = 1024,
               return_kv: bool = False,
-              tp: Optional[Group] = None
+              tp: Optional[Group] = None,
+              cap: Optional[Group] = None
               ) -> tuple[torch.Tensor, Optional[tuple]]:
     """GQA attention. x [B, S, D].
 
@@ -265,6 +266,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     the K/V heads the rank holds, and the partial output is summed over
     the group. Each rank attends with its own q heads, over their groups
     of K/V heads.
+
+    ``cap``: the cache's capacity split over a group (every K/V head,
+    this rank's rows [i c, (i + 1) c); the reference's placement where
+    the K/V heads do not divide, ``launch/specs.py`` ``_state_sharding``):
+    the prefill keeps this rank's rows (:func:`~repro_torch.distributed.
+    tensor_parallel.capacity_rows`), and decode is :func:`_split_decode`.
     """
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
@@ -290,8 +297,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     if kv_cache is None:
         out = chunked_attention(q, k[:, :, groups], v[:, :, groups],
                                 causal=True, chunk=chunk)
-        new_cache = ((k.to(torch.bfloat16), v.to(torch.bfloat16))
-                     if return_kv else None)
+        new_cache = (tuple(capacity_rows(t.to(torch.bfloat16), cap)
+                           for t in (k, v)) if return_kv else None)
+    elif cap is not None:
+        out = _split_decode(q, k, v, kv_cache, cache_len, tp,
+                            cap).to(x.dtype)
+        new_cache = kv_cache
     else:
         ck, cv = kv_cache
         new_pos = cache_len + torch.arange(s, device=x.device)
@@ -313,6 +324,61 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         new_cache = (ck, cv)
 
     return row_dot(out.reshape(b, s, h * dh), p["wo"], tp), new_cache
+
+
+def _split_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_cache: tuple, cache_len: torch.Tensor,
+                  tp: Optional[Group], cap: Group) -> torch.Tensor:
+    """Decode over a cache split on its capacity over ``cap`` (flash
+    decoding): this rank holds rows [i c, (i + 1) c) of every K/V head.
+    The rank that owns position ``cache_len + t`` writes row t (a local
+    index and a mask: no host read, no branch on ``cache_len``, so a CUDA
+    graph captures it). Every rank scores all q heads (gathered over
+    ``tp`` where the heads are split) against its rows, masked by global
+    position, keeping its max m, l = sum exp(s - m) and o = sum exp(s -
+    m) v; the partials merge over ``cap``: M = max m, then the sums of
+    l exp(m - M) and o exp(m - M), out = o / l. A rank with no valid row
+    has m = NEG_INF, whose weight exp(m - M) is 0 (with -inf, s - m is
+    NaN). Returns this rank's heads' output [B, S, h, Dh] in float32.
+    Decode has no backward: the collectives are not autograd ops."""
+    if torch.is_grad_enabled() and q.requires_grad:
+        raise RuntimeError("the capacity-split decode has no backward; "
+                           "call it under torch.no_grad()")
+    ck, cv = kv_cache
+    b, s, h, dh = q.shape
+    c = ck.shape[1]
+    first = cap.index * c                        # this rank's first row
+    for t in range(s):
+        local = cache_len.long() + (t - first)
+        mine = (local >= 0) & (local < c)
+        idx = local.clamp(0, c - 1).reshape(1)
+        for cache, new in ((ck, k), (cv, v)):
+            old = cache.index_select(1, idx)
+            cache.index_copy_(1, idx, torch.where(
+                mine, new[:, t:t + 1].to(cache.dtype), old))
+    f32 = torch.float32
+    # scaled in q's dtype, then cast: the plain decode's rounding
+    qf = (q * (1.0 / math.sqrt(dh))).to(f32)
+    if tp is not None:                       # every q head, in rank order
+        qf = tp.all_gather(qf).permute(1, 2, 0, 3, 4).reshape(
+            b, s, tp.size * h, dh)
+    heads, g = qf.shape[2], ck.shape[2]
+    qg = qf.reshape(b, s, g, heads // g, dh)
+    scores = torch.einsum("bsgrd,bkgd->bgrsk", qg, ck.to(f32))
+    new_pos = cache_len + torch.arange(s, device=q.device)
+    rows = first + torch.arange(c, device=q.device)
+    valid = rows[None, :] <= new_pos[:, None]                 # [S, c]
+    scores = torch.where(valid[None, None, None], scores, NEG_INF)
+    m = scores.amax(-1)                                       # [B, g, r, S]
+    p = torch.exp(scores - m[..., None])
+    l, o = p.sum(-1), torch.einsum("bgrsk,bkgd->bgrsd", p, cv.to(f32))
+    m_all = cap.all_reduce(m, "max")
+    w = torch.exp(m - m_all)
+    l, o = cap.all_reduce(l * w), cap.all_reduce(o * w[..., None])
+    out = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(b, s, heads, dh)
+    if tp is not None:
+        out = out[:, :, tp.index * h:(tp.index + 1) * h]
+    return out
 
 
 def _kv_groups(cfg: ArchConfig, tp: Optional[Group], h: int,
@@ -357,7 +423,8 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   kv_cache: Optional[tuple] = None,
                   cache_len: Optional[torch.Tensor] = None,
                   chunk: int = 1024,
-                  return_kv: bool = False
+                  return_kv: bool = False,
+                  tp: Optional[Group] = None
                   ) -> tuple[torch.Tensor, Optional[tuple]]:
     """MLA. x [B, S, D]. Queries, keys and values pass through low-rank
     latents; the cache holds only the normed KV latent [B, C, r] and the
@@ -372,15 +439,24 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     :func:`attention` writes its K/V. The scores and the weighted sum
     over the cache are the reference's bf16 products summed in float32,
     here as float32 einsums over the cache cast to float32.
+
+    ``tp``: the heads split over a tensor-parallel group: ``p`` holds
+    this rank's column blocks of ``wq_b`` / ``wkv_b`` (whole heads) and
+    row block of ``wo``, and all of ``wq_a`` / ``wkv_a`` and the latent
+    norms, computed whole on every rank. The normed latents and the RoPE
+    key enter the per-head products through ``copy_to`` (their gradients
+    summed over the group, so ``wq_a`` / ``wkv_a`` get whole gradients;
+    ``x`` is not marked again), the partial output is summed over the
+    group, and the latent cache stays whole on every rank.
     """
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     nope, rope_d, vdim, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
                              m.v_head_dim, m.kv_lora_rank)
+    h = p["wq_b"].shape[-1] // (nope + rope_d)          # this rank's heads
 
-    q = dot(rmsnorm(p["q_a_norm"], dot(x, p["wq_a"]), cfg.norm_eps),
-            p["wq_b"]).reshape(b, s, h, nope + rope_d)
+    cq = copy_to(rmsnorm(p["q_a_norm"], dot(x, p["wq_a"]), cfg.norm_eps), tp)
+    q = dot(cq, p["wq_b"]).reshape(b, s, h, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv_a = dot(x, p["wkv_a"])                          # [B, S, r + rope_d]
@@ -390,13 +466,15 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     scale = 1.0 / math.sqrt(nope + rope_d)
 
     if kv_cache is None:
-        kv = dot(latent, p["wkv_b"]).reshape(b, s, h, nope + vdim)
+        kv = dot(copy_to(latent, tp), p["wkv_b"]).reshape(b, s, h,
+                                                          nope + vdim)
         k_nope, v = kv[..., :nope], kv[..., nope:]
-        k_rope_h = k_rope.to(k_nope.dtype).expand(b, s, h, rope_d)
+        k_rope_h = copy_to(k_rope, tp).to(k_nope.dtype).expand(b, s, h,
+                                                               rope_d)
         k = torch.cat([k_nope, k_rope_h], dim=-1)
         out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                                 causal=True, chunk=chunk, scale=scale)
-        out = dot(out.reshape(b, s, h * vdim), p["wo"])
+        out = row_dot(out.reshape(b, s, h * vdim), p["wo"], tp)
         new_cache = ((latent.to(torch.bfloat16),
                       k_rope[:, :, 0].to(torch.bfloat16))
                      if return_kv else None)
@@ -422,7 +500,7 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     dt = torch.promote_types(x.dtype, w_bv.dtype)
     out = torch.einsum("bshr,rhv->bshv", lat_out.to(x.dtype).to(dt),
                        w_bv.to(dt))
-    out = dot(out.reshape(b, s, h * vdim), p["wo"])
+    out = row_dot(out.reshape(b, s, h * vdim), p["wo"], tp)
     return out, (c_lat, c_kr)
 
 

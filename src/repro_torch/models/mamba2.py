@@ -24,8 +24,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd import ssd
+from repro_torch.distributed.tensor_parallel import (Group, copy_to,
+                                                     reduce_from)
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
-                                       init_rmsnorm, rmsnorm, use_kernel)
+                                       init_rmsnorm, rmsnorm, row_dot,
+                                       use_kernel)
 from repro_torch.models.rwkv import _pad_seq
 
 
@@ -144,9 +147,51 @@ def _causal_conv(x, w, b, cache=None):
     return y, new_cache
 
 
+def _columns(w: torch.Tensor, spans: list) -> torch.Tensor:
+    """The columns (last dim) of ``w`` in ``spans`` [(start, width)], in
+    order."""
+    return torch.cat([w[..., a:a + n] for a, n in spans], dim=-1)
+
+
+def head_spans(cfg: ArchConfig, tp: Optional[Group]) -> tuple:
+    """(in_proj spans, conv spans) of this rank's heads over ``tp``:
+    its z, x and dt columns of ``in_proj`` [z, x, B, C, dt] and all of B
+    and C (shared by every head, G = 1); its x channels of the conv's (x,
+    B, C) channels and all of B and C. None without a group."""
+    if tp is None:
+        return None, None
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    h = d_inner // s.head_dim // tp.size
+    di, n = h * s.head_dim, s.d_state
+    i = tp.index
+    return ([(i * di, di), (d_inner + i * di, di), (2 * d_inner, 2 * n),
+             (2 * d_inner + 2 * n + i * h, h)],
+            [(i * di, di), (d_inner, 2 * n)])
+
+
+def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
+                d_inner: int, tp: Optional[Group]) -> torch.Tensor:
+    """rmsnorm(y * silu(z)) over the whole d_inner: on a head shard the
+    squares' sum is reduced over ``tp`` before the rsqrt, and the scale
+    is this rank's slice. Each rank then uses the sum on its own
+    channels, so its gradient is summed over ``tp`` too (``copy_to``
+    after ``reduce_from``; ``reduce_from`` alone passes each rank only
+    its own channels' share)."""
+    if tp is None:
+        return rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
+    yz = y * F.silu(z)
+    xf = yz.to(torch.float32)
+    di = xf.shape[-1]
+    var = copy_to(reduce_from((xf * xf).sum(-1, keepdim=True), tp),
+                  tp) / d_inner
+    scale = p["norm"]["scale"][tp.index * di:(tp.index + 1) * di]
+    return (xf * torch.rsqrt(var + cfg.norm_eps) * scale).to(yz.dtype)
+
+
 def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
-                 single_step: bool = False,
-                 kernels: bool = True) -> tuple[torch.Tensor, dict]:
+                 single_step: bool = False, kernels: bool = True,
+                 tp: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
     """One Mamba-2 block (pre-norm residual).
 
     state = {"ssm": [B, H, P, N] f32, "conv": [B, K-1, C_conv]}. A
@@ -154,21 +199,37 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
     False or autograd records it
     (:func:`~repro_torch.models.layers.use_kernel`); elsewhere, and
     then, it runs :func:`ssd_chunked`.
+
+    ``tp``: the heads split over a tensor-parallel group
+    (``distributed/tensor_parallel.py``): ``p`` holds this rank's blocks
+    of ``a_log`` / ``dt_bias`` / ``d_skip`` and rows of ``out_proj``
+    (whole heads), and all of ``in_proj``, ``conv_w``, ``conv_b`` and
+    ``norm`` (the rules' column blocks of these are not head-aligned),
+    of which it takes its heads' columns (:func:`head_spans`). The normed
+    input enters through ``copy_to``, the gated norm reduces its squares
+    over the group, and the partial output is summed over it. The state
+    holds this rank's heads ([B, H/n, P, N]) and conv channels ([B, K-1,
+    x channels of its heads + 2N]).
     """
     s = cfg.ssm
     bsz, seq, d = x.shape
     d_inner = s.expand * d
-    h = d_inner // s.head_dim
+    in_spans, conv_spans = head_spans(cfg, tp)
+    h = d_inner // s.head_dim // (tp.size if tp is not None else 1)
+    di = h * s.head_dim                           # this rank's x channels
 
-    xn = rmsnorm(p["ln"], x, cfg.norm_eps)
-    zxbcdt = dot(xn, p["in_proj"])
+    xn = copy_to(rmsnorm(p["ln"], x, cfg.norm_eps), tp)
+    w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
+    if tp is not None:
+        w_in, conv_w, conv_b = (_columns(w_in, in_spans),
+                                _columns(conv_w, conv_spans),
+                                _columns(conv_b, conv_spans))
+    zxbcdt = dot(xn, w_in)
     # torch.split takes sizes where jnp.split takes indices
-    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * s.d_state, h],
-                             dim=-1)
-    xbc, conv_cache = _causal_conv(xbc, p["conv_w"], p["conv_b"],
-                                   state["conv"])
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * s.d_state, h], dim=-1)
+    xbc, conv_cache = _causal_conv(xbc, conv_w, conv_b, state["conv"])
     xbc = F.silu(xbc)
-    xs, b, c = torch.split(xbc, [d_inner, s.d_state, s.d_state], dim=-1)
+    xs, b, c = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])  # [B, S, H]
     xh = xs.reshape(bsz, seq, h, s.head_dim)
 
@@ -182,16 +243,19 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
     else:
         y, ssm = ssd_chunked(xh, dt, p["a_log"], b, c, state["ssm"])
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(bsz, seq, d_inner)
-    y = rmsnorm(p["norm"], y * F.silu(z), cfg.norm_eps)
-    out = dot(y, p["out_proj"])
+    y = y.reshape(bsz, seq, di)
+    y = _gated_norm(p, y, z, cfg, d_inner, tp)
+    out = row_dot(y, p["out_proj"], tp)
     return x + out, {"ssm": ssm, "conv": conv_cache}
 
 
 def init_mamba2_state(cfg: ArchConfig, batch: int,
-                      device: torch.device | None = None) -> dict:
+                      device: torch.device | None = None,
+                      tp: Optional[Group] = None) -> dict:
+    """A zero state; over ``tp``, this rank's heads and conv channels."""
     s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
+    n = tp.size if tp is not None else 1
+    d_inner = s.expand * cfg.d_model // n
     h = d_inner // s.head_dim
     return {"ssm": torch.zeros((batch, h, s.head_dim, s.d_state),
                                device=device),

@@ -34,10 +34,12 @@ Under the ruled steps (``train/steps.py``) the parameters are DTensors:
 each entry point holds them (``distributed.tensor_parallel.hold``), and
 each layer gathers its own leaves where it runs, inside its remat'd
 function (``use``), keeping the ``tensor`` / ``expert`` shards of the
-layers it computes in shards: GQA attention and the MLPs over the heads
-and d_ff, the MoE over its experts, the embedding, head and loss over
-the vocabulary. The logits then come out this rank's [..., V / n]
-(``unembed_hidden``). Plain tensors run the plain code.
+layers it computes in shards: GQA and MLA attention, the Mamba-2 and
+RWKV-6 layers over their heads, the MLPs over d_ff, the MoE over its
+experts, the embedding, head and loss over the vocabulary; the decode
+state holds this rank's heads, or a GQA cache's capacity rows where its
+K/V heads do not split. The logits then come out this rank's [..., V /
+n] (``unembed_hidden``). Plain tensors run the plain code.
 
 Training (``mode="train"`` under autograd) recomputes each layer in
 backward (``remat``, the reference's ``jax.checkpoint`` of its scanned
@@ -366,16 +368,17 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
     x = embed_tokens(params, cfg, tokens, emb_pos)
     ck = remat and mode == "train" and torch.is_grad_enabled()
+    cap = None if mode == "train" else TP.capacity_group(params, cfg)
     if cfg.family == "ssm":
         x, aux, new_state = _forward_rwkv(params, cfg, x, mode, state,
                                           kernels, ck)
     elif cfg.family == "hybrid":
         x, aux, new_state = _forward_hybrid(params, cfg, x, positions, mode,
-                                            state, kernels, ck)
+                                            state, kernels, ck, cap)
     else:
         x, aux, new_state = _forward_transformer(params, cfg, x, positions,
                                                  mode, state, unroll_decode,
-                                                 ck)
+                                                 ck, cap)
     x = _norm(TP.use(params["final_norm"]), x, cfg)
     if new_state is not None and cache_len is not None:
         new_state["len"] = cache_len + s
@@ -386,12 +389,14 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 
 def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
-                    cache_len=None, moe_layer=False, return_kv=False):
+                    cache_len=None, moe_layer=False, return_kv=False,
+                    cap=None):
     """Pre-norm attention (MLA where ``cfg.mla``) + MLP or MoE. Returns
     (x, aux, new_kv); aux is the MoE layer's balance loss, else None.
     Held leaves are gathered here, and the attention, MLP and experts run
-    in shards over the groups their leaves are held split over."""
-    tp_attn = TP.group_of(lp, "attn", "wq")
+    in shards over the groups their leaves are held split over; ``cap``:
+    the K/V cache's capacity is split over that group."""
+    tp_attn = TP.group_of(lp, "attn", "wq" if not cfg.mla else "wq_b")
     tp_mlp = TP.group_of(lp, "mlp", "w_down")
     ep = TP.group_of(lp, "moe", "w_gate")
     tp_shared = TP.group_of(lp, "moe", "shared", "w_down")
@@ -399,12 +404,13 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     if cfg.mla:
         h, new_kv = L.mla_attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
-            kv_cache=kv, cache_len=cache_len, return_kv=return_kv)
+            kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
+            tp=tp_attn)
     else:
         h, new_kv = L.attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
             kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
-            tp=tp_attn)
+            tp=tp_attn, cap=cap)
     x = logical_constraint(x + h, "batch", "seq", None)
     if moe_layer:
         y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg,
@@ -433,7 +439,8 @@ def _transformer_parts(cfg: ArchConfig) -> list[tuple[str, str, int, bool]]:
     return parts + [("main", "layers", cfg.n_layers - nd, cfg.moe is not None)]
 
 
-def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck):
+def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
+                         cap=None):
     """Each stack's layers in a Python loop: the leading dense layers
     (``"dense"``, the ``moe`` family's), then the main stack (``"main"``).
     Prefill returns each part's cache as ``state[part]`` = {"k", "v"}
@@ -450,7 +457,8 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck):
     and give the same bits. The aux losses are summed over the layers in
     every mode (the reference's unrolled decode keeps only its last
     layer's, ROADMAP Queue C). ``ck``: each training layer is recomputed
-    in backward."""
+    in backward. ``cap``: the K/V caches hold this rank's capacity rows
+    over that group (:func:`~repro_torch.models.layers.attention`)."""
     decode = mode == "decode"
     cache_len = state["len"] if decode else None
     keys = _cache_keys(cfg)
@@ -471,7 +479,7 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck):
                 lp, x, cfg, positions=positions,
                 kv=tuple(cache[k][i] for k in keys) if decode else None,
                 cache_len=cache_len, moe_layer=moe_layer,
-                return_kv=mode == "prefill")
+                return_kv=mode == "prefill", cap=cap)
             aux = aux + a if moe_layer else aux
             if mode == "prefill":
                 for c, t in zip(caches, kv):
@@ -487,12 +495,23 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck):
 # -- rwkv ---------------------------------------------------------------------
 
 
+def _rwkv_groups(lp: Params) -> tuple:
+    """(time mix heads, channel mix d_ff) groups of a held layer."""
+    return (TP.group_of(lp, "time_mix", "wr"),
+            TP.group_of(lp, "channel_mix", "wv"))
+
+
 def _rwkv_train_layer(lp: Params, x, cfg, kernels):
-    st = RW.init_rwkv_state(cfg, x.shape[0], device=x.device)
-    return RW.rwkv_block(TP.use(lp), x, cfg, st, kernels=kernels)[0]
+    tp, ffn = _rwkv_groups(lp)
+    st = RW.init_rwkv_state(cfg, x.shape[0], device=x.device, tp=tp)
+    return RW.rwkv_block(TP.use(lp), x, cfg, st, kernels=kernels, tp=tp,
+                         ffn_tp=ffn)[0]
 
 
 def _forward_rwkv(params, cfg, x, mode, state, kernels, ck):
+    """The RWKV-6 layers; each layer's time mix over its heads' group and
+    channel mix over its d_ff's (held leaves), the ``wkv`` state this
+    rank's heads."""
     b = x.shape[0]
     layers = _unstack(params["layers"], cfg.n_layers)
     aux = torch.zeros((), device=x.device)
@@ -502,14 +521,16 @@ def _forward_rwkv(params, cfg, x, mode, state, kernels, ck):
         return x, aux, None
     sts = []
     for i, lp in enumerate(layers):
+        tp, ffn = _rwkv_groups(lp)
         lp = TP.use(lp)
         if mode == "decode":
             x, st = RW.rwkv_block(lp, x, cfg, _layer(state["rwkv"], i),
-                                  single_step=True)
+                                  single_step=True, tp=tp, ffn_tp=ffn)
         else:
             x, st = RW.rwkv_block(lp, x, cfg,
-                                  RW.init_rwkv_state(cfg, b, device=x.device),
-                                  kernels=kernels)
+                                  RW.init_rwkv_state(cfg, b, device=x.device,
+                                                     tp=tp),
+                                  kernels=kernels, tp=tp, ffn_tp=ffn)
         sts.append(st)
     return x, aux, {"rwkv": _stack(sts)}
 
@@ -525,33 +546,44 @@ def _hybrid_layout(cfg: ArchConfig):
 
 
 def _shared_block(sh: Params, x, cfg, positions, kv=None, cache_len=None,
-                  return_kv=False):
-    """The ONE shared attention + MLP block. Returns (x, new_kv)."""
+                  return_kv=False, cap=None):
+    """The ONE shared attention + MLP block, in shards over the groups
+    its held leaves are split over (``cap``: the K/V cache's capacity
+    split over that group). Returns (x, new_kv)."""
+    tp_attn = TP.group_of(sh, "shared_attn", "wq")
+    tp_mlp = TP.group_of(sh, "shared_mlp", "w_down")
     sh = TP.use(sh)
     h, new_kv = L.attention(sh["shared_attn"], _norm(sh["ln1"], x, cfg), cfg,
                             positions=positions, kv_cache=kv,
-                            cache_len=cache_len, return_kv=return_kv)
+                            cache_len=cache_len, return_kv=return_kv,
+                            tp=tp_attn, cap=cap)
     x = x + h
-    x = x + L.mlp(sh["shared_mlp"], _norm(sh["ln2"], x, cfg), cfg.mlp_style)
+    x = x + L.mlp(sh["shared_mlp"], _norm(sh["ln2"], x, cfg), cfg.mlp_style,
+                  tp_mlp)
     return logical_constraint(x, "batch", "seq", None), new_kv
 
 
 def _mamba_train_layer(lp: Params, x, cfg, kernels):
-    st = M2.init_mamba2_state(cfg, x.shape[0], x.device)
-    return M2.mamba2_block(TP.use(lp), x, cfg, st, kernels=kernels)[0]
+    tp = TP.group_of(lp, "out_proj")
+    st = M2.init_mamba2_state(cfg, x.shape[0], x.device, tp)
+    return M2.mamba2_block(TP.use(lp), x, cfg, st, kernels=kernels,
+                           tp=tp)[0]
 
 
 def _shared_train(sh: Params, x, cfg, positions):
     return _shared_block(sh, x, cfg, positions)[0]
 
 
-def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck):
+def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
+                    cap=None):
     """Groups of ``period`` Mamba-2 layers, each followed by the ONE
     shared attention + MLP block, then the tail layers. Decode writes the
     shared block's K/V caches of ``state`` in place (see
     :func:`repro_torch.models.layers.attention`). ``ck``: each training
     Mamba-2 layer and each call of the shared block is recomputed in
-    backward."""
+    backward. Held leaves compute each Mamba-2 layer over its heads'
+    group (its state this rank's heads) and the shared block as
+    :func:`_attn_mlp_block` does; ``cap``: as there."""
     b = x.shape[0]
     period, n_groups, tail = _hybrid_layout(cfg)
     sh = params["shared_attn_block"]
@@ -569,10 +601,11 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck):
         return x, aux, None
 
     def mamba_layer(x, i):
+        tp = TP.group_of(layers[i], "out_proj")
         st = (_layer(state["mamba"], i) if decode
-              else M2.init_mamba2_state(cfg, b, x.device))
+              else M2.init_mamba2_state(cfg, b, x.device, tp))
         return M2.mamba2_block(TP.use(layers[i]), x, cfg, st,
-                               single_step=decode, kernels=kernels)
+                               single_step=decode, kernels=kernels, tp=tp)
 
     g_states, kvs = [], []
     for g in range(n_groups):
@@ -584,7 +617,7 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck):
         x, kv = _shared_block(
             sh, x, cfg, positions,
             kv=(state["k"][g], state["v"][g]) if decode else None,
-            cache_len=cache_len, return_kv=mode == "prefill")
+            cache_len=cache_len, return_kv=mode == "prefill", cap=cap)
         kvs.append(kv)
     t_states = []
     for j in range(tail):

@@ -24,9 +24,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.tensor_parallel import Group, copy_to
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
-                                       init_rmsnorm, rmsnorm, use_kernel)
+                                       init_rmsnorm, rmsnorm, row_dot,
+                                       use_kernel)
 
 # ---------------------------------------------------------------------------
 # Parameter init
@@ -172,7 +174,8 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
 
 def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   x_prev: torch.Tensor, state: torch.Tensor,
-                  single_step: bool = False, kernels: bool = True):
+                  single_step: bool = False, kernels: bool = True,
+                  tp: Optional[Group] = None):
     """x [B, S, D] (prefill) or [B, 1, D] (decode).
 
     x_prev [B, D]: last token of the previous call (token shift across
@@ -180,16 +183,32 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     ``wkv6`` kernel unless ``kernels`` is False or autograd records it
     (:func:`~repro_torch.models.layers.use_kernel`); elsewhere, and
     then, it runs :func:`wkv6_chunked`.
+
+    ``tp``: the heads split over a tensor-parallel group
+    (``distributed/tensor_parallel.py``): the token shift and ``_ddlerp``
+    are computed whole and the five streams enter through ``copy_to``;
+    ``p`` holds this rank's column blocks of ``wr`` / ``wk`` / ``wv`` /
+    ``wg``, row block of ``wo`` and heads of ``u`` (whole heads), and
+    all of ``w0``, ``w1``, ``w2`` and ``ln_x``, of which it takes its
+    channels (the decay, the per-head group norm's scale and bias). The
+    partial output is summed over the group; ``state`` holds this rank's
+    heads [B, H/n, N, N].
     """
     b, s, d = x.shape
     hd = cfg.ssm.head_dim
-    h = d // hd
+    dl = d // (tp.size if tp is not None else 1)  # this rank's channels
+    h = dl // hd
+    w0, w2, ln_x = p["w0"], p["w2"], p["ln_x"]
+    if tp is not None:                             # this rank's channels
+        mine = slice(tp.index * dl, (tp.index + 1) * dl)
+        w0, w2 = w0[mine], w2[:, mine]
+        ln_x = {k: t[mine] for k, t in ln_x.items()}
 
-    streams = _ddlerp(p, x, _shift(x, x_prev))         # [B, S, 5, D]
+    streams = copy_to(_ddlerp(p, x, _shift(x, x_prev)), tp)  # [B, S, 5, D]
     xw, xk, xv, xr, xg = streams.unbind(2)
 
-    w_log = -torch.exp(p["w0"] + dot(torch.tanh(dot(xw.to(torch.float32),
-                                                    p["w1"])), p["w2"]))
+    w_log = -torch.exp(w0 + dot(
+        torch.tanh(dot(xw.to(torch.float32), p["w1"])), w2))
     r = dot(xr, p["wr"]).reshape(b, s, h, hd)
     k = dot(xk, p["wk"]).reshape(b, s, h, hd)
     v = dot(xv, p["wv"]).reshape(b, s, h, hd)
@@ -210,40 +229,51 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, correction=0)
     yf = (yf - mu) * torch.rsqrt(var + 64e-5)
-    yf = yf.reshape(b, s, d) * p["ln_x"]["scale"] + p["ln_x"]["bias"]
-    out = dot(yf.to(x.dtype) * g, p["wo"])
+    yf = yf.reshape(b, s, dl) * ln_x["scale"] + ln_x["bias"]
+    out = row_dot(yf.to(x.dtype) * g, p["wo"], tp)
     return out, x[:, -1], state
 
 
-def rwkv_channel_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
+def rwkv_channel_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
+                     tp: Optional[Group] = None):
+    """``tp``: d_ff split over a tensor-parallel group (``wk``'s column
+    block, ``wv``'s row block; the partial output summed over it). The
+    receptance gates the SUMMED output, so ``wr`` is used whole, after
+    the reduction."""
     shifted = _shift(x, x_prev)
     xk = x + (shifted - x) * p["mu_k"].to(x.dtype)
     xr = x + (shifted - x) * p["mu_r"].to(x.dtype)
-    k = torch.square(torch.relu(dot(xk, p["wk"])))
-    return torch.sigmoid(dot(xr, p["wr"])) * dot(k, p["wv"]), x[:, -1]
+    k = torch.square(torch.relu(dot(copy_to(xk, tp), p["wk"])))
+    return torch.sigmoid(dot(xr, p["wr"])) * row_dot(k, p["wv"], tp), \
+        x[:, -1]
 
 
 def rwkv_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
-               single_step: bool = False,
-               kernels: bool = True) -> tuple[torch.Tensor, dict]:
-    """One RWKV-6 block. state = {tm_x, cm_x [B,D], wkv [B,H,N,N]}."""
+               single_step: bool = False, kernels: bool = True,
+               tp: Optional[Group] = None,
+               ffn_tp: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
+    """One RWKV-6 block. state = {tm_x, cm_x [B,D], wkv [B,H,N,N]};
+    ``tp`` / ``ffn_tp``: the time mix's heads / the channel mix's d_ff
+    split over a tensor-parallel group (``wkv`` then this rank's heads)."""
     a, tm_x, wkv = rwkv_time_mix(
         p["time_mix"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
         x_prev=state["tm_x"], state=state["wkv"], single_step=single_step,
-        kernels=kernels)
+        kernels=kernels, tp=tp)
     x = x + a
     c, cm_x = rwkv_channel_mix(
         p["channel_mix"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-        x_prev=state["cm_x"])
+        x_prev=state["cm_x"], tp=ffn_tp)
     x = x + c
     return x, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
 
 
 def init_rwkv_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
-                    device: torch.device | None = None) -> dict:
+                    device: torch.device | None = None,
+                    tp: Optional[Group] = None) -> dict:
+    """A zero state; over ``tp``, ``wkv`` holds this rank's heads."""
     d = cfg.d_model
     hd = cfg.ssm.head_dim
-    h = d // hd
+    h = d // hd // (tp.size if tp is not None else 1)
     return {"tm_x": torch.zeros((batch, d), dtype=dtype, device=device),
             "cm_x": torch.zeros((batch, d), dtype=dtype, device=device),
             "wkv": torch.zeros((batch, h, hd, hd), device=device)}

@@ -18,18 +18,20 @@ the batch is split over the ``batch`` axis (``input_shardings``). The
 model gets the placed DTensor tree and computes each rank's batch shard
 in shards (``distributed/tensor_parallel.py``): each layer gathers its
 own leaves where it runs, over the ``fsdp`` / ``batch`` axes only
-(ZeRO-3, gathered again in the backward); GQA attention and the MLPs
-run tensor-parallel over the ``tensor`` axis (column- then row-parallel,
-the partial sums reduced: the paper's ME tree), the MoE expert-parallel
-over the ``expert`` axis (each rank its own experts' slots: the MC
-tree), the embedding, head and loss over the vocabulary. The gathers'
-backward reduce-scatters each gradient onto its leaf's placements,
-summed over the batch shards; Adam then updates the local blocks, and
-each new block goes to its parameter's placements. MLA, the codebook
-heads and the recurrent layers are gathered per layer and computed whole
-(ROADMAP Queue A, item 9c). The ruled prefill and serve steps compute
-the same way on each rank's shard of the request batch; the logits and
-tokens are gathered.
+(ZeRO-3, gathered again in the backward); GQA and MLA attention, the
+MLPs and the Mamba-2 and RWKV-6 layers run tensor-parallel over the
+``tensor`` axis on their heads (column- then row-parallel, the partial
+sums reduced: the paper's ME tree), the MoE expert-parallel over the
+``expert`` axis (each rank its own experts' slots: the MC tree), the
+embedding, head and loss over the vocabulary. The gathers' backward
+reduce-scatters each gradient onto its leaf's placements, summed over
+the batch shards; Adam then updates the local blocks, and each new block
+goes to its parameter's placements. The codebook heads, and layers whose
+heads the axis does not divide, are gathered per layer and computed
+whole (ROADMAP Queue A, item 9c). The ruled prefill and serve steps
+compute the same way on each rank's shard of the request batch, a GQA
+cache whose K/V heads do not split held on its capacity rows (the
+split-capacity decode); the logits and tokens are gathered.
 
 The reference jits its train step with the parameters and optimizer
 state donated; the port's step returns new trees (``adam_update`` is
@@ -454,8 +456,9 @@ def make_prefill_step(cfg: ArchConfig, rules: MeshRules | None = None, *,
     shard's ``batch_split``, computing each layer in shards as the ruled
     train step does, and the logits are gathered (the vocabulary, then
     the rows): the whole batch's, on every rank. The decode state is this
-    rank's: its batch shard, and its K/V heads where attention splits
-    them; for :func:`make_serve_step` with the same rules.
+    rank's: its batch shard, its K/V heads where attention splits them
+    (else its capacity rows of every K/V head) and its recurrent heads;
+    for :func:`make_serve_step` with the same rules.
     """
     def prefill_step(params, batch):
         if rules is None:

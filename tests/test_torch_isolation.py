@@ -565,9 +565,11 @@ from repro_torch.configs import SHAPES, get_reduced
 from repro_torch.distributed import tensor_parallel as TP
 from repro_torch.distributed.sharding import (MeshRules, batch_split,
                                               gather_tree, mesh_rules)
+from repro_torch.launch import serve
 from repro_torch.launch.mesh import init_distributed
 from repro_torch.launch.strategy import pick_strategy
 from repro_torch.launch.train import synthetic_batch
+from repro_torch.models import mamba2, rwkv
 from repro_torch.models import model as M
 from repro_torch.train.steps import (TrainHParams, init_opt_state,
                                      make_prefill_step, make_serve_step,
@@ -596,6 +598,38 @@ got = make_prefill_step(cfg, rules)(params, {"tokens": toks})
 want = make_prefill_step(cfg)(params, {"tokens": toks})
 assert torch.equal(got[0], want[0])
 assert torch.equal(got[1]["main"]["k"], want[1]["main"]["k"])
+# MLA, Mamba-2 with the shared block, RWKV-6: one train step, a prefill
+# and two decode steps under tp_ep rules on (1, 1), the plain ones bit
+# for bit
+import repro_torch.launch.dryrun, repro_torch.launch.specs
+for arch in ("deepseek-v3-671b", "zamba2-7b", "rwkv6-3b"):
+    cfg = get_reduced(arch)
+    rules = MeshRules(mesh, pick_strategy(
+        cfg, SHAPES["train_4k"], override_profile="tp_ep").logical_rules)
+    with mesh_rules(rules), batch_split(None):
+        plan = TP.plan_for(cfg)
+    assert plan.tp is None and not (plan.heads or plan.cap)
+    out = []
+    for r in (rules, None):
+        params = M.init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+        opt = init_opt_state(params, hp)
+        params, opt, met = make_train_step(cfg, r, hp)(
+            params, opt, synthetic_batch(cfg, 4, 16, 0))
+        logits, st = make_prefill_step(cfg, r)(params, {"tokens": toks})
+        st = serve._grow_cache(cfg, st, 2, 10, "cpu", r)
+        step, seq = make_serve_step(cfg, r), []
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)
+        for _ in range(2):
+            nxt, st = step(params, nxt[:, None], st)
+            seq.append(nxt)
+        out.append((float(met["loss"]), gather_tree(params), logits, seq,
+                    st))
+    assert out[0][0] == out[1][0], arch
+    for i in (1, 4):
+        a, b = M.flat_tree(out[0][i]), M.flat_tree(out[1][i])
+        assert all(torch.equal(a[k], b[k]) for k in b), (arch, i)
+    assert torch.equal(out[0][2], out[1][2]), arch
+    assert all(torch.equal(x, y) for x, y in zip(out[0][3], out[1][3]))
 dist.destroy_process_group()
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
        and sys.modules[m] is not None]
@@ -607,7 +641,10 @@ print("ok")
 def test_tensor_parallel_runs_without_jax():
     """The ruled steps' compute split on a one-rank (1, 1) mesh under
     qwen3-moe's tp_ep rules: nothing split, the plain step bit for bit
-    (loss, every parameter; the prefill's logits and cache)."""
+    (loss, every parameter; the prefill's logits and cache); and so for
+    deepseek-v3 (MLA), zamba2-7b (Mamba-2, the shared block) and
+    rwkv6-3b (a train step, the prefill, two decode steps, the state),
+    with every module the split touches imported without jax."""
     out = subprocess.run([sys.executable, "-c", TENSOR_PARALLEL_WITHOUT_JAX],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
