@@ -247,7 +247,19 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    K/V heads (the split-capacity decode), ms, peak and device ms by
    kernel, then one layer's split decode captured as a CUDA graph (equal
    to eager bit for bit; only the owned row written); the seconds these
-   cases added.
+   cases added. Last (``seq_split_steps``), rank 1 of a fake group of
+   ``SEQ_RANKS`` on a ``"cuda"`` (2, 1, 1) mesh (pod x data x model)
+   under the multi-pod ``fsdp`` rules, which split each sequence over
+   ``pod``: one train step (B = 8, S = 1024, the last segment's 512
+   tokens of each sequence) of the full qwen2-1.5b and of rwkv6-3b and
+   zamba2-7b depth-cut as in phase 8, from rank 1's own blocks (half of
+   every parameter and Adam leaf; the gathers over ``pod``, the K/V
+   gather and the carried states hold unwritten memory, so no value is
+   checked): the FLOPs of ``analyze`` on the card equal the same rank's
+   count on meta, the meta peak is within ``PEAK_TOL`` of the card's,
+   none of the six kernels is launched (the counts set to 0 just before
+   and read just after each run); ms (warm) and the card's busy share
+   printed beside the plain whole-sequence step's, and its FLOPs.
 10. the dry run (``phase_dryrun``), the launch counts set to 0 just
    before and read just after (it launches none): the plain qwen2-1.5b
    step of phase 8's cell analysed on meta by ``launch.hlo_analysis.
@@ -2406,9 +2418,10 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     (host snapshot), ``replan_mesh(1, model_parallel=1)``,
     ``reshard_tree``, one step: equal to the ruled run's third step bit
     for bit. Then :func:`tp_ep_one_rank` on the same mesh and, the nccl
-    group gone, :func:`fake_group_prefill`. The six kernels' counts are
-    set to 0 just before and read before the fake group: this path
-    launches none; the fake group gates its own counts."""
+    group gone, :func:`fake_group_prefill` and :func:`seq_split_steps`.
+    The six kernels' counts are set to 0 just before and read before the
+    fake groups: this path launches none; the fake groups gate their own
+    counts."""
     import os
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2523,6 +2536,7 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     print(f"mesh phase launches: {counts}")
     split = fake_group_prefill(dev, smi)
     print(f"mesh phase, the head-split prefills' counted runs: {split}")
+    seq_split_steps(dev, smi)
 
 
 FAKE_RANKS = 8       # phase 9's fake group: the (1, 8) mesh's ranks
@@ -3033,6 +3047,147 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
     print(f"  phase 9's head-split, MLA and capacity-split cases added "
           f"{time.perf_counter() - t_added:.1f} s")
     return launched
+
+
+# phase 9's sequence-split train steps: rank SEQ_RANKS - 1 (the last
+# segment) of a fake group on a (SEQ_RANKS, 1, 1) pod x data x model mesh
+# under the multi-pod fsdp rules; (arch, depth-cut as in phase 8)
+SEQ_RANKS = 2
+SEQ_SPLIT = (("qwen2-1.5b", False), ("rwkv6-3b", True), ("zamba2-7b", True))
+
+
+def timed_runs(fn, n: int = 3) -> list:
+    """Host seconds of ``n`` calls of ``fn``, each ending in a sync."""
+    secs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def seq_split_step(name: str, cut: bool, meshes: dict, dev: torch.device,
+                   smi: str) -> None:
+    """9f. One train step of ``name`` (B = TRAIN_B, S = TRAIN_S) as the
+    last segment's rank of the fake group: counted on meta and on the
+    card from the rank's own blocks (FLOPs equal, peak within PEAK_TOL),
+    no kernel launched, 3 warm runs and the card's busy share; then the
+    plain whole-sequence step of the same config on the card, counted
+    and timed the same way."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.distributed.tensor_parallel import seq_dim
+    from repro_torch.launch.dryrun import cell_specs
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import init_opt_state, make_train_step
+
+    cfg = depth_cut(name) if cut else get_config(name)
+    strat = pick_strategy(cfg, SHAPES["train_4k"], multi_pod=True)
+    expect(strat.name == "fsdp" and strat.logical_rules["seq"] == "pod",
+           f"{name} multi-pod train_4k: {strat}")
+    hp = dataclasses.replace(strat.hparams, loss_chunk=min(512, TRAIN_S))
+    rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
+    dim = seq_dim(cfg, rules["cuda"], ("data", "model"), TRAIN_S)
+    expect(dim == "pod", f"{name}: the sequences split over {dim}")
+    shape = ShapeSpec("seq_split", TRAIN_S, TRAIN_B, "train")
+    fns = counters()
+
+    def args(d: str, where: torch.device):
+        # the rank's blocks of the parameters and Adam's state; the batch
+        # plain and global (every rank's), as the training CLI passes it
+        params, opt, _ = rank_blocks(
+            cell_specs(cfg, shape, rules[d], strat), meshes[d], where,
+            None if where.type == "meta" else
+            torch.Generator(where).manual_seed(0))
+        batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, "cpu")
+        return params, opt, {k: v.to(where) for k, v in batch.items()}
+
+    for f in fns.values():
+        f.launches = 0
+    _, meta = analyze(make_train_step(cfg, rules["cpu"], hp),
+                      *args("cpu", torch.device("meta")))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    split_args = args("cuda", dev)
+    step = make_train_step(cfg, rules["cuda"], hp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _, card = analyze(step, *split_args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    secs = timed_runs(lambda: step(*split_args))
+    busy = device_breakdown(lambda: step(*split_args), min(secs))
+    counts = {k: f.launches for k, f in fns.items()}
+    held = sum(t.to_local().nbytes for _, t in leaves(split_args[0]))
+    del split_args
+    torch.cuda.empty_cache()
+    ratio = meta["peak_bytes"] / peak
+    expect(meta["flops"] == card["flops"],
+           f"{name} sequence-split step: FLOPs on meta "
+           f"{meta['flops']:.6e} vs on the card {card['flops']:.6e}")
+    expect(abs(ratio - 1) <= PEAK_TOL,
+           f"{name} sequence-split step: predicted peak "
+           f"{meta['peak_bytes'] / 2**30:.3f} GiB vs the card's "
+           f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f})")
+    expect(not any(counts.values()),
+           f"{name} sequence-split step launched {counts}")
+
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    plain_args = (params, init_opt_state(params, hp),
+                  synthetic_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, dev))
+    plain = make_train_step(cfg, None, hp)
+    _, whole = analyze(plain, *plain_args)
+    plain_secs = timed_runs(lambda: plain(*plain_args))
+    plain_busy = device_breakdown(lambda: plain(*plain_args),
+                                  min(plain_secs))
+    del params, plain_args
+    torch.cuda.empty_cache()
+    seg = TRAIN_S // SEQ_RANKS
+    depth = f"cut to {cfg.n_layers} layers" if cut else "full depth"
+    print(f"  {name} train step ({depth}, full width, B = {TRAIN_B}, "
+          f"S = {TRAIN_S}, multi-pod fsdp rules) as rank "
+          f"{SEQ_RANKS - 1} of a fake group of {SEQ_RANKS} on a cuda "
+          f"({SEQ_RANKS}, 1, 1) pod x data x model mesh: tokens "
+          f"[{seg * (SEQ_RANKS - 1)}, {TRAIN_S}) of each sequence, its "
+          f"blocks {held / 2**30:.2f} GiB (values not checked); FLOPs meta "
+          f"{meta['flops']:.6e} = card {card['flops']:.6e} "
+          f"({card['flops'] / whole['flops']:.4f} of the whole-sequence "
+          f"step's {whole['flops']:.6e}); predicted peak "
+          f"{meta['peak_bytes'] / 2**30:.3f} GiB vs {peak / 2**30:.3f} GiB "
+          f"(ratio {ratio:.4f}); launches {counts}; warm ms "
+          + ", ".join(f"{t * 1e3:.1f}" for t in secs)
+          + f" against the plain whole-sequence step's "
+          + ", ".join(f"{t * 1e3:.1f}" for t in plain_secs)
+          + f"; split: {busy}; plain: {plain_busy}; card: {smi}")
+
+
+def seq_split_steps(dev: torch.device, smi: str) -> None:
+    """9f. :func:`seq_split_step` of each of SEQ_SPLIT, as rank
+    SEQ_RANKS - 1 of one fake group; the seconds they took."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    t0 = time.perf_counter()
+    dist.init_process_group("fake", store=FakeStore(), rank=SEQ_RANKS - 1,
+                            world_size=SEQ_RANKS)
+    try:
+        meshes = {d: init_device_mesh(d, (SEQ_RANKS, 1, 1),
+                                      mesh_dim_names=("pod", "data",
+                                                      "model"))
+                  for d in ("cpu", "cuda")}
+        for name, cut in SEQ_SPLIT:
+            seq_split_step(name, cut, meshes, dev, smi)
+    finally:
+        dist.destroy_process_group()
+    print(f"  phase 9's sequence-split steps took "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"),

@@ -42,7 +42,8 @@ rank check. The port's ruled steps (``train/steps.py``) run the model on
 each rank's batch shard with local tensors, so the six constraints of
 ``models/model.py`` cost a rank check there: what GSPMD derives from
 them and from ``param_pspec`` (each layer in shards over ``tensor`` and
-``expert``) the port computes by hand in ``tensor_parallel.py``.
+``expert``, a train step's sequences in segments over ``seq``) the port
+computes by hand in ``tensor_parallel.py``.
 """
 from __future__ import annotations
 
@@ -439,25 +440,45 @@ class BatchSplit:
     it (mesh order). GSPMD computes the reference's batch-global
     quantities by itself; the model reaches them through this: a sum
     over the shards, and the whole batch gathered where a computation
-    spans shards (an MoE routing group wider than one shard)."""
+    spans shards (an MoE routing group wider than one shard).
+
+    ``seq_dims``: the mesh dims that split each sequence as well (the
+    ``seq`` rule's, ``tensor_parallel.Plan.seq``), each rank then holding
+    its contiguous ``segment`` of tokens at :attr:`offset`; empty where
+    the sequences are whole."""
     mesh: Any
     dims: tuple = ()
+    seq_dims: tuple = ()
+    segment: int = 0
 
     @property
     def n(self) -> int:
         """How many shards the batch is split into."""
         return _axis_size(self.mesh, self.dims) if self.dims else 1
 
+    def _index(self, dims: tuple) -> int:
+        coord = dict(zip(mesh_axis_names(self.mesh),
+                         self.mesh.get_coordinate()))
+        i = 0
+        for d in dims:
+            i = i * mesh_shape(self.mesh)[d] + coord[d]
+        return i
+
     @property
     def index(self) -> int:
         """This rank's shard: DTensor's chunk order (the first mesh dim
         outermost)."""
-        coord = dict(zip(mesh_axis_names(self.mesh),
-                         self.mesh.get_coordinate()))
-        i = 0
-        for d in self.dims:
-            i = i * mesh_shape(self.mesh)[d] + coord[d]
-        return i
+        return self._index(self.dims)
+
+    @property
+    def seq_n(self) -> int:
+        """How many segments each sequence is split into."""
+        return _axis_size(self.mesh, self.seq_dims) if self.seq_dims else 1
+
+    @property
+    def offset(self) -> int:
+        """The position of this rank's first token in its sequence."""
+        return self._index(self.seq_dims) * self.segment
 
     def _placements(self, on_split, off_split) -> list:
         return [on_split if n in self.dims else off_split

@@ -1,11 +1,15 @@
 """How the ruled steps split each layer's compute over the mesh: per-layer
 gathers of the ZeRO-3 shards, tensor-parallel attention, MLP and
-vocabulary, and an expert-parallel MoE. The port's own module: the
-reference's GSPMD builds the same split from its partition specs and
-the logits' ``"tensor"`` constraint (``repro/models/model.py:163-166``),
-its rules binding ``tensor`` to "TP: heads / mlp / vocab (partial-sum
-merges == the paper's ME tree)" and ``expert`` to "EP: MoE expert dim
-(dispatch == MC tree)" (``repro/distributed/sharding.py:17-19``).
+vocabulary, an expert-parallel MoE, and a train step's sequences in
+segments. The port's own module: the reference's GSPMD builds the same
+split from its partition specs and its activations' constraints (the
+logits' ``"tensor"``, ``repro/models/model.py:163-166``, and the
+residual stream's ``("batch", "seq", None)``), its rules binding
+``tensor`` to "TP: heads / mlp / vocab (partial-sum merges == the
+paper's ME tree)" and ``expert`` to "EP: MoE expert dim (dispatch == MC
+tree)" (``repro/distributed/sharding.py:17-19``), and the multi-pod
+``fsdp`` profile ``seq`` to ``pod`` ("cross-pod sequence parallelism",
+``repro/launch/strategy.py:44-51``).
 
 Under a ``mesh_rules`` context and a ``batch_split`` (the ruled train,
 prefill and serve steps of ``train/steps.py``) the model gets the
@@ -28,7 +32,8 @@ it; a stacked leaf unbinds into per-layer held leaves. Inside each layer
   (``shared_attn/...``, ``shared_mlp/...``) splits as attention and the
   MLP do;
 * the gather's backward is DTensor's: the gradient, ``Partial`` over the
-  mesh dims of the batch (and over ``tensor`` for a leaf used whole
+  mesh dims of the batch and of the sequence split (and over ``tensor``
+  for a leaf used whole
   inside a tensor-parallel region, or sliced to this rank's heads: the
   q / k norms, the K/V projections where each rank attends with its own
   q heads' groups, Mamba-2's ``in_proj`` / ``conv_w`` / ``conv_b`` /
@@ -61,9 +66,27 @@ divide is split on its capacity instead (``Plan.cap``, the reference's
 the decode merges the ranks' partial softmaxes
 (``models/layers.py`` ``_split_decode``). The codebook heads, and
 layers whose heads do not divide, are gathered per layer and computed
-whole on each rank (ROADMAP Queue A, item 9c). MLA's latent cache is
-whole on every rank (the reference splits its latent rank over
+whole on each rank (ROADMAP Queue A, items 9c.3-4). MLA's latent cache
+is whole on every rank (the reference splits its latent rank over
 ``tensor``).
+
+A train step's sequences split over the ``seq`` axis (``Plan.seq``,
+:func:`seq_dim`: the multi-pod ``fsdp`` rules' ``pod``) give each rank
+its contiguous segment of every sequence (``train/steps.py``
+``batch_shard``). Each rank computes its segment only: attention
+gathers the K/V of every segment (:func:`seq_whole`, an all-gather whose
+backward reduce-scatters) and attends up to its last query; RWKV-6's
+token shifts and Mamba-2's causal conv take the previous segment's last
+rows (:func:`prev_rows`); the recurrences run each segment from a zero
+state on every rank at once, gather each segment's final state and total
+decay, fold the state entering each segment (:func:`carry_in`) and add
+its contribution. Every rank calls every one of these collectives, in
+the same order, forward and in the remat'd recompute. The gradients are
+then ``Partial`` over ``seq`` too, and the reduce-scatter onto each
+leaf's ``fsdp`` placements (``pod`` among them) sums the segments'
+shares. A sequence that does not divide, a segment shorter than
+Mamba-2's conv window, an MoE or MLA config and ``seq`` on the tensor
+axis keep the sequences whole.
 """
 from __future__ import annotations
 
@@ -104,6 +127,14 @@ class Group:
             t.contiguous(), self.size, self._name()))
         return out.view(self.size, *t.shape)
 
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [size, *shape] summed over the ranks; this rank's
+        ``[index]`` of the sum."""
+        f = torch.ops._c10d_functional
+        out = f.wait_tensor(f.reduce_scatter_tensor(
+            t.contiguous(), "sum", self.size, self._name()))
+        return out.view(t.shape[1:])
+
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
@@ -113,7 +144,8 @@ class Plan:
     too), the vocabulary and the family's own heads (``heads``: MLA's,
     Mamba-2's or RWKV-6's, :func:`family_heads`) are split; ``cap``: a
     GQA decode cache whose K/V heads do not split is split on its
-    capacity instead."""
+    capacity instead; ``seq``: the group a train step's sequences are
+    split over (:func:`seq_dim`; None: whole)."""
     batch_dims: tuple
     tp: Optional[Group]
     ep: Optional[Group]
@@ -122,6 +154,7 @@ class Plan:
     vocab: bool
     heads: bool
     cap: bool
+    seq: Optional[Group] = None
 
 
 def _group(rules, logical: str, batch_dims: tuple) -> Optional[Group]:
@@ -131,10 +164,12 @@ def _group(rules, logical: str, batch_dims: tuple) -> Optional[Group]:
     sizes = mesh_shape(mesh)
     dims = [d for d in _names(rules.rules.get(logical))
             if d not in batch_dims and sizes[d] > 1]
-    if len(dims) != 1:
-        return None
+    return _group_on(mesh, dims[0]) if len(dims) == 1 else None
+
+
+def _group_on(mesh, dim: str) -> Group:
     coord = dict(zip(mesh_axis_names(mesh), mesh.get_coordinate()))
-    return Group(mesh, dims[0], sizes[dims[0]], coord[dims[0]])
+    return Group(mesh, dim, mesh_shape(mesh)[dim], coord[dim])
 
 
 def ssm_heads(cfg) -> int:
@@ -153,14 +188,41 @@ def family_heads(cfg) -> int:
     return cfg.n_heads if cfg.mla else ssm_heads(cfg)
 
 
+def seq_dim(cfg, rules, batch_dims: tuple, seq_len: int) -> Optional[str]:
+    """The mesh dim a ruled train step splits ``cfg``'s sequences of
+    ``seq_len`` tokens over (``Plan.seq``): the ``seq`` rule's one mesh
+    dim of more than one rank that is neither the batch's nor the
+    ``tensor`` / ``expert`` axis's (the multi-pod ``fsdp`` rules'
+    ``pod``). None, the sequences whole, where ``seq_len`` does not
+    divide over it, where a segment is shorter than Mamba-2's conv
+    window, for an MoE or MLA config (their routing groups and latent
+    caches span the sequence) and where ``seq`` shares the tensor axis
+    (sequence parallelism inside a tensor-parallel group; ROADMAP item
+    9c.6). Works on an ``AbstractMesh`` too."""
+    if cfg.moe is not None or cfg.mla:
+        return None
+    sizes = mesh_shape(rules.mesh)
+    taken = set(batch_dims) | set(_names(rules.rules.get("tensor"))) \
+        | set(_names(rules.rules.get("expert")))
+    dims = [d for d in _names(rules.rules.get("seq")) if sizes[d] > 1]
+    if len(dims) != 1 or dims[0] in taken or seq_len % sizes[dims[0]]:
+        return None
+    if cfg.family == "hybrid" and \
+            seq_len // sizes[dims[0]] < cfg.ssm.d_conv - 1:
+        return None
+    return dims[0]
+
+
 def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
     """The split of ``cfg``'s layers under ``rules`` (default: the active
     ``mesh_rules``) with the batch over ``batch_dims`` (default: the
-    active ``batch_split``'s dims)."""
+    active ``batch_split``'s dims, and its sequence split)."""
     rules = rules if rules is not None else _current()
+    seq = None
     if batch_dims is None:
         split = current_split()
         batch_dims = split.dims if split is not None else ()
+        seq = seq_group()
     tp = _group(rules, "tensor", batch_dims)
     ep = _group(rules, "expert", batch_dims)
     if cfg.moe is None or (ep is not None
@@ -177,7 +239,7 @@ def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
         cap = cfg.family != "ssm" and not cfg.mla and not kv
     vocab = (tp is not None and not cfg.n_codebooks
              and cfg.vocab_size % tp.size == 0)
-    return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab, heads, cap)
+    return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab, heads, cap, seq)
 
 
 def mesh_plan(cfg, rules) -> Plan:
@@ -283,6 +345,7 @@ def _layout(path: str, t, plan: Plan) -> tuple:
             raise ValueError(f"{path}: split over {group.dim!r} but held "
                              f"as {t.placements}")
         group = None              # an MLP whose d_ff does not divide
+    summed = set(plan.batch_dims) | ({plan.seq.dim} if plan.seq else set())
     use, grad = [], []
     for n, p in zip(names, t.placements):
         if group is not None and n == group.dim:
@@ -290,7 +353,7 @@ def _layout(path: str, t, plan: Plan) -> tuple:
             grad.append(p)
         else:
             use.append(Replicate())
-            grad.append(Partial() if n in plan.batch_dims or (
+            grad.append(Partial() if n in summed or (
                 partial and plan.tp is not None and n == plan.tp.dim)
                 else Replicate())
     sizes = mesh_shape(t.device_mesh)
@@ -444,6 +507,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.reduce_scatter(g), None
+
+
 def copy_to(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     """The input of a column-parallel region: ``x`` forward, its gradient
     summed over ``group`` backward (``x`` itself without a group)."""
@@ -454,6 +528,70 @@ def reduce_from(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     """A row-parallel region's partial output summed over ``group``; the
     gradient passes through (``x`` itself without a group)."""
     return x if group is None else _ReduceFrom.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# The sequence split over the seq axis
+# ---------------------------------------------------------------------------
+
+
+def seq_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """[size, *x.shape]: every segment's ``x``, in sequence order;
+    backward, each segment's gradient summed over ``group`` back to its
+    rank (a reduce-scatter)."""
+    return _SeqGather.apply(x, group)
+
+
+def seq_whole(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The segments' ``x`` [B, s, ...] joined on dim 1: [B, size s, ...]
+    (the K/V of the whole sequence)."""
+    parts = seq_gather(x, group)                  # [size, B, s, ...]
+    return parts.transpose(0, 1).flatten(1, 2)
+
+
+def prev_rows(x: torch.Tensor, n: int, group: Group) -> torch.Tensor:
+    """The previous segment's last ``n`` rows of ``x`` [B, s, ...]:
+    [B, n, ...], zeros on the first segment (the token shift's and the
+    causal conv's state at a segment's start). Every rank takes its rows
+    from the gathered whole, so every rank's backward joins the
+    reduce-scatter."""
+    parts = seq_gather(x[:, -n:], group)          # [size, B, n, ...]
+    return torch.cat([torch.zeros_like(parts[:1]), parts[:-1]])[group.index]
+
+
+def fold_carries(parts: torch.Tensor) -> torch.Tensor:
+    """The state entering each segment of a linear recurrence ``S_t =
+    exp(a_t) S_{t-1} + u_t`` run from a zero state on every segment:
+    ``parts`` [n, 2, ...] holds each segment's final state and its total
+    log decay (broadcast to the state's shape). S_in(0) = 0, S_in(p) =
+    exp(D_{p-1}) S_in(p-1) + S_loc(p-1); returns [n, ...]."""
+    s = torch.zeros_like(parts[0, 0])
+    out = [s]
+    for q in range(parts.shape[0] - 1):
+        s = s * torch.exp(parts[q, 1]) + parts[q, 0]
+        out.append(s)
+    return torch.stack(out)
+
+
+def carry_in(state: torch.Tensor, log_decay: torch.Tensor,
+             group: Group) -> torch.Tensor:
+    """The state entering this rank's segment: every segment's final
+    ``state`` (its pass from a zero state) and total ``log_decay``
+    (broadcasting against the state) gathered over ``group`` in one
+    collective, and folded (:func:`fold_carries`) on every rank at once:
+    no rank waits on the previous one's state."""
+    parts = seq_gather(torch.stack([state, log_decay.expand_as(state)]),
+                       group)
+    return fold_carries(parts)[group.index]
+
+
+def seq_group() -> Optional[Group]:
+    """The group the active ruled train step splits the sequences over
+    (``Plan.seq``: the active ``batch_split``'s), or None."""
+    split = current_split()
+    if split is None or not split.seq_dims:
+        return None
+    return _group_on(split.mesh, split.seq_dims[0])
 
 
 # ---------------------------------------------------------------------------

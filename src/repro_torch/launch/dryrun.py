@@ -2,10 +2,12 @@
 
 For one (architecture x input shape x mesh) cell on a production mesh
 (``launch/mesh.py``: 16 x 16 = 256 cards, or 2 x 16 x 16 = 512), run the
-port's own ruled step once on ``meta`` tensors, as rank 0 of that mesh,
-and report what one card holds, computes and sends: the arguments'
-bytes and the peak of live bytes, FLOPs and HBM bytes per device, the
-collectives' bytes, and the three roofline terms.
+port's own ruled step once on ``meta`` tensors, as rank 0 of that mesh
+(:func:`counted_rank`: the first rank of the last sequence segment where
+a train step splits its sequences), and report what one card holds,
+computes and sends: the arguments' bytes and the peak of live bytes,
+FLOPs and HBM bytes per device, the collectives' bytes, and the three
+roofline terms.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch glm4-9b \\
         --shape train_4k --mesh single
@@ -16,8 +18,8 @@ process group is torch's fake backend (``"fake"``, registered by
 ``torch.testing._internal.distributed.fake_pg``), which runs every
 collective as a no-op. In place of the reference's 512 XLA host
 devices, the process starts a fake group of the mesh's size and takes
-rank 0; the ``DeviceMesh`` has the production shape and axis names, on
-device type ``"cpu"``.
+the counted rank; the ``DeviceMesh`` has the production shape and axis
+names, on device type ``"cpu"``.
 
 * **Inputs** are built on ``meta`` from ``launch/specs.py``'s stand-ins
   (the initializers ``init_model``, ``init_opt_state`` and
@@ -33,9 +35,13 @@ device type ``"cpu"``.
   meta). The ruled steps gather each layer's leaves where it runs and
   compute attention, MLA, the MLPs, the experts, the vocabulary and the
   Mamba-2 and RWKV-6 heads in shards (``distributed/tensor_parallel.py``)
-  where the ``tensor`` axis divides them; the codebook heads, and layers
-  whose heads do not divide, are gathered per layer and computed whole
-  on every rank. The serve step holds a rank's batch shard of the decode
+  where the ``tensor`` axis divides them, and a train step each sequence
+  in segments over the ``seq`` axis (``Plan.seq``: the multi-pod
+  ``fsdp`` rules' ``pod``); the codebook heads, and layers whose heads
+  do not divide, are gathered per layer and computed whole on every
+  rank. Each segment's queries attend to the keys before them, so the
+  last segment's first rank, which scans every key, is the one counted:
+  rank 0's count would leave out half the causal attention. The serve step holds a rank's batch shard of the decode
   state, its K/V heads where attention splits them, else its capacity
   rows of every K/V head (the reference's split-capacity decode), and
   its heads of the recurrent states (:func:`compute_state_placements`);
@@ -56,7 +62,9 @@ The result has the reference's keys, but:
   ``alias_bytes`` is 0: the port donates nothing (``ExecutionSpec.donate``
   is not ported);
 * ``cost`` has ``flops_per_device`` and ``bytes_per_device`` only: the
-  ``xla_*_no_trip`` keys have no counterpart.
+  ``xla_*_no_trip`` keys have no counterpart;
+* ``counted_rank``, added where the counted rank is not 0 (a cell whose
+  train step splits its sequences).
 
 ``bytes_by_op``, ``collectives`` and ``roofline`` keep the reference's
 fields and its ``model_flops`` formula. The roofline constants are the
@@ -86,9 +94,10 @@ from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs import SHAPES, all_cells, applicable, get_config
-from repro_torch.distributed.sharding import (_names, tree_map,
+from repro_torch.distributed.sharding import (_names, mesh_shape, tree_map,
                                               tree_map_with_path)
-from repro_torch.distributed.tensor_parallel import (mesh_plan, state_block,
+from repro_torch.distributed.tensor_parallel import (mesh_plan, seq_dim,
+                                                     state_block,
                                                      state_split)
 from repro_torch.launch.hlo_analysis import analyze, tensors
 from repro_torch.launch.mesh import make_production_mesh
@@ -108,12 +117,13 @@ CARD_BYTES = 80e9
 
 
 @contextlib.contextmanager
-def production_mesh(mesh_kind: str):
+def production_mesh(mesh_kind: str, rank: int = 0):
     """The production ``DeviceMesh`` of ``mesh_kind`` ("single": (16,
     16) data x model; "multi": (2, 16, 16) pod x data x model) on device
-    type "cpu", this process rank 0 of a fake default group of its size.
-    The group is started here and destroyed on exit; one of that size
-    that exists already is used and left, one of another size raises."""
+    type "cpu", this process ``rank`` of a fake default group of its
+    size. The group is started here and destroyed on exit; one of that
+    size that exists already is used and left, one of another size
+    raises."""
     prod = make_production_mesh(multi_pod=mesh_kind == "multi")
     sizes = tuple(prod.shape.values())
     world = math.prod(sizes)
@@ -124,7 +134,7 @@ def production_mesh(mesh_kind: str):
                                f"ranks exists; the mesh needs {world}")
     else:         # importing fake_pg registers the "fake" backend
         from torch.testing._internal.distributed.fake_pg import FakeStore
-        dist.init_process_group("fake", store=FakeStore(), rank=0,
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
                                 world_size=world)
         started = True
     try:
@@ -225,6 +235,24 @@ def cell(arch: str, shape_name: str, mesh_kind: str, mesh=None, *,
     return cfg, shape, strat, make_mesh_rules(mesh, strat)
 
 
+def counted_rank(cfg, shape, rules) -> int:
+    """The rank whose run a cell counts: 0, or where the train step
+    splits each sequence (``tensor_parallel.seq_dim``, on the device-free
+    ``rules``), the first rank of the last segment, whose queries see
+    every key (the multi-pod ``fsdp`` cells: rank 256 of 512)."""
+    if shape.kind != "train":
+        return 0
+    tokens = batch_specs(cfg, shape, rules)["tokens"].sharding.spec
+    dim = seq_dim(cfg, rules, _names(tokens[0]) if tokens else (),
+                  shape.seq_len)
+    if dim is None:
+        return 0
+    rank = 0
+    for name, size in mesh_shape(rules.mesh).items():
+        rank = rank * size + (size - 1 if name == dim else 0)
+    return rank
+
+
 def stand_in_bytes(arch: str, shape_name: str, mesh_kind: str) -> int:
     """One device's bytes of a cell's stand-ins on the device-free
     production mesh: the sum of prod(shard_shape) x itemsize over
@@ -289,7 +317,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              profile=None, micro=None, seq_shard=None,
              unroll_decode: bool = False,
              verbose: bool = True) -> dict:
-    with production_mesh(mesh_kind) as mesh:
+    cfg, shape, _, rules = cell(arch, shape_name, mesh_kind, profile=profile,
+                                micro=micro, seq_shard=seq_shard)
+    rank = counted_rank(cfg, shape, rules)
+    with production_mesh(mesh_kind, rank) as mesh:
         chips = mesh.size()
         cfg, shape, strat, rules = cell(
             arch, shape_name, mesh_kind, mesh, profile=profile, micro=micro,
@@ -359,9 +390,11 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                                   if bound else 0.0),
         },
     }
+    if rank:
+        result["counted_rank"] = rank
     if verbose:
         print(f"== {arch} x {shape_name} x {mesh_kind} "
-              f"[{strat.name}, {chips} cards] ==")
+              f"[{strat.name}, {chips} cards, rank {rank} counted] ==")
         print(f"  place {t_place:.1f}s trace {t_trace:.1f}s "
               f"({acc['ops']} ops)")
         print(f"  memory: arguments {arg_b / 2**30:.2f} GiB, peak "

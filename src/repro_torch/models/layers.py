@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.tensor_parallel import (Group, capacity_rows,
-                                                     copy_to, reduce_from)
+                                                     copy_to, reduce_from,
+                                                     seq_whole)
 from repro_torch.kernels._build import needs_grad
 
 Params = dict  # nested dict of tensors
@@ -247,7 +248,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               chunk: int = 1024,
               return_kv: bool = False,
               tp: Optional[Group] = None,
-              cap: Optional[Group] = None
+              cap: Optional[Group] = None,
+              seq: Optional[Group] = None
               ) -> tuple[torch.Tensor, Optional[tuple]]:
     """GQA attention. x [B, S, D].
 
@@ -272,6 +274,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     the K/V heads do not divide, ``launch/specs.py`` ``_state_sharding``):
     the prefill keeps this rank's rows (:func:`~repro_torch.distributed.
     tensor_parallel.capacity_rows`), and decode is :func:`_split_decode`.
+
+    ``seq``: ``x`` is this rank's segment of sequences split over a group
+    (``Plan.seq``, the training forward): the rank projects and rotates
+    its own segment (``positions`` start at its offset), gathers the K/V
+    of every segment (the gather's backward reduce-scatters their
+    gradients) and attends causally over the keys up to its last query:
+    the first segment scans its own keys, the last all of them.
     """
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
@@ -294,7 +303,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         k = apply_rope(k, positions, cfg.rope_theta, rd, cfg.mrope_sections)
 
     groups = _kv_groups(cfg, tp, h, hkv)
-    if kv_cache is None:
+    if kv_cache is None and seq is not None:
+        first = seq.index * s
+        kv = seq_whole(torch.stack([k, v], 2), seq)[:, :first + s]
+        out = chunked_attention(q, kv[:, :, 0, groups], kv[:, :, 1, groups],
+                                causal=True, chunk=chunk, q_offset=first)
+        new_cache = None
+    elif kv_cache is None:
         out = chunked_attention(q, k[:, :, groups], v[:, :, groups],
                                 causal=True, chunk=chunk)
         new_cache = (tuple(capacity_rows(t.to(torch.bfloat16), cap)

@@ -14,6 +14,14 @@ small, stateful and sequential. Three ways to run the recurrence, as in
   runs on the CPU, as the reference's model does everywhere, and on the
   card when asked (``kernels=False``);
 * :func:`ssd_step` — the exact single-token recurrence for decode.
+
+A training forward whose sequences are split over a group (``seq``,
+``tensor_parallel.Plan.seq``) runs the SSD of each segment from a zero
+state on every rank at once, gathers and folds the segments' final
+states and total decays (``tensor_parallel.carry_in``) and adds what the
+state entering the segment contributes (:func:`ssd_entering`); the
+causal conv takes the previous segment's last K - 1 rows as its cache
+(``tensor_parallel.prev_rows``).
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd import ssd
-from repro_torch.distributed.tensor_parallel import (Group, copy_to,
+from repro_torch.distributed.tensor_parallel import (Group, carry_in,
+                                                     copy_to, prev_rows,
                                                      reduce_from)
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
                                        init_rmsnorm, rmsnorm, row_dot,
@@ -110,6 +119,19 @@ def ssd_chunked(x, dt, a_log, b, c, state, chunk: int = 64):
     return y.to(x.dtype), st
 
 
+def ssd_entering(dt, a_log, c, s_in):
+    """What a state ``s_in`` [B, H, P, N] entering a segment adds to its
+    SSD output, the segment having run from a zero state: y_t +=
+    exp(-exp(a_log) sum_{j<=t} dt_j) S_in c_t, float32 [B, S, H, P] (the
+    chunked form's inter-chunk term over the whole segment; the sum is
+    inclusive, and its exp at most 1). The state leaving the segment
+    gains exp(-exp(a_log) sum_j dt_j) S_in."""
+    la = -torch.exp(a_log.to(torch.float32)) * dt.to(torch.float32)
+    cum = torch.cumsum(la, dim=1)                        # [B, S, H]
+    return torch.einsum("bth,btn,bhpn->bthp", torch.exp(cum),
+                        c.to(torch.float32), s_in)
+
+
 def ssd_step(x, dt, a_log, b, c, state):
     """Single-token SSD recurrence.
 
@@ -191,7 +213,8 @@ def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
 
 def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
                  single_step: bool = False, kernels: bool = True,
-                 tp: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
+                 tp: Optional[Group] = None,
+                 seq: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
     """One Mamba-2 block (pre-norm residual).
 
     state = {"ssm": [B, H, P, N] f32, "conv": [B, K-1, C_conv]}. A
@@ -210,9 +233,14 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
     over the group, and the partial output is summed over it. The state
     holds this rank's heads ([B, H/n, P, N]) and conv channels ([B, K-1,
     x channels of its heads + 2N]).
+
+    ``seq``: ``x`` is this rank's segment of sequences split over a group
+    (a zero ``state``): the conv's cache is the previous segment's last
+    K - 1 rows, and the state entering the segment is carried in after
+    the SSD (:func:`ssd_entering`).
     """
     s = cfg.ssm
-    bsz, seq, d = x.shape
+    bsz, length, d = x.shape
     d_inner = s.expand * d
     in_spans, conv_spans = head_spans(cfg, tp)
     h = d_inner // s.head_dim // (tp.size if tp is not None else 1)
@@ -227,11 +255,13 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
     zxbcdt = dot(xn, w_in)
     # torch.split takes sizes where jnp.split takes indices
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * s.d_state, h], dim=-1)
-    xbc, conv_cache = _causal_conv(xbc, conv_w, conv_b, state["conv"])
+    cache = (state["conv"] if seq is None
+             else prev_rows(xbc, s.d_conv - 1, seq))
+    xbc, conv_cache = _causal_conv(xbc, conv_w, conv_b, cache)
     xbc = F.silu(xbc)
     xs, b, c = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])  # [B, S, H]
-    xh = xs.reshape(bsz, seq, h, s.head_dim)
+    xh = xs.reshape(bsz, length, h, s.head_dim)
 
     if single_step:
         y, ssm = ssd_step(xh[:, 0], dt[:, 0], p["a_log"], b[:, 0], c[:, 0],
@@ -242,8 +272,15 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
                      c.contiguous(), state["ssm"])
     else:
         y, ssm = ssd_chunked(xh, dt, p["a_log"], b, c, state["ssm"])
+    if seq is not None:
+        decay = (-torch.exp(p["a_log"].to(torch.float32)) * dt).sum(1)
+        decay = decay[..., None, None]                   # [B, H, 1, 1]
+        s_in = carry_in(ssm, decay, seq)
+        y = (y.to(torch.float32)
+             + ssd_entering(dt, p["a_log"], c, s_in)).to(y.dtype)
+        ssm = ssm + torch.exp(decay) * s_in
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xh
-    y = y.reshape(bsz, seq, di)
+    y = y.reshape(bsz, length, di)
     y = _gated_norm(p, y, z, cfg, d_inner, tp)
     out = row_dot(y, p["out_proj"], tp)
     return x + out, {"ssm": ssm, "conv": conv_cache}

@@ -326,12 +326,13 @@ class ForwardOut:
 
 def default_positions(cfg: ArchConfig, batch: int, s: int,
                       device: torch.device,
-                      cache_len: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      cache_len: Optional[torch.Tensor] = None,
+                      start: int = 0) -> torch.Tensor:
     """The reference's positions when none are given: arange(S), after
-    ``cache_len`` in decode (a 0-dim tensor, read on the device); for
-    M-RoPE the same in all three streams, [3, B, S]."""
-    pos = torch.arange(s, device=device)
+    ``cache_len`` in decode (a 0-dim tensor, read on the device), from
+    ``start`` on a sequence segment; for M-RoPE the same in all three
+    streams, [3, B, S]."""
+    pos = torch.arange(start, start + s, device=device)
     if cache_len is not None:
         pos = cache_len + pos
     return pos.expand(3, batch, s) if cfg.mrope_sections else pos
@@ -352,7 +353,14 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     the chunked einsum forms instead of the CUDA kernels (the path the
     kernels are held to). ``unroll_decode``: a transformer's decode
     returns its caches as per-layer lists (see
-    :func:`_forward_transformer`)."""
+    :func:`_forward_transformer`).
+
+    Under a ruled train step that splits the sequences
+    (``tensor_parallel.Plan.seq``), ``tokens`` is this rank's segment:
+    its positions start at the segment's offset, attention gathers the
+    K/V of the segments before it, and the recurrences take their
+    carries from them (:func:`~repro_torch.models.layers.attention`,
+    ``rwkv.rwkv_block``, ``mamba2.mamba2_block``)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
     _check_family(cfg)
@@ -360,8 +368,10 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     b, s = tokens.shape[:2]
     cache_len = state["len"] if (mode == "decode" and state is not None
                                  and "len" in state) else None
+    seq = TP.seq_group() if mode == "train" else None
     if positions is None:
-        positions = default_positions(cfg, b, s, tokens.device, cache_len)
+        positions = default_positions(cfg, b, s, tokens.device, cache_len,
+                                      0 if seq is None else seq.index * s)
     emb_pos = positions
     if mode == "decode" and cfg.pos_embed == "sinusoidal":
         emb_pos = cache_len + torch.arange(s, device=tokens.device)
@@ -371,14 +381,14 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     cap = None if mode == "train" else TP.capacity_group(params, cfg)
     if cfg.family == "ssm":
         x, aux, new_state = _forward_rwkv(params, cfg, x, mode, state,
-                                          kernels, ck)
+                                          kernels, ck, seq)
     elif cfg.family == "hybrid":
         x, aux, new_state = _forward_hybrid(params, cfg, x, positions, mode,
-                                            state, kernels, ck, cap)
+                                            state, kernels, ck, cap, seq)
     else:
         x, aux, new_state = _forward_transformer(params, cfg, x, positions,
                                                  mode, state, unroll_decode,
-                                                 ck, cap)
+                                                 ck, cap, seq)
     x = _norm(TP.use(params["final_norm"]), x, cfg)
     if new_state is not None and cache_len is not None:
         new_state["len"] = cache_len + s
@@ -390,12 +400,13 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
                     cache_len=None, moe_layer=False, return_kv=False,
-                    cap=None):
+                    cap=None, seq=None):
     """Pre-norm attention (MLA where ``cfg.mla``) + MLP or MoE. Returns
     (x, aux, new_kv); aux is the MoE layer's balance loss, else None.
     Held leaves are gathered here, and the attention, MLP and experts run
     in shards over the groups their leaves are held split over; ``cap``:
-    the K/V cache's capacity is split over that group."""
+    the K/V cache's capacity is split over that group; ``seq``: ``x`` is
+    this rank's segment of sequences split over that group."""
     tp_attn = TP.group_of(lp, "attn", "wq" if not cfg.mla else "wq_b")
     tp_mlp = TP.group_of(lp, "mlp", "w_down")
     ep = TP.group_of(lp, "moe", "w_gate")
@@ -410,7 +421,7 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
         h, new_kv = L.attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
             kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
-            tp=tp_attn, cap=cap)
+            tp=tp_attn, cap=cap, seq=seq)
     x = logical_constraint(x + h, "batch", "seq", None)
     if moe_layer:
         y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg,
@@ -422,9 +433,9 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     return logical_constraint(x + y, "batch", "seq", None), aux, new_kv
 
 
-def _train_layer(lp: Params, x, cfg, positions, moe_layer):
+def _train_layer(lp: Params, x, cfg, positions, moe_layer, seq=None):
     return _attn_mlp_block(lp, x, cfg, positions=positions,
-                           moe_layer=moe_layer)[:2]
+                           moe_layer=moe_layer, seq=seq)[:2]
 
 
 def _cache_keys(cfg: ArchConfig) -> tuple[str, str]:
@@ -440,7 +451,7 @@ def _transformer_parts(cfg: ArchConfig) -> list[tuple[str, str, int, bool]]:
 
 
 def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
-                         cap=None):
+                         cap=None, seq=None):
     """Each stack's layers in a Python loop: the leading dense layers
     (``"dense"``, the ``moe`` family's), then the main stack (``"main"``).
     Prefill returns each part's cache as ``state[part]`` = {"k", "v"}
@@ -458,7 +469,8 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
     every mode (the reference's unrolled decode keeps only its last
     layer's, ROADMAP Queue C). ``ck``: each training layer is recomputed
     in backward. ``cap``: the K/V caches hold this rank's capacity rows
-    over that group (:func:`~repro_torch.models.layers.attention`)."""
+    over that group (:func:`~repro_torch.models.layers.attention`);
+    ``seq``: a training ``x`` is this rank's segment over that group."""
     decode = mode == "decode"
     cache_len = state["len"] if decode else None
     keys = _cache_keys(cfg)
@@ -469,7 +481,7 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
         if mode == "train":
             for lp in layers:
                 x, a = _remat(ck, _train_layer, lp, x, cfg, positions,
-                              moe_layer)
+                              moe_layer, seq)
                 aux = aux + a if moe_layer else aux
             continue
         cache = state[part] if decode else None
@@ -501,23 +513,23 @@ def _rwkv_groups(lp: Params) -> tuple:
             TP.group_of(lp, "channel_mix", "wv"))
 
 
-def _rwkv_train_layer(lp: Params, x, cfg, kernels):
+def _rwkv_train_layer(lp: Params, x, cfg, kernels, seq=None):
     tp, ffn = _rwkv_groups(lp)
     st = RW.init_rwkv_state(cfg, x.shape[0], device=x.device, tp=tp)
     return RW.rwkv_block(TP.use(lp), x, cfg, st, kernels=kernels, tp=tp,
-                         ffn_tp=ffn)[0]
+                         ffn_tp=ffn, seq=seq)[0]
 
 
-def _forward_rwkv(params, cfg, x, mode, state, kernels, ck):
+def _forward_rwkv(params, cfg, x, mode, state, kernels, ck, seq=None):
     """The RWKV-6 layers; each layer's time mix over its heads' group and
     channel mix over its d_ff's (held leaves), the ``wkv`` state this
-    rank's heads."""
+    rank's heads; ``seq``: a training ``x`` is this rank's segment."""
     b = x.shape[0]
     layers = _unstack(params["layers"], cfg.n_layers)
     aux = torch.zeros((), device=x.device)
     if mode == "train":
         for lp in layers:
-            x = _remat(ck, _rwkv_train_layer, lp, x, cfg, kernels)
+            x = _remat(ck, _rwkv_train_layer, lp, x, cfg, kernels, seq)
         return x, aux, None
     sts = []
     for i, lp in enumerate(layers):
@@ -546,36 +558,37 @@ def _hybrid_layout(cfg: ArchConfig):
 
 
 def _shared_block(sh: Params, x, cfg, positions, kv=None, cache_len=None,
-                  return_kv=False, cap=None):
+                  return_kv=False, cap=None, seq=None):
     """The ONE shared attention + MLP block, in shards over the groups
     its held leaves are split over (``cap``: the K/V cache's capacity
-    split over that group). Returns (x, new_kv)."""
+    split over that group; ``seq``: ``x`` this rank's segment). Returns
+    (x, new_kv)."""
     tp_attn = TP.group_of(sh, "shared_attn", "wq")
     tp_mlp = TP.group_of(sh, "shared_mlp", "w_down")
     sh = TP.use(sh)
     h, new_kv = L.attention(sh["shared_attn"], _norm(sh["ln1"], x, cfg), cfg,
                             positions=positions, kv_cache=kv,
                             cache_len=cache_len, return_kv=return_kv,
-                            tp=tp_attn, cap=cap)
+                            tp=tp_attn, cap=cap, seq=seq)
     x = x + h
     x = x + L.mlp(sh["shared_mlp"], _norm(sh["ln2"], x, cfg), cfg.mlp_style,
                   tp_mlp)
     return logical_constraint(x, "batch", "seq", None), new_kv
 
 
-def _mamba_train_layer(lp: Params, x, cfg, kernels):
+def _mamba_train_layer(lp: Params, x, cfg, kernels, seq=None):
     tp = TP.group_of(lp, "out_proj")
     st = M2.init_mamba2_state(cfg, x.shape[0], x.device, tp)
     return M2.mamba2_block(TP.use(lp), x, cfg, st, kernels=kernels,
-                           tp=tp)[0]
+                           tp=tp, seq=seq)[0]
 
 
-def _shared_train(sh: Params, x, cfg, positions):
-    return _shared_block(sh, x, cfg, positions)[0]
+def _shared_train(sh: Params, x, cfg, positions, seq=None):
+    return _shared_block(sh, x, cfg, positions, seq=seq)[0]
 
 
 def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
-                    cap=None):
+                    cap=None, seq=None):
     """Groups of ``period`` Mamba-2 layers, each followed by the ONE
     shared attention + MLP block, then the tail layers. Decode writes the
     shared block's K/V caches of ``state`` in place (see
@@ -583,7 +596,7 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
     Mamba-2 layer and each call of the shared block is recomputed in
     backward. Held leaves compute each Mamba-2 layer over its heads'
     group (its state this rank's heads) and the shared block as
-    :func:`_attn_mlp_block` does; ``cap``: as there."""
+    :func:`_attn_mlp_block` does; ``cap``, ``seq``: as there."""
     b = x.shape[0]
     period, n_groups, tail = _hybrid_layout(cfg)
     sh = params["shared_attn_block"]
@@ -594,10 +607,10 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
     if mode == "train":
         for g in range(n_groups):
             for lp in layers[g * period:(g + 1) * period]:
-                x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels)
-            x = _remat(ck, _shared_train, sh, x, cfg, positions)
+                x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels, seq)
+            x = _remat(ck, _shared_train, sh, x, cfg, positions, seq)
         for lp in layers[n_groups * period:]:
-            x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels)
+            x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels, seq)
         return x, aux, None
 
     def mamba_layer(x, i):

@@ -15,6 +15,14 @@ recurrence:
   reference's model does everywhere, and on the card when asked
   (``kernels=False``);
 * :func:`wkv6_step` — the exact recurrence for single-token decode.
+
+A training forward whose sequences are split over a group (``seq``,
+``tensor_parallel.Plan.seq``) runs each segment from a zero state on
+every rank at once; the segments' final states and total decays are
+then gathered and folded (``tensor_parallel.carry_in``), and each rank
+adds what the state entering its segment contributes
+(:func:`wkv6_entering`). The token shifts take the previous segment's
+last row (``tensor_parallel.prev_rows``).
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.tensor_parallel import Group, copy_to
+from repro_torch.distributed.tensor_parallel import (Group, carry_in,
+                                                     copy_to, prev_rows)
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
                                        init_rmsnorm, rmsnorm, row_dot,
@@ -141,6 +150,19 @@ def wkv6_chunked(r, k, v, w_log, u, state, chunk: int = 64):
     return y.to(r.dtype), st
 
 
+def wkv6_entering(r, w_log, s_in):
+    """What a state ``s_in`` [B, H, N, N] entering a segment adds to its
+    WKV-6 output, the segment having run from a zero state: y_t +=
+    (r_t * exp(sum_{j<t} w_j))^T S_in, float32 [B, S, H, N] (the chunked
+    form's inter-chunk term over the whole segment; the sum is exclusive,
+    and its exp at most 1). The state leaving the segment gains
+    diag(exp(sum_j w_j)) S_in."""
+    w = w_log.to(torch.float32)
+    la = torch.cumsum(w, dim=1)
+    return torch.einsum("bthk,bhkn->bthn",
+                        r.to(torch.float32) * torch.exp(la - w), s_in)
+
+
 def wkv6_step(r, k, v, w_log, u, state):
     """Single-token recurrence. r/k/v/w_log [B, H, N]; state [B, H, N, N]."""
     rf, kf, vf = (x.to(torch.float32) for x in (r, k, v))
@@ -172,10 +194,18 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _last_before(x: torch.Tensor, x_prev: torch.Tensor,
+                 seq: Optional[Group]) -> torch.Tensor:
+    """The token before ``x``'s first: ``x_prev``, or over a sequence
+    split the previous segment's last row (zeros on the first)."""
+    return x_prev if seq is None else prev_rows(x, 1, seq)[:, 0]
+
+
 def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   x_prev: torch.Tensor, state: torch.Tensor,
                   single_step: bool = False, kernels: bool = True,
-                  tp: Optional[Group] = None):
+                  tp: Optional[Group] = None,
+                  seq: Optional[Group] = None):
     """x [B, S, D] (prefill) or [B, 1, D] (decode).
 
     x_prev [B, D]: last token of the previous call (token shift across
@@ -193,6 +223,11 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     channels (the decay, the per-head group norm's scale and bias). The
     partial output is summed over the group; ``state`` holds this rank's
     heads [B, H/n, N, N].
+
+    ``seq``: ``x`` is this rank's segment of sequences split over a group
+    (zero ``state``; ``x_prev`` is not read): the shift takes the
+    previous segment's last row, and the state entering the segment is
+    carried in after the recurrence (:func:`wkv6_entering`).
     """
     b, s, d = x.shape
     hd = cfg.ssm.head_dim
@@ -204,6 +239,7 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         w0, w2 = w0[mine], w2[:, mine]
         ln_x = {k: t[mine] for k, t in ln_x.items()}
 
+    x_prev = _last_before(x, x_prev, seq)
     streams = copy_to(_ddlerp(p, x, _shift(x, x_prev)), tp)  # [B, S, 5, D]
     xw, xk, xv, xr, xg = streams.unbind(2)
 
@@ -223,6 +259,11 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         y, state = wkv6(r, k, v, w_log, p["u"], state)
     else:
         y, state = wkv6_chunked(r, k, v, w_log, p["u"], state)
+    if seq is not None:
+        decay = w_log.to(torch.float32).sum(1)[..., None]      # [B, H, N, 1]
+        s_in = carry_in(state, decay, seq)
+        y = (y.to(torch.float32) + wkv6_entering(r, w_log, s_in)).to(y.dtype)
+        state = state + torch.exp(decay) * s_in
 
     # per-head groupnorm (ln_x; population variance) then gate
     yf = y.to(torch.float32)
@@ -235,12 +276,13 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
-                     tp: Optional[Group] = None):
+                     tp: Optional[Group] = None,
+                     seq: Optional[Group] = None):
     """``tp``: d_ff split over a tensor-parallel group (``wk``'s column
     block, ``wv``'s row block; the partial output summed over it). The
     receptance gates the SUMMED output, so ``wr`` is used whole, after
-    the reduction."""
-    shifted = _shift(x, x_prev)
+    the reduction. ``seq``: as :func:`rwkv_time_mix`'s."""
+    shifted = _shift(x, _last_before(x, x_prev, seq))
     xk = x + (shifted - x) * p["mu_k"].to(x.dtype)
     xr = x + (shifted - x) * p["mu_r"].to(x.dtype)
     k = torch.square(torch.relu(dot(copy_to(xk, tp), p["wk"])))
@@ -251,18 +293,21 @@ def rwkv_channel_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
 def rwkv_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
                single_step: bool = False, kernels: bool = True,
                tp: Optional[Group] = None,
-               ffn_tp: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
+               ffn_tp: Optional[Group] = None,
+               seq: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
     """One RWKV-6 block. state = {tm_x, cm_x [B,D], wkv [B,H,N,N]};
     ``tp`` / ``ffn_tp``: the time mix's heads / the channel mix's d_ff
-    split over a tensor-parallel group (``wkv`` then this rank's heads)."""
+    split over a tensor-parallel group (``wkv`` then this rank's heads);
+    ``seq``: ``x`` is this rank's segment of sequences split over a group
+    (a zero ``state``; :func:`rwkv_time_mix`)."""
     a, tm_x, wkv = rwkv_time_mix(
         p["time_mix"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
         x_prev=state["tm_x"], state=state["wkv"], single_step=single_step,
-        kernels=kernels, tp=tp)
+        kernels=kernels, tp=tp, seq=seq)
     x = x + a
     c, cm_x = rwkv_channel_mix(
         p["channel_mix"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-        x_prev=state["cm_x"], tp=ffn_tp)
+        x_prev=state["cm_x"], tp=ffn_tp, seq=seq)
     x = x + c
     return x, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
 

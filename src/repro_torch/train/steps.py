@@ -23,12 +23,18 @@ MLPs and the Mamba-2 and RWKV-6 layers run tensor-parallel over the
 ``tensor`` axis on their heads (column- then row-parallel, the partial
 sums reduced: the paper's ME tree), the MoE expert-parallel over the
 ``expert`` axis (each rank its own experts' slots: the MC tree), the
-embedding, head and loss over the vocabulary. The gathers' backward
+embedding, head and loss over the vocabulary. Where the rules put
+``seq`` on an axis of its own (the multi-pod ``fsdp`` profile's
+``pod``), each rank also takes its contiguous segment of every sequence
+(:func:`batch_shard`) and computes only that: attention over the K/V
+gathered from the segments before it, the recurrences' carried states
+and token shifts from them (``Plan.seq``). The gathers' backward
 reduce-scatters each gradient onto its leaf's placements, summed over
-the batch shards; Adam then updates the local blocks, and each new block
-goes to its parameter's placements. The codebook heads, and layers whose
-heads the axis does not divide, are gathered per layer and computed
-whole (ROADMAP Queue A, item 9c). The ruled prefill and serve steps
+the batch shards and the segments; Adam then updates the local blocks,
+and each new block goes to its parameter's placements. The codebook
+heads, and layers whose heads the axis does not divide, are gathered per
+layer and computed whole (ROADMAP Queue A, items 9c.3-4). The ruled
+prefill and serve steps
 compute the same way on each rank's shard of the request batch, a GQA
 cache whose K/V heads do not split held on its capacity rows (the
 split-capacity decode); the logits and tokens are gathered.
@@ -284,19 +290,31 @@ def place_train_state(params, opt_state: AdamState, rules: MeshRules
                                                          osh[1:]))))
 
 
-def batch_shard(batch: dict, rules: MeshRules) -> tuple:
+def batch_shard(batch: dict, rules: MeshRules, cfg=None) -> tuple:
     """(this rank's shard of a global ``batch``, the
     :class:`~repro_torch.distributed.sharding.BatchSplit` that cut it):
     every leaf split over the ``batch`` axis as ``input_shardings`` lays
     it out (``positions`` on dim 1), as the reference's GSPMD program
     splits it; a batch the axis does not divide stays whole on every
-    rank (a split of one shard)."""
+    rank (a split of one shard). With a train step's ``cfg``, each
+    sequence is cut as well where the rules split it
+    (``tensor_parallel.seq_dim``, the ``seq`` axis): this rank's
+    contiguous segment of ``tokens`` and ``labels`` (dim 1) and of
+    ``positions`` (its last dim: M-RoPE's [3, B, S] on dim 2)."""
     mesh = rules.mesh
     sh = input_shardings(batch, rules, batch_axes={"positions": 1})
-    split = BatchSplit(mesh, tuple(n for n in mesh.mesh_dim_names
-                                   if n in _names(sh["tokens"].spec[0])))
-    return ({k: _place(v, mesh, sh[k].placements).to_local()
-             for k, v in batch.items()}, split)
+    dims = tuple(n for n in mesh.mesh_dim_names
+                 if n in _names(sh["tokens"].spec[0]))
+    mine = {k: _place(v, mesh, sh[k].placements).to_local()
+            for k, v in batch.items()}
+    s = batch["tokens"].shape[1]
+    seq = None if cfg is None else TP.seq_dim(cfg, rules, dims, s)
+    if seq is None:
+        return mine, BatchSplit(mesh, dims)
+    split = BatchSplit(mesh, dims, (seq,), s // _axis_size(mesh, seq))
+    return ({k: v.narrow(v.ndim - 1 if k == "positions" else 1,
+                         split.offset, split.segment)
+             for k, v in mine.items()}, split)
 
 
 def ruled_loss_and_grads(params, cfg: ArchConfig, batch: dict,
@@ -311,16 +329,19 @@ def ruled_loss_and_grads(params, cfg: ArchConfig, batch: dict,
     batch = gather_tree(batch)
     first = batch if hp.n_micro == 1 else \
         {k: _split(v, hp.n_micro)[0] for k, v in batch.items()}
-    split = batch_shard(first, rules)[1]
+    split = batch_shard(first, rules, cfg)[1]
     with mesh_rules(rules), batch_split(split):
         loss, metrics, grads = _accumulate(
-            params, cfg, batch, hp, lambda b: batch_shard(b, rules)[0])
-    part = [Partial() if n in split.dims else Replicate()
-            for n in mesh.mesh_dim_names]
+            params, cfg, batch, hp, lambda b: batch_shard(b, rules, cfg)[0])
+    # a shard's loss is its own tokens' mean, and the shards (batch rows
+    # times sequence segments) are equal
+    summed, n = split.dims + split.seq_dims, split.n * split.seq_n
+    part = [Partial() if d in summed else Replicate()
+            for d in mesh.mesh_dim_names]
 
     def mean(t):
-        return DTensor.from_local(t, mesh, part).full_tensor() / split.n
-    tree_map(lambda g: _local(g).div_(split.n), grads)
+        return DTensor.from_local(t, mesh, part).full_tensor() / n
+    tree_map(lambda g: _local(g).div_(n), grads)
     return mean(loss), {k: mean(v) for k, v in metrics.items()}, grads
 
 
@@ -377,8 +398,8 @@ def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
     (params, opt_state) with DTensor leaves (the step an ``int``) and
     the metrics, the whole batch's means, on every rank.
 
-    Each microbatch is split over the ``batch`` axis
-    (:func:`batch_shard`).
+    Each microbatch is split over the ``batch`` axis, and each sequence
+    over the ``seq`` axis where the rules split it (:func:`batch_shard`).
     Each rank runs :func:`loss_and_grads` on its shard with the placed
     parameters, under ``mesh_rules`` and a
     :class:`~repro_torch.distributed.sharding.BatchSplit`: the model
@@ -386,9 +407,10 @@ def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
     and expert-parallel layers in shards (``distributed/
     tensor_parallel.py``), and the MoE layer routes the whole batch's
     groups. The loss and metrics are the means over the shards (a
-    shard's loss is its own tokens' mean, and the shards are equal). The
-    gradients arrive on the parameters' placements, summed over the
-    shards (the gathers' backward); divided by the shards' number, they
+    shard's loss is its own tokens' mean, and the shards, batch rows by
+    sequence segments, are equal). The gradients arrive on the
+    parameters' placements, summed over the shards (the gathers'
+    backward); divided by the shards' number, they
     go to the moments' placements (an int8 moment's in its block view,
     with its block dim whole), where Adam updates the local blocks
     elementwise (``adam_leaf``); each new parameter block then goes to
