@@ -259,7 +259,20 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    count on meta, the meta peak is within ``PEAK_TOL`` of the card's,
    none of the six kernels is launched (the counts set to 0 just before
    and read just after each run); ms (warm) and the card's busy share
-   printed beside the plain whole-sequence step's, and its FLOPs.
+   printed beside the plain whole-sequence step's, and its FLOPs. Then
+   (``fullep_steps``) rank 0 of a fake group of 8 on a ``"cuda"`` (2, 4)
+   data x model mesh under ``train_4k``'s ``tp_ep_full`` rules, where
+   each card owns whole experts: deepseek-v3-671b at full width cut to 5
+   layers (3 dense, 2 MoE; 32 of the 256 experts a rank), two prefills
+   (B = 4, S = 1024: each routing group within the rank's data shard,
+   the tokens exchanged over ``data``; B = 2: a group spans both data
+   shards, the tokens gathered) and one train step's loss and gradients
+   (B = 4, S = 1024, one microbatch), each from rank 0's own blocks with
+   no value checked: FLOPs on meta equal the card's, the meta peak
+   within ``PEAK_TOL``, none of the six kernels launched, the counted
+   all-to-all bytes equal to ``fullep_all_to_all``'s formula, and the
+   counted all-gather bytes below ``FULLEP_BEFORE``'s by at least the
+   expert stacks' bytes; ms (warm) and the card's busy share printed.
 10. the dry run (``phase_dryrun``), the launch counts set to 0 just
    before and read just after (it launches none): the plain qwen2-1.5b
    step of phase 8's cell analysed on meta by ``launch.hlo_analysis.
@@ -2418,7 +2431,8 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     (host snapshot), ``replan_mesh(1, model_parallel=1)``,
     ``reshard_tree``, one step: equal to the ruled run's third step bit
     for bit. Then :func:`tp_ep_one_rank` on the same mesh and, the nccl
-    group gone, :func:`fake_group_prefill` and :func:`seq_split_steps`.
+    group gone, :func:`fake_group_prefill`, :func:`seq_split_steps` and
+    :func:`fullep_steps`.
     The six kernels' counts are set to 0 just before and read before the
     fake groups: this path launches none; the fake groups gate their own
     counts."""
@@ -2537,6 +2551,7 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     split = fake_group_prefill(dev, smi)
     print(f"mesh phase, the head-split prefills' counted runs: {split}")
     seq_split_steps(dev, smi)
+    fullep_steps(dev, smi)
 
 
 FAKE_RANKS = 8       # phase 9's fake group: the (1, 8) mesh's ranks
@@ -3188,6 +3203,225 @@ def seq_split_steps(dev: torch.device, smi: str) -> None:
         dist.destroy_process_group()
     print(f"  phase 9's sequence-split steps took "
           f"{time.perf_counter() - t0:.1f} s")
+
+
+# phase 9's expert-parallel runs under tp_ep_full: rank 0 of a fake group
+# on a FULLEP_MESH data x model mesh, FULLEP_ARCH at full width cut to
+# FULLEP_LAYERS layers (its 3 dense, then MoE), S = FULLEP_S tokens
+FULLEP_ARCH, FULLEP_LAYERS, FULLEP_MESH, FULLEP_S = ("deepseek-v3-671b", 5,
+                                                     (2, 4), 1024)
+# (run, batch): two prefills, one with every routing group inside the
+# rank's data shard (the exchange) and one whose group spans both
+# shards, and one train step's loss and gradients
+FULLEP_RUNS = (("prefill", 4), ("prefill", 2), ("train", 4))
+# the counted all-gather bytes of the same runs on meta before the
+# exchange, when every MoE layer gathered its expert stacks over "data"
+# (fullep_counts_on_meta() with PYTHONPATH at that tree's src)
+FULLEP_BEFORE = {("prefill", 4): 69886140416, ("prefill", 2): 69943301120,
+                 ("train", 4): 185326510080}
+
+
+def fullep_setup() -> tuple:
+    """(cfg, strategy, train hparams) of phase 9's tp_ep_full runs; the
+    train step takes one microbatch."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.strategy import pick_strategy
+    cfg = dataclasses.replace(get_config(FULLEP_ARCH),
+                              n_layers=FULLEP_LAYERS)
+    strat = pick_strategy(cfg, SHAPES["train_4k"],
+                          override_profile="tp_ep_full")
+    hp = dataclasses.replace(strat.hparams, n_micro=1,
+                             loss_chunk=min(512, FULLEP_S))
+    return cfg, strat, hp
+
+
+def fullep_call(kind: str, batch: int, cfg, strat, hp, rules, mesh,
+                where: torch.device, gen=None) -> tuple:
+    """(the step, its arguments) of one of FULLEP_RUNS from the rank's
+    own blocks on ``where`` (meta, or made from ``gen``); the train
+    step's batch plain and global, as the training CLI passes it."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import cell_specs
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.train.steps import make_prefill_step, \
+        ruled_loss_and_grads
+    shape = ShapeSpec("fullep", FULLEP_S, batch, kind)
+    specs = cell_specs(cfg, shape, rules, strat)
+    if kind == "prefill":
+        return (make_prefill_step(cfg, rules, kernels=False),
+                rank_blocks(specs, mesh, where, gen))
+    data = synthetic_batch(cfg, batch, FULLEP_S, 0, 0, "cpu")
+    return ((lambda p, b: ruled_loss_and_grads(p, cfg, b, hp, rules)),
+            (rank_blocks(specs[0], mesh, where, gen),
+             {k: v.to(where) for k, v in data.items()}))
+
+
+def fullep_counts_on_meta() -> dict:
+    """The counted runs of FULLEP_RUNS on meta as rank 0 of a fake group
+    on a "cpu" FULLEP_MESH mesh, no card: {run: {"flops", "peak",
+    collective kind: bytes}}. Run against the tree before the exchange,
+    this gives FULLEP_BEFORE."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.strategy import make_mesh_rules
+    cfg, strat, hp = fullep_setup()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=FULLEP_MESH[0] * FULLEP_MESH[1])
+    out = {}
+    try:
+        mesh = init_device_mesh("cpu", FULLEP_MESH,
+                                mesh_dim_names=("data", "model"))
+        rules = make_mesh_rules(mesh, strat)
+        for kind, batch in FULLEP_RUNS:
+            step, args = fullep_call(kind, batch, cfg, strat, hp, rules,
+                                     mesh, torch.device("meta"))
+            _, acc = analyze(step, *args)
+            out[(kind, batch)] = {
+                "flops": acc["flops"], "peak": acc["peak_bytes"],
+                **{k: v["bytes"] for k, v in acc["coll"].items()
+                   if isinstance(v, dict)}}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def fullep_all_to_all(cfg, kind: str, batch: int, hp) -> tuple:
+    """(the all-to-all bytes rank 0 of FULLEP_MESH sends in one of
+    FULLEP_RUNS, the formula as text). Where every routing group lies in
+    the rank's data shard, each MoE layer exchanges a bf16 buffer of
+    n_data x E_loc x G x C slots of D values twice (to the experts and
+    back); a train step does so three times (the forward, the remat'd
+    recompute and the backward). Where a group spans the shards, no
+    exchange."""
+    from repro_torch.models.moe import _pick_group_size
+    mo = cfg.moe
+    n_data, n_model = FULLEP_MESH
+    tokens = batch // n_data * FULLEP_S                # the rank's
+    tg = _pick_group_size(batch * FULLEP_S)
+    if tokens % tg:
+        return 0, "0 (a routing group spans the data shards)"
+    cap = max(int(mo.capacity_factor * tg * mo.top_k / mo.n_experts), 4)
+    e_loc = mo.n_experts // (n_data * n_model)
+    passes = 2 if kind == "prefill" else 6 if hp.remat else 4
+    n_moe = cfg.n_layers - mo.n_dense_layers
+    n = passes * n_moe * n_data * e_loc * (tokens // tg) * cap \
+        * cfg.d_model * 2
+    return n, (f"{passes} x {n_moe} MoE layers x {n_data} x {e_loc} "
+               f"experts x {tokens // tg} groups x {cap} slots x "
+               f"{cfg.d_model} x 2 B = {n}")
+
+
+def fullep_steps(dev: torch.device, smi: str) -> None:
+    """9g. FULLEP_RUNS as rank 0 of a fake group on a "cuda" FULLEP_MESH
+    mesh under ``train_4k``'s ``tp_ep_full`` rules: each counted on meta
+    and on the card from the rank's own blocks (FLOPs equal, peak within
+    PEAK_TOL), no kernel launched (the counts set to 0 just before and
+    read just after each run), the all-to-all bytes equal to
+    :func:`fullep_all_to_all`'s, the all-gather bytes below
+    FULLEP_BEFORE's by at least the expert stacks' (passes x MoE layers x
+    3 x E x D x F x 2 B: the stacks gathered whole before); 3 warm runs
+    and the card's busy share. The fake group's collectives write
+    nothing, so no value is checked (the CPU tests hold the numbers)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.distributed.tensor_parallel import mesh_plan
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.strategy import make_mesh_rules
+
+    t_start = time.perf_counter()
+    cfg, strat, hp = fullep_setup()
+    mo = cfg.moe
+    n_data, n_model = FULLEP_MESH
+    e_loc = mo.n_experts // (n_data * n_model)
+    fns = counters()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n_data * n_model)
+    try:
+        meshes = {d: init_device_mesh(d, FULLEP_MESH,
+                                      mesh_dim_names=("data", "model"))
+                  for d in ("cpu", "cuda")}
+        rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
+        plan = mesh_plan(cfg, rules["cuda"])
+        expect(plan.a2a is not None and plan.a2a.dim == "data"
+               and plan.ep is not None and plan.ep.dim == "model",
+               f"{FULLEP_ARCH} tp_ep_full on {FULLEP_MESH}: {plan}")
+        for kind, batch in FULLEP_RUNS:
+            name = f"{FULLEP_ARCH} {kind} B = {batch}"
+            step, args = fullep_call(kind, batch, cfg, strat, hp,
+                                     rules["cpu"], meshes["cpu"],
+                                     torch.device("meta"))
+            t0 = time.perf_counter()
+            _, meta = analyze(step, *args)
+            t_meta = time.perf_counter() - t0
+            del args
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            step, args = fullep_call(kind, batch, cfg, strat, hp,
+                                     rules["cuda"], meshes["cuda"], dev,
+                                     torch.Generator(dev).manual_seed(0))
+            for f in fns.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, card = analyze(step, *args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            counts = {k: f.launches for k, f in fns.items()}
+            del out
+            secs = timed_runs(lambda: step(*args))
+            busy = device_breakdown(lambda: step(*args), min(secs))
+            params = args[0]
+            held = sum(t.to_local().nbytes for _, t in leaves(params))
+            del args, params
+            torch.cuda.empty_cache()
+
+            ratio = meta["peak_bytes"] / peak
+            a2a, formula = fullep_all_to_all(cfg, kind, batch, hp)
+            coll = {k: v["bytes"] for k, v in card["coll"].items()
+                    if isinstance(v, dict)}
+            passes = 2 if kind == "train" else 1
+            n_moe = cfg.n_layers - mo.n_dense_layers
+            stacks = passes * n_moe * 3 * mo.n_experts * cfg.d_model \
+                * mo.d_ff_expert * 2
+            before = FULLEP_BEFORE[(kind, batch)]
+            expect(meta["flops"] == card["flops"],
+                   f"{name}: FLOPs on meta {meta['flops']:.6e} vs on the "
+                   f"card {card['flops']:.6e}")
+            expect(abs(ratio - 1) <= PEAK_TOL,
+                   f"{name}: predicted peak {meta['peak_bytes'] / 2**30:.3f}"
+                   f" GiB vs the card's {peak / 2**30:.3f} GiB (ratio "
+                   f"{ratio:.4f})")
+            expect(not any(counts.values()), f"{name} launched {counts}")
+            expect(coll["all-to-all"] == a2a,
+                   f"{name}: all-to-all {coll['all-to-all']:.0f} B vs the "
+                   f"formula {formula}")
+            expect(before - coll["all-gather"] >= stacks,
+                   f"{name}: all-gather {coll['all-gather']:.0f} B, before "
+                   f"{before} B, not below by the stacks' {stacks} B")
+            print(f"  {name} (S = {FULLEP_S}, full width cut to "
+                  f"{cfg.n_layers} layers, {e_loc} whole experts of "
+                  f"{mo.n_experts} a rank) as rank 0 of a "
+                  f"fake group of {n_data * n_model} on a cuda {FULLEP_MESH} "
+                  f"data x model mesh, train_4k's tp_ep_full rules (values "
+                  f"not checked): its blocks {held / 2**30:.2f} GiB; FLOPs "
+                  f"meta {meta['flops']:.6e} = card {card['flops']:.6e}; "
+                  f"predicted peak {meta['peak_bytes'] / 2**30:.3f} GiB vs "
+                  f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f}); launches "
+                  f"{counts}; all-to-all {coll['all-to-all']:.0f} B = "
+                  f"{formula}; all-gather {coll['all-gather']:.0f} B, "
+                  f"before {before} B (the expert stacks {stacks} B); "
+                  f"all-reduce {coll['all-reduce']:.0f} B, reduce-scatter "
+                  f"{coll['reduce-scatter']:.0f} B; warm ms "
+                  + ", ".join(f"{t * 1e3:.1f}" for t in secs)
+                  + f"; meta analysis {t_meta:.1f} s; {busy}; card: {smi}")
+    finally:
+        dist.destroy_process_group()
+    print(f"  phase 9's tp_ep_full runs took "
+          f"{time.perf_counter() - t_start:.1f} s")
 
 
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "single"),

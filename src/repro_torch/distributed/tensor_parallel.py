@@ -49,8 +49,17 @@ identity backward) on the partial output of a row-parallel one: the
 paper's ME tree, the partial sums merged. The MoE (``models/moe.py``)
 routes every token on every rank of the ``expert`` axis (the tokens are
 replicated there), runs its own experts' slots only (the MC tree) and
-reduces its partial output the same way: no all-to-all, as the
-reference's compiled program has none. The vocabulary-parallel loss
+reduces its partial output the same way: under ``tp_ep`` no all-to-all,
+as the reference's compiled program has none. Where the ``expert`` rule
+also names a batch axis (``tp_ep_full``'s ``("model", "data")``: each
+card owns whole experts), that axis is the exchange group
+(``Plan.a2a``): the tokens go to the experts' owners and back by
+:func:`all_to_all` over it, and no expert leaf is gathered. Which block
+of experts a rank holds is DTensor's chunk order, the first mesh dim
+outermost (:func:`expert_coords`), checked against each held leaf's own
+offset. Experts that the ``expert`` rule's dims do not divide are
+replicated, as ``param_pspec`` places them (:func:`expert_dims`), and
+each rank runs them all on its own tokens. The vocabulary-parallel loss
 (:func:`vocab_nll`) takes the max and the log-sum-exp across the ranks
 and the target's logit from the rank that owns it; greedy decoding
 (:func:`vocab_argmax`) takes the argmax across them, ties to the lowest
@@ -66,7 +75,7 @@ divide is split on its capacity instead (``Plan.cap``, the reference's
 the decode merges the ranks' partial softmaxes
 (``models/layers.py`` ``_split_decode``). The codebook heads, and
 layers whose heads do not divide, are gathered per layer and computed
-whole on each rank (ROADMAP Queue A, items 9c.3-4). MLA's latent cache
+whole on each rank (ROADMAP Queue A, item 9c.3). MLA's latent cache
 is whole on every rank (the reference splits its latent rank over
 ``tensor``).
 
@@ -100,8 +109,8 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import (_current, _is_dtensor, _names,
                                               _path_str, current_split,
                                               flat_tree, mesh_axis_names,
-                                              mesh_shape, tree_map,
-                                              tree_map_with_path)
+                                              mesh_shape, param_pspec,
+                                              tree_map, tree_map_with_path)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +144,15 @@ class Group:
             t.contiguous(), "sum", self.size, self._name()))
         return out.view(t.shape[1:])
 
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` [size, ...]: block i goes to rank i; returns [size,
+        ...], block j the one rank j sent here (equal splits)."""
+        f = torch.ops._c10d_functional
+        ones = [1] * self.size
+        out = f.wait_tensor(f.all_to_all_single(
+            t.contiguous().view(self.size, -1), ones, ones, self._name()))
+        return out.view(t.shape)
+
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
@@ -145,7 +163,9 @@ class Plan:
     Mamba-2's or RWKV-6's, :func:`family_heads`) are split; ``cap``: a
     GQA decode cache whose K/V heads do not split is split on its
     capacity instead; ``seq``: the group a train step's sequences are
-    split over (:func:`seq_dim`; None: whole)."""
+    split over (:func:`seq_dim`; None: whole); ``a2a``: the batch dim the
+    experts are split over as well, the group the MoE exchanges its
+    tokens over (None: the experts' owners hold the tokens already)."""
     batch_dims: tuple
     tp: Optional[Group]
     ep: Optional[Group]
@@ -155,16 +175,32 @@ class Plan:
     heads: bool
     cap: bool
     seq: Optional[Group] = None
+    a2a: Optional[Group] = None
+
+
+def _one_group(mesh, dims: list) -> Optional[Group]:
+    return _group_on(mesh, dims[0]) if len(dims) == 1 else None
 
 
 def _group(rules, logical: str, batch_dims: tuple) -> Optional[Group]:
     """The group of a logical axis: its mesh dims that are not the
     batch's and have more than one rank; None unless exactly one."""
-    mesh = rules.mesh
-    sizes = mesh_shape(mesh)
-    dims = [d for d in _names(rules.rules.get(logical))
-            if d not in batch_dims and sizes[d] > 1]
-    return _group_on(mesh, dims[0]) if len(dims) == 1 else None
+    sizes = mesh_shape(rules.mesh)
+    return _one_group(rules.mesh, [d for d in _names(rules.rules.get(logical))
+                                   if d not in batch_dims and sizes[d] > 1])
+
+
+def expert_dims(cfg, rules) -> tuple:
+    """The mesh dims ``param_pspec`` splits ``cfg``'s expert stacks
+    over (its own divisibility rule: empty where the product of the
+    ``expert`` rule's dims does not divide the experts, which are then
+    replicated)."""
+    if cfg.moe is None:
+        return ()
+    mo = cfg.moe
+    spec = param_pspec("layers/moe/w_gate",
+                       (1, mo.n_experts, cfg.d_model, mo.d_ff_expert), rules)
+    return _names(spec[1])
 
 
 def _group_on(mesh, dim: str) -> Group:
@@ -224,10 +260,10 @@ def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
         batch_dims = split.dims if split is not None else ()
         seq = seq_group()
     tp = _group(rules, "tensor", batch_dims)
-    ep = _group(rules, "expert", batch_dims)
-    if cfg.moe is None or (ep is not None
-                           and cfg.moe.n_experts % ep.size):
-        ep = None
+    sizes = mesh_shape(rules.mesh)
+    experts = [d for d in expert_dims(cfg, rules) if sizes[d] > 1]
+    ep = _one_group(rules.mesh, [d for d in experts if d not in batch_dims])
+    a2a = _one_group(rules.mesh, [d for d in experts if d in batch_dims])
     attn = kv = heads = cap = False
     if tp is not None:
         if not cfg.mla and cfg.n_heads % tp.size == 0:
@@ -239,7 +275,8 @@ def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
         cap = cfg.family != "ssm" and not cfg.mla and not kv
     vocab = (tp is not None and not cfg.n_codebooks
              and cfg.vocab_size % tp.size == 0)
-    return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab, heads, cap, seq)
+    return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab, heads, cap, seq,
+                a2a)
 
 
 def mesh_plan(cfg, rules) -> Plan:
@@ -257,19 +294,22 @@ class Held:
     arriving with ``grad`` (``to_local(grad_placements=...)``), computed
     over ``group`` (None: whole). ``use`` None: nothing to gather or
     reduce on any mesh dim of more than one rank, so the layer uses the
-    local block as it is (``t`` may then be that plain block)."""
-    __slots__ = ("t", "use", "grad", "group")
+    local block as it is (``t`` may then be that plain block). ``a2a``:
+    an expert stack's exchange group (``Plan.a2a``), whose shard the
+    leaf keeps as well."""
+    __slots__ = ("t", "use", "grad", "group", "a2a")
 
     def __init__(self, t, use: Optional[list], grad: Optional[list],
-                 group: Optional[Group]):
+                 group: Optional[Group], a2a: Optional[Group] = None):
         self.t, self.use, self.grad, self.group = t, use, grad, group
+        self.a2a = a2a
 
     def unbind(self, dim: int = 0) -> list:
         """A stacked leaf's per-layer held leaves (this rank's block
         unbound; the layer axis is never sharded)."""
         from torch.distributed.tensor import DTensor, Shard
         if self.use is None:
-            return [Held(x, None, None, self.group)
+            return [Held(x, None, None, self.group, self.a2a)
                     for x in local_block(self.t).unbind(dim)]
         if dim != 0 or any(isinstance(p, Shard) and p.dim == 0
                            for p in self.t.placements):
@@ -283,7 +323,7 @@ class Held:
         pl, use, grad = shift(self.t.placements), shift(self.use), \
             shift(self.grad)
         return [Held(DTensor.from_local(x, mesh, pl, run_check=False), use,
-                     grad, self.group)
+                     grad, self.group, self.a2a)
                 for x in self.t.to_local().unbind(0)]
 
     def value(self) -> torch.Tensor:
@@ -321,9 +361,13 @@ _SLICED = re.compile(r"(^|/)(mamba/(in_proj|conv_w|conv_b|norm/scale)"
 
 
 def _layout(path: str, t, plan: Plan) -> tuple:
-    """(use placements, gradient placements, group) of one leaf."""
+    """(use placements, gradient placements, group, exchange group) of
+    one leaf. An expert stack split over ``plan.a2a`` as well keeps that
+    shard in use and in its gradient: the reverse all-to-all of the
+    backward brings every batch shard's share to the owner, so nothing
+    is ``Partial`` over it."""
     from torch.distributed.tensor import Partial, Replicate, Shard
-    group, partial = None, False
+    group, partial, a2a = None, False, None
     if plan.attn and _COLUMN_Q.search(path):
         group = plan.tp
     elif plan.attn and _COLUMN_KV.search(path):
@@ -337,7 +381,7 @@ def _layout(path: str, t, plan: Plan) -> tuple:
     elif _MLP.search(path) or (plan.vocab and _VOCAB.search(path)):
         group = plan.tp
     elif _EXPERTS.search(path):
-        group = plan.ep
+        group, a2a = plan.ep, plan.a2a
     names = mesh_axis_names(t.device_mesh)
     if group is not None and not isinstance(
             t.placements[names.index(group.dim)], Shard):
@@ -345,10 +389,13 @@ def _layout(path: str, t, plan: Plan) -> tuple:
             raise ValueError(f"{path}: split over {group.dim!r} but held "
                              f"as {t.placements}")
         group = None              # an MLP whose d_ff does not divide
+    if a2a is not None:
+        _check_expert_block(path, t, plan)
+    kept = {g.dim for g in (group, a2a) if g is not None}
     summed = set(plan.batch_dims) | ({plan.seq.dim} if plan.seq else set())
     use, grad = [], []
     for n, p in zip(names, t.placements):
-        if group is not None and n == group.dim:
+        if n in kept:
             use.append(p)
             grad.append(p)
         else:
@@ -359,8 +406,47 @@ def _layout(path: str, t, plan: Plan) -> tuple:
     sizes = mesh_shape(t.device_mesh)
     if all(sizes[n] == 1 or (u == p and not isinstance(g, Partial))
            for n, p, u, g in zip(names, t.placements, use, grad)):
-        return None, None, group          # the local block as it is
-    return use, grad, group
+        return None, None, group, a2a     # the local block as it is
+    return use, grad, group, a2a
+
+
+def expert_coords(n_experts: int, n_local: int, groups: tuple,
+                  device=None) -> dict:
+    """{mesh dim: [n_experts] coordinate of each expert's owner along
+    it} for experts split over ``groups`` (``Plan.ep`` and ``Plan.a2a``;
+    None entries are left out) in blocks of ``n_local``: DTensor's chunk
+    order, block b on the rank whose coordinates along those dims, the
+    first mesh dim outermost, spell b."""
+    groups = [g for g in groups if g is not None]
+    names = mesh_axis_names(groups[0].mesh)
+    block = torch.arange(n_experts, device=device) // n_local
+    out = {}
+    for g in sorted(groups, key=lambda g: -names.index(g.dim)):
+        out[g.dim] = block % g.size
+        block = torch.div(block, g.size, rounding_mode="floor")
+    return out
+
+
+def _check_expert_block(path: str, t, plan: Plan) -> None:
+    """Raise unless this rank's block of the expert stack ``t`` starts
+    where :func:`expert_coords` puts it: the order read from the DTensor
+    itself."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    held = dict(zip(mesh_axis_names(t.device_mesh), t.placements))
+    if not isinstance(held[plan.a2a.dim], Shard):
+        raise ValueError(f"{path}: exchanged over {plan.a2a.dim!r} but "
+                         f"held as {t.placements}")
+    dim = held[plan.a2a.dim].dim
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    groups = (plan.ep, plan.a2a)
+    coords = expert_coords(t.shape[dim], shape[dim], groups)
+    first = offset[dim]
+    if any(int(coords[g.dim][first]) != g.index for g in groups if g):
+        raise ValueError(f"{path}: this rank's experts start at {first}, "
+                         f"not where {t.placements} put them")
 
 
 def hold(params, cfg):
@@ -387,11 +473,23 @@ def use(tree):
 def group_of(tree, *keys) -> Optional[Group]:
     """The group the held leaf at ``tree[k0][k1]...`` is computed over
     (None: whole, plain, or absent)."""
+    held = _held_at(tree, keys)
+    return held.group if held is not None else None
+
+
+def _held_at(tree, keys):
     for k in keys:
         if not isinstance(tree, dict) or k not in tree:
             return None
         tree = tree[k]
-    return tree.group if isinstance(tree, Held) else None
+    return tree if isinstance(tree, Held) else None
+
+
+def exchange_of(tree, *keys) -> Optional[Group]:
+    """The exchange group (``Plan.a2a``) of the held expert stack at
+    ``tree[k0][k1]...`` (None: not exchanged, plain, or absent)."""
+    held = _held_at(tree, keys)
+    return held.a2a if held is not None else None
 
 
 def capacity_group(params, cfg) -> Optional[Group]:
@@ -516,6 +614,42 @@ class _SeqGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.group.reduce_scatter(g), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_to_all(g), None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.reduce_scatter(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_gather(g), None
+
+
+def all_to_all(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """:meth:`Group.all_to_all` of ``x`` [size, ...]; backward, the
+    reverse all-to-all brings each block's gradient back to its
+    sender."""
+    return _AllToAll.apply(x, group)
+
+
+def scatter_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``x`` [size, ...] summed over ``group``, this rank's ``[index]``
+    of the sum (a reduce-scatter); backward, the ranks' gradients
+    gathered (an all-gather)."""
+    return _ScatterSum.apply(x, group)
 
 
 def copy_to(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:

@@ -37,8 +37,11 @@ names, on device type ``"cpu"``.
   Mamba-2 and RWKV-6 heads in shards (``distributed/tensor_parallel.py``)
   where the ``tensor`` axis divides them, and a train step each sequence
   in segments over the ``seq`` axis (``Plan.seq``: the multi-pod
-  ``fsdp`` rules' ``pod``); the codebook heads, and layers whose heads
-  do not divide, are gathered per layer and computed whole on every
+  ``fsdp`` rules' ``pod``); under ``--profile tp_ep_full`` each card
+  owns whole experts and the MoE moves the tokens by an all-to-all over
+  ``data`` (``Plan.a2a``; the fake group runs it as a no-op, counted as
+  NCCL's would move it); the codebook heads, and layers whose heads do
+  not divide, are gathered per layer and computed whole on every
   rank. Each segment's queries attend to the keys before them, so the
   last segment's first rank, which scans every key, is the one counted:
   rank 0's count would leave out half the causal attention. The serve step holds a rank's batch shard of the decode
@@ -420,7 +423,8 @@ def main(argv=None):
     ap.add_argument("--shape")
     ap.add_argument("--mesh", default="single", choices=["single", "multi"])
     ap.add_argument("--profile", default=None,
-                    help="override strategy profile (fsdp | tp_ep)")
+                    help="override strategy profile (fsdp | tp_ep | "
+                         "tp_ep_full | tp_serve)")
     ap.add_argument("--micro", type=int, default=None)
     ap.add_argument("--seq-shard", action="store_true",
                     help="bind logical 'seq' axis to 'model' (SP variant)")

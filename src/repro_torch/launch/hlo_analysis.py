@@ -27,8 +27,9 @@ local tensors; a DTensor op is counted through the local ops it runs):
   dynamic-update-slice rules. ``bytes_by_op`` is keyed by the aten op's
   name;
 * **collectives**: result bytes per kind, over the reference's
-  ``COLLECTIVE_OPS`` names, for the functional collectives DTensor runs
-  (``_c10d_functional``, and ``_dtensor.shard_dim_alltoall``, its
+  ``COLLECTIVE_OPS`` names, for the functional collectives DTensor and
+  the ruled steps run (``_c10d_functional``, its ``all_to_all_single``
+  the MoE's token exchange; ``_dtensor.shard_dim_alltoall``, DTensor's
   all-to-all) and the ``c10d`` ops of ``torch.distributed``'s own calls;
 * **live bytes**: torch has no ``memory_analysis()``. The mode tracks
   the distinct storages alive (a view shares its base's storage and

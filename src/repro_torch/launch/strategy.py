@@ -20,12 +20,13 @@ optimizer state with these rules' placements and compute as they imply
 it runs over the ``fsdp`` / ``batch`` axes; under tp_ep, GQA and MLA
 attention, the MLPs, the Mamba-2 and RWKV-6 heads and the vocabulary
 tensor-parallel over ``model`` and the MoE expert-parallel over it,
-without an all-to-all; under the multi-pod fsdp rules each rank trains
-its segment of every sequence (``seq`` on ``pod``), the K/V and the
-recurrent states gathered from the segments before it. The codebook
-heads run whole on each rank, and tp_ep_full's data part of the experts
-is gathered per layer like an fsdp axis (ROADMAP Queue A, items
-9c.3-4).
+without an all-to-all; under tp_ep_full each card owns whole experts
+(``("model", "data")``) and the MoE moves the tokens to them and back
+by an all-to-all over ``data``, gathering no expert; under the
+multi-pod fsdp rules each rank trains its segment of every sequence
+(``seq`` on ``pod``), the K/V and the recurrent states gathered from
+the segments before it. The codebook heads run whole on each rank
+(ROADMAP Queue A, item 9c.3).
 """
 from __future__ import annotations
 

@@ -62,8 +62,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.execution import resolve_device
 from repro_torch.distributed import tensor_parallel as TP
-from repro_torch.distributed.sharding import (flat_tree, logical_constraint,
-                                              tree_map, tree_map_with_path)
+from repro_torch.distributed.sharding import (current_split, flat_tree,
+                                              logical_constraint, tree_map,
+                                              tree_map_with_path)
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
@@ -400,16 +401,20 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
                     cache_len=None, moe_layer=False, return_kv=False,
-                    cap=None, seq=None):
+                    cap=None, seq=None, split=None):
     """Pre-norm attention (MLA where ``cfg.mla``) + MLP or MoE. Returns
     (x, aux, new_kv); aux is the MoE layer's balance loss, else None.
     Held leaves are gathered here, and the attention, MLP and experts run
     in shards over the groups their leaves are held split over; ``cap``:
     the K/V cache's capacity is split over that group; ``seq``: ``x`` is
-    this rank's segment of sequences split over that group."""
+    this rank's segment of sequences split over that group; ``split``:
+    the MoE's batch split (None: the active one; a remat'd layer gets
+    the forward's, since its recompute may run on autograd's device
+    thread, which sees no active split)."""
     tp_attn = TP.group_of(lp, "attn", "wq" if not cfg.mla else "wq_b")
     tp_mlp = TP.group_of(lp, "mlp", "w_down")
     ep = TP.group_of(lp, "moe", "w_gate")
+    a2a = TP.exchange_of(lp, "moe", "w_gate")
     tp_shared = TP.group_of(lp, "moe", "shared", "w_down")
     lp = TP.use(lp)
     if cfg.mla:
@@ -425,7 +430,8 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     x = logical_constraint(x + h, "batch", "seq", None)
     if moe_layer:
         y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg,
-                             ep=ep, shared_tp=tp_shared)
+                             ep=ep, a2a=a2a, shared_tp=tp_shared,
+                             split=split)
     else:
         y = L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style,
                   tp_mlp)
@@ -433,9 +439,10 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     return logical_constraint(x + y, "batch", "seq", None), aux, new_kv
 
 
-def _train_layer(lp: Params, x, cfg, positions, moe_layer, seq=None):
+def _train_layer(lp: Params, x, cfg, positions, moe_layer, seq=None,
+                 split=None):
     return _attn_mlp_block(lp, x, cfg, positions=positions,
-                           moe_layer=moe_layer, seq=seq)[:2]
+                           moe_layer=moe_layer, seq=seq, split=split)[:2]
 
 
 def _cache_keys(cfg: ArchConfig) -> tuple[str, str]:
@@ -476,12 +483,13 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
     keys = _cache_keys(cfg)
     aux = torch.zeros((), device=x.device)
     new_state = {}
+    split = current_split()
     for part, stack, n, moe_layer in _transformer_parts(cfg):
         layers = _unstack(params[stack], n)
         if mode == "train":
             for lp in layers:
                 x, a = _remat(ck, _train_layer, lp, x, cfg, positions,
-                              moe_layer, seq)
+                              moe_layer, seq, split)
                 aux = aux + a if moe_layer else aux
             continue
         cache = state[part] if decode else None

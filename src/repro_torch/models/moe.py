@@ -31,8 +31,32 @@ group, so every rank routes them all (the same routes, capacity and
 aux); each holds E / n experts and gathers the rows of its own experts'
 slots only (the MC tree), runs their products, weights and sums its own
 routes' outputs into a partial float32 ``y``, and ``y`` is summed over
-the group before the one rounding (the ME tree). No all-to-all, as in
-the reference's compiled program under its ``tp_ep`` rules.
+the group before the one rounding (the ME tree). Under ``tp_ep`` no
+all-to-all, as in the reference's compiled program under those rules.
+
+Under ``tp_ep_full`` the experts are split over ``("model", "data")``:
+each card owns E / (n_data n_model) whole experts, and the tokens move
+to them over ``data`` (``a2a``, the exchange group; the reference's
+"capacity-bounded all_to_all over the EP axis"). No expert weight is
+gathered. The routes, capacity, positions, drops and aux stay the ones
+above, in two forms:
+
+* (a) each routing group lies within one data shard (``train_4k``,
+  ``prefill_32k``): this rank routes its own groups (replicated over
+  ``model``) and fills fixed-size buffers [n_data, E_loc, G * C, D]
+  with the slots of the experts its ``model`` column's ranks hold,
+  laid out by the owner's ``data`` index (dropped and empty slots are
+  zero rows, so every rank's splits are equal: no host sync); an
+  all-to-all over ``data``; the three products over this rank's E_loc
+  experts on every source's slots; the reverse all-to-all; the combine
+  and its float32 sum over the k slots; the sum over ``model``; one
+  rounding;
+* (b) a routing group spans the data shards (``decode_32k``): the
+  tokens are gathered over the batch split (activations, not weights),
+  this rank runs its own experts' slots of the whole batch, and the
+  float32 partial output is reduce-scattered over ``data`` onto each
+  rank's rows (its own pod's, on the multi-pod mesh) and summed over
+  ``model``.
 """
 from __future__ import annotations
 
@@ -43,8 +67,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import BatchSplit, current_split
-from repro_torch.distributed.tensor_parallel import (Group, copy_to,
-                                                     reduce_from)
+from repro_torch.distributed.tensor_parallel import (Group, all_to_all,
+                                                     copy_to, expert_coords,
+                                                     reduce_from,
+                                                     scatter_sum)
 from repro_torch.models.layers import Params, _dense_init, dot, mlp
 
 
@@ -152,7 +178,8 @@ def _plan(p: Params, xt: torch.Tensor, cfg: ArchConfig,
 
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             group_size: Optional[int] = None, ep: Optional[Group] = None,
-            shared_tp: Optional[Group] = None
+            a2a: Optional[Group] = None, shared_tp: Optional[Group] = None,
+            split: Optional[BatchSplit] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE MLP. x [B, S, D] -> (y [B, S, D], aux loss, float32 scalar),
     in groups of ``group_size`` tokens (the reference's
@@ -166,61 +193,138 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     the whole layer's output are returned.
 
     ``ep``: the experts split over an expert-parallel group (``p``'s
-    expert stacks are this rank's E / n); ``shared_tp``: the shared
-    experts' d_ff split over a tensor-parallel group."""
-    split = current_split()
+    expert stacks are this rank's block); ``a2a``: split over that batch
+    group as well, the tokens exchanged with the experts' owners (forms
+    (a) and (b) of the module's docstring; the choice is the shapes', so
+    every rank makes the same); ``shared_tp``: the shared experts' d_ff
+    split over a tensor-parallel group; ``split``: the batch split (None:
+    the active one)."""
+    split = split if split is not None else current_split()
     if split is None or split.n == 1:
+        if a2a is not None:
+            raise ValueError("experts split over a batch axis need the "
+                             "batch split over it")
         return _moe(p, x, cfg, group_size or _pick_group_size(
             x.shape[0] * x.shape[1]), None, ep, shared_tp)
     tg = group_size or _pick_group_size(x.shape[0] * x.shape[1] * split.n)
     if (x.shape[0] * x.shape[1]) % tg:         # a group spans shards
+        if a2a is not None:
+            return _moe_spanning(p, x, cfg, tg, split, ep, a2a, shared_tp)
         y, aux = _moe(p, split.gather(x), cfg, tg, None, ep, shared_tp)
         return split.local(y), aux
-    return _moe(p, x, cfg, tg, split, ep, shared_tp)
+    return _moe(p, x, cfg, tg, split, ep, shared_tp, a2a)
 
 
 def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
          split: Optional[BatchSplit] = None, ep: Optional[Group] = None,
-         shared_tp: Optional[Group] = None
+         shared_tp: Optional[Group] = None, a2a: Optional[Group] = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
-    mo = cfg.moe
+    """The layer on this rank's tokens x, its routing groups whole here
+    (``a2a``: form (a), the slots exchanged with the experts' owners)."""
     b, s, d = x.shape
-    t = b * s
-    g = t // tg
-    k = mo.top_k
-    xt = x.reshape(g, tg, d)
-    weights, idx, pos, keep, cap, aux = _plan(p, xt, cfg, split)
-    e = p["w_gate"].shape[0]                       # the experts run here
-    if ep is not None:                 # this rank's experts' routes only
-        idx = idx - ep.index * e
-        keep = keep & (idx >= 0) & (idx < e)
+    xt = x.reshape(b * s // tg, tg, d)
+    yt, aux = _routed(p, xt, cfg, split, ep, a2a, exchange=True)
+    return _with_shared(p, reduce_from(yt, ep).to(x.dtype), xt, cfg,
+                        shared_tp).reshape(b, s, d), aux
 
-    # slot ids e * (G * C) + g * C + pos: the buffers come out [E, G*C, D]
-    n_slots, n_entries = e * g * cap, t * k
-    group = torch.arange(g, device=x.device).view(g, 1, 1)
-    slot = (idx * (g * cap) + group * cap + pos).reshape(-1)
+
+def _moe_spanning(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
+                  split: BatchSplit, ep: Optional[Group], a2a: Group,
+                  shared_tp: Optional[Group]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Form (b): the batch gathered, this rank's experts' slots of all of
+    it, the partial output reduce-scattered over ``a2a`` onto this
+    rank's rows and summed over ``ep``."""
+    b, s, d = x.shape
+    whole = split.gather(x)
+    xt = whole.reshape(whole.shape[0] * s // tg, tg, d)
+    yt, aux = _routed(p, xt, cfg, None, ep, a2a, exchange=False)
+    if split.dims[-1] != a2a.dim:
+        raise ValueError(f"the batch split {split.dims} does not end in "
+                         f"the exchange dim {a2a.dim!r}")
+    # the shards of this rank's peers along a2a (its pod's) are adjacent
+    parts = yt.view(split.n, b * s, d).narrow(
+        0, split.index - a2a.index, a2a.size)
+    y = reduce_from(scatter_sum(parts, a2a), ep).to(x.dtype)
+    return _with_shared(p, y, x.reshape(1, b * s, d), cfg,
+                        shared_tp).reshape(b, s, d), aux
+
+
+def _with_shared(p: Params, y: torch.Tensor, xt: torch.Tensor,
+                 cfg: ArchConfig, shared_tp: Optional[Group]
+                 ) -> torch.Tensor:
+    """The routed output y [T, D] plus the shared experts' of xt [G, T_g,
+    D]."""
+    if not cfg.moe.n_shared_experts:
+        return y
+    return y + mlp(p["shared"], xt, "swiglu", shared_tp).reshape(y.shape)
+
+
+def _owners(idx: torch.Tensor, keep: torch.Tensor, n_experts: int,
+            n_local: int, ep: Optional[Group], a2a: Optional[Group],
+            exchange: bool) -> tuple:
+    """(n, dest, keep, local) of the routes ``idx`` to experts held in
+    blocks of ``n_local`` over ``ep`` and ``a2a``: ``keep`` narrowed to
+    the routes this rank runs (its own experts', or with ``exchange``
+    its ``ep`` column's), ``dest`` each route's owner along ``a2a`` (n
+    of them; 0, n = 1, without an exchange), ``local`` its expert's
+    index in the owner's block."""
+    n, dest = 1, 0
+    if ep is None and a2a is None:
+        return n, dest, keep, idx
+    coords = expert_coords(n_experts, n_local, (ep, a2a), idx.device)
+    for grp in (g for g in (ep, a2a) if g is not None):
+        if grp is a2a and exchange:
+            n, dest = grp.size, coords[grp.dim][idx]
+        else:
+            keep = keep & (coords[grp.dim][idx] == grp.index)
+    return n, dest, keep, idx % n_local
+
+
+def _routed(p: Params, xt: torch.Tensor, cfg: ArchConfig,
+            split: Optional[BatchSplit], ep: Optional[Group],
+            a2a: Optional[Group], exchange: bool
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the float32 output [T, D] of this rank's share of the routes of
+    the grouped tokens xt [G, T_g, D], the aux loss): :func:`_plan`'s
+    routes (``split``: of one shard's groups), the slots of the experts
+    this rank holds, or with ``exchange`` of those its ``ep`` column
+    holds over ``a2a``, run there and brought back."""
+    weights, idx, pos, keep, cap, aux = _plan(p, xt, cfg, split)
+    g, tg, d = xt.shape
+    t, k = g * tg, cfg.moe.top_k
+    e = p["w_gate"].shape[0]                       # the experts held here
+    n, dest, keep, idx = _owners(idx, keep, cfg.moe.n_experts, e, ep, a2a,
+                                 exchange)
+
+    # slot ids ((dest * E_loc + idx) * G + g) * C + pos: the buffers come
+    # out [n, E_loc, G*C, D], by the experts' owner along a2a
+    n_slots, n_entries = n * e * g * cap, t * k
+    group = torch.arange(g, device=xt.device).view(g, 1, 1)
+    slot = (((dest * e + idx) * g + group) * cap + pos).reshape(-1)
     keep = keep.reshape(-1)
-    entry = torch.arange(n_entries, device=x.device)
+    entry = torch.arange(n_entries, device=xt.device)
     slot_of = torch.where(keep, slot, n_slots)             # [T*k]
     # slot -> entry; each dropped entry writes a column of its own past
     # the slots, so no index repeats
     entry_of = torch.full((n_slots + n_entries,), n_entries,
-                          dtype=torch.long, device=x.device)
+                          dtype=torch.long, device=xt.device)
     entry_of.scatter_(0, torch.where(keep, slot, n_slots + entry), entry)
     entry_of = entry_of[:n_slots]
     token_of = torch.div(entry_of, k, rounding_mode="floor")  # t (or T)
 
     buf = _RowGather.apply(copy_to(xt.reshape(t, d), ep), token_of,
                            slot_of, k)
-    buf = buf.view(e, g * cap, d)
+    if n > 1:             # every source's slots of this rank's experts
+        buf = all_to_all(buf.view(n, e * g * cap, d), a2a)
+        buf = buf.view(n, e, g * cap, d).transpose(0, 1)
+    buf = buf.reshape(e, n * g * cap, d)
     gate = dot(buf, p["w_gate"])                           # bmm over E
     hidden = F.silu(gate.to(torch.float32)) * dot(buf, p["w_up"])
-    out = dot(hidden.to(gate.dtype), p["w_down"])          # [E, G*C, D]
+    out = dot(hidden.to(gate.dtype), p["w_down"])          # [E, n*G*C, D]
+    if n > 1:                                  # back to the slots' owners
+        out = out.view(e, n, g * cap, d).transpose(0, 1)
+        out = all_to_all(out.reshape(n, e * g * cap, d), a2a)
     got = _RowGather.apply(out.reshape(n_slots, d), slot_of, entry_of, 1)
     w = torch.where(keep, copy_to(weights, ep).reshape(-1), 0.0)
-    yt = (w[:, None] * got.to(torch.float32)).view(t, k, d).sum(1)
-
-    y = reduce_from(yt, ep).to(x.dtype)
-    if mo.n_shared_experts:
-        y = y + mlp(p["shared"], xt, "swiglu", shared_tp).reshape(t, d)
-    return y.reshape(b, s, d), aux
+    return (w[:, None] * got.to(torch.float32)).view(t, k, d).sum(1), aux

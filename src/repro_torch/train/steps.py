@@ -22,7 +22,9 @@ own leaves where it runs, over the ``fsdp`` / ``batch`` axes only
 MLPs and the Mamba-2 and RWKV-6 layers run tensor-parallel over the
 ``tensor`` axis on their heads (column- then row-parallel, the partial
 sums reduced: the paper's ME tree), the MoE expert-parallel over the
-``expert`` axis (each rank its own experts' slots: the MC tree), the
+``expert`` axis (each rank its own experts' slots: the MC tree; where
+that axis includes a batch axis, ``tp_ep_full``'s, the tokens move to
+the experts' owners by all-to-all and no expert is gathered), the
 embedding, head and loss over the vocabulary. Where the rules put
 ``seq`` on an axis of its own (the multi-pod ``fsdp`` profile's
 ``pod``), each rank also takes its contiguous segment of every sequence
@@ -33,7 +35,7 @@ reduce-scatters each gradient onto its leaf's placements, summed over
 the batch shards and the segments; Adam then updates the local blocks,
 and each new block goes to its parameter's placements. The codebook
 heads, and layers whose heads the axis does not divide, are gathered per
-layer and computed whole (ROADMAP Queue A, items 9c.3-4). The ruled
+layer and computed whole (ROADMAP Queue A, item 9c.3). The ruled
 prefill and serve steps
 compute the same way on each rank's shard of the request batch, a GQA
 cache whose K/V heads do not split held on its capacity rows (the
@@ -390,6 +392,29 @@ def _stack_blocks(xs) -> torch.Tensor:
                               xs[0].device_mesh, pl, run_check=False)
 
 
+def ruled_adam_leaf(p, g, m, v, ms, vs, bc1, bc2, opt_cfg: AdamConfig
+                    ) -> list:
+    """Adam on one placed leaf of the ruled step (its parameter,
+    gradient, moments and int8 scales, DTensors on their placements):
+    [p, m, v, m_scale, v_scale], new, on the same placements. A stacked
+    int8 leaf is updated one layer at a time: where its moments split
+    the expert dim over two axes, DTensor would move a block between the
+    layouts by gathering it whole (deepseek-v3's w_down: 406 GiB a rank
+    for the stack)."""
+    from torch.distributed.tensor import Shard
+    quantized = opt_cfg.quantized_state and ms.numel() > 0
+    leaf = [p, g, m, v] + ([ms, vs] if quantized else [])
+    if quantized and p.ndim >= 3 and not any(
+            isinstance(x, Shard) and x.dim == 0
+            for t in leaf for x in t.placements):
+        new = [_stack_blocks(o) for o in zip(*(
+            _adam_blocks(*xs, bc1=bc1, bc2=bc2, opt_cfg=opt_cfg)
+            for xs in zip(*map(_unstack_blocks, leaf))))]
+    else:
+        new = _adam_blocks(*leaf, bc1=bc1, bc2=bc2, opt_cfg=opt_cfg)
+    return new if quantized else new + [ms, vs]
+
+
 def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
     """The train step on a mesh. Every rank of ``rules.mesh`` calls it
     with the same global ``batch`` (plain tensors, or DTensors) and the
@@ -417,7 +442,6 @@ def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
     its parameter's placements. On a one-rank mesh this is the plain
     step, bit for bit.
     """
-    from torch.distributed.tensor import Shard
     if isinstance(rules.mesh, AbstractMesh):
         raise ValueError("a ruled train step runs on a DeviceMesh; an "
                          "AbstractMesh only lays out specs")
@@ -434,22 +458,9 @@ def _ruled_train_step(cfg: ArchConfig, rules: MeshRules, hp: TrainHParams):
 
         def update(k, p):
             m, v, ms, vs = (st.get(k) for st in state)
-            quantized = q and ms.numel() > 0
             # the gradient is freed here
-            leaf = [p, grads.pop(k), m, v] + ([ms, vs] if quantized else [])
-            if quantized and p.ndim >= 3 and not any(
-                    isinstance(x, Shard) and x.dim == 0
-                    for t in leaf for x in t.placements):
-                # a stacked int8 leaf one layer at a time: where its
-                # moments split the expert dim over two axes, DTensor
-                # moves a block between the layouts by gathering it whole
-                # (deepseek-v3's w_down: 406 GiB a rank for the stack)
-                new = [_stack_blocks(o) for o in zip(*(
-                    _adam_blocks(*xs, bc1=bc1, bc2=bc2, opt_cfg=opt_cfg)
-                    for xs in zip(*map(_unstack_blocks, leaf))))]
-            else:
-                new = _adam_blocks(*leaf, bc1=bc1, bc2=bc2, opt_cfg=opt_cfg)
-            return new if quantized else new + [ms, vs]
+            return ruled_adam_leaf(p, grads.pop(k), m, v, ms, vs, bc1, bc2,
+                                   opt_cfg)
 
         new = {k: update(k, p) for k, p in flat_tree(params).items()}
 
