@@ -199,10 +199,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    ``LM_TOL``; the same in bf16 is reported, not gated.
    Last, ``wkv6`` and ``ssd`` must raise on an input that requires grad.
 9. the mesh side (``phase_mesh``), the launch counts set to 0 just
-   before and read just after its nccl part, again around the qwen3-moe
-   and MLA fake-group prefills, and again around the split decode (none
-   of the six kernels is on them; the recurrent prefills between count
-   their own): a
+   before and read just after its nccl part, again around the qwen3-moe,
+   MLA and codebook fake-group prefills, and again around each split
+   decode (none of the six kernels is on them; the recurrent prefills
+   between count their own): a
    one-rank nccl process group (a ``HashStore``; ``NCCL_SOCKET_IFNAME``
    set to ``lo`` unless given) and ``init_device_mesh("cuda", (1, 1),
    ("data", "model"))`` with ``pick_strategy``'s fsdp rules for
@@ -232,7 +232,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    count on meta, and the meta peak is within ``PEAK_TOL`` of
    ``max_memory_allocated``; ms (warm) and device ms by op printed beside
    phase 7's whole-model prefill. In the same group, deepseek-v3-671b cut
-   to 4 layers (B = 4) the same way, MLA on 16 of its 128 heads; then the
+   to 4 layers (B = 4) the same way, MLA on 16 of its 128 heads and its
+   latent cache on rank 0's capacity rows, and the full musicgen-medium
+   (B = 8), its 4 codebook heads on 256 of 2048 vocabulary columns each
+   (the logits gathered to [B, 1, 4, 2048]); then the
    full-width rwkv6-3b (B = 8) and zamba2-7b (B = 4) prefills on rank 0's
    head shard (5 of 40, 14 of 112 heads; the leaves these layers gather
    whole over ``model`` held whole, so both runs read defined values):
@@ -246,8 +249,17 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    under ``decode_32k``'s rules over its 2,048 capacity rows of all 8
    K/V heads (the split-capacity decode), ms, peak and device ms by
    kernel, then one layer's split decode captured as a CUDA graph (equal
-   to eager bit for bit; only the owned row written); the seconds these
-   cases added. Last (``seq_split_steps``), rank 1 of a fake group of
+   to eager bit for bit; only the owned row written). Then the same for
+   MLA (``FAKE_MLA_DECODE``): one decode step of deepseek-v3-671b at full
+   width cut to 4 layers (B = 8) as rank 0 of 16 under ``decode_32k``'s
+   rules, over its 2,048 of 32,768 capacity rows of the latent cache
+   and the RoPE key (each part's leaves [L, 8, 2048, 512] and [L, 8,
+   2048, 64]; MLA on 8 of 128 heads, the queries gathered and the
+   partial softmaxes merged in the latent space): FLOPs on meta equal to
+   the card's, the meta peak within ``PEAK_TOL``, no kernel launched;
+   ms, busy share and peak; and one MLA layer's split decode captured as
+   a CUDA graph, equal to eager bit for bit. The seconds these cases
+   added. Last (``seq_split_steps``), rank 1 of a fake group of
    ``SEQ_RANKS`` on a ``"cuda"`` (2, 1, 1) mesh (pod x data x model)
    under the multi-pod ``fsdp`` rules, which split each sequence over
    ``pod``: one train step (B = 8, S = 1024, the last segment's 512
@@ -2644,6 +2656,17 @@ FAKE_MLA = ("deepseek-v3-671b", 4, 4)
 # decode_32k) runs as rank 0 of a fake group of 16, each rank 1/16 of a
 # decode_32k cache (B = 8 rows, all on rank 0's data coordinate)
 FAKE_DECODE = ("stablelm-12b", 8, 16, 32768)
+# one decode step over MLA's capacity-split latent cache: deepseek-v3-671b
+# at full width cut to 4 layers (its 3 dense layers and 1 MoE layer) as
+# rank 0 of a fake group of 16 under decode_32k's rules, 2,048 of 32,768
+# capacity rows of the latent and the RoPE key, B = 8 rows (all on rank
+# 0's data coordinate); (arch, batch, ranks, capacity, layers)
+FAKE_MLA_DECODE = ("deepseek-v3-671b", 8, 16, 32768, 4)
+# the codebook heads split over the vocabulary: musicgen-medium's full
+# prefill as rank 0 of FAKE_RANKS (2048 / 8 columns of each of its 4
+# heads; 4 codebooks do not split 8 ways, so its embeddings are whole);
+# (arch, batch)
+FAKE_CODEBOOKS = ("musicgen-medium", 8)
 # the leaves a head-split layer gathers whole over the tensor axis: held
 # whole over "model" in the fake groups (whose all-gather writes nothing)
 # so that the kernel and chunked runs read defined values
@@ -2904,31 +2927,38 @@ def fake_rank_decode(dev: torch.device, smi: str) -> None:
 
 
 def check_split_decode_graph(cfg, rules, dev: torch.device) -> str:
-    """One layer's attention decode over a capacity-split cache (this
-    rank's 256 rows of every K/V head, B = 8) captured as a CUDA graph:
-    the replay equal to eager bit for bit (output and cache), the row of
-    a position this rank owns written and no other, and with the
-    position moved to another rank's rows, the cache left as it was (the
-    write is a masked local index, no host read)."""
+    """One layer's decode over a capacity-split cache (this rank's 256
+    rows, B = 8: of every K/V head, or of MLA's latent and RoPE key)
+    captured as a CUDA graph: the replay equal to eager bit for bit
+    (output and cache), the row of a position this rank owns written and
+    no other, and with the position moved to another rank's rows, the
+    cache left as it was (the write is a masked local index, no host
+    read)."""
     from repro_torch.distributed.tensor_parallel import mesh_plan
     from repro_torch.models import layers as L
 
     group = mesh_plan(cfg, rules).tp
     gen = torch.Generator(dev).manual_seed(0)
-    p = L.init_attention(cfg, gen, dev)
     b, c = 8, 256
+    if cfg.mla:
+        p, layer, what = L.init_mla(cfg, gen, dev), L.mla_attention, "MLA"
+        shapes = ((b, c, cfg.mla.kv_lora_rank),
+                  (b, c, cfg.mla.qk_rope_head_dim))
+    else:
+        p, layer = L.init_attention(cfg, gen, dev), L.attention
+        what = "attention"
+        shapes = 2 * ((b, c, cfg.n_kv_heads, cfg.resolved_head_dim),)
     x = torch.randn((b, 1, cfg.d_model), generator=gen,
                     device=dev).to(torch.bfloat16)
-    ck = torch.randn((b, c, cfg.n_kv_heads, cfg.resolved_head_dim),
-                     generator=gen, device=dev).to(torch.bfloat16)
-    cv = torch.randn_like(ck)
+    ck, cv = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+              for sh in shapes)
     n = torch.tensor(100, dtype=torch.int32, device=dev)
     pos = n + torch.arange(1, device=dev)
 
     def run(k, v):
         with torch.no_grad():
-            return L.attention(p, x, cfg, positions=pos, kv_cache=(k, v),
-                               cache_len=n, cap=group)[0]
+            return layer(p, x, cfg, positions=pos, kv_cache=(k, v),
+                         cache_len=n, cap=group)[0]
     e_ck, e_cv = ck.clone(), cv.clone()
     want = run(e_ck, e_cv)
     s_ck, s_cv = ck.clone(), cv.clone()
@@ -2945,21 +2975,149 @@ def check_split_decode_graph(cfg, rules, dev: torch.device) -> str:
     row = int(n)
     others = [i for i in range(c) if i != row]
     expect(torch.equal(out, want) and torch.equal(s_ck, e_ck)
-           and torch.equal(s_cv, e_cv), "the captured split decode differs "
-           "from eager")
+           and torch.equal(s_cv, e_cv), f"the captured split {what} decode "
+           f"differs from eager")
     expect(not torch.equal(s_ck[:, row], ck[:, row])
            and torch.equal(s_ck[:, others], ck[:, others]),
-           "the split decode wrote another row than its position's")
+           f"the split {what} decode wrote another row than its position's")
     n.fill_(c + 5)                     # a position another rank owns
     pos.copy_(n + torch.arange(1, device=dev))
     before = s_ck.clone()
     graph.replay()
     torch.cuda.synchronize()
-    expect(torch.equal(before, s_ck), "the split decode wrote a position "
-           "another rank owns")
-    return ("one layer's split decode captured as a CUDA graph: equal to "
-            "eager bit for bit, the owned row written alone, another "
-            "rank's position left unwritten")
+    expect(torch.equal(before, s_ck), f"the split {what} decode wrote a "
+           f"position another rank owns")
+    return (f"one layer's split {what} decode captured as a CUDA graph: "
+            f"equal to eager bit for bit, the owned row written alone, "
+            f"another rank's position left unwritten")
+
+
+def mla_decode_inputs(cfg, rules, mesh, strat, dev: torch.device,
+                      gen=None) -> tuple:
+    """Rank 0's serve-step arguments for FAKE_MLA_DECODE: its parameter
+    blocks, [B, 1] tokens and its decode state as the step computes with
+    it (rank 0's capacity rows of each part's latent and RoPE key; ``len``
+    half the capacity: every row of rank 0 valid, the new row another
+    rank's); on meta, or drawn on ``dev`` from ``gen``."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import cell_specs
+    from repro_torch.models import model as M
+
+    _, batch, ranks, capacity, _ = FAKE_MLA_DECODE
+    shape = ShapeSpec("fake_rank0", capacity, batch, "decode")
+    params = rank_blocks(cell_specs(cfg, shape, rules, strat)[0], mesh, dev,
+                         gen)
+    state = M.init_decode_state(cfg, batch, capacity // ranks, dev)
+    if gen is None:
+        tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    else:
+        for _, t in leaves(state):
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        tokens = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                               device=dev, dtype=torch.int32)
+    state["len"].fill_(capacity // 2)
+    return params, tokens, state
+
+
+def fake_rank_mla_decode(dev: torch.device, smi: str) -> None:
+    """9h. One decode step of FAKE_MLA_DECODE as rank 0 of a fake group
+    of its size on a "cuda" (1, n) mesh under decode_32k's rules, over
+    its capacity rows of MLA's latent cache (``Plan.cap``: the heads'
+    absorbed queries gathered, every head scored against the rows, the
+    partial softmaxes merged over "model"; no-op collectives, values not
+    checked). Gates: each part's cache [L, B, C / n, r] and [L, B, C /
+    n, dr]; FLOPs on meta equal to the card's; the meta peak within
+    PEAK_TOL of the card's; the six kernels' counts, set to 0 just before
+    the counted run and read just after, all 0. Then
+    :func:`check_split_decode_graph` of one MLA layer in the same
+    group."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.tensor_parallel import mesh_plan
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.launch.strategy import make_mesh_rules, pick_strategy
+    from repro_torch.train.steps import make_serve_step
+
+    name, batch, ranks, capacity, layers = FAKE_MLA_DECODE
+    cfg = dataclasses.replace(get_config(name), n_layers=layers)
+    strat = pick_strategy(cfg, SHAPES["decode_32k"])
+    rows = capacity // ranks
+    fns = counters()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
+    try:
+        meshes = {d: init_device_mesh(d, (1, ranks),
+                                      mesh_dim_names=("data", "model"))
+                  for d in ("cpu", "cuda")}
+        rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
+        plan = mesh_plan(cfg, rules["cuda"])
+        expect(plan.cap and plan.heads, f"{name} on (1, {ranks}): {plan}")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, meta = analyze(make_serve_step(cfg, rules["cpu"]),
+                              *mla_decode_inputs(cfg, rules["cpu"],
+                                                 meshes["cpu"], strat,
+                                                 torch.device("meta")))
+        t_meta = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        args = mla_decode_inputs(cfg, rules["cuda"], meshes["cuda"], strat,
+                                 dev, torch.Generator(dev).manual_seed(0))
+        params, _, state = args
+        nd = cfg.moe.n_dense_layers
+        want = {f"/{part}/{k}": (n, batch, rows, w)
+                for part, n in (("dense", nd), ("main", layers - nd))
+                for k, w in (("latent", cfg.mla.kv_lora_rank),
+                             ("krope", cfg.mla.qk_rope_head_dim))}
+        got = {k: tuple(t.shape) for k, t in leaves(state) if k != "/len"}
+        expect(got == want, f"{name}: rank 0's cache {got}, want {want}")
+        held = sum(t.to_local().nbytes for _, t in leaves(params))
+        cache = sum(t.nbytes for _, t in leaves(state))
+        serve = make_serve_step(cfg, rules["cuda"])
+        for f in fns.values():
+            f.launches = 0
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out, card = analyze(serve, *args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            counts = {k: f.launches for k, f in fns.items()}
+            del out
+            secs = timed_runs(lambda: serve(*args))
+            busy = device_breakdown(lambda: serve(*args), min(secs))
+        del args, params, state
+        torch.cuda.empty_cache()
+        graphed = check_split_decode_graph(cfg, rules["cuda"], dev)
+    finally:
+        dist.destroy_process_group()
+    ratio = meta["peak_bytes"] / peak
+    expect(meta["flops"] == card["flops"],
+           f"{name} split decode: FLOPs on meta {meta['flops']:.6e} vs on "
+           f"the card {card['flops']:.6e}")
+    expect(abs(ratio - 1) <= PEAK_TOL,
+           f"{name} split decode: predicted peak "
+           f"{meta['peak_bytes'] / 2**30:.3f} GiB vs the card's "
+           f"{peak / 2**30:.3f} GiB (ratio {ratio:.4f})")
+    expect(not any(counts.values()), f"{name} split decode launched "
+           f"{counts}")
+    print(f"  {name} decode step (full width, cut to {layers} layers, B = "
+          f"{batch}, decode_32k's rules {strat.name}, capacity {capacity}) "
+          f"as rank 0 of a fake group of {ranks}: MLA on "
+          f"{cfg.n_heads // ranks} of {cfg.n_heads} heads over rows [0, "
+          f"{rows}) of the latent cache, every part's leaves "
+          f"{sorted(set(got.values()))} ({cache / 2**30:.3f} GiB of cache, "
+          f"{held / 2**30:.2f} GiB of blocks; values not checked); FLOPs "
+          f"meta {meta['flops']:.6e} = card {card['flops']:.6e}; predicted "
+          f"peak {meta['peak_bytes'] / 2**30:.3f} GiB vs max memory "
+          f"allocated {peak / 2**30:.3f} GiB (ratio {ratio:.4f}); launches "
+          f"{counts}; eager ms " + ", ".join(f"{t * 1e3:.2f}" for t in secs)
+          + f"; meta analysis {t_meta:.1f} s; {busy}; {graphed}; card: "
+          f"{smi}")
 
 
 def fake_group_prefill(dev: torch.device, smi: str) -> dict:
@@ -2970,13 +3128,16 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
     card's; ms and device ms by op beside phase 7's whole-model prefill.
     The fake group's collectives do nothing (an all-gather leaves its
     output unwritten), so the values are not checked. Then, in the same
-    group, FAKE_MLA's prefill the same way (MLA on 16 of 128 heads), and
-    the head-split recurrent prefills of FAKE_RECURRENT
-    (:func:`fake_rank_recurrent`); last :func:`fake_rank_decode`. The
+    group, FAKE_MLA's prefill the same way (MLA on 16 of 128 heads, its
+    cache this rank's capacity rows) and FAKE_CODEBOOKS' (the codebook
+    heads on 256 of 2048 vocabulary columns), and the head-split
+    recurrent prefills of FAKE_RECURRENT (:func:`fake_rank_recurrent`);
+    last :func:`fake_rank_decode` and :func:`fake_rank_mla_decode`. The
     six kernels' counts are set to 0 just before the qwen3-moe prefill
-    and read just after the MLA one, and again around the decode: those
-    launch none (the recurrent prefills gate their own). Prints the
-    seconds these added; returns the recurrent kernels' launches."""
+    and read just after the codebook one, and again around the decodes:
+    those launch none (the recurrent prefills and the MLA decode gate
+    their own). Prints the seconds these added; returns the recurrent
+    kernels' launches."""
     import dataclasses
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -3047,7 +3208,32 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
               + f"; meta analysis {r['t_meta']:.1f} s; card: {smi}")
         del r
         torch.cuda.empty_cache()
-        no_launches(f"the {name} and {mla} fake-group prefills")
+
+        cb, cb_b = FAKE_CODEBOOKS
+        cfg = get_config(cb)
+        plan = mesh_plan(cfg, rules["cuda"])
+        expect(plan.vocab and not plan.books, f"{cb}: the codebook heads "
+               f"not split over the vocabulary on {FAKE_RANKS} ({plan})")
+        r = fake_rank_prefill(cfg, cb_b, meshes, rules, strat, dev)
+        ratio = check_fake_counts(cb, r)
+        logits = tuple(r["out"][0].shape)
+        expect(logits == (cb_b, 1, cfg.n_codebooks, cfg.vocab_size),
+               f"{cb}: logits {logits}")
+        print(f"  {cb} prefill (full width and depth, B = {cb_b}, S = "
+              f"{LM_PROMPT}) as rank 0 of {FAKE_RANKS}: the codebook heads "
+              f"on {cfg.vocab_size // FAKE_RANKS} of {cfg.vocab_size} "
+              f"vocabulary columns each (values not checked), logits "
+              f"gathered to {logits}; its blocks {r['held'] / 2**30:.2f} "
+              f"GiB; FLOPs meta {r['meta']['flops']:.6e} = card "
+              f"{r['card']['flops']:.6e}; predicted peak "
+              f"{r['meta']['peak_bytes'] / 2**30:.3f} GiB vs "
+              f"{r['peak'] / 2**30:.3f} GiB (ratio {ratio:.4f}); all-gather "
+              f"{r['card']['coll']['all-gather']['bytes']:.0f} B; warm ms "
+              + ", ".join(f"{t * 1e3:.1f}" for t in r["secs"])
+              + f"; meta analysis {r['t_meta']:.1f} s; card: {smi}")
+        del r
+        torch.cuda.empty_cache()
+        no_launches(f"the {name}, {mla} and {cb} fake-group prefills")
         for arch, b, _ in FAKE_RECURRENT:
             got = fake_rank_recurrent(arch, b, meshes, rules, strat, dev,
                                       smi)
@@ -3059,7 +3245,9 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
         f.launches = 0
     fake_rank_decode(dev, smi)
     no_launches(f"the {FAKE_DECODE[0]} split decode")
-    print(f"  phase 9's head-split, MLA and capacity-split cases added "
+    fake_rank_mla_decode(dev, smi)
+    print(f"  phase 9's head-split, MLA, codebook and capacity-split cases "
+          f"added "
           f"{time.perf_counter() - t_added:.1f} s")
     return launched
 

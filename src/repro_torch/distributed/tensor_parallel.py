@@ -27,8 +27,9 @@ it; a stacked leaf unbinds into per-layer held leaves. Inside each layer
   ``wr``/``wk``/``wv``/``wg`` and channel-mix ``wk``), the row-parallel
   ones (``wo``, ``w_down``, Mamba-2's ``out_proj``, RWKV-6's ``wo`` and
   channel-mix ``wv``), the per-head leaves (``u``; ``a_log``,
-  ``dt_bias``, ``d_skip``), the experts' stacks, and the vocabulary rows
-  of the embedding and head; zamba2's shared block
+  ``dt_bias``, ``d_skip``), the experts' stacks, the vocabulary rows
+  of the embedding and head, the codebook heads' vocabulary columns and
+  the codebook embeddings' codebooks; zamba2's shared block
   (``shared_attn/...``, ``shared_mlp/...``) splits as attention and the
   MLP do;
 * the gather's backward is DTensor's: the gradient, ``Partial`` over the
@@ -73,11 +74,21 @@ heads divide (:class:`Plan`). A GQA decode cache whose K/V heads do not
 divide is split on its capacity instead (``Plan.cap``, the reference's
 ``_state_sharding``): each rank holds its rows of every K/V head and
 the decode merges the ranks' partial softmaxes
-(``models/layers.py`` ``_split_decode``). The codebook heads, and
-layers whose heads do not divide, are gathered per layer and computed
-whole on each rank (ROADMAP Queue A, item 9c.3). MLA's latent cache
-is whole on every rank (the reference splits its latent rank over
-``tensor``).
+(``models/layers.py`` ``_split_decode``). MLA's latent cache and RoPE
+key are split on their capacity wherever the axis has more than one
+rank (``Plan.cap``): the absorbed
+decode scores every head against this rank's rows and merges the
+partial softmaxes in the latent space (``_split_mla_decode``); the
+reference splits the latent rank instead, which would sum every head's
+partial scores over the group, for the same bytes a card. The codebook
+heads ``lm_heads`` [K, D, V] compute vocabulary-parallel (``Plan.vocab``:
+each rank its [.., K, V / n] logits, :func:`vocab_nll` and
+:func:`vocab_argmax` per codebook) and the codebook embeddings
+``embed_codebooks`` [K, V, D] codebook-parallel (``Plan.books``: each
+rank sums its own codebooks' rows, and the partial sums are reduced),
+each where ``param_pspec`` splits it (:func:`codebook_dims`). Layers
+whose heads do not divide are gathered per layer and computed whole on
+each rank.
 
 A train step's sequences split over the ``seq`` axis (``Plan.seq``,
 :func:`seq_dim`: the multi-pod ``fsdp`` rules' ``pod``) give each rank
@@ -161,8 +172,10 @@ class Plan:
     axis), and whether GQA attention (its heads; ``kv``: its K/V heads
     too), the vocabulary and the family's own heads (``heads``: MLA's,
     Mamba-2's or RWKV-6's, :func:`family_heads`) are split; ``cap``: a
-    GQA decode cache whose K/V heads do not split is split on its
-    capacity instead; ``seq``: the group a train step's sequences are
+    GQA decode cache whose K/V heads do not split, and MLA's latent
+    cache, are split on their capacity (``vocab`` covers the codebook
+    heads too); ``books``: the codebook embeddings are split on their
+    codebooks; ``seq``: the group a train step's sequences are
     split over (:func:`seq_dim`; None: whole); ``a2a``: the batch dim the
     experts are split over as well, the group the MoE exchanges its
     tokens over (None: the experts' owners hold the tokens already)."""
@@ -176,6 +189,7 @@ class Plan:
     cap: bool
     seq: Optional[Group] = None
     a2a: Optional[Group] = None
+    books: bool = False
 
 
 def _one_group(mesh, dims: list) -> Optional[Group]:
@@ -201,6 +215,19 @@ def expert_dims(cfg, rules) -> tuple:
     spec = param_pspec("layers/moe/w_gate",
                        (1, mo.n_experts, cfg.d_model, mo.d_ff_expert), rules)
     return _names(spec[1])
+
+
+def codebook_dims(cfg, rules) -> tuple:
+    """(the mesh dims ``param_pspec`` splits ``embed_codebooks`` [K, V,
+    D]'s codebooks over, those it splits ``lm_heads`` [K, D, V]'s
+    vocabulary over): its own divisibility rule, so that the compute
+    split and the placement cannot disagree; both empty without
+    codebooks."""
+    if not cfg.n_codebooks:
+        return (), ()
+    k, v, d = cfg.n_codebooks, cfg.vocab_size, cfg.d_model
+    return (_names(param_pspec("embed_codebooks", (k, v, d), rules)[0]),
+            _names(param_pspec("lm_heads", (k, d, v), rules)[2]))
 
 
 def _group_on(mesh, dim: str) -> Group:
@@ -272,11 +299,15 @@ def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
             kv = attn and cfg.n_kv_heads % tp.size == 0
         n = family_heads(cfg)
         heads = n > 0 and n % tp.size == 0
-        cap = cfg.family != "ssm" and not cfg.mla and not kv
-    vocab = (tp is not None and not cfg.n_codebooks
-             and cfg.vocab_size % tp.size == 0)
+        cap = cfg.family != "ssm" and not kv
+    books_dims, vocab_dims = codebook_dims(cfg, rules)
+    if cfg.n_codebooks:
+        vocab = tp is not None and tp.dim in vocab_dims
+    else:
+        vocab = tp is not None and cfg.vocab_size % tp.size == 0
+    books = tp is not None and tp.dim in books_dims
     return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab, heads, cap, seq,
-                a2a)
+                a2a, books)
 
 
 def mesh_plan(cfg, rules) -> Plan:
@@ -347,7 +378,7 @@ _COLUMN_KV = re.compile(r"(^|/)(shared_)?attn/(wk|wv|bk|bv)$")
 _QK_NORM = re.compile(r"(^|/)(shared_)?attn/[qk]_norm/scale$")
 _MLP = re.compile(r"(^|/)(mlp|moe/shared|shared_mlp)/w_(gate|up|down)$")
 _EXPERTS = re.compile(r"(^|/)moe/w_(gate|up|down)$")
-_VOCAB = re.compile(r"^(embed|lm_head)$")
+_VOCAB = re.compile(r"^(embed|lm_heads?)$")
 # ``Plan.heads``' leaves (MLA's, Mamba-2's and RWKV-6's, disjoint by
 # path): split over whole heads (columns, rows or the head dim; RWKV-6's
 # channel mix over d_ff), and used whole but sliced to this rank's heads
@@ -378,7 +409,8 @@ def _layout(path: str, t, plan: Plan) -> tuple:
         group = plan.tp
     elif plan.heads and _SLICED.search(path):
         partial = True
-    elif _MLP.search(path) or (plan.vocab and _VOCAB.search(path)):
+    elif _MLP.search(path) or (plan.vocab and _VOCAB.search(path)) or (
+            plan.books and path == "embed_codebooks"):
         group = plan.tp
     elif _EXPERTS.search(path):
         group, a2a = plan.ep, plan.a2a
@@ -493,9 +525,10 @@ def exchange_of(tree, *keys) -> Optional[Group]:
 
 
 def capacity_group(params, cfg) -> Optional[Group]:
-    """The group a GQA decode cache's capacity is split over
-    (``Plan.cap``): under the ruled steps (a held tree), the ``tensor``
-    group where the K/V heads do not split over it; else None."""
+    """The group a decode cache's capacity is split over (``Plan.cap``):
+    under the ruled steps (a held tree), the ``tensor`` group for MLA's
+    latent cache, and for a GQA cache where the K/V heads do not split
+    over it; else None."""
     if not any(isinstance(t, Held) for t in flat_tree(params).values()):
         return None
     plan = plan_for(cfg)
@@ -540,18 +573,22 @@ def state_split(cfg, plan: Plan, path: tuple, t) -> Optional[int]:
     """The dim of the decode-state leaf ``t`` at ``path`` on which this
     rank holds one block over ``plan.tp``, the decode state's placement
     policy: a GQA cache's K/V heads where they split (``plan.kv``), else
-    its capacity (``plan.cap``; the reference's ``_state_sharding``); the
-    heads of a Mamba-2 ``ssm`` [.., B, H, P, N] or RWKV-6 ``wkv``
-    [.., B, H, N, N] state where those layers split them. None: whole
-    over ``tensor`` (MLA's latent cache, the token-shift states, no
-    group), or not one block: a Mamba-2 ``conv`` state [.., B, K-1,
-    channels] holds the x channels of this rank's heads and all of B and
-    C. :func:`state_block` cuts this rank's part."""
+    its capacity (``plan.cap``; the reference's ``_state_sharding``);
+    the capacity of MLA's ``latent`` [.., B, C, r] and ``krope`` [.., B,
+    C, dr] (``plan.cap``: the reference splits r and dr, see the module
+    docstring); the heads of a Mamba-2 ``ssm`` [.., B, H, P, N] or
+    RWKV-6 ``wkv`` [.., B, H, N, N] state where those layers split them.
+    None: whole over ``tensor`` (the token-shift states, no group), or
+    not one block: a Mamba-2 ``conv`` state [.., B, K-1, channels] holds
+    the x channels of this rank's heads and all of B and C.
+    :func:`state_block` cuts this rank's part."""
     if plan.tp is None:
         return None
     key = _state_key(path)
     if key in ("k", "v") and not cfg.mla:
         return t.ndim - 2 if plan.kv else t.ndim - 3 if plan.cap else None
+    if key in ("latent", "krope") and cfg.mla and plan.cap:
+        return capacity_dim(path, t)
     if plan.heads and key in ("ssm", "wkv"):
         return t.ndim - 3
     return None

@@ -40,17 +40,24 @@ names, on device type ``"cpu"``.
   ``fsdp`` rules' ``pod``); under ``--profile tp_ep_full`` each card
   owns whole experts and the MoE moves the tokens by an all-to-all over
   ``data`` (``Plan.a2a``; the fake group runs it as a no-op, counted as
-  NCCL's would move it); the codebook heads, and layers whose heads do
-  not divide, are gathered per layer and computed whole on every
-  rank. Each segment's queries attend to the keys before them, so the
-  last segment's first rank, which scans every key, is the one counted:
-  rank 0's count would leave out half the causal attention. The serve step holds a rank's batch shard of the decode
-  state, its K/V heads where attention splits them, else its capacity
-  rows of every K/V head (the reference's split-capacity decode), and
-  its heads of the recurrent states (:func:`compute_state_placements`);
-  where the stand-ins shard a state leaf over another axis (MLA's latent
-  rank, the recurrent states' inner dims), the counted run first brings
-  that leaf to the compute placement, and what that moves is counted.
+  NCCL's would move it); the codebook heads are vocabulary-parallel
+  and the codebook embeddings codebook-parallel where the axis divides
+  them; layers whose heads do not divide are gathered per layer and
+  computed whole on every rank. Each segment's queries attend to the
+  keys before them, so the last segment's first rank, which scans every
+  key, is the one counted: rank 0's count would leave out half the
+  causal attention. The serve step holds a rank's batch shard of the
+  decode state, its K/V heads where attention splits them, else its
+  capacity rows of every K/V head (the reference's split-capacity
+  decode), its capacity rows of MLA's latent cache and RoPE key, and its
+  heads of the recurrent states (:func:`compute_state_placements`);
+  where the
+  stand-ins shard a state leaf over another dim (MLA's latent rank and
+  RoPE dim, the recurrent states' inner dims), the counted run first
+  brings that leaf to the compute placement, and what that moves is
+  counted: from the latent rank to the capacity over the same ``tensor``
+  axis, an all-to-all (the fake group runs it as a no-op, counted as
+  NCCL's would move it).
 
 The result has the reference's keys, but:
 
@@ -277,8 +284,9 @@ def compute_state_placements(cfg, rules, path: tuple, t) -> list:
     :func:`~repro_torch.distributed.tensor_parallel.state_split`'s dim
     where that block is DTensor's even chunk (the K/V heads of a GQA
     cache where attention splits them, else a capacity that the axis
-    divides; the heads of a Mamba-2 ``ssm`` or RWKV-6 ``wkv`` state where
-    those layers split them); every other axis gathered (a ``conv``
+    divides, and so MLA's latent cache; the heads of a Mamba-2 ``ssm``
+    or RWKV-6 ``wkv`` state where those layers split them); every other
+    axis gathered (a ``conv``
     state, or a capacity the axis does not divide, is then cut to this
     rank's part by :func:`_compute_state`)."""
     from torch.distributed.tensor import Shard

@@ -131,9 +131,9 @@ def _grow_cache(cfg, state: dict, batch: int, capacity: int,
     :func:`~repro_torch.models.model.init_decode_state`'s dtype). A
     transformer state with per-layer cache lists (K/V or MLA's latent
     and RoPE key, in each part) grows into lists. A ruled prefill's
-    state keeps its share of the K/V and recurrent heads. A K/V cache
-    split on its capacity (a ruled prefill's under ``rules`` where the
-    K/V heads do not split over ``tensor``,
+    state keeps its share of the K/V and recurrent heads. A cache split
+    on its capacity (a ruled prefill's under ``rules``: MLA's latent
+    cache, or a K/V cache whose heads do not split over ``tensor``,
     :func:`~repro_torch.distributed.tensor_parallel.state_split`) keeps
     that layout: its rows are gathered over the group, grown, and this
     rank's rows of the new capacity kept (``capacity_rows``: rounded up

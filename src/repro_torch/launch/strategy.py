@@ -25,8 +25,10 @@ without an all-to-all; under tp_ep_full each card owns whole experts
 by an all-to-all over ``data``, gathering no expert; under the
 multi-pod fsdp rules each rank trains its segment of every sequence
 (``seq`` on ``pod``), the K/V and the recurrent states gathered from
-the segments before it. The codebook heads run whole on each rank
-(ROADMAP Queue A, item 9c.3).
+the segments before it. Under tp_ep the codebook heads are
+vocabulary-parallel over ``model`` and the codebook embeddings
+codebook-parallel where ``model`` divides them, and MLA's latent cache
+is held on its capacity rows over ``model``.
 """
 from __future__ import annotations
 

@@ -341,20 +341,60 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     return row_dot(out.reshape(b, s, h * dh), p["wo"], tp), new_cache
 
 
+def _write_owned(caches: tuple, news: tuple, cache_len: torch.Tensor,
+                 first: int) -> None:
+    """Write row t of each of ``news`` [B, S, ...] into its capacity-split
+    ``caches`` [B, c, ...] at position ``cache_len + t`` where this rank
+    (rows [first, first + c)) owns it: a local index and a mask, no host
+    read, no branch on ``cache_len``, so a CUDA graph captures it."""
+    c = caches[0].shape[1]
+    for t in range(news[0].shape[1]):
+        local = cache_len.long() + (t - first)
+        mine = (local >= 0) & (local < c)
+        idx = local.clamp(0, c - 1).reshape(1)
+        for cache, new in zip(caches, news):
+            old = cache.index_select(1, idx)
+            cache.index_copy_(1, idx, torch.where(
+                mine, new[:, t:t + 1].to(cache.dtype), old))
+
+
+def _merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                    cap: Group) -> torch.Tensor:
+    """Flash decoding's merge over ``cap`` of each rank's partial softmax:
+    its max ``m``, l = sum exp(s - m) and o = sum exp(s - m) v (float32,
+    ``o`` with one more trailing dim): M = max m, then the sums of l
+    exp(m - M) and o exp(m - M), out = o / l. A rank with no valid row
+    has m = NEG_INF, whose weight exp(m - M) is 0 (with -inf, s - m is
+    NaN)."""
+    m_all = cap.all_reduce(m, "max")
+    w = torch.exp(m - m_all)
+    l, o = cap.all_reduce(l * w), cap.all_reduce(o * w[..., None])
+    return o / l[..., None]
+
+
+def _all_heads(x: torch.Tensor, tp: Optional[Group]) -> torch.Tensor:
+    """``x`` [B, S, h, d] of this rank's heads -> every rank's [B, S,
+    n h, d], gathered over ``tp`` in rank order (``x`` itself without a
+    group)."""
+    if tp is None:
+        return x
+    b, s, h, d = x.shape
+    return tp.all_gather(x).permute(1, 2, 0, 3, 4).reshape(b, s,
+                                                           tp.size * h, d)
+
+
 def _split_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   kv_cache: tuple, cache_len: torch.Tensor,
                   tp: Optional[Group], cap: Group) -> torch.Tensor:
     """Decode over a cache split on its capacity over ``cap`` (flash
     decoding): this rank holds rows [i c, (i + 1) c) of every K/V head.
     The rank that owns position ``cache_len + t`` writes row t (a local
-    index and a mask: no host read, no branch on ``cache_len``, so a CUDA
-    graph captures it). Every rank scores all q heads (gathered over
-    ``tp`` where the heads are split) against its rows, masked by global
-    position, keeping its max m, l = sum exp(s - m) and o = sum exp(s -
-    m) v; the partials merge over ``cap``: M = max m, then the sums of
-    l exp(m - M) and o exp(m - M), out = o / l. A rank with no valid row
-    has m = NEG_INF, whose weight exp(m - M) is 0 (with -inf, s - m is
-    NaN). Returns this rank's heads' output [B, S, h, Dh] in float32.
+    index and a mask, :func:`_write_owned`). Every rank scores all q
+    heads (gathered over ``tp`` where the heads are split) against its
+    rows, masked by global position, keeping its max m, l = sum exp(s -
+    m) and o = sum exp(s - m) v; the partials merge over ``cap``
+    (:func:`_merge_partials`). Returns this rank's heads' output [B, S,
+    h, Dh] in float32.
     Decode has no backward: the collectives are not autograd ops."""
     if torch.is_grad_enabled() and q.requires_grad:
         raise RuntimeError("the capacity-split decode has no backward; "
@@ -363,20 +403,11 @@ def _split_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, dh = q.shape
     c = ck.shape[1]
     first = cap.index * c                        # this rank's first row
-    for t in range(s):
-        local = cache_len.long() + (t - first)
-        mine = (local >= 0) & (local < c)
-        idx = local.clamp(0, c - 1).reshape(1)
-        for cache, new in ((ck, k), (cv, v)):
-            old = cache.index_select(1, idx)
-            cache.index_copy_(1, idx, torch.where(
-                mine, new[:, t:t + 1].to(cache.dtype), old))
+    _write_owned((ck, cv), (k, v), cache_len, first)
     f32 = torch.float32
-    # scaled in q's dtype, then cast: the plain decode's rounding
-    qf = (q * (1.0 / math.sqrt(dh))).to(f32)
-    if tp is not None:                       # every q head, in rank order
-        qf = tp.all_gather(qf).permute(1, 2, 0, 3, 4).reshape(
-            b, s, tp.size * h, dh)
+    # scaled in q's dtype, then cast: the plain decode's rounding; every
+    # q head, in rank order
+    qf = _all_heads((q * (1.0 / math.sqrt(dh))).to(f32), tp)
     heads, g = qf.shape[2], ck.shape[2]
     qg = qf.reshape(b, s, g, heads // g, dh)
     scores = torch.einsum("bsgrd,bkgd->bgrsk", qg, ck.to(f32))
@@ -386,11 +417,10 @@ def _split_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.where(valid[None, None, None], scores, NEG_INF)
     m = scores.amax(-1)                                       # [B, g, r, S]
     p = torch.exp(scores - m[..., None])
-    l, o = p.sum(-1), torch.einsum("bgrsk,bkgd->bgrsd", p, cv.to(f32))
-    m_all = cap.all_reduce(m, "max")
-    w = torch.exp(m - m_all)
-    l, o = cap.all_reduce(l * w), cap.all_reduce(o * w[..., None])
-    out = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(b, s, heads, dh)
+    out = _merge_partials(m, p.sum(-1),
+                          torch.einsum("bgrsk,bkgd->bgrsd", p, cv.to(f32)),
+                          cap)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, heads, dh)
     if tp is not None:
         out = out[:, :, tp.index * h:(tp.index + 1) * h]
     return out
@@ -439,7 +469,8 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   cache_len: Optional[torch.Tensor] = None,
                   chunk: int = 1024,
                   return_kv: bool = False,
-                  tp: Optional[Group] = None
+                  tp: Optional[Group] = None,
+                  cap: Optional[Group] = None
                   ) -> tuple[torch.Tensor, Optional[tuple]]:
     """MLA. x [B, S, D]. Queries, keys and values pass through low-rank
     latents; the cache holds only the normed KV latent [B, C, r] and the
@@ -461,8 +492,15 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     norms, computed whole on every rank. The normed latents and the RoPE
     key enter the per-head products through ``copy_to`` (their gradients
     summed over the group, so ``wq_a`` / ``wkv_a`` get whole gradients;
-    ``x`` is not marked again), the partial output is summed over the
-    group, and the latent cache stays whole on every rank.
+    ``x`` is not marked again), and the partial output is summed over
+    the group.
+
+    ``cap``: the cache's capacity split over a group (this rank's rows
+    [i c, (i + 1) c) of the latent and the RoPE key; ``Plan.cap``): the
+    prefill keeps this rank's rows (:func:`~repro_torch.distributed.
+    tensor_parallel.capacity_rows`), and decode is
+    :func:`_split_mla_decode`, whose latent-space output is rounded once
+    to ``x``'s dtype before ``w_bv``, as the whole decode's is.
     """
     m = cfg.mla
     b, s, _ = x.shape
@@ -490,33 +528,81 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                                 causal=True, chunk=chunk, scale=scale)
         out = row_dot(out.reshape(b, s, h * vdim), p["wo"], tp)
-        new_cache = ((latent.to(torch.bfloat16),
-                      k_rope[:, :, 0].to(torch.bfloat16))
+        new_cache = (tuple(capacity_rows(t.to(torch.bfloat16), cap)
+                           for t in (latent, k_rope[:, :, 0]))
                      if return_kv else None)
         return out, new_cache
 
     c_lat, c_kr = kv_cache
-    new_pos = cache_len + torch.arange(s, device=x.device)
-    c_lat.index_copy_(1, new_pos, latent.to(c_lat.dtype))
-    c_kr.index_copy_(1, new_pos, k_rope[:, :, 0].to(c_kr.dtype))
     w_b = p["wkv_b"].reshape(r, h, nope + vdim)
     w_bk, w_bv = w_b[..., :nope], w_b[..., nope:]
     dt = torch.promote_types(q_nope.dtype, w_bk.dtype)
     q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(dt), w_bk.to(dt))
     f32 = torch.float32
-    scores = (torch.einsum("bshr,bkr->bhsk", q_abs.to(f32), c_lat.to(f32))
-              + torch.einsum("bshd,bkd->bhsk", q_rope.to(f32),
-                             c_kr.to(f32))) * scale
-    valid = (torch.arange(c_lat.shape[1], device=x.device)[None, :]
-             <= new_pos[:, None])
-    scores = torch.where(valid[None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    lat_out = torch.einsum("bhsk,bkr->bshr", probs, c_lat.to(f32))
+    if cap is not None:
+        lat_out = _split_mla_decode(q_abs, q_rope, latent, k_rope[:, :, 0],
+                                    kv_cache, cache_len, scale, tp, cap)
+    else:
+        new_pos = cache_len + torch.arange(s, device=x.device)
+        c_lat.index_copy_(1, new_pos, latent.to(c_lat.dtype))
+        c_kr.index_copy_(1, new_pos, k_rope[:, :, 0].to(c_kr.dtype))
+        scores = (torch.einsum("bshr,bkr->bhsk", q_abs.to(f32),
+                               c_lat.to(f32))
+                  + torch.einsum("bshd,bkd->bhsk", q_rope.to(f32),
+                                 c_kr.to(f32))) * scale
+        valid = (torch.arange(c_lat.shape[1], device=x.device)[None, :]
+                 <= new_pos[:, None])
+        scores = torch.where(valid[None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        lat_out = torch.einsum("bhsk,bkr->bshr", probs, c_lat.to(f32))
     dt = torch.promote_types(x.dtype, w_bv.dtype)
     out = torch.einsum("bshr,rhv->bshv", lat_out.to(x.dtype).to(dt),
                        w_bv.to(dt))
     out = row_dot(out.reshape(b, s, h * vdim), p["wo"], tp)
     return out, (c_lat, c_kr)
+
+
+def _split_mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor,
+                      latent: torch.Tensor, k_rope: torch.Tensor,
+                      kv_cache: tuple, cache_len: torch.Tensor,
+                      scale: float, tp: Optional[Group],
+                      cap: Group) -> torch.Tensor:
+    """MLA's absorbed decode over a cache split on its capacity over
+    ``cap`` (flash decoding in the latent space): this rank holds rows
+    [i c, (i + 1) c) of the latent and the RoPE key. The owner of
+    position ``cache_len + t`` writes the new ``latent`` [B, S, r] and
+    ``k_rope`` [B, S, dr] rows (:func:`_write_owned`); every rank scores
+    all heads' ``q_abs`` [B, S, h, r] and ``q_rope`` [B, S, h, dr]
+    (gathered over ``tp`` where the heads are split) against its rows,
+    masked by global position, and keeps (m, l, o) with o [.., r] in
+    float32; the partials merge over ``cap`` (:func:`_merge_partials`).
+    Returns this rank's heads' latent output [B, S, h, r] in float32.
+    Decode has no backward: the collectives are not autograd ops."""
+    if torch.is_grad_enabled() and q_abs.requires_grad:
+        raise RuntimeError("the capacity-split decode has no backward; "
+                           "call it under torch.no_grad()")
+    c_lat, c_kr = kv_cache
+    b, s, h, _ = q_abs.shape
+    c = c_lat.shape[1]
+    first = cap.index * c                        # this rank's first row
+    _write_owned((c_lat, c_kr), (latent, k_rope), cache_len, first)
+    f32 = torch.float32
+    qa, qr = (_all_heads(q.to(f32), tp) for q in (q_abs, q_rope))
+    lat = c_lat.to(f32)
+    scores = (torch.einsum("bshr,bkr->bhsk", qa, lat)
+              + torch.einsum("bshd,bkd->bhsk", qr, c_kr.to(f32))) * scale
+    new_pos = cache_len + torch.arange(s, device=q_abs.device)
+    rows = first + torch.arange(c, device=q_abs.device)
+    valid = rows[None, :] <= new_pos[:, None]                 # [S, c]
+    scores = torch.where(valid[None, None], scores, NEG_INF)
+    m = scores.amax(-1)                                       # [B, H, S]
+    p = torch.exp(scores - m[..., None])
+    out = _merge_partials(m, p.sum(-1),
+                          torch.einsum("bhsk,bkr->bhsr", p, lat), cap)
+    out = out.permute(0, 2, 1, 3)                             # [B, S, H, r]
+    if tp is not None:
+        out = out[:, :, tp.index * h:(tp.index + 1) * h]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -36,10 +36,12 @@ each layer gathers its own leaves where it runs, inside its remat'd
 function (``use``), keeping the ``tensor`` / ``expert`` shards of the
 layers it computes in shards: GQA and MLA attention, the Mamba-2 and
 RWKV-6 layers over their heads, the MLPs over d_ff, the MoE over its
-experts, the embedding, head and loss over the vocabulary; the decode
-state holds this rank's heads, or a GQA cache's capacity rows where its
-K/V heads do not split. The logits then come out this rank's [..., V /
-n] (``unembed_hidden``). Plain tensors run the plain code.
+experts, the embedding, head and loss over the vocabulary (the codebook
+heads too, and the codebook embeddings over their codebooks); the
+decode state holds this rank's heads, or its capacity rows of a GQA
+cache whose K/V heads do not split and of MLA's latent cache. The logits
+then come out this rank's [..., V / n] (``unembed_hidden``). Plain
+tensors run the plain code.
 
 Training (``mode="train"`` under autograd) recomputes each layer in
 backward (``remat``, the reference's ``jax.checkpoint`` of its scanned
@@ -263,11 +265,17 @@ def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     """tokens [B, S] (or [B, S, K] over K codebooks) -> x [B, S, D]. The
     codebooks' rows are summed in float32 and rounded once with the
     sinusoidal positions (``positions`` [S] or [B, S]; arange(S) if
-    None) added, as XLA's fusion of the reference's chain computes it."""
+    None) added, as XLA's fusion of the reference's chain computes it.
+    A codebook table held split on its codebooks (``Plan.books``) sums
+    this rank's codebooks' rows, and the float32 partial sums are
+    reduced over the group before that one rounding."""
     if cfg.n_codebooks:
-        tbl = TP.use(params["embed_codebooks"])               # [K, V, D]
-        x = sum(L.embed(tbl[k], tokens[..., k]).to(torch.float32)
-                for k in range(cfg.n_codebooks))
+        group = TP.group_of(params, "embed_codebooks")
+        tbl = TP.use(params["embed_codebooks"])       # [K (/ n), V, D]
+        first = 0 if group is None else group.index * tbl.shape[0]
+        x = TP.reduce_from(sum(
+            L.embed(tbl[k], tokens[..., first + k]).to(torch.float32)
+            for k in range(tbl.shape[0])), group)
         dtype = tbl.dtype
     else:
         group = TP.group_of(params, "embed")
@@ -297,10 +305,12 @@ def unembed_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor
                    ) -> torch.Tensor:
     """x [B, S, D] -> logits float32 [B, S, V] (or [B, S, K, V], one
     head per codebook); a head held split over the vocabulary gives this
-    rank's [B, S, V / n]."""
+    rank's [B, S, V / n] ([B, S, K, V / n])."""
     if cfg.n_codebooks:
+        heads = params["lm_heads"]
+        x = TP.copy_to(x, TP.group_of(heads))
         logits = torch.einsum("bsd,kdv->bskv", x.to(torch.float32),
-                              TP.use(params["lm_heads"]).to(torch.float32))
+                              TP.use(heads).to(torch.float32))
         return logical_constraint(logits, "batch", "seq", None, "tensor")
     tied = cfg.tie_embeddings
     head = params["embed"] if tied else params["lm_head"]
@@ -406,11 +416,11 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     (x, aux, new_kv); aux is the MoE layer's balance loss, else None.
     Held leaves are gathered here, and the attention, MLP and experts run
     in shards over the groups their leaves are held split over; ``cap``:
-    the K/V cache's capacity is split over that group; ``seq``: ``x`` is
-    this rank's segment of sequences split over that group; ``split``:
-    the MoE's batch split (None: the active one; a remat'd layer gets
-    the forward's, since its recompute may run on autograd's device
-    thread, which sees no active split)."""
+    the K/V (or MLA's latent) cache's capacity is split over that group;
+    ``seq``: ``x`` is this rank's segment of sequences split over that
+    group; ``split``: the MoE's batch split (None: the active one; a
+    remat'd layer gets the forward's, since its recompute may run on
+    autograd's device thread, which sees no active split)."""
     tp_attn = TP.group_of(lp, "attn", "wq" if not cfg.mla else "wq_b")
     tp_mlp = TP.group_of(lp, "mlp", "w_down")
     ep = TP.group_of(lp, "moe", "w_gate")
@@ -421,7 +431,7 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
         h, new_kv = L.mla_attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
             kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
-            tp=tp_attn)
+            tp=tp_attn, cap=cap)
     else:
         h, new_kv = L.attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
@@ -475,8 +485,9 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
     and give the same bits. The aux losses are summed over the layers in
     every mode (the reference's unrolled decode keeps only its last
     layer's, ROADMAP Queue C). ``ck``: each training layer is recomputed
-    in backward. ``cap``: the K/V caches hold this rank's capacity rows
-    over that group (:func:`~repro_torch.models.layers.attention`);
+    in backward. ``cap``: the K/V (or latent) caches hold this rank's
+    capacity rows over that group (:func:`~repro_torch.models.layers.
+    attention`, :func:`~repro_torch.models.layers.mla_attention`);
     ``seq``: a training ``x`` is this rank's segment over that group."""
     decode = mode == "decode"
     cache_len = state["len"] if decode else None
@@ -729,10 +740,11 @@ def _xent_chunk(params: Params, cfg: ArchConfig, h: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
     """Summed NLL of one chunk: h [B, C, D], labels [B, C] (or [B, C, K]);
     over a head held split on the vocabulary, :func:`~repro_torch.
-    distributed.tensor_parallel.vocab_nll` of this rank's logits."""
+    distributed.tensor_parallel.vocab_nll` of this rank's logits (of
+    every codebook at once)."""
     logits = unembed_hidden(params, cfg, h)
-    group = None if cfg.n_codebooks else TP.group_of(
-        params, "embed" if cfg.tie_embeddings else "lm_head")
+    group = TP.group_of(params, "lm_heads" if cfg.n_codebooks else
+                        "embed" if cfg.tie_embeddings else "lm_head")
     if group is not None:
         return TP.vocab_nll(logits, labels, group)
     logp = F.log_softmax(logits, dim=-1)

@@ -25,7 +25,9 @@ sums reduced: the paper's ME tree), the MoE expert-parallel over the
 ``expert`` axis (each rank its own experts' slots: the MC tree; where
 that axis includes a batch axis, ``tp_ep_full``'s, the tokens move to
 the experts' owners by all-to-all and no expert is gathered), the
-embedding, head and loss over the vocabulary. Where the rules put
+embedding, head and loss over the vocabulary (the codebook heads too,
+and the codebook embeddings over their codebooks where the axis divides
+them). Where the rules put
 ``seq`` on an axis of its own (the multi-pod ``fsdp`` profile's
 ``pod``), each rank also takes its contiguous segment of every sequence
 (:func:`batch_shard`) and computes only that: attention over the K/V
@@ -33,12 +35,11 @@ gathered from the segments before it, the recurrences' carried states
 and token shifts from them (``Plan.seq``). The gathers' backward
 reduce-scatters each gradient onto its leaf's placements, summed over
 the batch shards and the segments; Adam then updates the local blocks,
-and each new block goes to its parameter's placements. The codebook
-heads, and layers whose heads the axis does not divide, are gathered per
-layer and computed whole (ROADMAP Queue A, item 9c.3). The ruled
-prefill and serve steps
-compute the same way on each rank's shard of the request batch, a GQA
-cache whose K/V heads do not split held on its capacity rows (the
+and each new block goes to its parameter's placements. Layers whose
+heads the axis does not divide are gathered per layer and computed
+whole. The ruled prefill and serve steps compute the same way on each
+rank's shard of the request batch, MLA's latent cache and a GQA cache
+whose K/V heads do not split held on their capacity rows (the
 split-capacity decode); the logits and tokens are gathered.
 
 The reference jits its train step with the parameters and optimizer
@@ -490,8 +491,9 @@ def make_prefill_step(cfg: ArchConfig, rules: MeshRules | None = None, *,
     train step does, and the logits are gathered (the vocabulary, then
     the rows): the whole batch's, on every rank. The decode state is this
     rank's: its batch shard, its K/V heads where attention splits them
-    (else its capacity rows of every K/V head) and its recurrent heads;
-    for :func:`make_serve_step` with the same rules.
+    (else its capacity rows of every K/V head), its capacity rows of
+    MLA's latent and RoPE key, and its recurrent heads; for
+    :func:`make_serve_step` with the same rules.
     """
     def prefill_step(params, batch):
         if rules is None:
@@ -527,8 +529,9 @@ def greedy(logits: torch.Tensor, group=None) -> torch.Tensor:
     """The greedy next token of the last position: [B] int32 ([B, K]
     from [B, S, K, V] codebook logits, each codebook's own argmax).
     ``group``: the logits are this rank's vocabulary shard of a split
-    over it, and the argmax is taken across the shards (ties to the
-    lowest global index, as ``torch.argmax``'s)."""
+    over it ([B, S, V / n] or [B, S, K, V / n]), and the argmax is taken
+    across the shards, per codebook (ties to the lowest global index, as
+    ``torch.argmax``'s)."""
     if group is not None:
         return TP.vocab_argmax(logits[:, -1], group).to(torch.int32)
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)

@@ -456,14 +456,15 @@ def _plan(cfg, tp: int, m: int) -> tuple:
               else cfg.d_model) // cfg.ssm.head_dim if cfg.ssm else 0)
     return (attn, kv, cfg.vocab_size % tp == 0, (tp, m),
             (tp, m) if cfg.moe else None, heads > 0 and heads % tp == 0,
-            cfg.family != "ssm" and not cfg.mla and not kv)
+            cfg.family != "ssm" and not kv)
 
 
 def _state_slice(cfg, key: str, t: torch.Tensor, plan: tuple, rank: int,
                  shape: tuple) -> torch.Tensor:
     """Rank ``rank``'s part of a whole decode-state leaf ``t`` (layer 0,
     or a stack) on mesh ``shape``: its batch rows, and its K/V heads or
-    capacity rows, recurrent heads or conv channels."""
+    capacity rows (of MLA's latent cache too), recurrent heads or conv
+    channels."""
     data, tp = shape
     d, m = rank // tp, rank % tp
     _, kv, _, _, _, heads, cap = plan
@@ -475,10 +476,11 @@ def _state_slice(cfg, key: str, t: torch.Tensor, plan: tuple, rank: int,
     if name in ("k", "v") and kv:
         n = t.shape[-2] // tp
         return t.narrow(t.ndim - 2, m * n, n)
-    if name in ("k", "v") and cap:
-        c = -(-t.shape[-3] // tp)
-        t = F.pad(t, (0, 0, 0, 0, 0, c * tp - t.shape[-3]))
-        return t.narrow(t.ndim - 3, m * c, c)
+    if name in ("k", "v", "latent", "krope") and cap:
+        dim = t.ndim - (3 if name in ("k", "v") else 2)
+        c = -(-t.shape[dim] // tp)
+        t = F.pad(t, (0, 0) * (t.ndim - dim - 1) + (0, c * tp - t.shape[dim]))
+        return t.narrow(dim, m * c, c)
     if name in ("ssm", "wkv") and heads:
         n = t.shape[-3] // tp
         return t.narrow(t.ndim - 3, m * n, n)
