@@ -313,7 +313,10 @@ and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import atexit
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1596,26 +1599,69 @@ def layerwise_prefill(params, cfg, batch_in) -> tuple[dict, torch.Tensor,
     return worst, logits, M.unembed_hidden(params, cfg, x)
 
 
-def device_breakdown(fn, host_s: float) -> str:
+# a recurrence kernel's own outputs, y and the final state, against its
+# chunked form on the same inputs: max |err| at most this share of the
+# chunked output's largest magnitude (a limit that scales with what is
+# compared, so that a kernel that writes zeros fails at any input scale)
+KERNEL_REL = 5e-2
+
+
+@contextlib.contextmanager
+def against_chunked(cfg):
+    """Every call of the recurrence's kernel (``wkv6`` or ``ssd``) in the
+    block's module also runs its chunked form on the same inputs. Yields
+    {"y" / "state": (the largest max |err| / max |chunked| over the
+    calls, the calls, the smallest max |chunked|)}, filled as the run
+    goes; a chunked output of all zeros, or a NaN, gives an infinite
+    share."""
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models import rwkv as RW
+
+    mod, name, plain = ((RW, "wkv6", RW.wkv6_chunked)
+                        if cfg.family == "ssm"
+                        else (M2, "ssd", M2.ssd_chunked))
+    kernel, seen = getattr(mod, name), {}
+
+    def both(*args):
+        got = kernel(*args)
+        for k, g, w in zip(("y", "state"), got, plain(*args)):
+            scale = float(w.abs().max())
+            share = max_err_f(g, w) / scale if scale > 0 else math.inf
+            share = math.inf if math.isnan(share) else share
+            worst, n, lo = seen.get(k, (0.0, 0, math.inf))
+            seen[k] = (max(worst, share), n + 1, min(lo, scale))
+        return got
+
+    setattr(mod, name, both)
+    try:
+        yield seen
+    finally:
+        setattr(mod, name, kernel)
+
+
+def device_breakdown(fn, host_s: float, by_op: bool = True) -> str:
     """The card's time under ``torch.profiler`` for one call of ``fn``,
     by kernel (top 5), by the torch op and input shapes that launched
-    it (top 5, the op's own kernels), and its busy share of ``host_s``,
-    the unprofiled call's host-clock time."""
+    it (top 5, the op's own kernels; not with ``by_op`` False, which
+    traces the card alone, for a run of tens of thousands of ops), and
+    its busy share of ``host_s``, the unprofiled call's host-clock
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]
+                 + ([ProfilerActivity.CPU] if by_op else []),
+                 record_shapes=by_op) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name, by_op = {}, {}
-    for e in prof.key_averages(group_by_input_shape=True):
+    by_name, ops = {}, {}
+    for e in prof.key_averages(group_by_input_shape=by_op):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         if e.device_type == DeviceType.CUDA:
             by_name[e.key] = by_name.get(e.key, 0.0) + us
         elif e.key.startswith("aten::") and us:
             op = f"{e.key} {e.input_shapes}".replace(" ", "")
-            by_op[op] = by_op.get(op, 0.0) + us
+            ops[op] = ops.get(op, 0.0) + us
     busy_ms = sum(by_name.values()) / 1e3
     if not busy_ms:
         return "card time not measured (no device events)"
@@ -1624,8 +1670,8 @@ def device_breakdown(fn, host_s: float) -> str:
         return "; ".join(f"{us / 1e3:.3f} ms {name[:width]}" for name, us in
                          sorted(d.items(), key=lambda kv: -kv[1])[:5])
     return (f"card busy {busy_ms:.2f} ms, {busy_ms / (host_s * 1e3):.3f} of "
-            f"the unprofiled {host_s * 1e3:.2f} ms; top: {top(by_name)}; "
-            f"by op: {top(by_op, 100)}")
+            f"the unprofiled {host_s * 1e3:.2f} ms; top: {top(by_name)}"
+            + (f"; by op: {top(ops, 100)}" if by_op else ""))
 
 
 def make_lm(name: str, batch: int, dev: torch.device,
@@ -2081,12 +2127,9 @@ def depth_cut(name: str):
 
 def train_full_width(dev: torch.device) -> None:
     """(a) TRAIN_LM_STEPS steps of qwen2-1.5b at full width, B = TRAIN_B,
-    S = TRAIN_S, making the training CLI's calls; (d) a checkpoint save
-    and restore of its (params, opt_state); then one step through the
-    CLI itself with ``--micro 2`` and one with int8 Adam moments."""
-    import tempfile
+    S = TRAIN_S, making the training CLI's calls; then one step through
+    the CLI itself with ``--micro 2`` and one with int8 Adam moments."""
     from repro_torch.configs import get_config
-    from repro_torch.distributed import CheckpointManager
     from repro_torch.launch.train import main as train_main
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.models import model as M
@@ -2130,31 +2173,6 @@ def train_full_width(dev: torch.device) -> None:
         lambda: step(params, opt, batch), warm))
     del start, before, batch
 
-    with tempfile.TemporaryDirectory() as d:
-        mgr = CheckpointManager(d, keep=1)
-        t0 = time.perf_counter()
-        mgr.save(TRAIN_LM_STEPS - 1, (params, opt))
-        t_snap = time.perf_counter() - t0
-        mgr.wait()
-        t_save = time.perf_counter() - t0
-        n_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
-                      if f.is_file())
-        t0 = time.perf_counter()
-        (p2, o2), _ = mgr.restore((params, opt))
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
-        got = dict(leaves({"p": p2, "m": o2.m, "v": o2.v}))
-        want = leaves({"p": params, "m": opt.m, "v": opt.v})
-        diff = [k for k, b in want if got[k].dtype != b.dtype
-                or got[k].device != b.device or not torch.equal(got[k], b)]
-        expect(not diff and o2.step == opt.step == TRAIN_LM_STEPS,
-               f"{TRAIN_LM} checkpoint: restored leaves differ: {diff[:5]}")
-        print(f"  {TRAIN_LM} checkpoint of (params, opt_state): "
-              f"{n_bytes / 1e9:.3f} GB on disk ({len(want)} tensors + the "
-              f"step); save {t_save:.2f} s (host copy {t_snap:.2f} s, then "
-              f"the write on a thread), restore onto the card {t_load:.2f} "
-              f"s (SHA-256 verified); every leaf bit for bit")
-        del p2, o2, got, want
     del params, opt
     torch.cuda.empty_cache()
 
@@ -2185,6 +2203,59 @@ def train_full_width(dev: torch.device) -> None:
           f"allocated {peak_q / 2**30:.2f} GiB; relative gaps to the first "
           f"loss above {gaps[0]:.2e} / {gaps[1]:.2e} (limit "
           f"{BF16_LOSS_RTOL})")
+
+
+def checkpoint_cut(dev: torch.device) -> None:
+    """(d) A checkpoint save and restore of the (params, opt_state) of
+    qwen2-1.5b at full width cut to CUT_LAYERS layers after
+    TRAIN_LM_STEPS steps (B = CUT_B, S = CUT_S): every leaf restored bit
+    for bit onto the card (SHA-256 verified), the step kept; seconds and
+    GB/s each way."""
+    import tempfile
+    from repro_torch.distributed import CheckpointManager
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import (TrainHParams, init_opt_state,
+                                         make_train_step)
+
+    cfg = depth_cut(TRAIN_LM)
+    hp = TrainHParams(lr=3e-4, loss_chunk=min(512, CUT_S))
+    params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = init_opt_state(params, hp)
+    step = make_train_step(cfg, None, hp)
+    for i in range(TRAIN_LM_STEPS):
+        params, opt, _, _ = step_timed(
+            step, params, opt, synthetic_batch(cfg, CUT_B, CUT_S, i, 0, dev))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_LM_STEPS - 1, (params, opt))
+        t_snap = time.perf_counter() - t0
+        mgr.wait()
+        t_save = time.perf_counter() - t0
+        n_bytes = sum(f.stat().st_size for f in Path(d).rglob("*")
+                      if f.is_file())
+        t0 = time.perf_counter()
+        (p2, o2), _ = mgr.restore((params, opt))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        got = dict(leaves({"p": p2, "m": o2.m, "v": o2.v}))
+        want = leaves({"p": params, "m": opt.m, "v": opt.v})
+        diff = [k for k, b in want if got[k].dtype != b.dtype
+                or got[k].device != b.device or not torch.equal(got[k], b)]
+        name = f"{TRAIN_LM} (full width, cut to {cfg.n_layers} layers)"
+        expect(not diff and o2.step == opt.step == TRAIN_LM_STEPS,
+               f"{name} checkpoint: restored leaves differ: {diff[:5]}")
+        print(f"  {name} checkpoint of (params, opt_state) after "
+              f"{TRAIN_LM_STEPS} steps: {n_bytes / 1e9:.3f} GB on disk "
+              f"({len(want)} tensors + the step); save {t_save:.2f} s (host "
+              f"copy {t_snap:.2f} s, then the write on a thread), "
+              f"{n_bytes / 1e9 / t_save:.3f} GB/s; restore onto the card "
+              f"{t_load:.2f} s (SHA-256 verified), "
+              f"{n_bytes / 1e9 / t_load:.3f} GB/s; every leaf bit for bit")
+        del p2, o2, got, want
+    del params, opt
+    torch.cuda.empty_cache()
 
 
 def train_card_vs_cpu(dev: torch.device) -> None:
@@ -2361,8 +2432,9 @@ def check_kernels_refuse_grad(dev: torch.device) -> None:
 
 
 def phase_lm_train(dev: torch.device) -> None:
-    """Train the LMs on the card: (a) + (d) qwen2-1.5b at full width,
-    (b) its depth-cut first step against the CPU, (c) rwkv6-3b,
+    """Train the LMs on the card: (a) qwen2-1.5b at full width, (d) a
+    checkpoint of it cut to CUT_LAYERS layers, (b) its depth-cut first
+    step against the CPU, (c) rwkv6-3b,
     zamba2-7b and the MoE, MLA, VLM and audio models at full width,
     depth cut, (e) a 2-layer MoE prefill against the CPU; the six
     kernels' counts set to 0 just before and read just after: the
@@ -2371,6 +2443,7 @@ def phase_lm_train(dev: torch.device) -> None:
     for f in fns.values():
         f.launches = 0
     train_full_width(dev)
+    checkpoint_cut(dev)
     train_card_vs_cpu(dev)
     for name in ("rwkv6-3b", "zamba2-7b", "qwen3-moe-30b-a3b",
                  "deepseek-v3-671b", "qwen2-vl-7b", "musicgen-medium"):
@@ -2443,8 +2516,10 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     (host snapshot), ``replan_mesh(1, model_parallel=1)``,
     ``reshard_tree``, one step: equal to the ruled run's third step bit
     for bit. Then :func:`tp_ep_one_rank` on the same mesh and, the nccl
-    group gone, :func:`fake_group_prefill`, :func:`seq_split_steps` and
-    :func:`fullep_steps`.
+    group gone, :func:`fake_group_prefill`, :func:`seq_split_steps`,
+    :func:`fullep_steps` and :func:`seq_tensor_prefills`, whose meta
+    counts a process started as the phase starts makes meanwhile
+    (:func:`spawn_sp_meta`).
     The six kernels' counts are set to 0 just before and read before the
     fake groups: this path launches none; the fake groups gate their own
     counts."""
@@ -2463,6 +2538,7 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     from repro_torch.models import model as M
     from repro_torch.train.steps import loss_and_grads, make_train_step
 
+    sp_meta = spawn_sp_meta()
     fns = counters()
     for f in fns.values():
         f.launches = 0
@@ -2564,6 +2640,8 @@ def phase_mesh(dev: torch.device, smi: str) -> None:
     print(f"mesh phase, the head-split prefills' counted runs: {split}")
     seq_split_steps(dev, smi)
     fullep_steps(dev, smi)
+    sp = seq_tensor_prefills(dev, smi, sp_meta)
+    print(f"mesh phase, the sequence-split prefills' kernel runs: {sp}")
 
 
 FAKE_RANKS = 8       # phase 9's fake group: the (1, 8) mesh's ranks
@@ -2673,7 +2751,7 @@ FAKE_CODEBOOKS = ("musicgen-medium", 8)
 WHOLE_OVER_MODEL = r"(mamba/(in_proj|conv_w|conv_b)|channel_mix/wr)$"
 
 
-def whole_over_model(specs, pattern: str = WHOLE_OVER_MODEL):
+def whole_over_model(specs, pattern: str):
     """``launch/specs.py`` stand-ins with the leaves at ``pattern`` held
     whole over the "model" axis (their shards over other axes kept)."""
     import re
@@ -2696,53 +2774,81 @@ def whole_over_model(specs, pattern: str = WHOLE_OVER_MODEL):
     return tree_map_with_path(one, specs)
 
 
-def fake_rank_prefill(cfg, batch: int, meshes: dict, rules: dict, strat,
-                      dev: torch.device, kernels: bool = True,
-                      whole: bool = False) -> dict:
-    """Rank 0's prefill of ``cfg`` (B = ``batch``, S = LM_PROMPT) under
-    ``rules`` from its own blocks, on meta and on the card under
-    ``launch.hlo_analysis.analyze`` (``kernels``: the card's run may
-    launch the recurrences' kernels, which meta cannot see; False for a
-    held count), then 3 warm runs. ``whole``: the stand-ins of
-    :func:`whole_over_model`. Returns the counts, the peak, the blocks'
-    bytes, the timings, the step, its arguments and its output."""
+def fake_rank_specs(cfg, batch: int, seq_len: int, rules, strat,
+                    whole: str | None = None):
+    """The ``launch/specs.py`` stand-ins of this rank's prefill of
+    ``cfg`` (B = ``batch``, S = ``seq_len``) under ``rules``; ``whole``:
+    a pattern of the leaves held whole over "model"
+    (:func:`whole_over_model`)."""
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch.dryrun import cell_specs
+    sp = cell_specs(cfg, ShapeSpec("fake_rank0", seq_len, batch, "prefill"),
+                    rules, strat)
+    return sp if whole is None else whole_over_model(sp, whole)
+
+
+def meta_count(cfg, batch: int, mesh, rules, strat,
+               whole: str | None = None, seq_len: int = LM_PROMPT) -> dict:
+    """``launch.hlo_analysis.analyze`` of this rank's chunked prefill
+    (:func:`fake_rank_specs`) on meta: its counts, and the seconds they
+    took as ``t_meta``."""
+    from repro_torch.launch.hlo_analysis import analyze
+    from repro_torch.train.steps import make_prefill_step
+    t0 = time.perf_counter()
+    _, meta = analyze(make_prefill_step(cfg, rules, kernels=False),
+                      *rank_blocks(fake_rank_specs(cfg, batch, seq_len,
+                                                   rules, strat, whole),
+                                   mesh, torch.device("meta")))
+    meta["t_meta"] = time.perf_counter() - t0
+    return meta
+
+
+def fake_rank_prefill(cfg, batch: int, meshes: dict, rules: dict, strat,
+                      dev: torch.device, kernels: bool = True,
+                      whole: str | None = None,
+                      seq_len: int = LM_PROMPT, warm: int = 3,
+                      meta: dict | None = None) -> dict:
+    """This rank's prefill of ``cfg`` (B = ``batch``, S = ``seq_len``)
+    under ``rules`` from its own blocks, on meta (:func:`meta_count`,
+    unless ``meta`` holds its counts already) and on the card under
+    ``launch.hlo_analysis.analyze`` (``kernels``: the card's run may
+    launch the recurrences' kernels, which meta cannot see; False for a
+    held count), then ``warm`` warm runs. ``whole``: a pattern of the
+    leaves held whole over "model" (:func:`whole_over_model`). Returns
+    the counts, the peak, the blocks' bytes, the timings (the card's
+    analysed run's seconds among them), the step, its arguments and its
+    output."""
     from repro_torch.launch.hlo_analysis import analyze
     from repro_torch.train.steps import make_prefill_step
 
-    shape = ShapeSpec("fake_rank0", LM_PROMPT, batch, "prefill")
-
-    def specs(d):
-        sp = cell_specs(cfg, shape, rules[d], strat)
-        return whole_over_model(sp) if whole else sp
-    t0 = time.perf_counter()
-    _, meta = analyze(make_prefill_step(cfg, rules["cpu"], kernels=False),
-                      *rank_blocks(specs("cpu"), meshes["cpu"],
-                                   torch.device("meta")))
-    t_meta = time.perf_counter() - t0
-
+    if meta is None:
+        meta = meta_count(cfg, batch, meshes["cpu"], rules["cpu"], strat,
+                          whole, seq_len)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
-    args = rank_blocks(specs("cuda"), meshes["cuda"], dev,
+    args = rank_blocks(fake_rank_specs(cfg, batch, seq_len, rules["cuda"],
+                                       strat, whole),
+                       meshes["cuda"], dev,
                        torch.Generator(dev).manual_seed(0))
     step = make_prefill_step(cfg, rules["cuda"], kernels=kernels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
     out, card = analyze(step, *args)
     torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev) - base
     held = sum(t.to_local().nbytes for _, t in leaves(args[0]))
     secs = []
-    for _ in range(3):
+    for _ in range(warm):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(*args)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     return {"meta": meta, "card": card, "peak": peak, "held": held,
-            "secs": secs, "t_meta": t_meta, "step": step, "args": args,
-            "out": out}
+            "secs": secs, "t_meta": meta["t_meta"], "t_card": t_card,
+            "step": step, "args": args, "out": out}
 
 
 def check_fake_counts(name: str, r: dict) -> float:
@@ -2768,8 +2874,9 @@ def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
     counts set to 0 just before and read just after (one launch of the
     arch's kernel per layer, on this rank's heads); every layer of a
     kernel run held to the chunked path on the same input within LM_TOL
-    (:func:`layerwise`), and the two whole runs' states compared
-    (reported). The gathered leaves are held whole over
+    (:func:`layerwise`) and each launch's own outputs to the chunked form
+    within KERNEL_REL (:func:`against_chunked`), and the two whole runs'
+    states compared (reported). The gathered leaves are held whole over
     "model" (:func:`whole_over_model`) and the fake all-reduces leave
     each partial sum as it is, so both runs read the same values."""
     from repro_torch.configs import get_config
@@ -2785,7 +2892,7 @@ def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
     for f in fns.values():
         f.launches = 0
     chunked = fake_rank_prefill(cfg, batch, meshes, rules, strat, dev,
-                                kernels=False, whole=True)
+                                kernels=False, whole=WHOLE_OVER_MODEL)
     ratio = check_fake_counts(name, chunked)
     expect(not any(f.launches for f in fns.values()),
            f"{name}: the chunked prefill launched a kernel")
@@ -2814,12 +2921,16 @@ def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     breakdown = device_breakdown(lambda: step(*args), min(secs))
-    worst, _, _ = layerwise(cfg, lambda: step(*args))
+    with against_chunked(cfg) as site:
+        worst, _, _ = layerwise(cfg, lambda: step(*args))
     # the states (the logits pass through the fake all-gather, unwritten)
     ref = dict(leaves(chunked["out"][1]))
     whole_err = {k: max_err_f(t, ref[k]) for k, t in leaves(st)
                  if k != "/len"}
     ok = all(ok for _, ok in worst.values())
+    own = (sorted(site) == ["state", "y"]
+           and all(n == cfg.n_layers and share <= KERNEL_REL
+                   for share, n, _ in site.values()))
     print(f"  {name} prefill (full width and depth, B = {batch}, S = "
           f"{LM_PROMPT}, prefill_32k's rules {strat.name}) as rank 0 of "
           f"{FAKE_RANKS}: {heads} of {ssm_heads(cfg)} heads, {kernel} "
@@ -2829,6 +2940,11 @@ def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
           f"{LM_TOL['rtol']}): " + ", ".join(
               f"{k} max |err| {e:.3g}{'' if good else ' FAIL'}"
               for k, (e, good) in worst.items())
+          + f"; each launch's own outputs vs the chunked form on the same "
+          f"inputs (limit max |err| <= {KERNEL_REL} x max |chunked|): "
+          + ", ".join(f"{k} max |err| / max |chunked| {share:.3g} over "
+                      f"{n} calls (max |chunked| {lo:.3g} or more)"
+                      for k, (share, n, lo) in site.items())
           + "; whole runs (not gated): " + ", ".join(
               f"{k} {e:.3g}" for k, e in whole_err.items())
           + f"; chunked FLOPs meta {chunked['meta']['flops']:.6e} = card "
@@ -2843,6 +2959,8 @@ def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
           f"{breakdown}; card: {smi}")
     expect(ok, f"{name}: a layer of the head-split kernel prefill differs "
            f"from the chunked path")
+    expect(own, f"{name}: the head-split prefill's {kernel} differs from "
+           f"its chunked form: {site}")
     del chunked, args, logits, st
     torch.cuda.empty_cache()
     return launched
@@ -3256,7 +3374,7 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
 # segment) of a fake group on a (SEQ_RANKS, 1, 1) pod x data x model mesh
 # under the multi-pod fsdp rules; (arch, depth-cut as in phase 8)
 SEQ_RANKS = 2
-SEQ_SPLIT = (("qwen2-1.5b", False), ("rwkv6-3b", True), ("zamba2-7b", True))
+SEQ_SPLIT = (("qwen2-1.5b", True), ("rwkv6-3b", True), ("zamba2-7b", True))
 
 
 def timed_runs(fn, n: int = 3) -> list:
@@ -3391,6 +3509,265 @@ def seq_split_steps(dev: torch.device, smi: str) -> None:
         dist.destroy_process_group()
     print(f"  phase 9's sequence-split steps took "
           f"{time.perf_counter() - t0:.1f} s")
+
+
+# phase 9i: each prompt split over the tensor axis (``Plan.sp``, the dry
+# run's --seq-shard): rank SP_RANKS - 1 (the last segment, whose queries
+# see every key) of a fake group on a (1, SP_RANKS) data x model mesh
+# under prefill_32k's tp_ep rules with seq -> "model"; (arch, layers or
+# None: full depth, batch, tokens, the kernel its prefill launches once a
+# layer or None)
+SP_RANKS = 16
+SP_PREFILLS = (("qwen2-1.5b", None, 2, 32768, None),
+               ("stablelm-12b", 4, 2, 32768, None),
+               ("rwkv6-3b", 2, 2, 8192, "wkv6"),
+               ("zamba2-7b", 6, 2, 8192, "ssd"))
+SP_WARM = 1           # 9i's warm runs a case
+# the leaves of these layers gathered whole over the tensor axis, held
+# whole over "model" in the value checks: rwkv6-3b's time mix, whose 40
+# heads 16 ranks do not divide, besides WHOLE_OVER_MODEL's
+SP_WHOLE = (r"(mamba/(in_proj|conv_w|conv_b)|channel_mix/wr"
+            r"|time_mix/[\w/]+)$")
+
+
+@contextlib.contextmanager
+def loopback_collectives():
+    """The tensor-parallel groups' all-gather and reduce-scatter as
+    loopbacks on this one rank, for a fake group's value checks (its
+    collectives leave their outputs unwritten): every rank's block is
+    this rank's, the sum's block this rank's own term. Values, not
+    counts: runs under it are not analyzed."""
+    from repro_torch.distributed.tensor_parallel import Group
+    ag, rs = Group.all_gather, Group.reduce_scatter
+    Group.all_gather = lambda self, t: t.unsqueeze(0).expand(
+        self.size, *t.shape).contiguous()
+    Group.reduce_scatter = lambda self, t: t[self.index].clone()
+    try:
+        yield
+    finally:
+        Group.all_gather, Group.reduce_scatter = ag, rs
+
+
+def sp_prefill(cfg, layers, batch: int, seq_len: int, kernel,
+               meshes: dict, rules: dict, strat, dev: torch.device,
+               smi: str, meta: dict) -> dict:
+    """9i. One prefill of ``cfg`` (cut to ``layers`` where given) as the
+    last segment's rank: the chunked run (``kernels=False``) counted on
+    the card from the rank's own blocks against ``meta``, its count on
+    meta (FLOPs equal, peak within PEAK_TOL), with no
+    kernel launched; where the arch has a kernel, the kernel run with the
+    counts set to 0 just before and read just after (one launch a
+    layer), every recurrent layer of it held to the chunked path on the
+    same input within LM_TOL (:func:`layerwise`) and each launch's y and
+    state to the chunked form on the same inputs within KERNEL_REL of
+    the chunked output's largest magnitude (:func:`against_chunked`;
+    token ids in the rank's block of the vocabulary and the gathers made
+    loopbacks, so that every input is defined and none is zero); ms (SP_WARM warm runs), busy share
+    (the card traced alone) and the peak, and the seconds of the case
+    and of its analyses and trace. Returns the launches."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import batch_split, mesh_rules
+    from repro_torch.distributed.tensor_parallel import plan_for
+    from repro_torch.train.steps import batch_shard, make_prefill_step
+
+    t0 = time.perf_counter()
+    name = cfg.name
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    r = fake_rank_prefill(cfg, batch, meshes, rules, strat, dev,
+                          kernels=False, whole=SP_WHOLE if kernel else None,
+                          seq_len=seq_len, warm=0 if kernel else SP_WARM,
+                          meta=meta)
+    ratio = check_fake_counts(f"{name} sequence-split", r)
+    chunked = {k: f.launches for k, f in fns.items()}
+    expect(not any(chunked.values()),
+           f"{name} sequence-split chunked prefill launched {chunked}")
+    split = batch_shard({"tokens": torch.zeros((batch, seq_len),
+                                               dtype=torch.int32)},
+                        rules["cpu"], cfg, prefill=True)[1]
+    with mesh_rules(rules["cpu"]), batch_split(split):
+        plan = plan_for(cfg)
+    expect(plan.sp is not None and plan.sp.index == SP_RANKS - 1
+           and split.segment == seq_len // SP_RANKS,
+           f"{name}: the prompt not split over model ({plan}, {split})")
+    paths = (("attention heads", plan.attn), ("family heads", plan.heads),
+             ("vocab", plan.vocab))
+    step, args = r["step"], r["args"]
+    launched = {k: 0 for k in fns}
+    detail = "no kernel"
+    if kernel:
+        # token ids in this rank's block of the vocabulary, so that the
+        # loopback's own term of the embedding's partial sums is their
+        # sum (ids outside it embed to zeros here, and every layer would
+        # see a zero stream)
+        rows = cfg.vocab_size // SP_RANKS
+        expect(plan.vocab and rows * SP_RANKS == cfg.vocab_size,
+               f"{name}: the vocabulary not split in {SP_RANKS} ({plan})")
+        tokens = args[1]["tokens"]
+        if isinstance(tokens, DTensor):
+            tokens = tokens.to_local()
+        tokens.random_((SP_RANKS - 1) * rows, SP_RANKS * rows,
+                       generator=torch.Generator(dev).manual_seed(1))
+        step = make_prefill_step(cfg, rules["cuda"])
+        for f in fns.values():
+            f.launches = 0
+        with loopback_collectives(), against_chunked(cfg) as site:
+            worst, _, _ = layerwise(cfg, lambda: step(*args))
+            torch.cuda.synchronize()
+        launched = {k: f.launches for k, f in fns.items()}
+        want = {k: (cfg.n_layers if k == kernel else 0) for k in fns}
+        expect(launched == want, f"{name} sequence-split prefill launched "
+               f"{launched}, want {want}")
+        detail = (f"{kernel} launched {launched[kernel]} times (token ids "
+                  f"in the rank's vocabulary block, gathers as loopbacks); "
+                  f"every layer of the kernel run vs the chunked path on "
+                  f"the same input (limit rtol = atol = {LM_TOL['rtol']}): "
+                  + ", ".join(f"{k} max |err| {e:.3g}"
+                              f"{'' if good else ' FAIL'}"
+                              for k, (e, good) in worst.items())
+                  + f"; each launch's own outputs vs the chunked form on "
+                  f"the same inputs (limit max |err| <= {KERNEL_REL} x max "
+                  f"|chunked|): " + ", ".join(
+                      f"{k} max |err| / max |chunked| {share:.3g} over {n} "
+                      f"calls (max |chunked| {lo:.3g} or more)"
+                      for k, (share, n, lo) in site.items()))
+        expect(all(good for _, good in worst.values()),
+               f"{name}: a layer of the sequence-split kernel prefill "
+               f"differs from the chunked path")
+        expect(sorted(site) == ["state", "y"]
+               and all(n == cfg.n_layers and share <= KERNEL_REL
+                       for share, n, _ in site.values()),
+               f"{name}: the sequence-split prefill's {kernel} differs from "
+               f"its chunked form: {site}")
+    secs = timed_runs(lambda: step(*args), SP_WARM) if kernel else r["secs"]
+    t1 = time.perf_counter()
+    busy = device_breakdown(lambda: step(*args), min(secs), by_op=False)
+    t_trace = time.perf_counter() - t1
+    depth = f"cut to {cfg.n_layers} layers" if layers else "full depth"
+    seg = seq_len // SP_RANKS
+    print(f"  {name} prefill (full width, {depth}, B = {batch}, S = "
+          f"{seq_len}, prefill_32k's rules {strat.name} with seq -> model) "
+          f"as rank {SP_RANKS - 1} of a fake group of {SP_RANKS} on a cuda "
+          f"(1, {SP_RANKS}) mesh: tokens [{seq_len - seg}, {seq_len}) of "
+          f"each prompt; split "
+          + ", ".join(f"{k} {v}" for k, v in paths)
+          + f"; its blocks {r['held'] / 2**30:.2f} GiB; FLOPs meta "
+          f"{r['meta']['flops']:.6e} = card {r['card']['flops']:.6e} over "
+          f"{r['card']['ops']} ops; predicted peak "
+          f"{r['meta']['peak_bytes'] / 2**30:.3f} GiB vs "
+          f"{r['peak'] / 2**30:.3f} GiB (ratio {ratio:.4f}); collectives "
+          + ", ".join(f"{k} {v['bytes']:.4g} B" for k, v in
+                      r["card"]["coll"].items()
+                      if isinstance(v, dict) and v["count"])
+          + f"; {detail}; warm ms " + ", ".join(f"{t * 1e3:.1f}"
+                                                for t in secs)
+          + f"; {busy}; the case took {time.perf_counter() - t0:.1f} s "
+          f"(analysis on the card {r['t_card']:.1f}, trace {t_trace:.1f}); "
+          f"card: {smi}")
+    del r, step, args
+    torch.cuda.empty_cache()
+    return launched
+
+
+def sp_case(name: str, layers) -> tuple:
+    """(cfg, strategy) of a SP_PREFILLS case: ``name`` cut to ``layers``
+    (full depth where None) under its prefill_32k strategy (tp_ep) with
+    seq -> "model"."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.strategy import pick_strategy
+    cfg = get_config(name)
+    strat = pick_strategy(cfg, SHAPES["prefill_32k"])
+    expect(strat.name == "tp_ep", f"{name} prefill_32k: {strat}")
+    strat.logical_rules["seq"] = "model"
+    return (dataclasses.replace(cfg, n_layers=layers) if layers else cfg,
+            strat)
+
+
+def sp_meta_counts() -> None:
+    """9i's meta side, in the process :func:`spawn_sp_meta` starts: each
+    SP_PREFILLS case's :func:`meta_count` as rank SP_RANKS - 1 of a fake
+    group on a cpu (1, SP_RANKS) mesh. Prints {arch: {"flops",
+    "peak_bytes", "ops", "t_meta"}} as its one line of output."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.strategy import make_mesh_rules
+
+    dist.init_process_group("fake", store=FakeStore(), rank=SP_RANKS - 1,
+                            world_size=SP_RANKS)
+    counts = {}
+    try:
+        mesh = init_device_mesh("cpu", (1, SP_RANKS),
+                                mesh_dim_names=("data", "model"))
+        for name, layers, batch, seq_len, kernel in SP_PREFILLS:
+            cfg, strat = sp_case(name, layers)
+            meta = meta_count(cfg, batch, mesh, make_mesh_rules(mesh, strat),
+                              strat, SP_WHOLE if kernel else None, seq_len)
+            counts[name] = {k: meta[k] for k in ("flops", "peak_bytes",
+                                                  "ops", "t_meta")}
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(counts))
+
+
+def spawn_sp_meta() -> subprocess.Popen:
+    """:func:`sp_meta_counts` in a process of its own, started as phase 9
+    starts, so that 9i's meta counts run on another of the host's cores
+    beside the phase's earlier steps (one thread: meta computes nothing);
+    :func:`seq_tensor_prefills` reads its output. Killed at exit if it
+    still runs."""
+    import os
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']"
+            "; import chip_smoke; chip_smoke.sp_meta_counts()")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT)],
+                            stdout=subprocess.PIPE, text=True,
+                            env=dict(os.environ, OMP_NUM_THREADS="1",
+                                     MKL_NUM_THREADS="1"))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def seq_tensor_prefills(dev: torch.device, smi: str,
+                        sp_meta: subprocess.Popen) -> dict:
+    """9i. :func:`sp_prefill` of each of SP_PREFILLS as rank SP_RANKS - 1
+    of one fake group, its meta counts read from ``sp_meta``
+    (:func:`spawn_sp_meta`); the seconds they took. Returns the kernels'
+    launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.launch.strategy import make_mesh_rules
+
+    t0 = time.perf_counter()
+    out, _ = sp_meta.communicate(timeout=900)
+    expect(sp_meta.returncode == 0,
+           f"9i's meta counts exited {sp_meta.returncode}")
+    metas = json.loads(out.strip().splitlines()[-1])
+    t_wait = time.perf_counter() - t0
+    launched: dict = {}
+    dist.init_process_group("fake", store=FakeStore(), rank=SP_RANKS - 1,
+                            world_size=SP_RANKS)
+    try:
+        meshes = {d: init_device_mesh(d, (1, SP_RANKS),
+                                      mesh_dim_names=("data", "model"))
+                  for d in ("cpu", "cuda")}
+        for name, layers, batch, seq_len, kernel in SP_PREFILLS:
+            cfg, strat = sp_case(name, layers)
+            rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
+            got = sp_prefill(cfg, layers, batch, seq_len, kernel, meshes,
+                             rules, strat, dev, smi, metas[name])
+            launched = {k: launched.get(k, 0) + n for k, n in got.items()}
+    finally:
+        dist.destroy_process_group()
+    print(f"  phase 9's sequence-split prefills (9i) took "
+          f"{time.perf_counter() - t0:.1f} s, of which {t_wait:.1f} s "
+          f"waiting for their meta counts (made in a process of their own "
+          f"beside the phase's earlier steps: "
+          + ", ".join(f"{k} {m['t_meta']:.1f} s" for k, m in metas.items())
+          + ")")
+    return launched
 
 
 # phase 9's expert-parallel runs under tp_ep_full: rank 0 of a fake group
@@ -4745,6 +5122,19 @@ def check_no_internal_neurons() -> None:
           "spikes, e.g. [[4, 4, 4], [4, 4, 4]] for all-one spikes")
 
 
+PHASE_S: dict = {}       # seconds of each phase of main, in order
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds printed on a line of their own
+    (``phase <name>: <s> s``) and kept in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_S[name]:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core  # noqa: F401  (fails outside the repo)
@@ -4755,28 +5145,30 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    smi = phase_card()
-    phase_build()
-    recs = phase_kernels(dev)
-    recs.update(phase_snn_kernels(dev))
-    recs.update(phase_ssm_kernels(dev))
-    phase_golden()
-    back_end = phase_back_end(smi)
-    compiled = phase_compile(smi)
-    launches = phase_serve()
+    smi = timed("1 card", phase_card)
+    timed("1 build", phase_build)
+    recs = timed("2 kernels", phase_kernels, dev)
+    recs.update(timed("2 snn kernels", phase_snn_kernels, dev))
+    recs.update(timed("3 ssm kernels", phase_ssm_kernels, dev))
+    timed("4 golden", phase_golden)
+    back_end = timed("4 back end", phase_back_end, smi)
+    compiled = timed("4 compile", phase_compile, smi)
+    launches = timed("5 serve", phase_serve)
     for name in launches:
         launches[name] += back_end[name] + compiled[name]
-    phase_sharded()
-    phase_async_server()
-    phase_replay(smi)
-    phase_engines()
-    phase_graphs(smi)
-    launches.update(phase_train(dev))
-    launches.update(phase_lm(dev))
-    phase_lm_train(dev)
-    phase_mesh(dev, smi)
-    phase_dryrun(dev, smi)
-    check_failed_capture()
+    timed("5 sharded", phase_sharded)
+    timed("5 async server", phase_async_server)
+    timed("5 replay", phase_replay, smi)
+    timed("5 engines", phase_engines)
+    timed("5 graphs", phase_graphs, smi)
+    launches.update(timed("6 train", phase_train, dev))
+    launches.update(timed("7 lm", phase_lm, dev))
+    timed("8 lm train", phase_lm_train, dev)
+    timed("9 mesh", phase_mesh, dev, smi)
+    timed("10 dryrun", phase_dryrun, dev, smi)
+    timed("11 failed capture", check_failed_capture)
+    print("phase times (s): " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in PHASE_S.items()))
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                        "src/repro/kernels/fused_step.py:122"),

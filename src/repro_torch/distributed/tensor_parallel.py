@@ -105,8 +105,34 @@ the same order, forward and in the remat'd recompute. The gradients are
 then ``Partial`` over ``seq`` too, and the reduce-scatter onto each
 leaf's ``fsdp`` placements (``pod`` among them) sums the segments'
 shares. A sequence that does not divide, a segment shorter than
-Mamba-2's conv window, an MoE or MLA config and ``seq`` on the tensor
-axis keep the sequences whole.
+Mamba-2's conv window, and an MoE or MLA config keep the sequences
+whole over ``pod``.
+
+Where the ``seq`` rule names the tensor axis (``Plan.sp``: the dry
+run's ``--seq-shard``, ``seq -> "model"`` beside ``tensor -> "model"``),
+the ruled train and prefill steps give each rank of the tensor group its
+contiguous segment of every sequence in the residual stream, MoE and MLA
+configs included. Each layer then splits one of two ways. (a) Sequence
+parallelism around a tensor-parallel region (the layer's heads, d_ff or
+experts split): the region's input is all-gathered along the sequence
+(:func:`seq_whole`, in place of :func:`copy_to`; backward a
+reduce-scatter) and its float32 partial output reduce-scattered onto the
+segment and rounded once (:func:`scatter_to`, in place of
+:func:`reduce_from`; backward an all-gather); the token-wise work before
+the gather (the norms, MLA's latent projections, RWKV-6's channel-mix
+shift and gate) runs on the segment. (b) The segment alone, where the
+heads do not split: GQA attention and the recurrences as ``Plan.seq``'s
+segments above, over the tensor group, and a token-wise MLP with no
+collective; MLA whose heads do not divide (reduced configs only)
+gathers the sequence, computes whole and keeps its segment. The MoE
+gathers its tokens before routing, so its routing groups are today's.
+Every leaf the tensor axis does not split then has a gradient
+``Partial`` over it: each rank's share, from its segment or its part of
+a region. The loss is computed on the gathered sequence and is the
+whole sequence's on every rank of the group (where the head is not
+vocabulary-parallel, and for the MoE's aux, each rank's backward counts
+1 / n of it, :func:`count_once`). Decode, a sequence the group does not
+divide and a one-rank group keep the sequences whole.
 """
 from __future__ import annotations
 
@@ -178,7 +204,10 @@ class Plan:
     codebooks; ``seq``: the group a train step's sequences are
     split over (:func:`seq_dim`; None: whole); ``a2a``: the batch dim the
     experts are split over as well, the group the MoE exchanges its
-    tokens over (None: the experts' owners hold the tokens already)."""
+    tokens over (None: the experts' owners hold the tokens already);
+    ``sp``: the tensor group when the sequences are split over it too
+    (sequence parallelism; apart from ``seq``, whose segments every
+    layer computes alone)."""
     batch_dims: tuple
     tp: Optional[Group]
     ep: Optional[Group]
@@ -190,6 +219,7 @@ class Plan:
     seq: Optional[Group] = None
     a2a: Optional[Group] = None
     books: bool = False
+    sp: Optional[Group] = None
 
 
 def _one_group(mesh, dims: list) -> Optional[Group]:
@@ -252,23 +282,24 @@ def family_heads(cfg) -> int:
 
 
 def seq_dim(cfg, rules, batch_dims: tuple, seq_len: int) -> Optional[str]:
-    """The mesh dim a ruled train step splits ``cfg``'s sequences of
-    ``seq_len`` tokens over (``Plan.seq``): the ``seq`` rule's one mesh
-    dim of more than one rank that is neither the batch's nor the
-    ``tensor`` / ``expert`` axis's (the multi-pod ``fsdp`` rules'
-    ``pod``). None, the sequences whole, where ``seq_len`` does not
-    divide over it, where a segment is shorter than Mamba-2's conv
-    window, for an MoE or MLA config (their routing groups and latent
-    caches span the sequence) and where ``seq`` shares the tensor axis
-    (sequence parallelism inside a tensor-parallel group; ROADMAP item
-    9c.6). Works on an ``AbstractMesh`` too."""
-    if cfg.moe is not None or cfg.mla:
-        return None
+    """The mesh dim a ruled step splits ``cfg``'s sequences of
+    ``seq_len`` tokens over: the ``seq`` rule's one mesh dim of more than
+    one rank that is not the batch's. Either the tensor axis (``Plan.sp``,
+    the tensor rule's one dim: train and prefill) or an axis that is
+    neither the ``tensor`` nor the ``expert`` axis's (``Plan.seq``, the
+    multi-pod ``fsdp`` rules' ``pod``: train). None, the sequences whole,
+    where ``seq_len`` does not divide over it, where a segment is shorter
+    than Mamba-2's conv window, and over ``Plan.seq``'s axis for an MoE or
+    MLA config (their routing groups and latent caches span the
+    sequence; ROADMAP item 9c.6b). Works on an ``AbstractMesh`` too."""
     sizes = mesh_shape(rules.mesh)
-    taken = set(batch_dims) | set(_names(rules.rules.get("tensor"))) \
-        | set(_names(rules.rules.get("expert")))
     dims = [d for d in _names(rules.rules.get("seq")) if sizes[d] > 1]
-    if len(dims) != 1 or dims[0] in taken or seq_len % sizes[dims[0]]:
+    if len(dims) != 1 or dims[0] in batch_dims or seq_len % sizes[dims[0]]:
+        return None
+    if not on_tensor(rules, dims[0]) and (
+            cfg.moe is not None or cfg.mla
+            or dims[0] in _names(rules.rules.get("tensor"))
+            or dims[0] in _names(rules.rules.get("expert"))):
         return None
     if cfg.family == "hybrid" and \
             seq_len // sizes[dims[0]] < cfg.ssm.d_conv - 1:
@@ -276,16 +307,22 @@ def seq_dim(cfg, rules, batch_dims: tuple, seq_len: int) -> Optional[str]:
     return dims[0]
 
 
+def on_tensor(rules, dim: str) -> bool:
+    """Whether mesh dim ``dim`` is the ``tensor`` rule's one axis (a
+    sequence split over it is ``Plan.sp``)."""
+    return tuple(_names(rules.rules.get("tensor"))) == (dim,)
+
+
 def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
     """The split of ``cfg``'s layers under ``rules`` (default: the active
     ``mesh_rules``) with the batch over ``batch_dims`` (default: the
     active ``batch_split``'s dims, and its sequence split)."""
     rules = rules if rules is not None else _current()
-    seq = None
+    seq = sp = None
     if batch_dims is None:
         split = current_split()
         batch_dims = split.dims if split is not None else ()
-        seq = seq_group()
+        seq, sp = seq_groups()
     tp = _group(rules, "tensor", batch_dims)
     sizes = mesh_shape(rules.mesh)
     experts = [d for d in expert_dims(cfg, rules) if sizes[d] > 1]
@@ -307,7 +344,7 @@ def plan_for(cfg, rules=None, batch_dims: Optional[tuple] = None) -> Plan:
         vocab = tp is not None and cfg.vocab_size % tp.size == 0
     books = tp is not None and tp.dim in books_dims
     return Plan(tuple(batch_dims), tp, ep, attn, kv, vocab, heads, cap, seq,
-                a2a, books)
+                a2a, books, sp)
 
 
 def mesh_plan(cfg, rules) -> Plan:
@@ -396,7 +433,10 @@ def _layout(path: str, t, plan: Plan) -> tuple:
     one leaf. An expert stack split over ``plan.a2a`` as well keeps that
     shard in use and in its gradient: the reverse all-to-all of the
     backward brings every batch shard's share to the owner, so nothing
-    is ``Partial`` over it."""
+    is ``Partial`` over it. Under ``plan.sp`` every leaf the tensor axis
+    does not split is ``Partial`` over it: each rank's gradient is its
+    segment's share, or its share of a region that saw the gathered
+    sequence (whose gather's backward reduce-scatters)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     group, partial, a2a = None, False, None
     if plan.attn and _COLUMN_Q.search(path):
@@ -424,7 +464,8 @@ def _layout(path: str, t, plan: Plan) -> tuple:
     if a2a is not None:
         _check_expert_block(path, t, plan)
     kept = {g.dim for g in (group, a2a) if g is not None}
-    summed = set(plan.batch_dims) | ({plan.seq.dim} if plan.seq else set())
+    summed = set(plan.batch_dims) | {g.dim for g in (plan.seq, plan.sp)
+                                     if g is not None}
     use, grad = [], []
     for n, p in zip(names, t.placements):
         if n in kept:
@@ -701,6 +742,61 @@ def reduce_from(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
     return x if group is None else _ReduceFrom.apply(x, group)
 
 
+# -- sequence parallelism around a region (``Plan.sp``) ----------------------
+
+
+class _CountOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def scatter_to(x: torch.Tensor, sp: Group) -> torch.Tensor:
+    """A region's partial output ``x`` [B, n s, ...] summed over ``sp``,
+    this rank's segment [B, s, ...] of the sum (a reduce-scatter);
+    backward, the ranks' gradients gathered (an all-gather: each rank's
+    part of the region feeds every segment). In place of
+    :func:`reduce_from`."""
+    b, n = x.shape[0], sp.size
+    parts = x.reshape(b, n, x.shape[1] // n, *x.shape[2:]).transpose(0, 1)
+    return scatter_sum(parts, sp)
+
+
+def narrow_seq(x: torch.Tensor, sp: Group, dim: int = 1) -> torch.Tensor:
+    """This rank's segment of ``x`` whole along ``dim`` (a region computed
+    whole on the gathered sequence keeps its segment; positions)."""
+    s = x.shape[dim] // sp.size
+    return x.narrow(dim, sp.index * s, s)
+
+
+def seq_join(x: torch.Tensor, sp: Group, dim: int = 1) -> torch.Tensor:
+    """Every rank's segment of ``x`` joined along ``dim``, no gradient
+    (token ids, labels, positions)."""
+    with torch.no_grad():
+        return torch.cat(sp.all_gather(x).unbind(0), dim=dim)
+
+
+def count_once(x: torch.Tensor, sp: Optional[Group]) -> torch.Tensor:
+    """``x``, a value every rank of ``sp`` computes whole from the
+    gathered sequence (the loss through a head that does not split, the
+    MoE's aux loss); backward, 1 / n of its gradient on each rank, whose
+    shares the segments' reduce-scatters and the ``Partial`` gradients
+    then sum once."""
+    return x if sp is None else _CountOnce.apply(x, sp.size)
+
+
+def last_rows(x: torch.Tensor, n: int, sp: Group) -> torch.Tensor:
+    """The whole sequence's last ``n`` rows [B, n, ...] of segments ``x``
+    [B, s, ...] (the last segment's), on every rank: the states a prefill
+    leaves."""
+    return seq_gather(x[:, -n:], sp)[-1]
+
+
 # ---------------------------------------------------------------------------
 # The sequence split over the seq axis
 # ---------------------------------------------------------------------------
@@ -715,7 +811,11 @@ def seq_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
 
 def seq_whole(x: torch.Tensor, group: Group) -> torch.Tensor:
     """The segments' ``x`` [B, s, ...] joined on dim 1: [B, size s, ...]
-    (the K/V of the whole sequence)."""
+    (the K/V of the whole sequence; under ``Plan.sp`` the input of a
+    tensor-parallel region, in place of :func:`copy_to`); backward, each
+    segment's gradient summed over ``group`` onto its rank (a
+    reduce-scatter: each rank's share, from its part of a region or its
+    queries)."""
     parts = seq_gather(x, group)                  # [size, B, s, ...]
     return parts.transpose(0, 1).flatten(1, 2)
 
@@ -745,24 +845,37 @@ def fold_carries(parts: torch.Tensor) -> torch.Tensor:
 
 
 def carry_in(state: torch.Tensor, log_decay: torch.Tensor,
-             group: Group) -> torch.Tensor:
-    """The state entering this rank's segment: every segment's final
-    ``state`` (its pass from a zero state) and total ``log_decay``
-    (broadcasting against the state) gathered over ``group`` in one
-    collective, and folded (:func:`fold_carries`) on every rank at once:
-    no rank waits on the previous one's state."""
+             group: Group, whole: bool = False) -> tuple:
+    """(entering, leaving): the state entering this rank's segment, and
+    the state leaving it. Every segment's final ``state`` (its pass from
+    a zero state) and total ``log_decay`` (broadcasting against the
+    state) are gathered over ``group`` in one collective and folded
+    (:func:`fold_carries`) on every rank at once: no rank waits on the
+    previous one's state. ``whole``: the state leaving the whole
+    sequence (the last segment's), the same on every rank, in place of
+    this segment's."""
     parts = seq_gather(torch.stack([state, log_decay.expand_as(state)]),
                        group)
-    return fold_carries(parts)[group.index]
+    s_in = fold_carries(parts)
+    own = s_in[group.index]
+    if whole:
+        return own, s_in[-1] * torch.exp(parts[-1, 1]) + parts[-1, 0]
+    return own, state + torch.exp(log_decay) * own
 
 
-def seq_group() -> Optional[Group]:
-    """The group the active ruled train step splits the sequences over
-    (``Plan.seq``: the active ``batch_split``'s), or None."""
+def seq_groups() -> tuple:
+    """(``Plan.seq``, ``Plan.sp``): the group the active ``batch_split``
+    splits the sequences over, as the first where it is not the active
+    rules' tensor axis and as the second where it is; (None, None)
+    where the sequences are whole."""
     split = current_split()
     if split is None or not split.seq_dims:
-        return None
-    return _group_on(split.mesh, split.seq_dims[0])
+        return None, None
+    group = _group_on(split.mesh, split.seq_dims[0])
+    rules = _current()
+    if rules is not None and on_tensor(rules, group.dim):
+        return None, group
+    return group, None
 
 
 # ---------------------------------------------------------------------------
@@ -777,14 +890,16 @@ def _local_ids(ids: torch.Tensor, v: int, group: Group) -> tuple:
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
-                group: Group) -> torch.Tensor:
+                group: Group, sp: Optional[Group] = None) -> torch.Tensor:
     """Rows of a vocabulary-split ``table`` [V / n, D]: each rank looks
     up the tokens in its range, zeroes the rest, and the rows are summed
-    over ``group`` (exact: one term is not zero)."""
+    over ``group`` (exact: one term is not zero). ``sp``: ``tokens`` is
+    the gathered sequence [B, S], and the sum is reduce-scattered onto
+    this rank's segment."""
     local, inside = _local_ids(tokens, table.shape[0], group)
     rows = F.embedding(local, table)
     rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
-    return reduce_from(rows, group)
+    return reduce_from(rows, group) if sp is None else scatter_to(rows, sp)
 
 
 def vocab_nll(logits: torch.Tensor, labels: torch.Tensor,

@@ -4,7 +4,9 @@ For one (architecture x input shape x mesh) cell on a production mesh
 (``launch/mesh.py``: 16 x 16 = 256 cards, or 2 x 16 x 16 = 512), run the
 port's own ruled step once on ``meta`` tensors, as rank 0 of that mesh
 (:func:`counted_rank`: the first rank of the last sequence segment where
-a train step splits its sequences), and report what one card holds,
+a train step splits its sequences, and where ``--seq-shard`` splits a
+train or prefill step's over ``model``: rank 15 of either mesh), and
+report what one card holds,
 computes and sends: the arguments' bytes and the peak of live bytes,
 FLOPs and HBM bytes per device, the collectives' bytes, and the three
 roofline terms.
@@ -37,7 +39,9 @@ names, on device type ``"cpu"``.
   Mamba-2 and RWKV-6 heads in shards (``distributed/tensor_parallel.py``)
   where the ``tensor`` axis divides them, and a train step each sequence
   in segments over the ``seq`` axis (``Plan.seq``: the multi-pod
-  ``fsdp`` rules' ``pod``); under ``--profile tp_ep_full`` each card
+  ``fsdp`` rules' ``pod``); with ``--seq-shard`` (``seq`` on ``model``)
+  the train and prefill steps hold each sequence's segments over the
+  tensor axis, sequence-parallel around its regions (``Plan.sp``); under ``--profile tp_ep_full`` each card
   owns whole experts and the MoE moves the tokens by an all-to-all over
   ``data`` (``Plan.a2a``; the fake group runs it as a no-op, counted as
   NCCL's would move it); the codebook heads are vocabulary-parallel
@@ -106,8 +110,8 @@ from torch.distributed.tensor import DTensor, Replicate
 from repro_torch.configs import SHAPES, all_cells, applicable, get_config
 from repro_torch.distributed.sharding import (_names, mesh_shape, tree_map,
                                               tree_map_with_path)
-from repro_torch.distributed.tensor_parallel import (mesh_plan, seq_dim,
-                                                     state_block,
+from repro_torch.distributed.tensor_parallel import (mesh_plan, on_tensor,
+                                                     seq_dim, state_block,
                                                      state_split)
 from repro_torch.launch.hlo_analysis import analyze, tensors
 from repro_torch.launch.mesh import make_production_mesh
@@ -246,16 +250,19 @@ def cell(arch: str, shape_name: str, mesh_kind: str, mesh=None, *,
 
 
 def counted_rank(cfg, shape, rules) -> int:
-    """The rank whose run a cell counts: 0, or where the train step
-    splits each sequence (``tensor_parallel.seq_dim``, on the device-free
-    ``rules``), the first rank of the last segment, whose queries see
-    every key (the multi-pod ``fsdp`` cells: rank 256 of 512)."""
-    if shape.kind != "train":
+    """The rank whose run a cell counts: 0, or where the train or prefill
+    step splits each sequence (``tensor_parallel.seq_dim``, on the
+    device-free ``rules``), the first rank of the last segment, whose
+    queries see every key (the multi-pod ``fsdp`` train cells: rank 256
+    of 512; a ``--seq-shard`` train or prefill cell, its sequences over
+    ``model``: rank 15 of either mesh)."""
+    if shape.kind not in ("train", "prefill"):
         return 0
     tokens = batch_specs(cfg, shape, rules)["tokens"].sharding.spec
     dim = seq_dim(cfg, rules, _names(tokens[0]) if tokens else (),
                   shape.seq_len)
-    if dim is None:
+    if dim is None or (shape.kind == "prefill"
+                       and not on_tensor(rules, dim)):
         return 0
     rank = 0
     for name, size in mesh_shape(rules.mesh).items():

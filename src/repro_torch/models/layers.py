@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.tensor_parallel import (Group, capacity_rows,
-                                                     copy_to, reduce_from,
+                                                     copy_to, narrow_seq,
+                                                     reduce_from, scatter_to,
                                                      seq_whole)
 from repro_torch.kernels._build import needs_grad
 
@@ -42,6 +43,17 @@ def use_kernel(kernels: bool, *tensors: torch.Tensor) -> bool:
     False or autograd records the call. The kernels have no backward; the
     chunked forms, which autograd differentiates, run instead."""
     return kernels and tensors[0].is_cuda and not needs_grad(*tensors)
+
+
+def enter(x: torch.Tensor, tp: Optional[Group],
+          sp: Optional[Group] = None) -> torch.Tensor:
+    """The input of a region split over ``tp``: :func:`~repro_torch.
+    distributed.tensor_parallel.copy_to`, or under sequence parallelism
+    (``sp``) the segments gathered (``seq_whole``); ``x`` itself
+    where nothing is split (a layer that runs on the segment alone)."""
+    if tp is None:
+        return x
+    return copy_to(x, tp) if sp is None else seq_whole(x, sp)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -249,7 +261,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
               return_kv: bool = False,
               tp: Optional[Group] = None,
               cap: Optional[Group] = None,
-              seq: Optional[Group] = None
+              seq: Optional[Group] = None,
+              sp: Optional[Group] = None
               ) -> tuple[torch.Tensor, Optional[tuple]]:
     """GQA attention. x [B, S, D].
 
@@ -281,10 +294,20 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     of every segment (the gather's backward reduce-scatters their
     gradients) and attends causally over the keys up to its last query:
     the first segment scans its own keys, the last all of them.
+
+    ``sp``: ``x`` is this rank's segment of sequences split over the
+    tensor group (``Plan.sp``; train and prefill), ``positions`` the
+    whole sequence's. With the heads split over ``tp`` the segments are
+    gathered on entry and the output reduce-scattered onto the segment
+    (sequence parallelism); else the segment attends alone, as over
+    ``seq``, and a prefill's cache is its own rows: the capacity rows of
+    a cache split over ``cap`` (the same group, C = S).
     """
+    if sp is not None and tp is None:        # the segment alone
+        seq, positions = sp, narrow_seq(positions, sp, -1)
+    x = enter(x, tp, sp)
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
-    x = copy_to(x, tp)
     q, k, v = dot(x, p["wq"]), dot(x, p["wk"]), dot(x, p["wv"])
     h, hkv = q.shape[-1] // dh, k.shape[-1] // dh    # this rank's heads
     if cfg.qkv_bias:    # the float32 bias cast first, as the reference does
@@ -308,7 +331,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         kv = seq_whole(torch.stack([k, v], 2), seq)[:, :first + s]
         out = chunked_attention(q, kv[:, :, 0, groups], kv[:, :, 1, groups],
                                 causal=True, chunk=chunk, q_offset=first)
-        new_cache = None
+        new_cache = (_own_rows(cap, seq, k, v) if return_kv else None)
     elif kv_cache is None:
         out = chunked_attention(q, k[:, :, groups], v[:, :, groups],
                                 causal=True, chunk=chunk)
@@ -338,7 +361,18 @@ def attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         out = out.reshape(b, s, h, dh).to(x.dtype)
         new_cache = (ck, cv)
 
-    return row_dot(out.reshape(b, s, h * dh), p["wo"], tp), new_cache
+    return row_dot(out.reshape(b, s, h * dh), p["wo"], tp, sp), new_cache
+
+
+def _own_rows(cap: Optional[Group], seq: Group, *ts: torch.Tensor) -> tuple:
+    """A segment's cache entries ``ts`` [B, s, ...] as its capacity rows
+    (bf16): the prefill of a sequence split over ``seq`` into a cache
+    split over ``cap`` on its capacity, C = S (rank i's rows [i s, (i + 1)
+    s) are its segment; no gather)."""
+    if cap is None or cap.dim != seq.dim:
+        raise ValueError(f"a segment's cache needs its capacity split over "
+                         f"the segments' group {seq.dim!r}, not {cap}")
+    return tuple(t.to(torch.bfloat16) for t in ts)
 
 
 def _write_owned(caches: tuple, news: tuple, cache_len: torch.Tensor,
@@ -470,7 +504,8 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   chunk: int = 1024,
                   return_kv: bool = False,
                   tp: Optional[Group] = None,
-                  cap: Optional[Group] = None
+                  cap: Optional[Group] = None,
+                  sp: Optional[Group] = None
                   ) -> tuple[torch.Tensor, Optional[tuple]]:
     """MLA. x [B, S, D]. Queries, keys and values pass through low-rank
     latents; the cache holds only the normed KV latent [B, C, r] and the
@@ -501,17 +536,39 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     tensor_parallel.capacity_rows`), and decode is
     :func:`_split_mla_decode`, whose latent-space output is rounded once
     to ``x``'s dtype before ``w_bv``, as the whole decode's is.
+
+    ``sp``: ``x`` is this rank's segment of sequences split over the
+    tensor group (``Plan.sp``), ``positions`` the whole sequence's. With
+    the heads split over ``tp``, the latent projections and norms run on
+    the segment, and the normed latents and the RoPE key are gathered
+    into the per-head products (``seq_whole``, in place of
+    ``copy_to``), the output reduce-scattered onto the segment; the
+    prefill's cache is the segment's latent rows, its capacity rows over
+    ``cap`` (C = S). MLA has no segment path of its own: where its heads
+    do not split (reduced configs only) the segments are gathered, the
+    layer computed whole on every rank and its segment of the output
+    kept.
     """
+    if sp is not None and tp is None:        # gathered, whole, narrowed
+        out, cache = mla_attention(p, seq_whole(x, sp), cfg,
+                                   positions=positions, chunk=chunk,
+                                   return_kv=return_kv, cap=cap)
+        return narrow_seq(out, sp), cache
     m = cfg.mla
     b, s, _ = x.shape
     nope, rope_d, vdim, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
                              m.v_head_dim, m.kv_lora_rank)
     h = p["wq_b"].shape[-1] // (nope + rope_d)          # this rank's heads
+    whole = positions
+    if sp is not None:            # the segment's own rows and positions
+        positions = narrow_seq(positions, sp, -1)
 
-    cq = copy_to(rmsnorm(p["q_a_norm"], dot(x, p["wq_a"]), cfg.norm_eps), tp)
+    cq = enter(rmsnorm(p["q_a_norm"], dot(x, p["wq_a"]), cfg.norm_eps), tp,
+               sp)
+    s = cq.shape[1]                      # the gathered sequence under sp
     q = dot(cq, p["wq_b"]).reshape(b, s, h, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, whole, cfg.rope_theta)
     kv_a = dot(x, p["wkv_a"])                          # [B, S, r + rope_d]
     latent = rmsnorm(p["kv_a_norm"], kv_a[..., :r], cfg.norm_eps)
     k_rope = apply_rope(kv_a[..., r:][..., None, :], positions,
@@ -519,18 +576,22 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     scale = 1.0 / math.sqrt(nope + rope_d)
 
     if kv_cache is None:
-        kv = dot(copy_to(latent, tp), p["wkv_b"]).reshape(b, s, h,
-                                                          nope + vdim)
+        kv = dot(enter(latent, tp, sp), p["wkv_b"]).reshape(b, s, h,
+                                                            nope + vdim)
         k_nope, v = kv[..., :nope], kv[..., nope:]
-        k_rope_h = copy_to(k_rope, tp).to(k_nope.dtype).expand(b, s, h,
-                                                               rope_d)
+        k_rope_h = enter(k_rope, tp, sp).to(k_nope.dtype).expand(b, s, h,
+                                                                 rope_d)
         k = torch.cat([k_nope, k_rope_h], dim=-1)
         out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                                 causal=True, chunk=chunk, scale=scale)
-        out = row_dot(out.reshape(b, s, h * vdim), p["wo"], tp)
-        new_cache = (tuple(capacity_rows(t.to(torch.bfloat16), cap)
-                           for t in (latent, k_rope[:, :, 0]))
-                     if return_kv else None)
+        out = row_dot(out.reshape(b, s, h * vdim), p["wo"], tp, sp)
+        if not return_kv:
+            new_cache = None
+        elif sp is not None:
+            new_cache = _own_rows(cap, sp, latent, k_rope[:, :, 0])
+        else:
+            new_cache = tuple(capacity_rows(t.to(torch.bfloat16), cap)
+                              for t in (latent, k_rope[:, :, 0]))
         return out, new_cache
 
     c_lat, c_kr = kv_cache
@@ -621,37 +682,49 @@ def init_mlp(d: int, d_ff: int, style: str, gen: Optional[torch.Generator],
 
 
 def mlp(p: Params, x: torch.Tensor, style: str,
-        tp: Optional[Group] = None) -> torch.Tensor:
+        tp: Optional[Group] = None, sp: Optional[Group] = None,
+        gathered: bool = False) -> torch.Tensor:
     """``tp``: d_ff split over a tensor-parallel group (``p`` this
     rank's column blocks of ``w_gate`` / ``w_up`` and row block of
-    ``w_down``), the partial output summed over the group."""
-    x = copy_to(x, tp)
+    ``w_down``), the partial output summed over the group. ``sp``: ``x``
+    is this rank's segment; split over ``tp`` the MLP runs on the
+    gathered sequence and returns its segment of the sum, else on the
+    segment alone (token-wise: no collective). ``gathered``: ``x`` is
+    the gathered sequence already (the MoE's shared experts), and the
+    output is this rank's segment, of the sum or of the whole."""
+    if not gathered:
+        x = enter(x, tp, sp)
     if style == "swiglu":
         # silu(g) * u in float32 and rounded once, as XLA's fusion of the
         # reference computes it: rounding silu(g) to bf16 first made a
         # reduced glm4-9b's bf16 decode logits 1.6x as far from float32
         # as the reference's own
         g = dot(x, p["w_gate"])
-        h = F.silu(g.to(torch.float32)) * dot(x, p["w_up"])
-        return row_dot(h.to(g.dtype), p["w_down"], tp)
-    # jax.nn.gelu's default is the tanh form
-    return row_dot(F.gelu(dot(x, p["w_up"]), approximate="tanh"),
-                   p["w_down"], tp)
+        h = (F.silu(g.to(torch.float32)) * dot(x, p["w_up"])).to(g.dtype)
+    else:          # jax.nn.gelu's default is the tanh form
+        h = F.gelu(dot(x, p["w_up"]), approximate="tanh")
+    out = row_dot(h, p["w_down"], tp, sp)
+    return narrow_seq(out, sp) if gathered and tp is None else out
 
 
 def row_dot(a: torch.Tensor, w: torch.Tensor,
-            tp: Optional[Group] = None) -> torch.Tensor:
+            tp: Optional[Group] = None,
+            sp: Optional[Group] = None) -> torch.Tensor:
     """``dot(a, w)``; over a tensor-parallel group (``a``'s last dim and
     ``w``'s rows this rank's block) the partial products are formed in
     float32, summed over the group and rounded once: the plain product's
     float32 accumulation, split (rounding each partial to bf16 first
     moved a reduced qwen3-moe's first loss by 2e-4 through flipped MoE
-    routes)."""
+    routes). ``sp``: ``a`` [B, S, ...] spans the gathered sequence, and
+    the float32 sum is reduce-scattered onto this rank's segment before
+    the one rounding (``scatter_to``)."""
     if tp is None:
         return dot(a, w)
     dt = torch.promote_types(a.dtype, w.dtype)
     f32 = torch.float32
-    return reduce_from(a.to(f32) @ w.to(f32), tp).to(dt)
+    part = a.to(f32) @ w.to(f32)
+    return (reduce_from(part, tp) if sp is None
+            else scatter_to(part, sp)).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,16 @@ states and total decays (``tensor_parallel.carry_in``) and adds what the
 state entering the segment contributes (:func:`ssd_entering`); the
 causal conv takes the previous segment's last K - 1 rows as its cache
 (``tensor_parallel.prev_rows``).
+
+Under sequence parallelism over the tensor group (``sp``,
+``tensor_parallel.Plan.sp``; train and prefill) each rank holds its
+segment of the residual stream. A block whose heads split gathers the
+normed segments (``seq_whole``, in place of ``copy_to``), runs its
+conv and SSD on the whole sequence on its heads, and reduce-scatters its
+output onto the segment. One whose heads do not split runs its segment
+as over ``seq`` above; a prefill's state is then the whole sequence's
+(the carry folded past the last segment, the conv's last K - 1 rows), the
+same on every rank.
 """
 from __future__ import annotations
 
@@ -33,10 +43,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd import ssd
 from repro_torch.distributed.tensor_parallel import (Group, carry_in,
-                                                     copy_to, prev_rows,
-                                                     reduce_from)
+                                                     copy_to, last_rows,
+                                                     prev_rows, reduce_from)
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
-                                       init_rmsnorm, rmsnorm, row_dot,
+                                       enter, init_rmsnorm, rmsnorm, row_dot,
                                        use_kernel)
 from repro_torch.models.rwkv import _pad_seq
 
@@ -214,7 +224,8 @@ def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, cfg: ArchConfig,
 def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
                  single_step: bool = False, kernels: bool = True,
                  tp: Optional[Group] = None,
-                 seq: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
+                 seq: Optional[Group] = None,
+                 sp: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
     """One Mamba-2 block (pre-norm residual).
 
     state = {"ssm": [B, H, P, N] f32, "conv": [B, K-1, C_conv]}. A
@@ -238,15 +249,23 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
     (a zero ``state``): the conv's cache is the previous segment's last
     K - 1 rows, and the state entering the segment is carried in after
     the SSD (:func:`ssd_entering`).
+
+    ``sp``: ``x`` is this rank's segment of sequences split over the
+    tensor group (a zero ``state``): over ``tp`` the segments are
+    gathered and the output reduce-scattered; without it the segment
+    runs as over ``seq``, and the state returned is the whole sequence's.
     """
     s = cfg.ssm
-    bsz, length, d = x.shape
+    d = x.shape[-1]
     d_inner = s.expand * d
     in_spans, conv_spans = head_spans(cfg, tp)
     h = d_inner // s.head_dim // (tp.size if tp is not None else 1)
     di = h * s.head_dim                           # this rank's x channels
+    if sp is not None and tp is None:             # the segment alone
+        seq = sp
 
-    xn = copy_to(rmsnorm(p["ln"], x, cfg.norm_eps), tp)
+    xn = enter(rmsnorm(p["ln"], x, cfg.norm_eps), tp, sp)
+    bsz, length, _ = xn.shape
     w_in, conv_w, conv_b = p["in_proj"], p["conv_w"], p["conv_b"]
     if tp is not None:
         w_in, conv_w, conv_b = (_columns(w_in, in_spans),
@@ -258,6 +277,8 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
     cache = (state["conv"] if seq is None
              else prev_rows(xbc, s.d_conv - 1, seq))
     xbc, conv_cache = _causal_conv(xbc, conv_w, conv_b, cache)
+    if seq is not None and sp is not None:        # the whole sequence's
+        conv_cache = last_rows(conv_cache, s.d_conv - 1, sp)
     xbc = F.silu(xbc)
     xs, b, c = torch.split(xbc, [di, s.d_state, s.d_state], dim=-1)
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])  # [B, S, H]
@@ -275,14 +296,14 @@ def mamba2_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
     if seq is not None:
         decay = (-torch.exp(p["a_log"].to(torch.float32)) * dt).sum(1)
         decay = decay[..., None, None]                   # [B, H, 1, 1]
-        s_in = carry_in(ssm, decay, seq)
+        # over sp, the state leaving the whole sequence
+        s_in, ssm = carry_in(ssm, decay, seq, whole=sp is not None)
         y = (y.to(torch.float32)
              + ssd_entering(dt, p["a_log"], c, s_in)).to(y.dtype)
-        ssm = ssm + torch.exp(decay) * s_in
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(bsz, length, di)
     y = _gated_norm(p, y, z, cfg, d_inner, tp)
-    out = row_dot(y, p["out_proj"], tp)
+    out = row_dot(y, p["out_proj"], tp, sp)
     return x + out, {"ssm": ssm, "conv": conv_cache}
 
 

@@ -40,8 +40,14 @@ experts, the embedding, head and loss over the vocabulary (the codebook
 heads too, and the codebook embeddings over their codebooks); the
 decode state holds this rank's heads, or its capacity rows of a GQA
 cache whose K/V heads do not split and of MLA's latent cache. The logits
-then come out this rank's [..., V / n] (``unembed_hidden``). Plain
-tensors run the plain code.
+then come out this rank's [..., V / n] (``unembed_hidden``). Where the
+rules split the sequences over the tensor axis (``Plan.sp``) the
+residual stream is this rank's segment: the embedding's partial sums are
+reduce-scattered onto it, each layer runs sequence-parallel or on the
+segment alone, the loss gathers the sequence before the head, and a
+prefill's last position comes from the last segment's rank. The
+reference's logits are split on the sequence there instead (ROADMAP
+Queue C). Plain tensors run the plain code.
 
 Training (``mode="train"`` under autograd) recomputes each layer in
 backward (``remat``, the reference's ``jax.checkpoint`` of its scanned
@@ -261,27 +267,37 @@ def params_from_numpy(np_tree: dict, cfg: ArchConfig,
 
 
 def embed_tokens(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 positions: Optional[torch.Tensor] = None,
+                 sp: Optional[TP.Group] = None) -> torch.Tensor:
     """tokens [B, S] (or [B, S, K] over K codebooks) -> x [B, S, D]. The
     codebooks' rows are summed in float32 and rounded once with the
     sinusoidal positions (``positions`` [S] or [B, S]; arange(S) if
     None) added, as XLA's fusion of the reference's chain computes it.
     A codebook table held split on its codebooks (``Plan.books``) sums
     this rank's codebooks' rows, and the float32 partial sums are
-    reduced over the group before that one rounding."""
+    reduced over the group before that one rounding. ``sp``: ``tokens``
+    is this rank's segment of sequences split over the tensor group, and
+    so is x; a table split over that group looks up the gathered
+    sequence's tokens, and its partial sums are reduce-scattered onto the
+    segment (``tensor_parallel.scatter_to``)."""
     if cfg.n_codebooks:
         group = TP.group_of(params, "embed_codebooks")
         tbl = TP.use(params["embed_codebooks"])       # [K (/ n), V, D]
         first = 0 if group is None else group.index * tbl.shape[0]
-        x = TP.reduce_from(sum(
-            L.embed(tbl[k], tokens[..., first + k]).to(torch.float32)
-            for k in range(tbl.shape[0])), group)
+        if group is not None and sp is not None:
+            tokens = TP.seq_join(tokens, sp)
+        x = sum(L.embed(tbl[k], tokens[..., first + k]).to(torch.float32)
+                for k in range(tbl.shape[0]))
+        x = (TP.reduce_from(x, group) if group is None or sp is None
+             else TP.scatter_to(x, sp))
         dtype = tbl.dtype
     else:
         group = TP.group_of(params, "embed")
         tbl = TP.use(params["embed"])
+        if group is not None and sp is not None:
+            tokens = TP.seq_join(tokens, sp)
         x = (L.embed(tbl, tokens) if group is None
-             else TP.vocab_embed(tbl, tokens, group))
+             else TP.vocab_embed(tbl, tokens, group, sp))
         dtype = x.dtype
     if cfg.pos_embed == "sinusoidal":
         pos = (positions if positions is not None
@@ -301,21 +317,24 @@ def _sinusoidal(pos: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
-def unembed_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor
-                   ) -> torch.Tensor:
+def unembed_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                   gathered: bool = False) -> torch.Tensor:
     """x [B, S, D] -> logits float32 [B, S, V] (or [B, S, K, V], one
     head per codebook); a head held split over the vocabulary gives this
-    rank's [B, S, V / n] ([B, S, K, V / n])."""
+    rank's [B, S, V / n] ([B, S, K, V / n]). ``gathered``: x is the
+    sequence gathered from its segments (``tensor_parallel.seq_whole``,
+    whose backward sums the ranks' shares), so it enters the head without
+    ``copy_to``."""
     if cfg.n_codebooks:
         heads = params["lm_heads"]
-        x = TP.copy_to(x, TP.group_of(heads))
+        x = TP.copy_to(x, None if gathered else TP.group_of(heads))
         logits = torch.einsum("bsd,kdv->bskv", x.to(torch.float32),
                               TP.use(heads).to(torch.float32))
         return logical_constraint(logits, "batch", "seq", None, "tensor")
     tied = cfg.tie_embeddings
     head = params["embed"] if tied else params["lm_head"]
-    logits = L.unembed(TP.use(head), TP.copy_to(x, TP.group_of(head)),
-                       tied)
+    logits = L.unembed(TP.use(head), TP.copy_to(
+        x, None if gathered else TP.group_of(head)), tied)
     return logical_constraint(logits, "batch", "seq", "tensor")
 
 
@@ -371,7 +390,14 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     its positions start at the segment's offset, attention gathers the
     K/V of the segments before it, and the recurrences take their
     carries from them (:func:`~repro_torch.models.layers.attention`,
-    ``rwkv.rwkv_block``, ``mamba2.mamba2_block``)."""
+    ``rwkv.rwkv_block``, ``mamba2.mamba2_block``).
+
+    Under a ruled train or prefill step that splits them over the tensor
+    group (``Plan.sp``), ``tokens`` (and ``positions``) are this rank's
+    segment and so is the residual stream, the hidden states returned
+    included: each layer runs sequence-parallel around its
+    tensor-parallel region, or on its segment alone (``tensor_parallel``'s
+    module docstring); the layers get the whole sequence's positions."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: want train, prefill or decode")
     _check_family(cfg)
@@ -379,27 +405,38 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     b, s = tokens.shape[:2]
     cache_len = state["len"] if (mode == "decode" and state is not None
                                  and "len" in state) else None
-    seq = TP.seq_group() if mode == "train" else None
-    if positions is None:
+    seq, sp = TP.seq_groups() if mode != "decode" else (None, None)
+    if seq is not None and mode != "train":
+        raise ValueError(f"a {mode} splits its sequences over the tensor "
+                         f"axis only, not {seq.dim!r}")
+    whole = None          # under sp, the positions the layers see
+    if sp is not None:
+        whole = (default_positions(cfg, b, s * sp.size, tokens.device)
+                 if positions is None else TP.seq_join(positions, sp, -1))
+        if positions is None:
+            positions = TP.narrow_seq(whole, sp, -1)
+    elif positions is None:
         positions = default_positions(cfg, b, s, tokens.device, cache_len,
                                       0 if seq is None else seq.index * s)
     emb_pos = positions
     if mode == "decode" and cfg.pos_embed == "sinusoidal":
         emb_pos = cache_len + torch.arange(s, device=tokens.device)
+    if sp is not None:
+        positions = whole
 
-    x = embed_tokens(params, cfg, tokens, emb_pos)
+    x = embed_tokens(params, cfg, tokens, emb_pos, sp)
     ck = remat and mode == "train" and torch.is_grad_enabled()
     cap = None if mode == "train" else TP.capacity_group(params, cfg)
     if cfg.family == "ssm":
         x, aux, new_state = _forward_rwkv(params, cfg, x, mode, state,
-                                          kernels, ck, seq)
+                                          kernels, ck, seq, sp)
     elif cfg.family == "hybrid":
         x, aux, new_state = _forward_hybrid(params, cfg, x, positions, mode,
-                                            state, kernels, ck, cap, seq)
+                                            state, kernels, ck, cap, seq, sp)
     else:
         x, aux, new_state = _forward_transformer(params, cfg, x, positions,
                                                  mode, state, unroll_decode,
-                                                 ck, cap, seq)
+                                                 ck, cap, seq, sp)
     x = _norm(TP.use(params["final_norm"]), x, cfg)
     if new_state is not None and cache_len is not None:
         new_state["len"] = cache_len + s
@@ -411,7 +448,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 
 def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
                     cache_len=None, moe_layer=False, return_kv=False,
-                    cap=None, seq=None, split=None):
+                    cap=None, seq=None, split=None, sp=None):
     """Pre-norm attention (MLA where ``cfg.mla``) + MLP or MoE. Returns
     (x, aux, new_kv); aux is the MoE layer's balance loss, else None.
     Held leaves are gathered here, and the attention, MLP and experts run
@@ -420,7 +457,10 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     ``seq``: ``x`` is this rank's segment of sequences split over that
     group; ``split``: the MoE's batch split (None: the active one; a
     remat'd layer gets the forward's, since its recompute may run on
-    autograd's device thread, which sees no active split)."""
+    autograd's device thread, which sees no active split); ``sp``: ``x``
+    is this rank's segment of sequences split over the tensor group,
+    ``positions`` the whole sequence's (each sub-layer sequence-parallel
+    around its region, or on the segment alone)."""
     tp_attn = TP.group_of(lp, "attn", "wq" if not cfg.mla else "wq_b")
     tp_mlp = TP.group_of(lp, "mlp", "w_down")
     ep = TP.group_of(lp, "moe", "w_gate")
@@ -431,28 +471,29 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
         h, new_kv = L.mla_attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
             kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
-            tp=tp_attn, cap=cap)
+            tp=tp_attn, cap=cap, sp=sp)
     else:
         h, new_kv = L.attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
             kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
-            tp=tp_attn, cap=cap, seq=seq)
+            tp=tp_attn, cap=cap, seq=seq, sp=sp)
     x = logical_constraint(x + h, "batch", "seq", None)
     if moe_layer:
         y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg,
                              ep=ep, a2a=a2a, shared_tp=tp_shared,
-                             split=split)
+                             split=split, sp=sp)
     else:
         y = L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style,
-                  tp_mlp)
+                  tp_mlp, sp)
         aux = None
     return logical_constraint(x + y, "batch", "seq", None), aux, new_kv
 
 
 def _train_layer(lp: Params, x, cfg, positions, moe_layer, seq=None,
-                 split=None):
+                 split=None, sp=None):
     return _attn_mlp_block(lp, x, cfg, positions=positions,
-                           moe_layer=moe_layer, seq=seq, split=split)[:2]
+                           moe_layer=moe_layer, seq=seq, split=split,
+                           sp=sp)[:2]
 
 
 def _cache_keys(cfg: ArchConfig) -> tuple[str, str]:
@@ -468,7 +509,7 @@ def _transformer_parts(cfg: ArchConfig) -> list[tuple[str, str, int, bool]]:
 
 
 def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
-                         cap=None, seq=None):
+                         cap=None, seq=None, sp=None):
     """Each stack's layers in a Python loop: the leading dense layers
     (``"dense"``, the ``moe`` family's), then the main stack (``"main"``).
     Prefill returns each part's cache as ``state[part]`` = {"k", "v"}
@@ -488,7 +529,9 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
     in backward. ``cap``: the K/V (or latent) caches hold this rank's
     capacity rows over that group (:func:`~repro_torch.models.layers.
     attention`, :func:`~repro_torch.models.layers.mla_attention`);
-    ``seq``: a training ``x`` is this rank's segment over that group."""
+    ``seq``: a training ``x`` is this rank's segment over that group;
+    ``sp``: a training or prefill ``x`` is its segment over the tensor
+    group (:func:`_attn_mlp_block`)."""
     decode = mode == "decode"
     cache_len = state["len"] if decode else None
     keys = _cache_keys(cfg)
@@ -500,7 +543,7 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
         if mode == "train":
             for lp in layers:
                 x, a = _remat(ck, _train_layer, lp, x, cfg, positions,
-                              moe_layer, seq, split)
+                              moe_layer, seq, split, sp)
                 aux = aux + a if moe_layer else aux
             continue
         cache = state[part] if decode else None
@@ -510,7 +553,7 @@ def _forward_transformer(params, cfg, x, positions, mode, state, unroll, ck,
                 lp, x, cfg, positions=positions,
                 kv=tuple(cache[k][i] for k in keys) if decode else None,
                 cache_len=cache_len, moe_layer=moe_layer,
-                return_kv=mode == "prefill", cap=cap)
+                return_kv=mode == "prefill", cap=cap, sp=sp)
             aux = aux + a if moe_layer else aux
             if mode == "prefill":
                 for c, t in zip(caches, kv):
@@ -532,23 +575,26 @@ def _rwkv_groups(lp: Params) -> tuple:
             TP.group_of(lp, "channel_mix", "wv"))
 
 
-def _rwkv_train_layer(lp: Params, x, cfg, kernels, seq=None):
+def _rwkv_train_layer(lp: Params, x, cfg, kernels, seq=None, sp=None):
     tp, ffn = _rwkv_groups(lp)
     st = RW.init_rwkv_state(cfg, x.shape[0], device=x.device, tp=tp)
     return RW.rwkv_block(TP.use(lp), x, cfg, st, kernels=kernels, tp=tp,
-                         ffn_tp=ffn, seq=seq)[0]
+                         ffn_tp=ffn, seq=seq, sp=sp)[0]
 
 
-def _forward_rwkv(params, cfg, x, mode, state, kernels, ck, seq=None):
+def _forward_rwkv(params, cfg, x, mode, state, kernels, ck, seq=None,
+                  sp=None):
     """The RWKV-6 layers; each layer's time mix over its heads' group and
     channel mix over its d_ff's (held leaves), the ``wkv`` state this
-    rank's heads; ``seq``: a training ``x`` is this rank's segment."""
+    rank's heads; ``seq``: a training ``x`` is this rank's segment;
+    ``sp``: a training or prefill ``x`` is its segment over the tensor
+    group (``rwkv.rwkv_block``)."""
     b = x.shape[0]
     layers = _unstack(params["layers"], cfg.n_layers)
     aux = torch.zeros((), device=x.device)
     if mode == "train":
         for lp in layers:
-            x = _remat(ck, _rwkv_train_layer, lp, x, cfg, kernels, seq)
+            x = _remat(ck, _rwkv_train_layer, lp, x, cfg, kernels, seq, sp)
         return x, aux, None
     sts = []
     for i, lp in enumerate(layers):
@@ -561,7 +607,7 @@ def _forward_rwkv(params, cfg, x, mode, state, kernels, ck, seq=None):
             x, st = RW.rwkv_block(lp, x, cfg,
                                   RW.init_rwkv_state(cfg, b, device=x.device,
                                                      tp=tp),
-                                  kernels=kernels, tp=tp, ffn_tp=ffn)
+                                  kernels=kernels, tp=tp, ffn_tp=ffn, sp=sp)
         sts.append(st)
     return x, aux, {"rwkv": _stack(sts)}
 
@@ -577,37 +623,38 @@ def _hybrid_layout(cfg: ArchConfig):
 
 
 def _shared_block(sh: Params, x, cfg, positions, kv=None, cache_len=None,
-                  return_kv=False, cap=None, seq=None):
+                  return_kv=False, cap=None, seq=None, sp=None):
     """The ONE shared attention + MLP block, in shards over the groups
     its held leaves are split over (``cap``: the K/V cache's capacity
-    split over that group; ``seq``: ``x`` this rank's segment). Returns
-    (x, new_kv)."""
+    split over that group; ``seq``: ``x`` this rank's segment; ``sp``:
+    its segment over the tensor group, as in :func:`_attn_mlp_block`).
+    Returns (x, new_kv)."""
     tp_attn = TP.group_of(sh, "shared_attn", "wq")
     tp_mlp = TP.group_of(sh, "shared_mlp", "w_down")
     sh = TP.use(sh)
     h, new_kv = L.attention(sh["shared_attn"], _norm(sh["ln1"], x, cfg), cfg,
                             positions=positions, kv_cache=kv,
                             cache_len=cache_len, return_kv=return_kv,
-                            tp=tp_attn, cap=cap, seq=seq)
+                            tp=tp_attn, cap=cap, seq=seq, sp=sp)
     x = x + h
     x = x + L.mlp(sh["shared_mlp"], _norm(sh["ln2"], x, cfg), cfg.mlp_style,
-                  tp_mlp)
+                  tp_mlp, sp)
     return logical_constraint(x, "batch", "seq", None), new_kv
 
 
-def _mamba_train_layer(lp: Params, x, cfg, kernels, seq=None):
+def _mamba_train_layer(lp: Params, x, cfg, kernels, seq=None, sp=None):
     tp = TP.group_of(lp, "out_proj")
     st = M2.init_mamba2_state(cfg, x.shape[0], x.device, tp)
     return M2.mamba2_block(TP.use(lp), x, cfg, st, kernels=kernels,
-                           tp=tp, seq=seq)[0]
+                           tp=tp, seq=seq, sp=sp)[0]
 
 
-def _shared_train(sh: Params, x, cfg, positions, seq=None):
-    return _shared_block(sh, x, cfg, positions, seq=seq)[0]
+def _shared_train(sh: Params, x, cfg, positions, seq=None, sp=None):
+    return _shared_block(sh, x, cfg, positions, seq=seq, sp=sp)[0]
 
 
 def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
-                    cap=None, seq=None):
+                    cap=None, seq=None, sp=None):
     """Groups of ``period`` Mamba-2 layers, each followed by the ONE
     shared attention + MLP block, then the tail layers. Decode writes the
     shared block's K/V caches of ``state`` in place (see
@@ -615,7 +662,7 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
     Mamba-2 layer and each call of the shared block is recomputed in
     backward. Held leaves compute each Mamba-2 layer over its heads'
     group (its state this rank's heads) and the shared block as
-    :func:`_attn_mlp_block` does; ``cap``, ``seq``: as there."""
+    :func:`_attn_mlp_block` does; ``cap``, ``seq``, ``sp``: as there."""
     b = x.shape[0]
     period, n_groups, tail = _hybrid_layout(cfg)
     sh = params["shared_attn_block"]
@@ -626,10 +673,11 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
     if mode == "train":
         for g in range(n_groups):
             for lp in layers[g * period:(g + 1) * period]:
-                x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels, seq)
-            x = _remat(ck, _shared_train, sh, x, cfg, positions, seq)
+                x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels, seq,
+                           sp)
+            x = _remat(ck, _shared_train, sh, x, cfg, positions, seq, sp)
         for lp in layers[n_groups * period:]:
-            x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels, seq)
+            x = _remat(ck, _mamba_train_layer, lp, x, cfg, kernels, seq, sp)
         return x, aux, None
 
     def mamba_layer(x, i):
@@ -637,7 +685,8 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
         st = (_layer(state["mamba"], i) if decode
               else M2.init_mamba2_state(cfg, b, x.device, tp))
         return M2.mamba2_block(TP.use(layers[i]), x, cfg, st,
-                               single_step=decode, kernels=kernels, tp=tp)
+                               single_step=decode, kernels=kernels, tp=tp,
+                               sp=sp)
 
     g_states, kvs = [], []
     for g in range(n_groups):
@@ -649,7 +698,7 @@ def _forward_hybrid(params, cfg, x, positions, mode, state, kernels, ck,
         x, kv = _shared_block(
             sh, x, cfg, positions,
             kv=(state["k"][g], state["v"][g]) if decode else None,
-            cache_len=cache_len, return_kv=mode == "prefill", cap=cap)
+            cache_len=cache_len, return_kv=mode == "prefill", cap=cap, sp=sp)
         kvs.append(kv)
     t_states = []
     for j in range(tail):
@@ -736,15 +785,22 @@ def init_decode_state(cfg: ArchConfig, batch: int, capacity: int,
 # ---------------------------------------------------------------------------
 
 
+def _head_group(params: Params, cfg: ArchConfig):
+    """The group the (held) head is split over on the vocabulary, or
+    None."""
+    return TP.group_of(params, "lm_heads" if cfg.n_codebooks else
+                       "embed" if cfg.tie_embeddings else "lm_head")
+
+
 def _xent_chunk(params: Params, cfg: ArchConfig, h: torch.Tensor,
-                labels: torch.Tensor) -> torch.Tensor:
+                labels: torch.Tensor, gathered: bool = False
+                ) -> torch.Tensor:
     """Summed NLL of one chunk: h [B, C, D], labels [B, C] (or [B, C, K]);
     over a head held split on the vocabulary, :func:`~repro_torch.
     distributed.tensor_parallel.vocab_nll` of this rank's logits (of
-    every codebook at once)."""
-    logits = unembed_hidden(params, cfg, h)
-    group = TP.group_of(params, "lm_heads" if cfg.n_codebooks else
-                        "embed" if cfg.tie_embeddings else "lm_head")
+    every codebook at once). ``gathered``: as :func:`unembed_hidden`'s."""
+    logits = unembed_hidden(params, cfg, h, gathered)
+    group = _head_group(params, cfg)
     if group is not None:
         return TP.vocab_nll(logits, labels, group)
     logp = F.log_softmax(logits, dim=-1)
@@ -752,7 +808,8 @@ def _xent_chunk(params: Params, cfg: ArchConfig, h: torch.Tensor,
 
 
 def chunked_xent_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
-                      labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+                      labels: torch.Tensor, chunk: int = 512,
+                      sp: Optional[TP.Group] = None) -> torch.Tensor:
     """Next-token CE over the sequence in chunks of ``chunk`` tokens (the
     largest that divides S, at most ``chunk``: the reference's choice).
 
@@ -761,7 +818,16 @@ def chunked_xent_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
     is recomputed in backward: only the hidden chunk is saved, and the
     float32 [B, C, V] logits exist for one chunk at a time. Returns the
     summed NLL over ``labels.numel()``, float32.
+
+    ``sp``: ``hidden`` and ``labels`` are this rank's segment of
+    sequences split over the tensor group. The segments are gathered
+    (``tensor_parallel.seq_whole``: the backward reduce-scatters) and
+    every rank computes the whole sequence's loss, through its
+    vocabulary shard of a split head; a head that does not split counts
+    it once (``count_once``).
     """
+    if sp is not None:
+        hidden, labels = TP.seq_whole(hidden, sp), TP.seq_join(labels, sp)
     s = hidden.shape[1]
     chunk = min(chunk, s)
     while s % chunk:
@@ -772,21 +838,28 @@ def chunked_xent_loss(params: Params, cfg: ArchConfig, hidden: torch.Tensor,
     for lo in range(0, s, chunk):
         total = total + _remat(ck, _xent_chunk, params, cfg,
                                hidden[:, lo:lo + chunk],
-                               labels[:, lo:lo + chunk])
+                               labels[:, lo:lo + chunk], sp is not None)
+    if sp is not None and _head_group(params, cfg) is None:
+        total = TP.count_once(total, sp)
     return total / labels.numel()
 
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: dict, *,
             remat: bool = True, loss_chunk: int = 512) -> tuple:
     """batch: {"tokens", "labels", optional "positions"} -> (loss,
-    {"ce", "aux"}): the training forward and :func:`chunked_xent_loss`."""
+    {"ce", "aux"}): the training forward and :func:`chunked_xent_loss`.
+    Under a split over the tensor group (``tensor_parallel.Plan.sp``) the
+    loss is the whole sequences' on every rank of it: the MoE's aux,
+    computed on the gathered tokens, counts once (``count_once``)."""
     params = TP.hold(params, cfg)
     out = forward(params, cfg, batch["tokens"],
                   positions=batch.get("positions"), mode="train",
                   remat=remat)
+    sp = TP.seq_groups()[1]
     ce = chunked_xent_loss(params, cfg, out.hidden, batch["labels"],
-                           chunk=loss_chunk)
-    return ce + out.aux, {"ce": ce, "aux": out.aux}
+                           chunk=loss_chunk, sp=sp)
+    aux = TP.count_once(out.aux, sp)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -798,7 +871,11 @@ def full_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     params = TP.hold(params, cfg)
     out = forward(params, cfg, tokens, positions=positions, mode="train",
                   remat=remat, kernels=kernels)
-    return unembed_hidden(params, cfg, out.hidden), out.aux
+    sp = TP.seq_groups()[1]
+    if sp is None:
+        return unembed_hidden(params, cfg, out.hidden), out.aux
+    return unembed_hidden(params, cfg, TP.seq_whole(out.hidden, sp),
+                          True), out.aux
 
 
 def decode_step(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -819,12 +896,20 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             kernels: bool = True) -> tuple:
     """Prompt pass: (last-position logits [B, 1, V], decode state with
-    K/V capacity == prompt length)."""
+    K/V capacity == prompt length). Under a split over the tensor group
+    (``tensor_parallel.Plan.sp``) ``tokens`` is this rank's segment: the
+    last position's hidden state is the last segment's rank's, gathered
+    to every rank before the head, and the state is the whole prompt's
+    in the placement the ruled decode reads."""
     params = TP.hold(params, cfg)
     out = forward(params, cfg, tokens, positions=positions, mode="prefill",
                   kernels=kernels)
-    logits = unembed_hidden(params, cfg, out.hidden[:, -1:])
+    sp = TP.seq_groups()[1]
+    last = (out.hidden[:, -1:] if sp is None
+            else TP.last_rows(out.hidden, 1, sp))
+    logits = unembed_hidden(params, cfg, last)
     st = out.state
-    st["len"] = torch.tensor(tokens.shape[1], dtype=torch.int32,
-                             device=tokens.device)
+    st["len"] = torch.tensor(tokens.shape[1] * (1 if sp is None
+                                                else sp.size),
+                             dtype=torch.int32, device=tokens.device)
     return logits, st

@@ -57,6 +57,18 @@ above, in two forms:
   float32 partial output is reduce-scattered over ``data`` onto each
   rank's rows (its own pod's, on the multi-pod mesh) and summed over
   ``model``.
+
+Under sequence parallelism over the tensor group (``sp``,
+``tensor_parallel.Plan.sp``; ``expert`` and ``tensor`` share the axis)
+each rank holds its segment of every sequence: the segments are gathered
+before routing (``seq_whole``, the backward a reduce-scatter), so the
+routing groups, capacity and aux are the ones above, and the layer's
+float32 partial output is reduce-scattered onto the segment
+(``scatter_to``) in place of the sum over ``ep``, then rounded once.
+The expert buffers' ``copy_to`` is dropped: the gather's backward sums
+each rank's share. With experts replicated (no ``ep``) every rank runs
+the gathered tokens whole and keeps its segment. The aux loss is then
+the whole batch's on every rank (``model.loss_fn`` counts it once).
 """
 from __future__ import annotations
 
@@ -69,8 +81,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import BatchSplit, current_split
 from repro_torch.distributed.tensor_parallel import (Group, all_to_all,
                                                      copy_to, expert_coords,
-                                                     reduce_from,
-                                                     scatter_sum)
+                                                     narrow_seq, reduce_from,
+                                                     scatter_sum, scatter_to,
+                                                     seq_whole)
 from repro_torch.models.layers import Params, _dense_init, dot, mlp
 
 
@@ -179,7 +192,7 @@ def _plan(p: Params, xt: torch.Tensor, cfg: ArchConfig,
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             group_size: Optional[int] = None, ep: Optional[Group] = None,
             a2a: Optional[Group] = None, shared_tp: Optional[Group] = None,
-            split: Optional[BatchSplit] = None
+            split: Optional[BatchSplit] = None, sp: Optional[Group] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE MLP. x [B, S, D] -> (y [B, S, D], aux loss, float32 scalar),
     in groups of ``group_size`` tokens (the reference's
@@ -198,56 +211,87 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     (a) and (b) of the module's docstring; the choice is the shapes', so
     every rank makes the same); ``shared_tp``: the shared experts' d_ff
     split over a tensor-parallel group; ``split``: the batch split (None:
-    the active one)."""
+    the active one); ``sp``: ``x`` is this rank's segment of sequences
+    split over the tensor group, and so is the output (the module
+    docstring)."""
     split = split if split is not None else current_split()
+    if sp is not None:
+        if ep is not None and ep.dim != sp.dim:
+            raise ValueError(f"the experts split over {ep.dim!r}, the "
+                             f"sequences over {sp.dim!r}")
+        x = seq_whole(x, sp)
     if split is None or split.n == 1:
         if a2a is not None:
             raise ValueError("experts split over a batch axis need the "
                              "batch split over it")
         return _moe(p, x, cfg, group_size or _pick_group_size(
-            x.shape[0] * x.shape[1]), None, ep, shared_tp)
+            x.shape[0] * x.shape[1]), None, ep, shared_tp, sp=sp)
     tg = group_size or _pick_group_size(x.shape[0] * x.shape[1] * split.n)
     if (x.shape[0] * x.shape[1]) % tg:         # a group spans shards
         if a2a is not None:
-            return _moe_spanning(p, x, cfg, tg, split, ep, a2a, shared_tp)
-        y, aux = _moe(p, split.gather(x), cfg, tg, None, ep, shared_tp)
+            return _moe_spanning(p, x, cfg, tg, split, ep, a2a, shared_tp,
+                                 sp)
+        y, aux = _moe(p, split.gather(x), cfg, tg, None, ep, shared_tp,
+                      sp=sp)
         return split.local(y), aux
-    return _moe(p, x, cfg, tg, split, ep, shared_tp, a2a)
+    return _moe(p, x, cfg, tg, split, ep, shared_tp, a2a, sp)
 
 
 def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
          split: Optional[BatchSplit] = None, ep: Optional[Group] = None,
-         shared_tp: Optional[Group] = None, a2a: Optional[Group] = None
-         ) -> tuple[torch.Tensor, torch.Tensor]:
+         shared_tp: Optional[Group] = None, a2a: Optional[Group] = None,
+         sp: Optional[Group] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """The layer on this rank's tokens x, its routing groups whole here
-    (``a2a``: form (a), the slots exchanged with the experts' owners)."""
+    (``a2a``: form (a), the slots exchanged with the experts' owners;
+    ``sp``: x the gathered sequences, the output this rank's segment)."""
     b, s, d = x.shape
     xt = x.reshape(b * s // tg, tg, d)
-    yt, aux = _routed(p, xt, cfg, split, ep, a2a, exchange=True)
+    yt, aux = _routed(p, xt, cfg, split, ep, a2a, exchange=True,
+                      enter=sp is None)
+    if sp is not None:
+        return _leave(p, yt.view(b, s, d), x, cfg, ep, shared_tp, sp), aux
     return _with_shared(p, reduce_from(yt, ep).to(x.dtype), xt, cfg,
                         shared_tp).reshape(b, s, d), aux
 
 
 def _moe_spanning(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
                   split: BatchSplit, ep: Optional[Group], a2a: Group,
-                  shared_tp: Optional[Group]
+                  shared_tp: Optional[Group], sp: Optional[Group] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Form (b): the batch gathered, this rank's experts' slots of all of
     it, the partial output reduce-scattered over ``a2a`` onto this
-    rank's rows and summed over ``ep``."""
+    rank's rows and summed over ``ep`` (``sp``: reduce-scattered onto
+    this rank's segment of them)."""
     b, s, d = x.shape
     whole = split.gather(x)
     xt = whole.reshape(whole.shape[0] * s // tg, tg, d)
-    yt, aux = _routed(p, xt, cfg, None, ep, a2a, exchange=False)
+    yt, aux = _routed(p, xt, cfg, None, ep, a2a, exchange=False,
+                      enter=sp is None)
     if split.dims[-1] != a2a.dim:
         raise ValueError(f"the batch split {split.dims} does not end in "
                          f"the exchange dim {a2a.dim!r}")
     # the shards of this rank's peers along a2a (its pod's) are adjacent
     parts = yt.view(split.n, b * s, d).narrow(
         0, split.index - a2a.index, a2a.size)
+    if sp is not None:
+        return _leave(p, scatter_sum(parts, a2a).view(b, s, d), x, cfg, ep,
+                      shared_tp, sp), aux
     y = reduce_from(scatter_sum(parts, a2a), ep).to(x.dtype)
     return _with_shared(p, y, x.reshape(1, b * s, d), cfg,
                         shared_tp).reshape(b, s, d), aux
+
+
+def _leave(p: Params, y: torch.Tensor, x: torch.Tensor, cfg: ArchConfig,
+           ep: Optional[Group], shared_tp: Optional[Group], sp: Group
+           ) -> torch.Tensor:
+    """Under ``sp``: the routed float32 output y [B, S, D] of the gathered
+    sequences x (partial over ``ep``, or whole) as this rank's segment,
+    rounded once, plus the shared experts' segment."""
+    y = (scatter_to(y, sp) if ep is not None
+         else narrow_seq(y, sp)).to(x.dtype)
+    if not cfg.moe.n_shared_experts:
+        return y
+    return y + mlp(p["shared"], x, "swiglu", shared_tp, sp, gathered=True)
 
 
 def _with_shared(p: Params, y: torch.Tensor, xt: torch.Tensor,
@@ -283,13 +327,16 @@ def _owners(idx: torch.Tensor, keep: torch.Tensor, n_experts: int,
 
 def _routed(p: Params, xt: torch.Tensor, cfg: ArchConfig,
             split: Optional[BatchSplit], ep: Optional[Group],
-            a2a: Optional[Group], exchange: bool
+            a2a: Optional[Group], exchange: bool, enter: bool = True
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(the float32 output [T, D] of this rank's share of the routes of
     the grouped tokens xt [G, T_g, D], the aux loss): :func:`_plan`'s
     routes (``split``: of one shard's groups), the slots of the experts
     this rank holds, or with ``exchange`` of those its ``ep`` column
-    holds over ``a2a``, run there and brought back."""
+    holds over ``a2a``, run there and brought back. ``enter`` False: the
+    tokens and weights enter the experts without ``copy_to`` (xt was
+    gathered over the sequence, whose backward sums the shares)."""
+    into = ep if enter else None
     weights, idx, pos, keep, cap, aux = _plan(p, xt, cfg, split)
     g, tg, d = xt.shape
     t, k = g * tg, cfg.moe.top_k
@@ -313,7 +360,7 @@ def _routed(p: Params, xt: torch.Tensor, cfg: ArchConfig,
     entry_of = entry_of[:n_slots]
     token_of = torch.div(entry_of, k, rounding_mode="floor")  # t (or T)
 
-    buf = _RowGather.apply(copy_to(xt.reshape(t, d), ep), token_of,
+    buf = _RowGather.apply(copy_to(xt.reshape(t, d), into), token_of,
                            slot_of, k)
     if n > 1:             # every source's slots of this rank's experts
         buf = all_to_all(buf.view(n, e * g * cap, d), a2a)
@@ -326,5 +373,5 @@ def _routed(p: Params, xt: torch.Tensor, cfg: ArchConfig,
         out = out.view(e, n, g * cap, d).transpose(0, 1)
         out = all_to_all(out.reshape(n, e * g * cap, d), a2a)
     got = _RowGather.apply(out.reshape(n_slots, d), slot_of, entry_of, 1)
-    w = torch.where(keep, copy_to(weights, ep).reshape(-1), 0.0)
+    w = torch.where(keep, copy_to(weights, into).reshape(-1), 0.0)
     return (w[:, None] * got.to(torch.float32)).view(t, k, d).sum(1), aux

@@ -23,6 +23,19 @@ then gathered and folded (``tensor_parallel.carry_in``), and each rank
 adds what the state entering its segment contributes
 (:func:`wkv6_entering`). The token shifts take the previous segment's
 last row (``tensor_parallel.prev_rows``).
+
+Under sequence parallelism over the tensor group (``sp``,
+``tensor_parallel.Plan.sp``; train and prefill) each rank holds its
+segment of the residual stream. A time mix whose heads split gathers
+the normed segments (``seq_whole``) and runs its token shift,
+``_ddlerp`` and the recurrence on the whole sequence, on its heads; its
+output is reduce-scattered onto the segment. One whose heads do not
+split runs its segment as over ``seq`` above, and a prefill's state is
+the whole sequence's (the carry folded past the last segment, the last
+row), the same on every rank. The channel mix shifts its segment with
+the previous segment's last row either way; where d_ff splits, its key
+input is gathered into the d_ff region and the output reduce-scattered,
+else it runs on the segment alone.
 """
 from __future__ import annotations
 
@@ -33,10 +46,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.tensor_parallel import (Group, carry_in,
-                                                     copy_to, prev_rows)
+                                                     copy_to, last_rows,
+                                                     prev_rows, seq_whole)
 from repro_torch.kernels.wkv6 import wkv6
 from repro_torch.models.layers import (Params, _dense_init, _normal, dot,
-                                       init_rmsnorm, rmsnorm, row_dot,
+                                       enter, init_rmsnorm, rmsnorm, row_dot,
                                        use_kernel)
 
 # ---------------------------------------------------------------------------
@@ -205,7 +219,8 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   x_prev: torch.Tensor, state: torch.Tensor,
                   single_step: bool = False, kernels: bool = True,
                   tp: Optional[Group] = None,
-                  seq: Optional[Group] = None):
+                  seq: Optional[Group] = None,
+                  sp: Optional[Group] = None):
     """x [B, S, D] (prefill) or [B, 1, D] (decode).
 
     x_prev [B, D]: last token of the previous call (token shift across
@@ -228,7 +243,16 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     (zero ``state``; ``x_prev`` is not read): the shift takes the
     previous segment's last row, and the state entering the segment is
     carried in after the recurrence (:func:`wkv6_entering`).
+
+    ``sp``: ``x`` is this rank's segment of sequences split over the
+    tensor group (zero ``state``): over ``tp`` the segments are gathered
+    and the output reduce-scattered; without it the segment runs as over
+    ``seq``, and the state returned is the whole sequence's.
     """
+    if sp is not None and tp is not None:     # the gathered sequence
+        x = seq_whole(x, sp)
+    elif sp is not None:                      # the segment alone
+        seq = sp
     b, s, d = x.shape
     hd = cfg.ssm.head_dim
     dl = d // (tp.size if tp is not None else 1)  # this rank's channels
@@ -240,7 +264,8 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         ln_x = {k: t[mine] for k, t in ln_x.items()}
 
     x_prev = _last_before(x, x_prev, seq)
-    streams = copy_to(_ddlerp(p, x, _shift(x, x_prev)), tp)  # [B, S, 5, D]
+    streams = copy_to(_ddlerp(p, x, _shift(x, x_prev)),      # [B, S, 5, D]
+                      tp if sp is None else None)
     xw, xk, xv, xr, xg = streams.unbind(2)
 
     w_log = -torch.exp(w0 + dot(
@@ -259,11 +284,13 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         y, state = wkv6(r, k, v, w_log, p["u"], state)
     else:
         y, state = wkv6_chunked(r, k, v, w_log, p["u"], state)
-    if seq is not None:
+    last = x[:, -1]
+    if seq is not None:     # over sp, the whole sequence's state and row
         decay = w_log.to(torch.float32).sum(1)[..., None]      # [B, H, N, 1]
-        s_in = carry_in(state, decay, seq)
+        s_in, state = carry_in(state, decay, seq, whole=sp is not None)
         y = (y.to(torch.float32) + wkv6_entering(r, w_log, s_in)).to(y.dtype)
-        state = state + torch.exp(decay) * s_in
+        if sp is not None:
+            last = last_rows(x, 1, sp)[:, 0]
 
     # per-head groupnorm (ln_x; population variance) then gate
     yf = y.to(torch.float32)
@@ -271,43 +298,50 @@ def rwkv_time_mix(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     var = yf.var(-1, keepdim=True, correction=0)
     yf = (yf - mu) * torch.rsqrt(var + 64e-5)
     yf = yf.reshape(b, s, dl) * ln_x["scale"] + ln_x["bias"]
-    out = row_dot(yf.to(x.dtype) * g, p["wo"], tp)
-    return out, x[:, -1], state
+    out = row_dot(yf.to(x.dtype) * g, p["wo"], tp, sp)
+    return out, last, state
 
 
 def rwkv_channel_mix(p: Params, x: torch.Tensor, x_prev: torch.Tensor,
                      tp: Optional[Group] = None,
-                     seq: Optional[Group] = None):
+                     seq: Optional[Group] = None,
+                     sp: Optional[Group] = None):
     """``tp``: d_ff split over a tensor-parallel group (``wk``'s column
     block, ``wv``'s row block; the partial output summed over it). The
     receptance gates the SUMMED output, so ``wr`` is used whole, after
-    the reduction. ``seq``: as :func:`rwkv_time_mix`'s."""
-    shifted = _shift(x, _last_before(x, x_prev, seq))
+    the reduction. ``seq``: as :func:`rwkv_time_mix`'s. ``sp``: ``x`` is
+    this rank's segment of sequences split over the tensor group: the
+    shift and the gate run on the segment, and over ``tp`` the key input
+    is gathered into the d_ff region and its output reduce-scattered."""
+    shifted = _shift(x, _last_before(x, x_prev, seq if sp is None else sp))
     xk = x + (shifted - x) * p["mu_k"].to(x.dtype)
     xr = x + (shifted - x) * p["mu_r"].to(x.dtype)
-    k = torch.square(torch.relu(dot(copy_to(xk, tp), p["wk"])))
-    return torch.sigmoid(dot(xr, p["wr"])) * row_dot(k, p["wv"], tp), \
-        x[:, -1]
+    k = torch.square(torch.relu(dot(enter(xk, tp, sp), p["wk"])))
+    last = x[:, -1] if sp is None else last_rows(x, 1, sp)[:, 0]
+    return torch.sigmoid(dot(xr, p["wr"])) * row_dot(k, p["wv"], tp, sp), \
+        last
 
 
 def rwkv_block(p: Params, x: torch.Tensor, cfg: ArchConfig, state: dict,
                single_step: bool = False, kernels: bool = True,
                tp: Optional[Group] = None,
                ffn_tp: Optional[Group] = None,
-               seq: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
+               seq: Optional[Group] = None,
+               sp: Optional[Group] = None) -> tuple[torch.Tensor, dict]:
     """One RWKV-6 block. state = {tm_x, cm_x [B,D], wkv [B,H,N,N]};
     ``tp`` / ``ffn_tp``: the time mix's heads / the channel mix's d_ff
     split over a tensor-parallel group (``wkv`` then this rank's heads);
     ``seq``: ``x`` is this rank's segment of sequences split over a group
-    (a zero ``state``; :func:`rwkv_time_mix`)."""
+    (a zero ``state``; :func:`rwkv_time_mix`); ``sp``: its segment of
+    sequences split over the tensor group (the module docstring)."""
     a, tm_x, wkv = rwkv_time_mix(
         p["time_mix"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
         x_prev=state["tm_x"], state=state["wkv"], single_step=single_step,
-        kernels=kernels, tp=tp, seq=seq)
+        kernels=kernels, tp=tp, seq=seq, sp=sp)
     x = x + a
     c, cm_x = rwkv_channel_mix(
         p["channel_mix"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-        x_prev=state["cm_x"], tp=ffn_tp, seq=seq)
+        x_prev=state["cm_x"], tp=ffn_tp, seq=seq, sp=sp)
     x = x + c
     return x, {"tm_x": tm_x, "cm_x": cm_x, "wkv": wkv}
 

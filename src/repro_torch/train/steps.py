@@ -34,7 +34,12 @@ them). Where the rules put
 gathered from the segments before it, the recurrences' carried states
 and token shifts from them (``Plan.seq``). The gathers' backward
 reduce-scatters each gradient onto its leaf's placements, summed over
-the batch shards and the segments; Adam then updates the local blocks,
+the batch shards and the segments. Where the rules put ``seq`` on the
+tensor axis itself (the dry run's ``--seq-shard``), the train and
+prefill steps give each rank of the tensor group its segment of every
+sequence (``Plan.sp``): sequence parallelism around each tensor-parallel
+region, the segment alone elsewhere, and the loss the whole sequences'
+on every rank of the group. Adam then updates the local blocks,
 and each new block goes to its parameter's placements. Layers whose
 heads the axis does not divide are gathered per layer and computed
 whole. The ruled prefill and serve steps compute the same way on each
@@ -293,7 +298,8 @@ def place_train_state(params, opt_state: AdamState, rules: MeshRules
                                                          osh[1:]))))
 
 
-def batch_shard(batch: dict, rules: MeshRules, cfg=None) -> tuple:
+def batch_shard(batch: dict, rules: MeshRules, cfg=None,
+                prefill: bool = False) -> tuple:
     """(this rank's shard of a global ``batch``, the
     :class:`~repro_torch.distributed.sharding.BatchSplit` that cut it):
     every leaf split over the ``batch`` axis as ``input_shardings`` lays
@@ -303,7 +309,9 @@ def batch_shard(batch: dict, rules: MeshRules, cfg=None) -> tuple:
     sequence is cut as well where the rules split it
     (``tensor_parallel.seq_dim``, the ``seq`` axis): this rank's
     contiguous segment of ``tokens`` and ``labels`` (dim 1) and of
-    ``positions`` (its last dim: M-RoPE's [3, B, S] on dim 2)."""
+    ``positions`` (its last dim: M-RoPE's [3, B, S] on dim 2). With
+    ``prefill``, a prefill step's: cut only over the tensor axis
+    (``Plan.sp``)."""
     mesh = rules.mesh
     sh = input_shardings(batch, rules, batch_axes={"positions": 1})
     dims = tuple(n for n in mesh.mesh_dim_names
@@ -312,6 +320,8 @@ def batch_shard(batch: dict, rules: MeshRules, cfg=None) -> tuple:
             for k, v in batch.items()}
     s = batch["tokens"].shape[1]
     seq = None if cfg is None else TP.seq_dim(cfg, rules, dims, s)
+    if prefill and seq is not None and not TP.on_tensor(rules, seq):
+        seq = None
     if seq is None:
         return mine, BatchSplit(mesh, dims)
     split = BatchSplit(mesh, dims, (seq,), s // _axis_size(mesh, seq))
@@ -337,8 +347,12 @@ def ruled_loss_and_grads(params, cfg: ArchConfig, batch: dict,
         loss, metrics, grads = _accumulate(
             params, cfg, batch, hp, lambda b: batch_shard(b, rules, cfg)[0])
     # a shard's loss is its own tokens' mean, and the shards (batch rows
-    # times sequence segments) are equal
-    summed, n = split.dims + split.seq_dims, split.n * split.seq_n
+    # times sequence segments) are equal; segments over the tensor axis
+    # (Plan.sp) each hold the whole sequences' loss, and their gradients'
+    # shares sum to the whole sequences' already
+    seq = tuple(d for d in split.seq_dims if not TP.on_tensor(rules, d))
+    summed = split.dims + seq
+    n = split.n * (split.seq_n if seq else 1)
     part = [Partial() if d in summed else Replicate()
             for d in mesh.mesh_dim_names]
 
@@ -488,8 +502,10 @@ def make_prefill_step(cfg: ArchConfig, rules: MeshRules | None = None, *,
     placed first, keeping this rank's blocks). Each rank prefills its own
     shard of the batch (:func:`batch_shard`) under ``mesh_rules`` and the
     shard's ``batch_split``, computing each layer in shards as the ruled
-    train step does, and the logits are gathered (the vocabulary, then
-    the rows): the whole batch's, on every rank. The decode state is this
+    train step does (where the rules put ``seq`` on the tensor axis,
+    each rank its segment of every prompt, ``tensor_parallel.Plan.sp``),
+    and the logits are gathered (the vocabulary, then the rows): the
+    whole batch's, on every rank. The decode state is this
     rank's: its batch shard, its K/V heads where attention splits them
     (else its capacity rows of every K/V head), its capacity rows of
     MLA's latent and RoPE key, and its recurrent heads; for
@@ -500,7 +516,8 @@ def make_prefill_step(cfg: ArchConfig, rules: MeshRules | None = None, *,
             return M.prefill(params, cfg, batch["tokens"],
                              positions=batch.get("positions"),
                              kernels=kernels)
-        mine, split = batch_shard(gather_tree(batch), rules)
+        mine, split = batch_shard(gather_tree(batch), rules, cfg,
+                                  prefill=True)
         with mesh_rules(rules), batch_split(split):
             logits, state = M.prefill(place_params(params, rules), cfg,
                                       mine["tokens"],

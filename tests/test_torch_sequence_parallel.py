@@ -24,10 +24,13 @@ chains the carried states over four segments).
   step as it was before the split), and within the tolerances of the
   plain step: a one-rank ``pod`` axis (1, 2, 2), a sequence that does
   not divide over ``pod`` (S = 15), an MoE config (reduced
-  qwen3-moe-30b-a3b), an MLA config (reduced deepseek-v3-671b), ``seq``
-  on the tensor axis (``tp_ep``'s multi-pod rules with ``seq`` on
-  ``model``, the dry run's ``--seq-shard``), and zamba2-7b's segments
-  shorter than its conv window (S = 4 over 4);
+  qwen3-moe-30b-a3b), an MLA config (reduced deepseek-v3-671b), and
+  zamba2-7b's segments shorter than its conv window (S = 4 over 4);
+  ``seq`` on the tensor axis (``tp_ep``'s multi-pod rules with ``seq``
+  on ``model``, the dry run's ``--seq-shard``) keeps ``Plan.seq`` None
+  too, and is split by ``Plan.sp`` instead (``model``'s group; the
+  split's own checks are ``tests/test_torch_seq_on_tensor.py``'s),
+  within the plain step's tolerances;
 * the reference's jitted ``make_train_step(cfg, rules, hp)`` of reduced
   qwen2-1.5b and rwkv6-3b under its own multi-pod ``fsdp`` rules on a
   forced 4-device CPU mesh (2, 2, 1) (one subprocess, ``XLA_FLAGS``),
@@ -189,7 +192,8 @@ for arch in ARCHS:
                                      "ruled": ruled(cfg, rules, batch)}
 
 # the whole-sequence cases: Plan.seq None, and the step of the same rules
-# with "seq": None bit for bit
+# with "seq": None bit for bit; seq on the tensor axis is Plan.sp's split
+# instead (tests/test_torch_seq_on_tensor.py)
 for name, arch, shape, s, profile, seq_rule in WHOLE:
     cfg = get_reduced(arch)
     batch = synthetic_batch(cfg, B, s, 0)
@@ -202,6 +206,11 @@ for name, arch, shape, s, profile, seq_rule in WHOLE:
         torch.equal(a, b) for (_, a), (_, b) in zip(
             sorted(TP.flat_tree(got[1]).items()),
             sorted(TP.flat_tree(want[1]).items())))
+    split = batch_shard(batch, rules, cfg)[1]
+    with mesh_rules(rules), batch_split(split):
+        sp = TP.plan_for(cfg).sp
+    if seq_rule == "model":
+        same = sp is not None and sp.dim == "model"
     res[name] = {"seq": seq_plan(cfg, rules, batch)[1], "same": same,
                  "ruled": got}
 
