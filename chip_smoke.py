@@ -263,8 +263,13 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    ``SEQ_RANKS`` on a ``"cuda"`` (2, 1, 1) mesh (pod x data x model)
    under the multi-pod ``fsdp`` rules, which split each sequence over
    ``pod``: one train step (B = 8, S = 1024, the last segment's 512
-   tokens of each sequence) of the full qwen2-1.5b and of rwkv6-3b and
-   zamba2-7b depth-cut as in phase 8, from rank 1's own blocks (half of
+   tokens of each sequence) of qwen2-1.5b, rwkv6-3b, zamba2-7b and
+   qwen3-moe-30b-a3b depth-cut as in phase 8 (the MoE's routing groups
+   span the segments, which are gathered), of qwen3-moe-30b-a3b again at
+   B = 2, S = 4096 in one microbatch (each 2,048-token segment one
+   routing group, routed where it lies), and of deepseek-v3-671b cut to
+   its one leading dense layer (MLA gathering its latent and RoPE key),
+   from rank 1's own blocks (half of
    every parameter and Adam leaf; the gathers over ``pod``, the K/V
    gather and the carried states hold unwritten memory, so no value is
    checked): the FLOPs of ``analyze`` on the card equal the same rank's
@@ -2061,14 +2066,20 @@ def phase_lm(dev: torch.device) -> dict[str, int]:
     model's counted run (the transformers launch none)."""
     launches = {}
     for name, batch in LM_RUNS:
+        t0 = time.perf_counter()
         n = serve_lm(name, batch, dev)
         launches["wkv6" if name.startswith("rwkv") else "ssd"] = n
         torch.cuda.empty_cache()
+        took(f"phase 7's {name}", t0)
+    t0 = time.perf_counter()
     serve_transformer(*LM_DENSE, dev)
     torch.cuda.empty_cache()
+    took(f"phase 7's {LM_DENSE[0]}", t0)
     for name, batch, n_layers in LM_FAMILIES:
+        t0 = time.perf_counter()
         serve_transformer(name, batch, dev, n_layers)
         torch.cuda.empty_cache()
+        took(f"phase 7's {name}", t0)
     return launches
 
 
@@ -2699,7 +2710,8 @@ def rank_blocks(specs, mesh, dev: torch.device, gen=None):
     """A tree of ``launch/specs.py`` stand-ins as DTensors on ``mesh``
     holding this rank's blocks: on meta (no data), or made on ``dev``
     from ``gen`` (float leaves N(0, 0.02^2) in their dtype, integer
-    leaves token ids below ``vocab``)."""
+    leaves token ids below 1000, or below the dtype's bound: int8 Adam
+    moments)."""
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed.sharding import tree_map
     from repro_torch.launch.specs import Spec
@@ -2714,7 +2726,8 @@ def rank_blocks(specs, mesh, dev: torch.device, gen=None):
             local = (torch.randn(shape, generator=gen, device=dev)
                      * 0.02).to(sp.dtype)
         else:
-            local = torch.randint(0, 1000, shape, generator=gen,
+            high = min(1000, torch.iinfo(sp.dtype).max + 1)
+            local = torch.randint(0, high, shape, generator=gen,
                                   device=dev, dtype=sp.dtype)
         return DTensor.from_local(local, mesh, sp.sharding.placements,
                                   run_check=False, shape=torch.Size(sp.shape),
@@ -3283,6 +3296,7 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
         rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
         for f in fns.values():
             f.launches = 0
+        t0 = time.perf_counter()
         r = fake_rank_prefill(cfg, batch, meshes, rules, strat, dev)
         warm = min(r["secs"])
         breakdown = device_breakdown(lambda: r["step"](*r["args"]), warm)
@@ -3305,8 +3319,9 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
               f"{smi}")
         del r
         torch.cuda.empty_cache()
+        took(f"9c's {name} prefill", t0)
 
-        t_added = time.perf_counter()
+        t_added = t0 = time.perf_counter()
         mla, mla_b, mla_layers = FAKE_MLA
         cfg = dataclasses.replace(get_config(mla), n_layers=mla_layers)
         plan = mesh_plan(cfg, rules["cuda"])
@@ -3326,7 +3341,9 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
               + f"; meta analysis {r['t_meta']:.1f} s; card: {smi}")
         del r
         torch.cuda.empty_cache()
+        took(f"9c's {mla} prefill", t0)
 
+        t0 = time.perf_counter()
         cb, cb_b = FAKE_CODEBOOKS
         cfg = get_config(cb)
         plan = mesh_plan(cfg, rules["cuda"])
@@ -3351,19 +3368,26 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
               + f"; meta analysis {r['t_meta']:.1f} s; card: {smi}")
         del r
         torch.cuda.empty_cache()
+        took(f"9c's {cb} prefill", t0)
         no_launches(f"the {name}, {mla} and {cb} fake-group prefills")
         for arch, b, _ in FAKE_RECURRENT:
+            t0 = time.perf_counter()
             got = fake_rank_recurrent(arch, b, meshes, rules, strat, dev,
                                       smi)
             launched.update({k: launched.get(k, 0) + n
                              for k, n in got.items()})
+            took(f"9d's {arch} prefill", t0)
     finally:
         dist.destroy_process_group()
     for f in fns.values():
         f.launches = 0
+    t0 = time.perf_counter()
     fake_rank_decode(dev, smi)
     no_launches(f"the {FAKE_DECODE[0]} split decode")
+    took(f"9e's {FAKE_DECODE[0]} decode", t0)
+    t0 = time.perf_counter()
     fake_rank_mla_decode(dev, smi)
+    took(f"9h's {FAKE_MLA_DECODE[0]} decode", t0)
     print(f"  phase 9's head-split, MLA, codebook and capacity-split cases "
           f"added "
           f"{time.perf_counter() - t_added:.1f} s")
@@ -3372,9 +3396,39 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
 
 # phase 9's sequence-split train steps: rank SEQ_RANKS - 1 (the last
 # segment) of a fake group on a (SEQ_RANKS, 1, 1) pod x data x model mesh
-# under the multi-pod fsdp rules; (arch, depth-cut as in phase 8)
+# under the multi-pod fsdp rules; (arch, "depth": depth-cut as in phase 8,
+# or "dense": deepseek-v3 cut to its one leading dense layer, batch,
+# tokens, microbatches or None: the strategy's). deepseek-v3's depth cut
+# (one dense and one MoE layer, 13.9 B parameters) does not fit the card:
+# counted on meta at B = 8, S = 1024, its split step peaks at 104.8 GiB
+# and its plain step at 214.5 GiB (the dense cut: 20.7 and 41.4)
 SEQ_RANKS = 2
-SEQ_SPLIT = (("qwen2-1.5b", True), ("rwkv6-3b", True), ("zamba2-7b", True))
+SEQ_SPLIT = (("qwen2-1.5b", "depth", TRAIN_B, TRAIN_S, None),
+             ("rwkv6-3b", "depth", TRAIN_B, TRAIN_S, None),
+             ("zamba2-7b", "depth", TRAIN_B, TRAIN_S, None),
+             # the MoE's form (b): T_g 2,048 tokens over 512-token segments
+             ("qwen3-moe-30b-a3b", "depth", TRAIN_B, TRAIN_S, None),
+             # form (a): each 2,048-token segment one routing group
+             ("qwen3-moe-30b-a3b", "depth", 2, 4096, 1),
+             ("deepseek-v3-671b", "dense", TRAIN_B, TRAIN_S, None))
+
+
+def seq_split_cfg(name: str, cut: str):
+    """9f's config of ``name``: :func:`depth_cut`'s, or with ``"dense"``
+    deepseek-v3 cut to its one leading dense layer (MLA and the dense
+    SwiGLU of ``d_ff_dense`` at full width, no MoE stack)."""
+    import dataclasses
+    if cut == "depth":
+        return depth_cut(name)
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=1, d_ff=cfg.moe.d_ff_dense,
+                               moe=None)
+
+
+def took(what: str, t0: float) -> None:
+    """Print the seconds since ``t0`` that ``what`` took."""
+    print(f"  {what} took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def timed_runs(fn, n: int = 3) -> list:
@@ -3389,16 +3443,18 @@ def timed_runs(fn, n: int = 3) -> list:
     return secs
 
 
-def seq_split_step(name: str, cut: bool, meshes: dict, dev: torch.device,
+def seq_split_step(name: str, cut: str, b: int, s: int,
+                   micro: int | None, meshes: dict, dev: torch.device,
                    smi: str) -> None:
-    """9f. One train step of ``name`` (B = TRAIN_B, S = TRAIN_S) as the
+    """9f. One train step of ``name`` (``seq_split_cfg(name, cut)``, B =
+    ``b``, S = ``s``, ``micro`` microbatches or the strategy's) as the
     last segment's rank of the fake group: counted on meta and on the
     card from the rank's own blocks (FLOPs equal, peak within PEAK_TOL),
     no kernel launched, 3 warm runs and the card's busy share; then the
     plain whole-sequence step of the same config on the card, counted
     and timed the same way."""
     import dataclasses
-    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs import SHAPES
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.distributed.tensor_parallel import seq_dim
     from repro_torch.launch.dryrun import cell_specs
@@ -3408,15 +3464,16 @@ def seq_split_step(name: str, cut: bool, meshes: dict, dev: torch.device,
     from repro_torch.models import model as M
     from repro_torch.train.steps import init_opt_state, make_train_step
 
-    cfg = depth_cut(name) if cut else get_config(name)
-    strat = pick_strategy(cfg, SHAPES["train_4k"], multi_pod=True)
+    cfg = seq_split_cfg(name, cut)
+    strat = pick_strategy(cfg, SHAPES["train_4k"], multi_pod=True,
+                          override_profile="fsdp", override_micro=micro)
     expect(strat.name == "fsdp" and strat.logical_rules["seq"] == "pod",
            f"{name} multi-pod train_4k: {strat}")
-    hp = dataclasses.replace(strat.hparams, loss_chunk=min(512, TRAIN_S))
+    hp = dataclasses.replace(strat.hparams, loss_chunk=min(512, s))
     rules = {d: make_mesh_rules(m, strat) for d, m in meshes.items()}
-    dim = seq_dim(cfg, rules["cuda"], ("data", "model"), TRAIN_S)
+    dim = seq_dim(cfg, rules["cuda"], ("data", "model"), s)
     expect(dim == "pod", f"{name}: the sequences split over {dim}")
-    shape = ShapeSpec("seq_split", TRAIN_S, TRAIN_B, "train")
+    shape = ShapeSpec("seq_split", s, b, "train")
     fns = counters()
 
     def args(d: str, where: torch.device):
@@ -3426,7 +3483,7 @@ def seq_split_step(name: str, cut: bool, meshes: dict, dev: torch.device,
             cell_specs(cfg, shape, rules[d], strat), meshes[d], where,
             None if where.type == "meta" else
             torch.Generator(where).manual_seed(0))
-        batch = synthetic_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, "cpu")
+        batch = synthetic_batch(cfg, b, s, 0, 0, "cpu")
         return params, opt, {k: v.to(where) for k, v in batch.items()}
 
     for f in fns.values():
@@ -3439,11 +3496,12 @@ def seq_split_step(name: str, cut: bool, meshes: dict, dev: torch.device,
     step = make_train_step(cfg, rules["cuda"], hp)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    _, card = analyze(step, *split_args)
+    card = analyze(step, *split_args)[1]
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) - base
     secs = timed_runs(lambda: step(*split_args))
-    busy = device_breakdown(lambda: step(*split_args), min(secs))
+    busy = device_breakdown(lambda: step(*split_args), min(secs),
+                            by_op=False)
     counts = {k: f.launches for k, f in fns.items()}
     held = sum(t.to_local().nbytes for _, t in leaves(split_args[0]))
     del split_args
@@ -3461,22 +3519,24 @@ def seq_split_step(name: str, cut: bool, meshes: dict, dev: torch.device,
 
     params = M.init_model(cfg, torch.Generator(dev).manual_seed(0), dev)
     plain_args = (params, init_opt_state(params, hp),
-                  synthetic_batch(cfg, TRAIN_B, TRAIN_S, 0, 0, dev))
+                  synthetic_batch(cfg, b, s, 0, 0, dev))
     plain = make_train_step(cfg, None, hp)
-    _, whole = analyze(plain, *plain_args)
+    whole = analyze(plain, *plain_args)[1]
     plain_secs = timed_runs(lambda: plain(*plain_args))
     plain_busy = device_breakdown(lambda: plain(*plain_args),
-                                  min(plain_secs))
+                                  min(plain_secs), by_op=False)
     del params, plain_args
     torch.cuda.empty_cache()
-    seg = TRAIN_S // SEQ_RANKS
-    depth = f"cut to {cfg.n_layers} layers" if cut else "full depth"
-    print(f"  {name} train step ({depth}, full width, B = {TRAIN_B}, "
-          f"S = {TRAIN_S}, multi-pod fsdp rules) as rank "
-          f"{SEQ_RANKS - 1} of a fake group of {SEQ_RANKS} on a cuda "
+    seg = s // SEQ_RANKS
+    depth = (f"cut to {cfg.n_layers} layers" if cut == "depth" else
+             "cut to its leading dense layer")
+    print(f"  {name} train step ({depth}, full width, B = {b}, "
+          f"S = {s}, {hp.n_micro} microbatches, multi-pod fsdp rules) as "
+          f"rank {SEQ_RANKS - 1} of a fake group of {SEQ_RANKS} on a cuda "
           f"({SEQ_RANKS}, 1, 1) pod x data x model mesh: tokens "
-          f"[{seg * (SEQ_RANKS - 1)}, {TRAIN_S}) of each sequence, its "
-          f"blocks {held / 2**30:.2f} GiB (values not checked); FLOPs meta "
+          f"[{seg * (SEQ_RANKS - 1)}, {s}) of each sequence, its "
+          f"blocks {held / 2**30:.2f} GiB ({base / 2**30:.2f} GiB held on "
+          f"the card before it; values not checked); FLOPs meta "
           f"{meta['flops']:.6e} = card {card['flops']:.6e} "
           f"({card['flops'] / whole['flops']:.4f} of the whole-sequence "
           f"step's {whole['flops']:.6e}); predicted peak "
@@ -3503,8 +3563,10 @@ def seq_split_steps(dev: torch.device, smi: str) -> None:
                                       mesh_dim_names=("pod", "data",
                                                       "model"))
                   for d in ("cpu", "cuda")}
-        for name, cut in SEQ_SPLIT:
-            seq_split_step(name, cut, meshes, dev, smi)
+        for case in SEQ_SPLIT:
+            t_case = time.perf_counter()
+            seq_split_step(*case, meshes, dev, smi)
+            took(f"9f's {case[0]} at B = {case[2]}, S = {case[3]}", t_case)
     finally:
         dist.destroy_process_group()
     print(f"  phase 9's sequence-split steps took "

@@ -480,6 +480,15 @@ class BatchSplit:
         """The position of this rank's first token in its sequence."""
         return self._index(self.seq_dims) * self.segment
 
+    def tokens(self) -> "BatchSplit":
+        """The split of the batch's tokens: its rows over ``dims`` and its
+        sequences' segments over ``seq_dims``, as one split of the batch
+        (mesh order) whose :meth:`sum` and :attr:`n` count every shard
+        of tokens (MoE routing groups that lie within a segment)."""
+        both = set(self.dims) | set(self.seq_dims)
+        return BatchSplit(self.mesh, tuple(n for n in mesh_axis_names(
+            self.mesh) if n in both))
+
     def _placements(self, on_split, off_split) -> list:
         return [on_split if n in self.dims else off_split
                 for n in mesh_axis_names(self.mesh)]

@@ -95,7 +95,12 @@ A train step's sequences split over the ``seq`` axis (``Plan.seq``,
 its contiguous segment of every sequence (``train/steps.py``
 ``batch_shard``). Each rank computes its segment only: attention
 gathers the K/V of every segment (:func:`seq_whole`, an all-gather whose
-backward reduce-scatters) and attends up to its last query; RWKV-6's
+backward reduce-scatters) and attends up to its last query (MLA gathers
+its normed latent and RoPE key, 576 values a token at full width, and
+expands them to per-head K/V on each rank); the MoE routes its own
+routing groups where each lies within one segment, and otherwise
+gathers the segments, routes the whole groups and keeps its segment's
+rows (``models/moe.py``); RWKV-6's
 token shifts and Mamba-2's causal conv take the previous segment's last
 rows (:func:`prev_rows`); the recurrences run each segment from a zero
 state on every rank at once, gather each segment's final state and total
@@ -104,9 +109,8 @@ its contribution. Every rank calls every one of these collectives, in
 the same order, forward and in the remat'd recompute. The gradients are
 then ``Partial`` over ``seq`` too, and the reduce-scatter onto each
 leaf's ``fsdp`` placements (``pod`` among them) sums the segments'
-shares. A sequence that does not divide, a segment shorter than
-Mamba-2's conv window, and an MoE or MLA config keep the sequences
-whole over ``pod``.
+shares. A sequence that does not divide and a segment shorter than
+Mamba-2's conv window keep the sequences whole over ``pod``.
 
 Where the ``seq`` rule names the tensor axis (``Plan.sp``: the dry
 run's ``--seq-shard``, ``seq -> "model"`` beside ``tensor -> "model"``),
@@ -288,17 +292,15 @@ def seq_dim(cfg, rules, batch_dims: tuple, seq_len: int) -> Optional[str]:
     the tensor rule's one dim: train and prefill) or an axis that is
     neither the ``tensor`` nor the ``expert`` axis's (``Plan.seq``, the
     multi-pod ``fsdp`` rules' ``pod``: train). None, the sequences whole,
-    where ``seq_len`` does not divide over it, where a segment is shorter
-    than Mamba-2's conv window, and over ``Plan.seq``'s axis for an MoE or
-    MLA config (their routing groups and latent caches span the
-    sequence; ROADMAP item 9c.6b). Works on an ``AbstractMesh`` too."""
+    where ``seq_len`` does not divide over it and where a segment is
+    shorter than Mamba-2's conv window. Works on an ``AbstractMesh``
+    too."""
     sizes = mesh_shape(rules.mesh)
     dims = [d for d in _names(rules.rules.get("seq")) if sizes[d] > 1]
     if len(dims) != 1 or dims[0] in batch_dims or seq_len % sizes[dims[0]]:
         return None
     if not on_tensor(rules, dims[0]) and (
-            cfg.moe is not None or cfg.mla
-            or dims[0] in _names(rules.rules.get("tensor"))
+            dims[0] in _names(rules.rules.get("tensor"))
             or dims[0] in _names(rules.rules.get("expert"))):
         return None
     if cfg.family == "hybrid" and \

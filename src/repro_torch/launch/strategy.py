@@ -24,9 +24,12 @@ without an all-to-all; under tp_ep_full each card owns whole experts
 (``("model", "data")``) and the MoE moves the tokens to them and back
 by an all-to-all over ``data``, gathering no expert; under the
 multi-pod fsdp rules each rank trains its segment of every sequence
-(``seq`` on ``pod``), the K/V and the recurrent states gathered from
-the segments before it. Under tp_ep the codebook heads are
-vocabulary-parallel over ``model`` and the codebook embeddings
+(``seq`` on ``pod``), the K/V (MLA's latent and RoPE key) and the
+recurrent states gathered from the segments before it, the MoE's routing
+groups routed where each lies within a segment or gathered whole: every
+family, qwen3-moe and deepseek-v3 under ``--profile fsdp`` (their
+default ``tp_ep`` rules keep ``seq`` None). Under tp_ep the codebook
+heads are vocabulary-parallel over ``model`` and the codebook embeddings
 codebook-parallel where ``model`` divides them, and MLA's latent cache
 is held on its capacity rows over ``model``.
 """

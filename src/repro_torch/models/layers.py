@@ -505,6 +505,7 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   return_kv: bool = False,
                   tp: Optional[Group] = None,
                   cap: Optional[Group] = None,
+                  seq: Optional[Group] = None,
                   sp: Optional[Group] = None
                   ) -> tuple[torch.Tensor, Optional[tuple]]:
     """MLA. x [B, S, D]. Queries, keys and values pass through low-rank
@@ -536,6 +537,15 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     tensor_parallel.capacity_rows`), and decode is
     :func:`_split_mla_decode`, whose latent-space output is rounded once
     to ``x``'s dtype before ``w_bv``, as the whole decode's is.
+
+    ``seq``: ``x`` is this rank's segment of sequences split over a
+    group (``Plan.seq``, the training forward): the rank projects its
+    own segment and rotates ``q`` and the RoPE key at its positions (they
+    start at its offset), gathers the normed latent and the RoPE key of
+    the segments up to its last query (the gather's backward
+    reduce-scatters their gradients; r + rope_d values a token, where the
+    per-head K/V would be h (nope + v + rope_d)), expands them through
+    ``wkv_b`` and attends causally from its offset.
 
     ``sp``: ``x`` is this rank's segment of sequences split over the
     tensor group (``Plan.sp``), ``positions`` the whole sequence's. With
@@ -576,14 +586,22 @@ def mla_attention(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     scale = 1.0 / math.sqrt(nope + rope_d)
 
     if kv_cache is None:
-        kv = dot(enter(latent, tp, sp), p["wkv_b"]).reshape(b, s, h,
-                                                            nope + vdim)
+        first, keys, rope_k = 0, latent, k_rope
+        if seq is not None:       # the segments up to this rank's last query
+            first = seq.index * s
+            both = seq_whole(torch.cat([latent, k_rope[:, :, 0]], -1),
+                             seq)[:, :first + s]
+            keys, rope_k = both[..., :r], both[..., None, r:]
+        keys = enter(keys, tp, sp)
+        sk = keys.shape[1]
+        kv = dot(keys, p["wkv_b"]).reshape(b, sk, h, nope + vdim)
         k_nope, v = kv[..., :nope], kv[..., nope:]
-        k_rope_h = enter(k_rope, tp, sp).to(k_nope.dtype).expand(b, s, h,
+        k_rope_h = enter(rope_k, tp, sp).to(k_nope.dtype).expand(b, sk, h,
                                                                  rope_d)
         k = torch.cat([k_nope, k_rope_h], dim=-1)
         out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
-                                causal=True, chunk=chunk, scale=scale)
+                                causal=True, chunk=chunk, scale=scale,
+                                q_offset=first)
         out = row_dot(out.reshape(b, s, h * vdim), p["wo"], tp, sp)
         if not return_kv:
             new_cache = None

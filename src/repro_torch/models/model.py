@@ -388,9 +388,11 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     Under a ruled train step that splits the sequences
     (``tensor_parallel.Plan.seq``), ``tokens`` is this rank's segment:
     its positions start at the segment's offset, attention gathers the
-    K/V of the segments before it, and the recurrences take their
-    carries from them (:func:`~repro_torch.models.layers.attention`,
-    ``rwkv.rwkv_block``, ``mamba2.mamba2_block``).
+    K/V of the segments before it (MLA its normed latent and RoPE key),
+    the MoE routes the whole batch's routing groups, and the recurrences
+    take their carries from them (:func:`~repro_torch.models.layers.
+    attention`, :func:`~repro_torch.models.layers.mla_attention`,
+    ``moe.moe_mlp``, ``rwkv.rwkv_block``, ``mamba2.mamba2_block``).
 
     Under a ruled train or prefill step that splits them over the tensor
     group (``Plan.sp``), ``tokens`` (and ``positions``) are this rank's
@@ -471,7 +473,7 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
         h, new_kv = L.mla_attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
             kv_cache=kv, cache_len=cache_len, return_kv=return_kv,
-            tp=tp_attn, cap=cap, sp=sp)
+            tp=tp_attn, cap=cap, seq=seq, sp=sp)
     else:
         h, new_kv = L.attention(
             lp["attn"], _norm(lp["ln1"], x, cfg), cfg, positions=positions,
@@ -481,7 +483,7 @@ def _attn_mlp_block(lp: Params, x, cfg, *, positions, kv=None,
     if moe_layer:
         y, aux = MOE.moe_mlp(lp["moe"], _norm(lp["ln2"], x, cfg), cfg,
                              ep=ep, a2a=a2a, shared_tp=tp_shared,
-                             split=split, sp=sp)
+                             split=split, sp=sp, seq=seq)
     else:
         y = L.mlp(lp["mlp"], _norm(lp["ln2"], x, cfg), cfg.mlp_style,
                   tp_mlp, sp)

@@ -69,6 +69,26 @@ The expert buffers' ``copy_to`` is dropped: the gather's backward sums
 each rank's share. With experts replicated (no ``ep``) every rank runs
 the gathered tokens whole and keeps its segment. The aux loss is then
 the whole batch's on every rank (``model.loss_fn`` counts it once).
+
+Under a train step's sequence split over an axis of its own (``seq``,
+``tensor_parallel.Plan.seq``: the multi-pod ``fsdp`` rules' ``pod``)
+each rank holds its segment of every sequence of its batch rows, and the
+routing groups stay the reference's, T_g tokens of the whole batch's
+flattened [B * S]:
+
+* (a) each group lies within one segment of one sequence (the segment a
+  multiple of T_g; ``train_4k``'s 2,048-token segments): this rank
+  routes its own groups, no collective in the layer; each expert's
+  share of the routes is counted over every rank's groups, batch shards
+  and segments (``BatchSplit.tokens``), and the aux is this rank's term
+  of the batch's;
+* (b) a group spans segments: the segments are gathered (``seq_whole``,
+  the backward a reduce-scatter), every rank runs its batch rows' whole
+  groups as above and keeps its segment's rows of the output.
+
+The ruled step averages the loss over batch shards times segments, so
+each rank's aux counts as it is: in (a) the ranks' terms average to the
+batch's aux, in (b) every segment of a batch shard holds that shard's.
 """
 from __future__ import annotations
 
@@ -192,7 +212,8 @@ def _plan(p: Params, xt: torch.Tensor, cfg: ArchConfig,
 def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             group_size: Optional[int] = None, ep: Optional[Group] = None,
             a2a: Optional[Group] = None, shared_tp: Optional[Group] = None,
-            split: Optional[BatchSplit] = None, sp: Optional[Group] = None
+            split: Optional[BatchSplit] = None, sp: Optional[Group] = None,
+            seq: Optional[Group] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE MLP. x [B, S, D] -> (y [B, S, D], aux loss, float32 scalar),
     in groups of ``group_size`` tokens (the reference's
@@ -212,9 +233,12 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     every rank makes the same); ``shared_tp``: the shared experts' d_ff
     split over a tensor-parallel group; ``split``: the batch split (None:
     the active one); ``sp``: ``x`` is this rank's segment of sequences
-    split over the tensor group, and so is the output (the module
-    docstring)."""
+    split over the tensor group, and so is the output; ``seq``: over a
+    group of their own (``Plan.seq``; the module docstring)."""
     split = split if split is not None else current_split()
+    if seq is not None:
+        return _moe_segments(p, x, cfg, group_size, ep, a2a, shared_tp,
+                             split, seq)
     if sp is not None:
         if ep is not None and ep.dim != sp.dim:
             raise ValueError(f"the experts split over {ep.dim!r}, the "
@@ -235,6 +259,24 @@ def moe_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                       sp=sp)
         return split.local(y), aux
     return _moe(p, x, cfg, tg, split, ep, shared_tp, a2a, sp)
+
+
+def _moe_segments(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                  group_size: Optional[int], ep: Optional[Group],
+                  a2a: Optional[Group], shared_tp: Optional[Group],
+                  split: BatchSplit, seq: Group
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Under ``Plan.seq``, x [B, s, D] this rank's segment of each of its
+    sequences: the groups of the whole batch's tokens, form (a) where
+    each lies within one segment (s a multiple of T_g), form (b)
+    where one spans segments (the module docstring)."""
+    b, s, _ = x.shape
+    tg = group_size or _pick_group_size(b * s * split.n * seq.size)
+    if s % tg == 0:
+        return _moe(p, x, cfg, tg, split.tokens(), ep, shared_tp, a2a)
+    y, aux = moe_mlp(p, seq_whole(x, seq), cfg, group_size=tg, ep=ep,
+                     a2a=a2a, shared_tp=shared_tp, split=split)
+    return narrow_seq(y, seq), aux
 
 
 def _moe(p: Params, x: torch.Tensor, cfg: ArchConfig, tg: int,
