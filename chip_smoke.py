@@ -309,12 +309,37 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    (beside the committed one), FLOPs, collective bytes and the dominant
    term printed.
 
-Last, a capture that fails (a loop that copies to the host) must raise
-and leave no graph. The last two lines are the kernels' JSON record (a
-kernel's ``launches`` summed over the counted runs of the paths that
-launch it: phases 4 (the back end's and the compiler's programs) and 5
-for ``fused_step`` and ``lif_update_int``)
-and ``{"ok": true, "device": {...}}``.
+11. a capture that fails (a loop that copies to the host) must raise
+   and leave no graph.
+12. the paper's two experiments end to end (``phase_paper``), through
+   ``launch.mnist_end_to_end``'s ``train_stage`` and ``deploy``: the
+   MNIST SFNN trained ``PAPER_MNIST_STEPS`` BPTT steps on the card (B =
+   64, rate-coded), then quantized to 4/5 bits, compiled onto
+   ``MNIST_HW`` (``max_iters=40000``) and run on the whole synthetic test
+   set (512 images) in one fused-tier call; the SHD SRNN the same way
+   (``PAPER_SHD_STEPS`` steps at B = 32; 7/12 bits, ``SHD_HW``,
+   ``max_iters=60000``; a 32-sample test batch, its int8 1020 x 320
+   plane). Gates, per net: the launch counts set to 0 just before and
+   read just after each part (training: phase 6's per-forward counts per
+   step and one evaluation forward, ``lif_update_bwd`` ``bwd_per_step``
+   per step, nothing else; deploy: T ``fused_step``; ``precompile`` of
+   the batch and one replay: 2 T); finite losses; the card's spikes,
+   ``v_final`` and packet counts equal to the CPU oracle's over every
+   sample, and the graphed run's to the eager one's; the mapped accuracy
+   the quantized oracle's; ``Program.profile`` of 2 samples' card
+   packet counts equal to the host simulator's. Each net's Table-3 row
+   (modeled by the ``CycleModel`` for the paper's FPGA at 100 MHz, not
+   card times) is printed beside the paper's values, with each stage's
+   seconds (train, quantize, compile, the mapped run with its copies).
+   Then ``launch.quickstart.main`` on the card, its asserts holding: 3 T
+   ``fused_step`` (a run, precompile's warm run, a replay) and T
+   ``lif_update_int``.
+
+The last two lines are the kernels' JSON record (a kernel's
+``launches`` summed over the counted runs of the paths that launch it:
+phases 4 (the back end's and the compiler's programs), 5 and 12 for
+``fused_step`` and ``lif_update_int``; 6 and 12 for ``spike_accum``
+and ``lif_update``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -5184,6 +5209,199 @@ def check_no_internal_neurons() -> None:
           "spikes, e.g. [[4, 4, 4], [4, 4, 4]] for all-one spikes")
 
 
+# the paper's two experiments end to end (phase 12): BPTT steps of each
+# net on the card, then deploy on the test set in one fused-tier call
+PAPER_MNIST_STEPS = 40
+PAPER_SHD_STEPS = 20
+PAPER_MNIST_IMAGES = 512         # the whole synthetic test set
+PAPER_SHD_BATCH = 32
+PAPER_PYTHON_SAMPLES = 2         # profiled again on the host simulator
+
+
+def launches_of(**counts) -> dict:
+    """Every kernel's count: ``counts``, and 0 for the others."""
+    return {**{name: 0 for name in counters()}, **counts}
+
+
+def train_counts(steps: int, cfg, per_fwd: tuple, n_eval: int) -> dict:
+    """The training path's launches for ``steps`` BPTT steps and
+    ``n_eval`` evaluation forwards (phase 6's per-forward counts)."""
+    return launches_of(spike_accum=(steps + n_eval) * per_fwd[0],
+                       lif_update=(steps + n_eval) * per_fwd[1],
+                       lif_update_bwd=steps * bwd_per_step(cfg))
+
+
+def counted(fn, *args, **kwargs) -> tuple:
+    """``fn(*args, **kwargs)`` with every kernel's count set to 0 just
+    before and read just after (the card synchronised): (result, counts,
+    seconds)."""
+    kernels = counters()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, {n: k.launches for n, k in kernels.items()}, seconds
+
+
+def paper_net(name: str, cfg, hw, qcfg, max_iters: int, train_args: dict,
+              ext: np.ndarray, labels: np.ndarray, per_fwd: tuple,
+              paper: dict, dev: torch.device, smi: str) -> dict:
+    """One experiment end to end through ``launch.mnist_end_to_end``'s
+    ``train_stage`` and ``deploy`` on the card, gated; returns each
+    kernel's launches over its counted runs."""
+    import dataclasses
+    from repro_torch.core import ExecutionSpec
+    from repro_torch.launch.mnist_end_to_end import deploy, train_stage
+
+    steps = train_args["steps"]
+    (params, acc_float, losses), got, t_train = counted(
+        train_stage, cfg, train_args["data"], steps, lr=train_args["lr"],
+        encode=train_args["encode"], test=train_args["test"], device=dev)
+    want = train_counts(steps, cfg, per_fwd, 1)
+    expect(got == want, f"{name} training launched {got}, want {want}")
+    expect(all(np.isfinite(losses)) and len(losses) == steps,
+           f"{name}: non-finite loss {losses}")
+    expect(all(v.is_cuda for v in params.values()),
+           f"{name}: params off the card")
+
+    t_steps = cfg.timesteps
+    fused = ExecutionSpec(device=str(dev))
+    dep, got, t_deploy = counted(deploy, params, cfg, hw, qcfg, ext,
+                                 labels=labels, spec=fused,
+                                 max_iters=max_iters)
+    want = launches_of(fused_step=t_steps)
+    expect(got == want, f"{name} deploy launched {got}, want {want} (T "
+           f"fused_step launches for one batch run)")
+    program, card = dep["program"], dep["outputs"]
+    sec = {"train": t_train, **dep["seconds"]}
+    t0 = time.perf_counter()
+    oracle = program.run(ext, ExecutionSpec(engine="oracle", device="cpu"))
+    t_oracle = time.perf_counter() - t0
+    expect(same_run(card, oracle), f"{name}: the card's spikes, v_final or "
+           f"packet counts differ from the CPU oracle's")
+    out_lo, out_hi = (i - program.graph.n_inputs
+                      for i in program.graph.output_slice)
+    acc_oracle = float(np.mean(np.argmax(
+        oracle[0].sum(1)[:, out_lo:out_hi], axis=-1) == labels))
+    expect(dep["accuracy"] == acc_oracle,
+           f"{name}: mapped accuracy {dep['accuracy']} != the quantized "
+           f"oracle's {acc_oracle}")
+
+    # the same batch graphed: precompile's warm run and capture, a replay
+    (_, graphed), got, t_graphed = counted(
+        lambda: (program.precompile([len(ext)], t_steps, fused),
+                 program.run(ext, fused)))
+    expect(same_run(graphed, card), f"{name}: the graphed run at B = "
+           f"{len(ext)} differs from the eager one")
+    expect(got["fused_step"] == 2 * t_steps and got["lif_update_int"] == 0,
+           f"{name}: precompile + one replay launched {got}, want "
+           f"{2 * t_steps} fused_step (the warm run, the replay)")
+
+    n_py = PAPER_PYTHON_SAMPLES
+    t0 = time.perf_counter()
+    host = program.run(ext[:n_py], ExecutionSpec(engine="python",
+                                                 device="cpu"))
+    t_host = time.perf_counter() - t0
+    q = dep["quantized"]
+    on_card = program.profile(card[2]["packet_counts"][:n_py],
+                              n_synapses=q.n_total_synapses)
+    on_host = program.profile(host[2], n_synapses=q.n_total_synapses)
+    expect([dataclasses.astuple(r) for r in on_card.per_sample]
+           == [dataclasses.astuple(r) for r in on_host.per_sample]
+           and np.array_equal(host[0], card[0][:n_py]),
+           f"{name}: the profile of the card's packet counts differs from "
+           f"the host simulator's")
+
+    row = {k: dep[k] for k in ("n_synapses", "sparsity", "feasible",
+                               "iterations", "ot_depth", "brams",
+                               "accuracy", "latency_us", "energy_mj",
+                               "nj_per_synapse")}
+    print(f"paper {name}: {cfg.layer_sizes} T={t_steps}, {steps} BPTT steps "
+          f"on the card (losses {[round(v, 4) for v in losses]}), float "
+          f"accuracy {acc_float:.4f}; Table-3 row, modeled by the "
+          f"CycleModel for the paper's FPGA at 100 MHz (not card times), "
+          f"paper in brackets: " + ", ".join(
+              f"{k} {v!r}" + (f" [{paper[k]}]" if k in paper else "")
+              for k, v in row.items()))
+    print(f"paper {name}: {len(ext)} samples in one fused-tier call, "
+          f"bit-exact with the CPU oracle ({t_oracle:.3f} s) over every "
+          f"sample, accuracy {acc_oracle:.4f} = the quantized oracle's; "
+          f"graphed at B = {len(ext)} equal ({t_graphed:.3f} s with "
+          f"capture); the profile of {n_py} samples' card packets = the "
+          f"host simulator's ({t_host:.3f} s); OT depth "
+          f"{program.ot_depth}, {program.n_synapses} synapses, plane "
+          f"{program.lowered.n_neurons} x {program.lowered.n_internal}")
+    print(f"paper {name}: stage seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sec.items()) + f" (run with its "
+          f"copies; deploy {t_deploy:.3f}) on {smi}")
+    counts = train_counts(steps, cfg, per_fwd, 1)
+    counts["fused_step"] = 3 * t_steps
+    return counts
+
+
+def paper_quickstart() -> dict:
+    """``launch.quickstart.main`` on the card: its asserts hold, and the
+    fused tier launches T at each of its eager run, precompile's warm run
+    and the replay, the lif tier T at its run."""
+    from repro_torch.launch import quickstart
+    out, got, sec = counted(quickstart.main, [])
+    t_steps = 20
+    want = launches_of(fused_step=3 * t_steps, lif_update_int=t_steps)
+    expect(got == want, f"quickstart launched {got}, want {want}")
+    expect(out["device"].startswith("cuda"), f"quickstart ran on "
+           f"{out['device']}")
+    print(f"paper quickstart on the card: {sec:.3f} s, launches {got}")
+    return want
+
+
+def phase_paper(dev: torch.device, smi: str) -> dict[str, int]:
+    """The paper's two experiments end to end on the card, then the
+    quickstart; returns each kernel's launches in the counted runs."""
+    from repro_torch.configs.snn_paper import MNIST_HW, SHD_HW
+    from repro_torch.data import load_mnist, mnist_batches, shd_batches, \
+        synthetic_shd
+    from repro_torch.launch.mnist_end_to_end import (PAPER_MNIST,
+                                                     encode_images)
+    from repro_torch.launch.shd_srnn import PAPER_SHD, shd_config
+    from repro_torch.snn import MNIST_CONFIG, QuantConfig
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    xtr, ytr, xte, yte = load_mnist(n_train=2048, n_test=PAPER_MNIST_IMAGES)
+    ext = encode_images(xte, MNIST_CONFIG.timesteps, seed=2)
+    t_steps = MNIST_CONFIG.timesteps
+    print(f"paper MNIST: data {xtr.shape} + {xte.shape} and rate coding in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    add(paper_net("MNIST", MNIST_CONFIG, MNIST_HW, QuantConfig(4, 5), 40000,
+                  {"steps": PAPER_MNIST_STEPS, "lr": 5e-4, "encode": True,
+                   "data": mnist_batches(xtr, ytr, 64),
+                   "test": (xte[:256], yte[:256])},
+                  ext, yte, (t_steps * 2, t_steps * 2), PAPER_MNIST, dev,
+                  smi))
+    cfg = shd_config()
+    t0 = time.perf_counter()
+    xtr, ytr, xte, yte = synthetic_shd(n_train=512, n_test=PAPER_SHD_BATCH,
+                                       timesteps=cfg.timesteps)
+    print(f"paper SHD: data {xtr.shape} + {xte.shape} in "
+          f"{time.perf_counter() - t0:.2f} s (host)")
+    add(paper_net("SHD", cfg, SHD_HW, QuantConfig(7, 12), 60000,
+                  {"steps": PAPER_SHD_STEPS, "lr": 1e-3, "encode": False,
+                   "data": shd_batches(xtr, ytr, 32), "test": (xte, yte)},
+                  np.ascontiguousarray(xte, np.int32), yte,
+                  (cfg.timesteps * 3, cfg.timesteps * 2), PAPER_SHD, dev,
+                  smi))
+    add(paper_quickstart())
+    print(f"paper phase launches: {total}")
+    return total
+
+
 PHASE_S: dict = {}       # seconds of each phase of main, in order
 
 
@@ -5229,6 +5447,8 @@ def main() -> int:
     timed("9 mesh", phase_mesh, dev, smi)
     timed("10 dryrun", phase_dryrun, dev, smi)
     timed("11 failed capture", check_failed_capture)
+    for name, n in timed("12 paper", phase_paper, dev, smi).items():
+        launches[name] = launches.get(name, 0) + n
     print("phase times (s): " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in PHASE_S.items()))
     meta = {

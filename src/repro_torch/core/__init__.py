@@ -7,7 +7,8 @@ This package imports torch and numpy only; nothing here pulls in jax,
 and importing it touches no CUDA card (spawned compile workers import
 it). The compiler is host numpy; the engine runs on the card.
 """
-from repro_torch.core.aot import content_hash, normalize_buckets
+from repro_torch.core.aot import (content_hash, enable_persistent_cache,
+                                  normalize_buckets)
 # the mapping package first: its strategy registry imports the baselines
 from repro_torch.core.mapping import (STRATEGIES, CandidateTrace,
                                       MappingStrategy, PartitionResult,
@@ -24,9 +25,10 @@ from repro_torch.core.engine import (CycleModel, CycleReport,
                                      run_mapped, run_oracle)
 from repro_torch.core.engine_torch import (TorchMappedEngine,
                                            finalize_outputs,
-                                           normalize_ext_spikes)
+                                           normalize_ext_spikes,
+                                           run_mapped_batched)
 from repro_torch.core.execution import (ENGINES, KERNELS, ExecutionSpec,
-                                        as_spec)
+                                        as_spec, default_kernel)
 from repro_torch.core.graph import SNNGraph, from_quantized, random_graph
 from repro_torch.core.memory_model import (HardwareConfig, bram_count,
                                            scores_from_assignment,
@@ -60,7 +62,8 @@ __all__ = [
     "register_schedule_strategy",
     "CycleModel", "CycleReport", "PowerModel", "MergeAlignmentError",
     "oracle_packet_counts", "packet_stats", "run_mapped", "run_oracle",
-    "TorchMappedEngine", "ResourceModel", "ResourceReport", "resources",
+    "TorchMappedEngine", "run_mapped_batched", "ResourceModel",
+    "ResourceReport", "resources",
     "CandidateTrace", "MappingStrategy", "SearchConfig", "SearchTrace",
     "STRATEGIES", "framework_partition", "get_strategy", "portfolio_search",
     "register_strategy",
@@ -69,6 +72,7 @@ __all__ = [
     "PROGRAM_FORMAT_VERSION", "Program", "ProfileReport", "compile",
     "compile_snn", "compile_quantized",
     "ENGINES", "KERNELS", "ExecutionSpec", "as_spec", "content_hash",
+    "default_kernel", "enable_persistent_cache",
     "finalize_outputs",
     "normalize_buckets", "normalize_ext_spikes",
 ]

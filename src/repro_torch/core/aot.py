@@ -1,17 +1,46 @@
-"""Serving shapes and the artifact's identity; port of
-``normalize_buckets`` and ``content_hash`` from ``repro/core/aot.py``.
+"""Serving shapes, the kernels' build directory and the artifact's
+identity; port of ``repro/core/aot.py``.
 
-The reference's persistent XLA cache (``enable_persistent_cache``) has
-no counterpart here: the port's compiled code is the kernels' library,
-kept between processes in ``kernels/_build/`` and keyed by a hash of
-its sources; the per-shape CUDA graphs of ``precompile`` live with the
-engine.
+The reference's persistent XLA cache keeps compiled code between
+processes. The port's compiled code is the kernels' library, built by
+``nvcc`` on first use and kept on disk, keyed by a hash of its sources
+(:mod:`repro_torch.kernels._build`): :func:`enable_persistent_cache`
+names the directory it is built into and loaded from, so a restarted
+process loads it there without building. The per-shape CUDA graphs of
+``precompile`` live with the engine.
 """
 from __future__ import annotations
 
 import hashlib
+import os
+from pathlib import Path
 
 import numpy as np
+
+ENV_CACHE_DIR = "SUPRASNN_TORCH_CACHE_DIR"
+DEFAULT_CACHE_DIR = str(Path(__file__).resolve().parents[1] / "kernels"
+                        / "_build")
+
+_cache_dir: str | None = None
+
+
+def enable_persistent_cache(cache_dir: str | None = None) -> str:
+    """The directory the CUDA kernels' library is built into and loaded
+    from; returns it.
+
+    Resolution order: explicit argument > ``SUPRASNN_TORCH_CACHE_DIR`` >
+    ``kernels/_build`` beside the package (listed in ``.gitignore``).
+    Idempotent — later calls with no argument keep the first directory.
+    Nothing is built or created here; a library the process has already
+    loaded stays loaded.
+    """
+    global _cache_dir
+    if cache_dir is None:
+        if _cache_dir is not None:
+            return _cache_dir
+        cache_dir = os.environ.get(ENV_CACHE_DIR) or DEFAULT_CACHE_DIR
+    _cache_dir = str(Path(cache_dir).expanduser())
+    return _cache_dir
 
 
 def normalize_buckets(buckets) -> tuple[int, ...]:

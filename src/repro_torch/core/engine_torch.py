@@ -44,12 +44,14 @@ stay eager.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
 
 from repro_torch.core.engine import packet_stats
-from repro_torch.core.execution import ExecutionSpec, as_spec
+from repro_torch.core.execution import (_NU_KERNEL_TIER, ExecutionSpec,
+                                        as_spec)
 from repro_torch.core.graph import SNNGraph
 from repro_torch.core.scheduling import LoweredProgram, OpTables, lower_tables
 from repro_torch.kernels import _build
@@ -352,3 +354,28 @@ class TorchMappedEngine:
         return finalize_outputs(buf.spikes.cpu().numpy().transpose(1, 0, 2),
                                 buf.v.cpu().numpy(), buf.pkts.cpu().numpy().T,
                                 squeeze)
+
+
+# -- deprecated convenience entry point -------------------------------------
+
+def run_mapped_batched(g: SNNGraph, tables: OpTables, ext_spikes: np.ndarray,
+                       *, nu_kernel: bool = True,
+                       interpret: bool | None = None
+                       ) -> tuple[np.ndarray, np.ndarray, dict]:
+    """Deprecated: use ``Program.run`` (:mod:`repro_torch.core.program`).
+
+    Batched counterpart of ``engine.run_mapped``: builds a fresh
+    :class:`TorchMappedEngine` on every call (a ``Program`` owns its
+    engines and reuses them). ``nu_kernel=True`` is the ``"lif"`` tier,
+    ``False`` the ``"reference"`` tier; ``interpret=True`` runs the
+    kernels' plain versions on the CPU, otherwise the engine runs on
+    the card.
+    """
+    warnings.warn(
+        "run_mapped_batched is deprecated and rebuilds its engine per "
+        "call; use repro_torch.core.compile(...).run(ext)",
+        DeprecationWarning, stacklevel=2)
+    eng = TorchMappedEngine(
+        g, tables, ExecutionSpec(kernel=_NU_KERNEL_TIER[bool(nu_kernel)],
+                                 device="cpu" if interpret else None))
+    return eng.run(ext_spikes)

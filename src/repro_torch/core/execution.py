@@ -30,14 +30,21 @@
 
 The reference's ``donate`` field is not ported: the port's engines own
 their buffers (a captured shape replays over static ones), so there is
-nothing for a caller to donate. Nor are its deprecated-kwarg shims.
+nothing for a caller to donate.
 :meth:`ExecutionSpec.resolve` folds the defaults in once; the resolved
 spec is the engine and runner cache key of ``Program.engine()`` and
 ``Program.sharded_runner()``. All engines and tiers are bit-exact.
+
+The pre-spec kwargs (``engine=, nu_kernel=, interpret=, sharded=,
+mesh=``) of ``Program.run``, ``Program.engine``,
+``Program.sharded_runner``, ``Server``, ``ProgramRegistry.runner`` and
+``ShardedRunner`` still work, with a ``DeprecationWarning``, through
+:func:`spec_from_legacy_kwargs`.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -46,6 +53,15 @@ KERNELS = ("fused", "lif", "reference")
 AUTO_MESH = "auto"
 # reference engine names and where they stand in the port
 _ENGINE_NOTES = {"jax": "the port's compiled engine is 'torch'"}
+# the names a saved header, ``compile(engine=)`` and the legacy kwargs
+# take for the port's engines
+_ENGINE_ALIASES = {"jax": "torch"}
+
+
+def default_kernel() -> str:
+    """The ``"torch"`` engine's default kernel tier: ``"fused"``, the whole
+    timestep in one launch, as in the reference."""
+    return "fused"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +130,7 @@ class ExecutionSpec:
         """
         kernel = self.kernel
         if self.engine == "torch" and kernel is None:
-            kernel = "fused"
+            kernel = default_kernel()
         if self.mesh is None:
             return dataclasses.replace(self, kernel=kernel,
                                        device=str(resolve_device(self.device)))
@@ -169,3 +185,58 @@ def as_spec(spec: "ExecutionSpec | str | None",
         raise TypeError(f"spec must be an ExecutionSpec, engine-name "
                         f"string, or None; got {type(spec).__name__}")
     return spec
+
+
+# ---------------------------------------------------------------------------
+# Legacy-kwarg shim: the deprecated Program.run(engine=, nu_kernel=,
+# interpret=, sharded=, mesh=) surface delegates here.
+# ---------------------------------------------------------------------------
+
+_NU_KERNEL_TIER = {True: "lif", False: "reference"}
+
+
+def spec_from_legacy_kwargs(*, engine=None, nu_kernel=None, interpret=None,
+                            sharded=None, mesh=None, default_engine="torch",
+                            where="Program.run", stacklevel=3
+                            ) -> ExecutionSpec:
+    """Map the pre-ExecutionSpec kwargs onto a spec, warning once; port of
+    the reference's shim, with its semantics: ``nu_kernel=True`` is the
+    ``"lif"`` tier, ``nu_kernel=False`` ``"reference"``; ``sharded=True``
+    without a mesh is ``mesh="auto"``, and with an engine other than the
+    compiled one an error; a mesh without ``sharded=True`` is ignored.
+
+    The port's differences: ``engine="jax"`` is ``"torch"``;
+    ``interpret=True`` (the kernels' plain semantics) runs on the CPU,
+    ``device="cpu"`` (under ``sharded=True`` without a mesh, the mesh
+    ``("cpu",)``), and ``interpret=False`` on the card; the ``"python"``
+    engine, the host simulator, gets ``device="cpu"``.
+    """
+    passed = {k: v for k, v in [("engine", engine), ("nu_kernel", nu_kernel),
+                                ("interpret", interpret),
+                                ("sharded", sharded), ("mesh", mesh)]
+              if v is not None}
+    warnings.warn(
+        f"{where}({', '.join(f'{k}=' for k in passed)}) is deprecated; "
+        f"pass ExecutionSpec(engine=, kernel=, device=, mesh=) instead "
+        f"(see README 'Migration to ExecutionSpec')",
+        DeprecationWarning, stacklevel=stacklevel)
+    engine = _ENGINE_ALIASES.get(engine, engine)
+    device = "cpu" if interpret else None
+    if sharded:
+        engine = engine or "torch"
+        if engine != "torch":
+            raise ValueError(f"sharded=True runs the jax engine ('torch' "
+                             f"in the port); got engine={engine!r}")
+        if mesh is None:
+            mesh = (device,) if device else AUTO_MESH
+    else:
+        mesh = None                     # old API: mesh ignored unless sharded
+    engine = engine or default_engine
+    if engine == "python":
+        return ExecutionSpec(engine="python", device="cpu")
+    if engine != "torch":
+        return ExecutionSpec(engine=engine, device=device)
+    kernel = None if nu_kernel is None else _NU_KERNEL_TIER[bool(nu_kernel)]
+    if mesh is not None:
+        return ExecutionSpec(kernel=kernel, mesh=mesh)
+    return ExecutionSpec(kernel=kernel, device=device)

@@ -53,15 +53,17 @@ from pathlib import Path
 
 import numpy as np
 
-from repro_torch.core.aot import content_hash, normalize_buckets
+from repro_torch.core.aot import (content_hash, enable_persistent_cache,
+                                  normalize_buckets)
 from repro_torch.core.cost import ResourceReport
 from repro_torch.core.engine import (CycleModel, CycleReport, PowerModel,
                                      oracle_packet_counts, packet_stats,
                                      run_mapped, run_oracle)
 from repro_torch.core.engine_torch import (TorchMappedEngine,
                                            normalize_ext_spikes)
-from repro_torch.core.execution import (AUTO_MESH, ENGINES, ExecutionSpec,
-                                        as_spec)
+from repro_torch.core.execution import (_ENGINE_ALIASES, AUTO_MESH, ENGINES,
+                                        ExecutionSpec, as_spec,
+                                        spec_from_legacy_kwargs)
 from repro_torch.core.graph import SNNGraph, from_quantized
 from repro_torch.core.mapping.books import PartitionResult
 from repro_torch.core.mapping.search import SearchConfig, SearchTrace
@@ -81,7 +83,6 @@ __all__ = ["PROGRAM_FORMAT", "PROGRAM_FORMAT_VERSION", "Program",
 PROGRAM_FORMAT = "suprasnn-program"
 PROGRAM_FORMAT_VERSION = 1
 # the header's engine names: the reference's compiled engine is the port's
-_ENGINE_ALIASES = {"jax": "torch"}
 _ENGINE_HEADER = {"torch": "jax"}
 # HardwareConfig fields added after format v1 shipped; written only at
 # non-default values, as the reference writes them
@@ -181,10 +182,20 @@ class Program:
 
     # -- engines ------------------------------------------------------------
 
-    def engine(self, spec: ExecutionSpec | None = None) -> TorchMappedEngine:
+    def engine(self, spec: ExecutionSpec | None = None, *,
+               nu_kernel: bool | None = None,
+               interpret: bool | None = None) -> TorchMappedEngine:
         """The owned ``"torch"`` engine for ``spec``, keyed on the
         resolved spec so an explicit value and the default it resolves
-        to share one."""
+        to share one. ``nu_kernel=``/``interpret=`` are the deprecated
+        pre-spec kwargs."""
+        if nu_kernel is not None or interpret is not None:
+            if spec is not None:
+                raise TypeError("pass spec= OR the deprecated nu_kernel=/"
+                                "interpret= kwargs, not both")
+            spec = spec_from_legacy_kwargs(
+                nu_kernel=nu_kernel, interpret=interpret,
+                where="Program.engine", stacklevel=3)
         spec = as_spec(spec, self.default_engine).resolve().single_device()
         if spec.engine != "torch":
             raise ValueError(f"Program.engine builds the torch engine; got "
@@ -195,7 +206,8 @@ class Program:
             self._engines[spec] = eng
         return eng
 
-    def sharded_runner(self, spec=None):
+    def sharded_runner(self, spec=None, *, nu_kernel: bool | None = None,
+                       interpret: bool | None = None):
         """The owned multi-device runner for ``spec``.
 
         ``spec`` may be an :class:`ExecutionSpec` (``mesh=None`` means
@@ -203,10 +215,22 @@ class Program:
         strings), or ``None`` (``"auto"``). See
         :mod:`repro_torch.serve.sharded`. Runners are cached like
         engines: same resolved spec -> same object.
+        ``nu_kernel=``/``interpret=`` are the deprecated pre-spec kwargs.
         """
         from repro_torch.serve.sharded import ShardedRunner
-        if spec is None or not isinstance(spec, ExecutionSpec):
-            spec = ExecutionSpec(mesh=AUTO_MESH if spec is None else spec)
+        mesh = None
+        if spec is not None and not isinstance(spec, ExecutionSpec):
+            mesh, spec = spec, None         # bare-mesh convenience form
+        if nu_kernel is not None or interpret is not None:
+            if spec is not None:
+                raise TypeError("pass spec= OR the deprecated nu_kernel=/"
+                                "interpret= kwargs, not both")
+            spec = spec_from_legacy_kwargs(
+                sharded=True, mesh=mesh, nu_kernel=nu_kernel,
+                interpret=interpret, where="Program.sharded_runner",
+                stacklevel=3)
+        elif spec is None:
+            spec = ExecutionSpec(mesh=AUTO_MESH if mesh is None else mesh)
         if spec.mesh is None:
             spec = dataclasses.replace(spec, mesh=AUTO_MESH)
         spec = spec.resolve()
@@ -226,8 +250,11 @@ class Program:
         capture one CUDA graph of the T-step loop per shape; elsewhere
         each shape is run once on zeros. A ``mesh`` spec prepares the
         owned sharded runner's shapes. Returns the shapes prepared by
-        this call; idempotent per engine.
+        this call; idempotent per engine. Also resolves the directory
+        the kernels' library is built into and loaded from
+        (:func:`~repro_torch.core.aot.enable_persistent_cache`).
         """
+        enable_persistent_cache()
         spec = as_spec(spec, self.default_engine)
         target = (self.sharded_runner(spec) if spec.sharded
                   else self.engine(spec))
@@ -241,8 +268,10 @@ class Program:
     # -- execution ----------------------------------------------------------
 
     def run(self, ext_spikes: np.ndarray,
-            spec: "ExecutionSpec | str | None" = None
-            ) -> tuple[np.ndarray, np.ndarray, dict]:
+            spec: "ExecutionSpec | str | None" = None, *,
+            engine: str | None = None, nu_kernel: bool | None = None,
+            interpret: bool | None = None, sharded: bool | None = None,
+            mesh=None) -> tuple[np.ndarray, np.ndarray, dict]:
         """Execute the program on a spike train (batch).
 
         ext_spikes: binary ``[T, n_inputs]`` or ``[B, T, n_inputs]``.
@@ -256,7 +285,23 @@ class Program:
         ``ExecutionSpec(mesh=...)`` data-parallelizes the batch axis over
         the mesh's devices through the owned
         :class:`~repro_torch.serve.sharded.ShardedRunner`.
+
+        ``engine=/nu_kernel=/interpret=/sharded=/mesh=`` are the
+        deprecated pre-spec kwargs and delegate with a
+        ``DeprecationWarning`` (:func:`~repro_torch.core.execution
+        .spec_from_legacy_kwargs`).
         """
+        if (engine is not None or nu_kernel is not None
+                or interpret is not None or sharded is not None
+                or mesh is not None):
+            if spec is not None:
+                raise TypeError("pass spec OR the deprecated engine=/"
+                                "nu_kernel=/interpret=/sharded=/mesh= "
+                                "kwargs, not both")
+            spec = spec_from_legacy_kwargs(
+                engine=engine, nu_kernel=nu_kernel, interpret=interpret,
+                sharded=sharded, mesh=mesh,
+                default_engine=self.default_engine)
         spec = as_spec(spec, self.default_engine)
         if spec.sharded:
             return self.sharded_runner(spec).run(ext_spikes)

@@ -3,10 +3,11 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into an object, all
 of them at once, and the objects are linked into one shared library
 with a plain C interface, loaded with ``ctypes``. Nothing builds at
-import: :func:`load_library` builds on first use into ``_build/`` beside
-this file (listed in ``.gitignore``). The library's file name carries a
-hash of the sources and flags, so an edited source rebuilds, and an
-unchanged one loads the library already built.
+import: :func:`load_library` builds on first use into the directory
+:func:`repro_torch.core.aot.enable_persistent_cache` names (by default
+``_build/`` beside this file, listed in ``.gitignore``). The library's
+file name carries a hash of the sources and flags, so an edited source
+rebuilds, and an unchanged one loads the library already built.
 """
 from __future__ import annotations
 
@@ -24,7 +25,6 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).parent / "csrc"
-BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,13 +61,20 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def build_dir() -> Path:
+    """The directory the library is built into and loaded from."""
+    # imported here: repro_torch.core imports the kernels
+    from repro_torch.core.aot import enable_persistent_cache
+    return Path(enable_persistent_cache())
+
+
 def library_path() -> Path:
     """Where the library for the current sources lives once built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):      # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libsuprasnn_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"libsuprasnn_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, str]:
@@ -75,9 +82,9 @@ def build() -> tuple[Path, str]:
     library path and the compilers' output (``-Xptxas -v`` register and
     shared-memory report). Raises ``RuntimeError`` on any failure."""
     out = library_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
                                    str(obj)], stdout=subprocess.PIPE,

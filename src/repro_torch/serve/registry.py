@@ -19,7 +19,8 @@ from __future__ import annotations
 from pathlib import Path
 from typing import TYPE_CHECKING
 
-from repro_torch.core.execution import ExecutionSpec, as_spec
+from repro_torch.core.execution import (ExecutionSpec, as_spec,
+                                        spec_from_legacy_kwargs)
 from repro_torch.core.program import Program
 
 if TYPE_CHECKING:                          # pragma: no cover
@@ -114,16 +115,25 @@ class ProgramRegistry:
 
     # -- per-model runners --------------------------------------------------
 
-    def runner(self, name: str, spec: ExecutionSpec | None = None):
+    def runner(self, name: str, spec: ExecutionSpec | None = None, *,
+               sharded: bool | None = None, mesh=None):
         """The model's batch-callable: ``[b, T, n_in] -> (s, v, stats)``.
 
         Resolves to the program's owned engine (or owned sharded runner
         when ``spec.mesh`` is set) — repeated calls reuse the same
         object, and distinct models own distinct engines. The returned
         callable carries a ``precompile(buckets, timesteps)`` hook (the
-        bound methods' owners have one) for warming.
+        bound methods' owners have one) for warming. ``sharded=``/``mesh=``
+        are the deprecated pre-spec kwargs.
         """
         program = self.get(name)
+        if sharded is not None or mesh is not None:
+            if spec is not None:
+                raise TypeError("pass spec= OR the deprecated sharded=/"
+                                "mesh= kwargs, not both")
+            spec = spec_from_legacy_kwargs(
+                sharded=sharded, mesh=mesh,
+                where="ProgramRegistry.runner", stacklevel=3)
         if spec is None:
             return program.run              # default-spec bound method
         spec = as_spec(spec)

@@ -1,8 +1,8 @@
 """Server loop: drive request streams against a ``ProgramRegistry``.
 
 Port of ``repro/serve/server.py`` over the port's registry and
-batcher; the reference's deprecated ``sharded=``/``mesh=`` kwargs are
-not ported.
+batcher, with the reference's deprecated ``sharded=``/``mesh=`` kwargs
+(:func:`~repro_torch.core.execution.spec_from_legacy_kwargs`).
 
 No HTTP — a :class:`Request` stream is a list of (model, spike train,
 arrival time, stream id) records, which is what a transport layer
@@ -29,6 +29,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.execution import spec_from_legacy_kwargs
 from repro_torch.serve.batcher import (BatchPolicy, DrainResult,
                                        MicroBatcher, SHED_REASONS,
                                        drain_together, latency_metrics)
@@ -90,13 +91,21 @@ class Server:
     :class:`~repro_torch.core.execution.ExecutionSpec`) routes every
     model through that execution point (device, kernel tier).
     ``timeline`` picks the multi-model accounting clock (see module
-    docstring).
+    docstring). ``sharded=``/``mesh=`` are the deprecated pre-spec
+    kwargs.
     """
 
     def __init__(self, registry: ProgramRegistry, *,
                  policy: BatchPolicy | None = None,
                  policies: dict[str, BatchPolicy] | None = None,
-                 service_model=None, spec=None, timeline: str = "shared"):
+                 service_model=None, spec=None, timeline: str = "shared",
+                 sharded: bool | None = None, mesh=None):
+        if sharded is not None or mesh is not None:
+            if spec is not None:
+                raise TypeError("pass spec= OR the deprecated sharded=/"
+                                "mesh= kwargs, not both")
+            spec = spec_from_legacy_kwargs(sharded=sharded, mesh=mesh,
+                                           where="Server", stacklevel=3)
         if timeline not in _TIMELINES:
             raise ValueError(f"timeline must be one of {_TIMELINES}, "
                              f"got {timeline!r}")

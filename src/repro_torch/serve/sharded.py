@@ -51,7 +51,8 @@ import numpy as np
 
 from repro_torch.core.engine_torch import (finalize_outputs,
                                            normalize_ext_spikes)
-from repro_torch.core.execution import AUTO_MESH, ExecutionSpec
+from repro_torch.core.execution import (AUTO_MESH, ExecutionSpec,
+                                        spec_from_legacy_kwargs)
 from repro_torch.kernels import _build
 
 
@@ -63,12 +64,22 @@ class ShardedRunner:
     ``program.run(ext)`` on one device. ``spec`` is an
     :class:`~repro_torch.core.execution.ExecutionSpec` (``mesh=None``
     means ``"auto"`` here); ``mesh`` is the bare-mesh form (``"auto"``
-    or a tuple of device strings).
+    or a tuple of device strings). The ``nu_kernel=``/``interpret=``
+    kwargs are the deprecated pre-spec surface.
     """
 
     def __init__(self, program, mesh=None, *,
-                 spec: ExecutionSpec | None = None, min_shard: int = 1):
-        if spec is None:
+                 spec: ExecutionSpec | None = None,
+                 nu_kernel: bool | None = None,
+                 interpret: bool | None = None, min_shard: int = 1):
+        if nu_kernel is not None or interpret is not None:
+            if spec is not None:
+                raise TypeError("pass spec= OR the deprecated nu_kernel=/"
+                                "interpret= kwargs, not both")
+            spec = spec_from_legacy_kwargs(
+                sharded=True, mesh=mesh, nu_kernel=nu_kernel,
+                interpret=interpret, where="ShardedRunner", stacklevel=3)
+        elif spec is None:
             spec = ExecutionSpec(mesh=mesh if mesh is not None else AUTO_MESH)
         elif mesh is not None:
             raise TypeError("pass the mesh inside spec=, not alongside it")
@@ -179,7 +190,10 @@ def _run_on_device(engine, shards: list) -> list:
 
 
 def sharded_runner(program, mesh=None, *, spec: ExecutionSpec | None = None,
+                   nu_kernel: bool | None = None,
+                   interpret: bool | None = None,
                    min_shard: int = 1) -> ShardedRunner:
     """Build a :class:`ShardedRunner` for ``program`` (default mesh:
     every visible device)."""
-    return ShardedRunner(program, mesh, spec=spec, min_shard=min_shard)
+    return ShardedRunner(program, mesh, spec=spec, nu_kernel=nu_kernel,
+                         interpret=interpret, min_shard=min_shard)

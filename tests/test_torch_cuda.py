@@ -35,7 +35,9 @@ forward and backward (no atomic adds). The mesh side on a one-rank nccl
 group (a ``HashStore``): the ruled train step of a reduced qwen2-1.5b
 and qwen3-moe-30b-a3b on ``init_device_mesh("cuda", (1, 1))`` equal to
 the plain step bit for bit, every leaf a DTensor on ``cuda:0``, and
-``reshard_tree`` placing a host tree on the card.
+``reshard_tree`` placing a host tree on the card. The paper examples'
+``deploy`` (MNIST SFNN, SHD SRNN, untrained) on the fused and lif tiers
+equal to the same deploy on the CPU oracle bit for bit, row included.
 """
 import os
 from pathlib import Path
@@ -1266,3 +1268,30 @@ def test_analyze_raises_around_a_kernel_launch(cuda_device):
         analyze(M.prefill, params, cfg, tokens, kernels=True)
     _, counts = analyze(M.prefill, params, cfg, tokens, kernels=False)
     assert counts["flops"] > 0 and counts["peak_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["mnist", "shd"])
+@pytest.mark.parametrize("kernel", ["fused", "lif"])
+def test_paper_deploy_on_card_equals_the_cpu_oracle(cuda_device, net,
+                                                    kernel):
+    from repro_torch.configs.snn_paper import MNIST_HW, SHD_HW
+    from repro_torch.launch.mnist_end_to_end import ROW_KEYS, deploy
+    from repro_torch.snn import MNIST_CONFIG, QuantConfig
+    cfg, hw, qcfg, b = ((MNIST_CONFIG, MNIST_HW, QuantConfig(4, 5), 64)
+                        if net == "mnist" else
+                        (SHD_CONFIG, SHD_HW, QuantConfig(7, 12), 8))
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda_device)
+    rng = np.random.default_rng(0)
+    ext = (rng.random((b, cfg.timesteps, cfg.layer_sizes[0])) < 0.2
+           ).astype(np.int32)
+    labels = rng.integers(0, cfg.layer_sizes[-1], b)
+    runs = [deploy(params, cfg, hw, qcfg, ext, labels=labels, spec=spec,
+                   max_iters=2000)
+            for spec in (ExecutionSpec(kernel=kernel, device="cuda"),
+                         ExecutionSpec(engine="oracle", device="cpu"))]
+    assert_same_run(runs[0]["outputs"], runs[1]["outputs"])
+    assert runs[0]["program"].lowered.n_internal == cfg.layer_sizes[1] + \
+        cfg.layer_sizes[-1]
+    assert {k: runs[0][k] for k in ROW_KEYS} == \
+        {k: runs[1][k] for k in ROW_KEYS}

@@ -28,7 +28,9 @@ meshes, strategies, specs) and runs a reduced ruled train step on a
 one-rank gloo mesh, equal to the plain step; another (one per module it
 imports first) imports the dry run, its counter and the public kernel
 wrappers, calls the wrappers and runs a reduced model's dry-run cell
-(``train_4k`` on the 256-rank fake group) through the CLI.
+(``train_4k`` on the 256-rank fake group) through the CLI; another (one
+per module it imports first) imports the paper's examples and runs the
+quickstart and a narrow SHD SRNN's ``deploy``.
 ``chip_smoke.py`` must fail, and print no result, without a CUDA card
 and outside the repo.
 """
@@ -116,7 +118,12 @@ def test_every_module_imports_without_jax():
                                    "repro_torch.launch.dryrun",
                                    "repro_torch.launch.hlo_analysis",
                                    "repro_torch.kernels.ops",
-                                   "repro_torch.distributed.tensor_parallel"])
+                                   "repro_torch.distributed.tensor_parallel",
+                                   "repro_torch.launch.quickstart",
+                                   "repro_torch.launch.mnist_end_to_end",
+                                   "repro_torch.launch.shd_srnn",
+                                   "repro_torch.launch.serve_batched",
+                                   "repro_torch.launch.lm_pretrain"])
 def test_import_order_does_not_matter(first):
     code = (f"import {first}\n"
             "from repro_torch.snn import forward, quantize\n"
@@ -656,6 +663,55 @@ def test_tensor_parallel_runs_without_jax():
                                    "repro_torch.kernels.ops"])
 def test_dry_run_and_ops_run_without_jax(first):
     out = subprocess.run([sys.executable, "-c", DRYRUN_WITHOUT_JAX, first],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+PAPER_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+__import__(sys.argv[1])
+import numpy as np, torch
+from repro_torch.configs.snn_paper import SHD_HW
+from repro_torch.core import ExecutionSpec
+from repro_torch.launch import (lm_pretrain, mnist_end_to_end, quickstart,
+                                serve_batched, shd_srnn)
+from repro_torch.snn import QuantConfig
+from repro_torch.snn.models import init_params
+assert callable(serve_batched.main) and callable(lm_pretrain.main)
+assert shd_srnn.deploy is mnist_end_to_end.deploy
+r = quickstart.main(["--device", "cpu"])
+assert r["joint_depth"] > 0 and r["device"] == "cpu"
+cfg = shd_srnn.shd_config(hidden=24, timesteps=8)
+p = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+ext = (np.random.default_rng(0).random((3, 8, 700)) < 0.2).astype(np.int32)
+runs = [shd_srnn.deploy(p, cfg, SHD_HW, QuantConfig(7, 12), ext,
+                        labels=np.zeros(3, np.int32), spec=spec,
+                        max_iters=2000)
+        for spec in (ExecutionSpec(device="cpu"),
+                     ExecutionSpec(engine="oracle", device="cpu"))]
+assert all(np.array_equal(a, b) for a, b in zip(runs[0]["outputs"][:2],
+                                                runs[1]["outputs"][:2]))
+assert runs[0]["latency_us"] == runs[1]["latency_us"]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("first", ["repro_torch.launch.quickstart",
+                                   "repro_torch.launch.mnist_end_to_end",
+                                   "repro_torch.launch.shd_srnn"])
+def test_paper_examples_run_without_jax(first):
+    """The quickstart on the CPU and the SHD SRNN's deploy (a narrow
+    hidden layer) on the fused tier's plain version and the oracle, with
+    the paper's examples imported without jax, each module first."""
+    out = subprocess.run([sys.executable, "-c", PAPER_WITHOUT_JAX, first],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
