@@ -13,7 +13,13 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    ``fused_step`` on int8 (910 x 126), int16 and int32 (1020 x 320)
    planes at B in {1, 3, 8, 9, 17, 64} with negative potentials and
    recurrent inputs, with 0/1 and with non-binary external spikes
-   (``ODD_SPIKES``), each twice (repeatability),
+   (``ODD_SPIKES``), each twice (repeatability), then ``fused_run``
+   (all T steps of a run in one launch) on the int8 and int16 planes at
+   the same batches (T = 100 at B = 8, else ``ODD_T``) against
+   ``fused_run_ref`` and T ``fused_step`` launches, twice, bit-exact, the
+   int32 1020 x 320 plane (too large for a cluster's shared memory)
+   refused, and on the SHD-scale artifact's recorded spike trains (B =
+   8, T = 100) against ``fused_run_emulated`` on the CPU;
    ``lif_update_int`` at leak_shift in {1, 2, 4} (also through the
    ``"lif"`` tier's unchecked launch, which drains its current plane),
    the float ``lif_update`` at alpha in {0.25, 0.03125, 0.5} with a
@@ -42,7 +48,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    card's time alone with the enqueue hidden; for every kernel of the
    SNN paths also its unchecked launch path) beside the plain
    version's, one PyTorch library call's and the card's bound; then each
-   kernel's record at the shape its path gives it;
+   kernel's record at the shape its path gives it (``fused_run``'s also
+   per step, beside T ``fused_step`` launches of the same run, a run
+   over all-zero spikes and T cluster barriers alone, the serial
+   floor);
 4. the golden artifacts (``tests/golden``), all three tiers on the
    card, against their recorded outputs; then the compiler's back end
    and the static verifier: the SHD golden's graph rebuilt by the port's
@@ -52,8 +61,10 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    npz arrays, ``content_hash``); the same assignment scheduled with
    ``"consecutive"`` and ``"load_balance"``, each program verified clean
    and run at B = 8, T = 100 on the fused and lif tiers (counts set to 0
-   just before each run and read just after: exactly T launches of the
-   tier's kernel), bit-exact with the reference tier and the recorded
+   just before each run and read just after: exactly one ``fused_run``
+   on the fused tier where the plane fits a cluster's shared memory and
+   T ``fused_step`` where it does not, T ``lif_update_int`` on the lif
+   tier; ``tier_launches``), bit-exact with the reference tier and the recorded
    io, OT depths printed; ``verify()`` clean on both goldens, its wall
    time at SHD scale per checker and ``schedule``'s per strategy
    printed (host time of the card's machine) with the card's name and
@@ -76,7 +87,8 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    (``benchmarks/compiler_scale.py``'s 10^5 synapses, multilevel, 4
    chips) compiled in a subprocess that never starts CUDA, its OT depth
    and ``content_hash`` the reference's, verified, run on the fused tier
-   (2000 x 1500 int8) with its modeled 4-chip figures; and the serving
+   (2000 x 1500 int8; the fused path it takes printed) with its modeled
+   4-chip figures; and the serving
    CLI on a missing artifact, which compiles, saves and serves it;
 5. serve 32 seeded Poisson requests (T = 100) of the SHD-scale artifact
    (registered with ``verify=True``) through ``ProgramRegistry`` and
@@ -90,22 +102,23 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    each tier's engine time per timestep at B = 8; then a program
    with no internal neuron on both tiers and ``fused_step``: each
    step's packet count is its non-zero external spikes. The registry's
-   ``precompile`` captures each bucket's T-step loop as a CUDA graph,
-   so the drain replays graphs and the launch counts are the graphs'
-   recorded launches. Then the three engines on both goldens
+   ``precompile`` captures each bucket's T-step loop as a CUDA graph
+   (on the fused tier one ``fused_run`` launch), so the drain replays
+   graphs and the launch counts are the graphs' recorded launches. Then the three engines on both goldens
    (``"oracle"`` on the card, ``"python"`` on the CPU with its wall
    time, both bit-exact with the recorded io and the fused tier), the
    SHD artifact saved and re-loaded (header and arrays equal to the
    golden file's, ``content_hash`` the reference's ``SHD_HASH``), and
    each kernel tier graphed against eager and the reference tier at
-   every bucket and at T in {100, ``ODD_T``}, with T launches per
-   replay, an uncaptured shape run eagerly, and the warm time per
+   every bucket and at T in {100, ``ODD_T``}, with one ``fused_run``
+   (fused) or T ``lif_update_int`` (lif) launches per replay and per
+   eager run, an uncaptured shape run eagerly, and the warm time per
    timestep at B = 8, graphed and eager in turns, beside the card's
    name and power limit. The rest of serving (before the engines): a
    ``ShardedRunner`` of two shards on the one card (``min_shard=0``)
    and ``ExecutionSpec(mesh="auto")`` at B in ``SHARD_BATCHES``, both
-   tiers, bit-exact with one engine and the reference tier, T launches
-   per shard; an ``AsyncServer`` in engine mode serving 32 concurrent
+   tiers, bit-exact with one engine and the reference tier, one run's
+   launches per shard; an ``AsyncServer`` in engine mode serving 32 concurrent
    SHD requests on the registry's graphed fused engine, every output
    bit-exact with ``program.run`` and every stage sum equal to the
    latency (p50 / p99 / req/s printed); ``replay`` of a Poisson and a
@@ -159,9 +172,9 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    memory and the card's time by kernel; then the same graphed decode.
    Then the last four families the same way (``LM_FAMILIES``, each
    freed before the next is made; every count 0; graphed = eager and
-   unrolled = stacked bit for bit): qwen3-moe-30b-a3b at full width and
-   depth (48 MoE layers of 128 experts, top 8; 30.53 B, 56.9 GiB) at
-   B = 8; deepseek-v3-671b at full width cut to 4 layers (its 3 dense MLA
+   unrolled = stacked bit for bit): qwen3-moe-30b-a3b at full width cut
+   to 12 of its 48 MoE layers (128 experts, top 8; the parameters
+   printed) at B = 8; deepseek-v3-671b at full width cut to 4 layers (its 3 dense MLA
    layers and 1 MLA MoE layer of 256 experts and the shared expert;
    15.11 B; the init's peak printed) at B = 4, its unrolled step over
    both stacks' latent caches; qwen2-vl-7b (M-RoPE, the prompts' three
@@ -236,12 +249,13 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    latent cache on rank 0's capacity rows, and the full musicgen-medium
    (B = 8), its 4 codebook heads on 256 of 2048 vocabulary columns each
    (the logits gathered to [B, 1, 4, 2048]); then the
-   full-width rwkv6-3b (B = 8) and zamba2-7b (B = 4) prefills on rank 0's
+   full-width rwkv6-3b (B = 8, full depth) and zamba2-7b (B = 4, cut to
+   6 layers) prefills on rank 0's
    head shard (5 of 40, 14 of 112 heads; the leaves these layers gather
    whole over ``model`` held whole, so both runs read defined values):
    the chunked run (``kernels=False``) counted on meta and on the card
    (FLOPs equal, peak within ``PEAK_TOL``), the kernel run with the
-   counts set to 0 just before and read just after (32 ``wkv6`` / 81
+   counts set to 0 just before and read just after (32 ``wkv6`` / 6
    ``ssd`` launches on [B, S, H/8, 64]), every layer of a kernel run
    within ``LM_TOL`` of the chunked path on the same input, the whole
    runs' states compared (reported), ms. Last, rank 0 of a fake group of
@@ -322,8 +336,9 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    plane). Gates, per net: the launch counts set to 0 just before and
    read just after each part (training: phase 6's per-forward counts per
    step and one evaluation forward, ``lif_update_bwd`` ``bwd_per_step``
-   per step, nothing else; deploy: T ``fused_step``; ``precompile`` of
-   the batch and one replay: 2 T); finite losses; the card's spikes,
+   per step, nothing else; deploy: one ``fused_run``, both planes fitting
+   a cluster; ``precompile`` of the batch and one replay: 2); finite
+   losses; the card's spikes,
    ``v_final`` and packet counts equal to the CPU oracle's over every
    sample, and the graphed run's to the eager one's; the mapped accuracy
    the quantized oracle's; ``Program.profile`` of 2 samples' card
@@ -331,14 +346,15 @@ error or mismatch; it imports neither jax nor the JAX package. Phases:
    (modeled by the ``CycleModel`` for the paper's FPGA at 100 MHz, not
    card times) is printed beside the paper's values, with each stage's
    seconds (train, quantize, compile, the mapped run with its copies).
-   Then ``launch.quickstart.main`` on the card, its asserts holding: 3 T
-   ``fused_step`` (a run, precompile's warm run, a replay) and T
+   Then ``launch.quickstart.main`` on the card, its asserts holding: 3
+   ``fused_run`` (a run, precompile's warm run, a replay) and T
    ``lif_update_int``.
 
 The last two lines are the kernels' JSON record (a kernel's
 ``launches`` summed over the counted runs of the paths that launch it:
 phases 4 (the back end's and the compiler's programs), 5 and 12 for
-``fused_step`` and ``lif_update_int``; 6 and 12 for ``spike_accum``
+``fused_run``, ``fused_step`` (the 10^5-synapse program, whose plane
+does not fit a cluster) and ``lif_update_int``; 6 and 12 for ``spike_accum``
 and ``lif_update``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -451,13 +467,15 @@ def recurrence_tol(dtype: torch.dtype, want: torch.Tensor) -> dict:
 LM_RUNS = (("rwkv6-3b", 8), ("zamba2-7b", 4))
 LM_DENSE = ("stablelm-12b", 8)   # the dense family's largest; no kernel
 # the MoE / MLA, VLM and audio families (no kernel): (arch, batch, depth
-# cut or None); deepseek-v3-671b's 61 layers (1.25 TiB) cannot be held on
-# one card: 4 layers, its 3 dense MLA layers and 1 MoE layer (256
-# experts and the shared expert), 15.11 B parameters
-LM_FAMILIES = (("qwen3-moe-30b-a3b", 8, None), ("deepseek-v3-671b", 4, 4),
+# cut or None); qwen3-moe-30b-a3b cut to 12 of its 48 layers for the
+# run's time limit (9c prefills its full depth on one rank's blocks);
+# deepseek-v3-671b's 61 layers (1.25 TiB) cannot be held on one card: 4
+# layers, its 3 dense MLA layers and 1 MoE layer (256 experts and the
+# shared expert), 15.11 B parameters
+LM_FAMILIES = (("qwen3-moe-30b-a3b", 8, 12), ("deepseek-v3-671b", 4, 4),
                ("qwen2-vl-7b", 8, None), ("musicgen-medium", 8, None))
 LM_PROMPT, LM_GEN = 1024, 32
-PREFILL_WARM_S: dict = {}        # phase 7's warm prefill of each arch, s
+PREFILL_WARM_S: dict = {}        # phase 7's warm prefill: arch -> (s, layers)
 # each layer of the kernel prefill against the chunked path on the same
 # input (its output and every state leaf), and the last-position logits:
 # the bound the JAX package holds its own prefill to (tests/test_lm_archs.py);
@@ -620,6 +638,156 @@ def time_fused(ext, prev, v, w, p) -> dict:
         rows_fired * n_int * w.element_size() + s_all.numel() * 4
         + b * n_int * 4 * 3 + b * 4, 2 * nnz * n_int)
     return rec
+
+
+def time_fused_run(ext, w, p) -> dict:
+    """``fused_run``'s times on ``ext`` ``[T, B, n_ext]`` beside its plain
+    version's (``fused_run_ref``, T plain steps) and the card's bound;
+    ``engine_*`` times the engine's unchecked launch
+    (``fused_run_launcher``), ``steps_ms`` the same run as T unchecked
+    ``fused_step`` launches (the ``"step"`` path, eager), ``zero_ms`` a
+    run over all-zero spikes (every K-step skipped: what is left is the
+    step chain's staging, Neuron Unit, spike pushes and barriers) and
+    ``floor_ms`` T cluster barriers alone (``suprasnn_cluster_barriers``,
+    one cluster of the plane's split): the serial floor no overlap can
+    remove. No single PyTorch call computes a T-step run."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_step import (fused_launcher, fused_run,
+                                                fused_run_launcher,
+                                                fused_run_plan,
+                                                fused_run_ref, pack_plane)
+    t_steps, b, n_ext = ext.shape
+    n_int = w.shape[1]
+    dev = ext.device
+    packed = pack_plane(w)
+    i32 = dict(dtype=torch.int32, device=dev)
+    spikes = torch.empty((t_steps, b, n_int), **i32)
+    v = torch.empty((b, n_int), **i32)
+    pkt = torch.empty((t_steps, b), **i32)
+    zero = torch.zeros_like(ext)
+    stream = _build.stream_handle(dev)
+    run = fused_run_launcher(packed, p, n_ext)
+    step = fused_launcher(packed, p, n_ext)
+    prev0 = torch.zeros((b, n_int), **i32)
+    outs = (v.data_ptr(), spikes.data_ptr(), pkt.data_ptr(), b, t_steps,
+            stream)
+    e0, s0, k0 = ext.data_ptr(), spikes.data_ptr(), pkt.data_ptr()
+
+    def call():
+        fused_run(ext, packed, p, spikes_out=spikes, v_out=v, pkt_out=pkt)
+
+    def steps():
+        v.zero_()
+        prev = prev0.data_ptr()
+        for t in range(t_steps):
+            out = s0 + t * b * n_int * 4
+            step(e0 + t * b * n_ext * 4, prev, outs[0], out, k0 + t * b * 4,
+                 b, stream)
+            prev = out
+
+    lib = _build.load_library()
+    n_split = fused_run_plan(packed).n_split
+    rec = {
+        "ms": median_ms(call, iters=20),
+        "host_us": host_us(call),
+        "device_us": device_us(call, iters=20),
+        "engine_ms": median_ms(lambda: run(e0, *outs), iters=20),
+        "engine_host_us": host_us(lambda: run(e0, *outs)),
+        "zero_ms": median_ms(lambda: run(zero.data_ptr(), *outs), iters=20),
+        "steps_ms": median_ms(steps, iters=5),
+        "floor_ms": median_ms(lambda: _build.check(
+            lib.suprasnn_cluster_barriers(n_split, t_steps, stream),
+            "cluster barriers"), iters=20),
+        "plain_ms": median_ms(lambda: fused_run_ref(ext, w, p), iters=2,
+                              repeats=3),
+        "library_ms": None,
+    }
+    # bytes: the plane read once, ext read once, spikes, packets and
+    # v_final written once; operations: a multiply and an add for each
+    # (non-zero pre spike, post neuron) pair of every step and batch row
+    call()
+    nnz = int((ext != 0).sum().item()) + int(spikes[:-1].sum().item())
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        w.numel() * w.element_size() + ext.numel() * 4 + spikes.numel() * 4
+        + pkt.numel() * 4 + v.numel() * 4, 2 * nnz * n_int)
+    return rec
+
+
+def print_run_times(what: str, rec: dict, t_steps: int) -> None:
+    print_times(what, rec)
+    us = {k: rec[k] / t_steps * 1e3 for k in ("ms", "engine_ms", "steps_ms",
+                                               "zero_ms", "floor_ms",
+                                               "bound_ms")}
+    print(f"  {what} per step (T={t_steps}): kernel {us['ms']:.3f} us "
+          f"(device {rec['device_us'] / t_steps:.3f} us), unchecked launch "
+          f"{us['engine_ms']:.3f} us; T fused_step launches "
+          f"{us['steps_ms']:.3f} us; all-zero spikes {us['zero_ms']:.3f} us; "
+          f"serial floor (one cluster barrier) {us['floor_ms']:.3f} us; "
+          f"bound {us['bound_ms']:.4f} us")
+
+
+def check_fused_run(dev, t, rng, planes: dict) -> int:
+    """``fused_run`` against ``fused_run_ref`` and T ``fused_step``
+    launches on the same plane, bit for bit, twice, for each plane that
+    fits (``fused_path`` "run"); one that does not must be refused.
+    Returns the largest |error| seen (0)."""
+    from repro_torch.kernels.fused_step import (fused_path, fused_run,
+                                                fused_run_ref, fused_step,
+                                                pack_plane, run_smem_bytes)
+    from repro_torch.snn.lif import LIFIntParams
+    err = 0
+    for name, (n_ext, n_int, wdt, wmax) in planes.items():
+        w = t(rng.integers(-wmax - 1, wmax + 1, (n_ext + n_int, n_int)), wdt)
+        packed = pack_plane(w)
+        smem = run_smem_bytes(w.element_size(), n_ext, n_int)
+        if fused_path(packed, n_ext) != "run":
+            try:
+                fused_run(t(np.ones((2, 3, n_ext))), packed,
+                          LIFIntParams(2, 15, 0))
+                refused = False
+            except ValueError:
+                refused = True
+            expect(refused, f"fused_run {name}: a plane that does not fit "
+                            f"was not refused")
+            print(f"fused_run {name}: {smem} bytes a CTA, more than a "
+                  f"cluster holds: the shape rule says step, and fused_run "
+                  f"refuses the plane")
+            continue
+        for i, b in enumerate(FUSED_BATCHES):
+            t_steps = TIMESTEPS if b == SERVE_BATCH else ODD_T
+            p = LIFIntParams(leak_shift=(1, 2, 4)[i % 3],
+                             v_threshold=(15, 40, 0, 7, -3, 20)[i],
+                             v_reset=(0, -5, 0, 1, 2, -1)[i])
+            ext = t(rng.random((t_steps, b, n_ext)) < 0.15)
+            odd = torch.from_numpy(rng.choice(ODD_SPIKES, ext.shape)).to(
+                dev, torch.int32)
+            ext_odd = torch.where(t(rng.random(ext.shape) < 0.05) != 0, odd,
+                                  ext)
+            for kind, e_in in (("0/1", ext), ("non-binary", ext_odd)):
+                want = fused_run_ref(e_in, w, p)
+                v_k = torch.zeros((b, n_int), dtype=torch.int32, device=dev)
+                prev, s_t, pk_t = torch.zeros_like(v_k), [], []
+                for step in range(t_steps):
+                    _, prev, pkt = fused_step(e_in[step], prev, v_k, packed, p)
+                    s_t.append(prev)
+                    pk_t.append(pkt)
+                stepped = (torch.stack(s_t), v_k, torch.stack(pk_t))
+                runs = [fused_run(e_in, packed, p) for _ in range(2)]
+                torch.cuda.synchronize()
+                for label, got in (("run", runs[0]), ("run again", runs[1]),
+                                   (f"{t_steps} fused_step", stepped)):
+                    for what, a, r in zip(("spikes", "v_final", "packets"),
+                                          got, want):
+                        e = max_err(a, r)
+                        err = max(err, e)
+                        expect(torch.equal(a, r), f"fused_run {name} B={b} "
+                               f"T={t_steps} {kind} spikes: {label} {what} "
+                               f"differs from fused_run_ref (max |err| {e})")
+        print(f"fused_run {name} ({smem} bytes a CTA): bit-exact with "
+              f"fused_run_ref and T fused_step launches at B in "
+              f"{FUSED_BATCHES} (T = {TIMESTEPS} at B = {SERVE_BATCH}, else "
+              f"{ODD_T}), 0/1 and non-binary external spikes, twice each")
+    return err
 
 
 def time_lif(v, cur, p) -> dict:
@@ -793,15 +961,17 @@ def phase_kernels(dev: torch.device) -> dict:
     kernel's record at the serving shape on the SHD-scale artifact."""
     from repro_torch.core import Program
     from repro_torch.kernels import _build
-    from repro_torch.kernels.fused_step import (fused_step, fused_step_ref,
-                                                pack_dense)
+    from repro_torch.kernels.fused_step import (fused_run,
+                                                fused_run_emulated,
+                                                fused_step, fused_step_ref,
+                                                pack_dense, pack_plane)
     from repro_torch.kernels.lif_update import (lif_int_launcher,
                                                 lif_update_int,
                                                 lif_update_int_ref)
     from repro_torch.snn.lif import LIFIntParams
 
     rng = np.random.default_rng(0)
-    fused_step.launches = lif_update_int.launches = 0
+    fused_step.launches = lif_update_int.launches = fused_run.launches = 0
 
     def t(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
@@ -873,8 +1043,10 @@ def phase_kernels(dev: torch.device) -> dict:
             print(f"lif_update_int {shape} leak_shift={ls}: bit-exact, "
                   f"checked, in place and draining its current")
         print_times("times", time_lif(v0, cur, p))
+    err["fused_run"] = check_fused_run(dev, t, rng, planes)
     print(f"comparison launches (not counted below): fused_step "
-          f"{fused_step.launches}, lif_update_int {lif_update_int.launches}")
+          f"{fused_step.launches}, lif_update_int {lif_update_int.launches}, "
+          f"fused_run {fused_run.launches}")
 
     # each kernel's record: the SHD-scale artifact's own int16 plane and
     # LIF parameters at the serving batch, spikes at the recorded rates
@@ -893,6 +1065,28 @@ def phase_kernels(dev: torch.device) -> dict:
     for name, rec in recs.items():
         print_times(f"{name} B={b} on the SHD-scale artifact", rec)
         rec["max_abs_err"] = err[name]
+    # fused_run on the artifact's recorded spike trains, B = 8, T = 100:
+    # the kernel against its plain version and the CPU emulation of its
+    # decomposition, then its record
+    with np.load(GOLDEN / "shd_program_v1_io.npz") as io:
+        trains = np.concatenate([io["ext"]] * (b // len(io["ext"])))
+    ext_run = t(trains.transpose(1, 0, 2))
+    want = fused_run_emulated(ext_run.cpu(), pack_plane(w.cpu()), p)
+    got = fused_run(ext_run, pack_plane(w), p)
+    torch.cuda.synchronize()
+    for what, a, r in zip(("spikes", "v_final", "packets"), got, want):
+        e = max_err(a.cpu(), r)
+        err["fused_run"] = max(err["fused_run"], e)
+        expect(torch.equal(a.cpu(), r), f"fused_run on the SHD artifact: "
+               f"{what} differs from fused_run_emulated (max |err| {e})")
+    print(f"fused_run B={b} T={len(ext_run)} on the SHD-scale artifact's "
+          f"recorded spike trains: bit-exact with fused_run_emulated on the "
+          f"CPU")
+    rec = time_fused_run(ext_run, w, p)
+    print_run_times(f"fused_run B={b} on the SHD-scale artifact", rec,
+                    len(ext_run))
+    rec["max_abs_err"] = err["fused_run"]
+    recs["fused_run"] = rec
     return recs
 
 
@@ -1546,13 +1740,14 @@ def phase_train(dev: torch.device) -> dict[str, int]:
 
 def counters() -> dict:
     """Every kernel wrapper's launch counter, by kernel name."""
-    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.fused_step import fused_run, fused_step
     from repro_torch.kernels.lif_update import (lif_update, lif_update_bwd,
                                                 lif_update_int)
     from repro_torch.kernels.spike_accum import spike_accum
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
-    return {"fused_step": fused_step, "lif_update_int": lif_update_int,
+    return {"fused_run": fused_run, "fused_step": fused_step,
+            "lif_update_int": lif_update_int,
             "lif_update": lif_update, "lif_update_bwd": lif_update_bwd,
             "spike_accum": spike_accum, "wkv6": wkv6, "ssd": ssd}
 
@@ -2031,7 +2226,7 @@ def serve_transformer(name: str, batch: int, dev: torch.device,
     prefill(params, batch_in)                 # warm: not counted, timed
     torch.cuda.synchronize()
     t_prefill_warm = time.perf_counter() - t0
-    PREFILL_WARM_S[name] = t_prefill_warm
+    PREFILL_WARM_S[name] = (t_prefill_warm, cfg.n_layers)
 
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     stacked = _grow_cache(cfg, st, batch, capacity, dev)
@@ -2762,10 +2957,11 @@ def rank_blocks(specs, mesh, dev: torch.device, gen=None):
 
 
 # phase 9's head-split recurrent prefills (rank 0 of FAKE_RANKS: 5 of
-# rwkv6-3b's 40 heads, 14 of zamba2-7b's 112) and the MLA prefill
+# rwkv6-3b's 40 heads, 14 of zamba2-7b's 112; zamba2-7b cut to 6 layers,
+# one shared-block period, for the run's time limit) and the MLA prefill
 # (deepseek-v3-671b cut to 4 layers, 16 of 128 heads): (arch, batch,
 # depth or None)
-FAKE_RECURRENT = (("rwkv6-3b", 8, None), ("zamba2-7b", 4, None))
+FAKE_RECURRENT = (("rwkv6-3b", 8, None), ("zamba2-7b", 4, 6))
 FAKE_MLA = ("deepseek-v3-671b", 4, 4)
 # one decode step over a capacity-split cache: stablelm-12b's 8 K/V heads
 # divide 8 ranks, so its split (8 K/V heads on 16, the production mesh's
@@ -2904,24 +3100,29 @@ def check_fake_counts(name: str, r: dict) -> float:
     return ratio
 
 
-def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
-                        strat, dev: torch.device, smi: str) -> dict:
-    """9d. Rank 0's full-width prefill of a recurrent arch on its head
-    shard: the chunked run (``kernels=False``) counted on meta and on the
-    card (FLOPs equal, peak within PEAK_TOL); the kernel run with the
-    counts set to 0 just before and read just after (one launch of the
-    arch's kernel per layer, on this rank's heads); every layer of a
-    kernel run held to the chunked path on the same input within LM_TOL
-    (:func:`layerwise`) and each launch's own outputs to the chunked form
-    within KERNEL_REL (:func:`against_chunked`), and the two whole runs'
-    states compared (reported). The gathered leaves are held whole over
-    "model" (:func:`whole_over_model`) and the fake all-reduces leave
-    each partial sum as it is, so both runs read the same values."""
+def fake_rank_recurrent(name: str, batch: int, layers: int | None,
+                        meshes: dict, rules: dict, strat, dev: torch.device,
+                        smi: str) -> dict:
+    """9d. Rank 0's full-width prefill of a recurrent arch (its depth cut
+    to ``layers`` if given) on its head shard: the chunked run
+    (``kernels=False``) counted on meta and on the card (FLOPs equal,
+    peak within PEAK_TOL); the kernel run with the counts set to 0 just
+    before and read just after (one launch of the arch's kernel per
+    layer, on this rank's heads); every layer of a kernel run held to
+    the chunked path on the same input within LM_TOL (:func:`layerwise`)
+    and each launch's own outputs to the chunked form within KERNEL_REL
+    (:func:`against_chunked`), and the two whole runs' states compared
+    (reported). The gathered leaves are held whole over "model"
+    (:func:`whole_over_model`) and the fake all-reduces leave each
+    partial sum as it is, so both runs read the same values."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.distributed.tensor_parallel import mesh_plan, ssm_heads
     from repro_torch.train.steps import make_prefill_step
 
     cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     kernel = "wkv6" if cfg.family == "ssm" else "ssd"
     plan = mesh_plan(cfg, rules["cuda"])
     expect(plan.heads, f"{name}: its heads do not split over "
@@ -2969,7 +3170,9 @@ def fake_rank_recurrent(name: str, batch: int, meshes: dict, rules: dict,
     own = (sorted(site) == ["state", "y"]
            and all(n == cfg.n_layers and share <= KERNEL_REL
                    for share, n, _ in site.values()))
-    print(f"  {name} prefill (full width and depth, B = {batch}, S = "
+    depth = (f"cut to {cfg.n_layers} layers" if layers is not None
+             else "full depth")
+    print(f"  {name} prefill (full width, {depth}, B = {batch}, S = "
           f"{LM_PROMPT}, prefill_32k's rules {strat.name}) as rank 0 of "
           f"{FAKE_RANKS}: {heads} of {ssm_heads(cfg)} heads, {kernel} "
           f"launched {launched[kernel]} times on [B, S, {heads}, "
@@ -3339,7 +3542,8 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
               f"{warm * 1e3:.1f} ms (runs "
               f"{', '.join(f'{t * 1e3:.1f}' for t in secs)}) against phase "
               f"7's whole-model prefill "
-              + (f"{whole * 1e3:.1f} ms" if whole else "(not run)")
+              + (f"{whole[0] * 1e3:.1f} ms at {whole[1]} layers" if whole
+                 else "(not run)")
               + f"; meta analysis {r['t_meta']:.1f} s; {breakdown}; card: "
               f"{smi}")
         del r
@@ -3395,10 +3599,10 @@ def fake_group_prefill(dev: torch.device, smi: str) -> dict:
         torch.cuda.empty_cache()
         took(f"9c's {cb} prefill", t0)
         no_launches(f"the {name}, {mla} and {cb} fake-group prefills")
-        for arch, b, _ in FAKE_RECURRENT:
+        for arch, b, layers in FAKE_RECURRENT:
             t0 = time.perf_counter()
-            got = fake_rank_recurrent(arch, b, meshes, rules, strat, dev,
-                                      smi)
+            got = fake_rank_recurrent(arch, b, layers, meshes, rules, strat,
+                                      dev, smi)
             launched.update({k: launched.get(k, 0) + n
                              for k, n in got.items()})
             took(f"9d's {arch} prefill", t0)
@@ -4286,8 +4490,6 @@ def phase_back_end(smi: str) -> dict[str, int]:
                                   packet_stats, random_graph)
     from repro_torch.core.passes import (build_report, lower_pass,
                                          schedule_pass, validate_pass)
-    from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.lif_update import lif_update_int
     from repro_torch.serve import ProgramRegistry
 
     path = GOLDEN / "shd_program_v1.npz"
@@ -4345,7 +4547,7 @@ def phase_back_end(smi: str) -> dict[str, int]:
           f"lowering, report and saved arrays equal the golden's, "
           f"content_hash {SHD_HASH}")
     # (c) the other two strategies, verified and run on both kernel tiers
-    launches = {"fused_step": 0, "lif_update_int": 0}
+    launches = dict.fromkeys(SNN_KERNELS, 0)
     ext = np.concatenate([io["ext"]] * (SERVE_BATCH // len(io["ext"])))
     want = tuple(np.concatenate([io[k]] * (SERVE_BATCH // len(io["ext"])))
                  for k in ("spikes", "v_final", "packet_counts"))
@@ -4365,13 +4567,13 @@ def phase_back_end(smi: str) -> dict[str, int]:
         expect(same_run(ref, want[:2] + (packet_stats(want[2]),)),
                f"{method}: the reference tier differs from the golden's "
                f"recorded io")
-        for k, n in _counted_tiers(prog, ext, ref, method).items():
+        for k, n in _counted_tiers(prog, ext, ref, method, "run").items():
             launches[k] += n
     print(f"back end strategies: OT depth {depths}; consecutive and "
           f"load_balance verify clean and run B={SERVE_BATCH} "
-          f"T={TIMESTEPS} on the fused and lif tiers with {TIMESTEPS} "
-          f"launches a run, bit-exact with the reference tier and the "
-          f"golden's recorded io")
+          f"T={TIMESTEPS} on the fused tier (one fused_run a run) and the "
+          f"lif tier ({TIMESTEPS} launches a run), bit-exact with the "
+          f"reference tier and the golden's recorded io")
     # (d) the verifier on both goldens, and its host time at SHD scale
     for name in ("tiny", "shd"):
         vr = Program.load(GOLDEN / f"{name}_program_v1.npz").verify()
@@ -4403,7 +4605,7 @@ def phase_back_end(smi: str) -> dict[str, int]:
     t_b = bad_send.tables
     t_b.send_slot[max(t_b.send_slot, key=t_b.send_slot.__getitem__)] = 0
     for code, mutant in (("MEM002", bad), ("SCHED006", bad_send)):
-        before = (fused_step.launches, lif_update_int.launches)
+        before = snn_counts()
         try:
             registry.register(code, mutant, verify=True, precompile=policy,
                               timesteps=TIMESTEPS)
@@ -4411,8 +4613,7 @@ def phase_back_end(smi: str) -> dict[str, int]:
         except ValueError as e:
             refused = str(e)
         expect(code in refused and code not in registry
-               and not mutant._engines
-               and (fused_step.launches, lif_update_int.launches) == before,
+               and not mutant._engines and snn_counts() == before,
                f"mutant {code}: not refused before capture ({refused!r})")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     cli = [sys.executable, "-m", "repro_torch.analysis.verify"]
@@ -4478,27 +4679,61 @@ def _same_arrays(a: dict, b: dict) -> bool:
         and a[k].tobytes() == b[k].tobytes() for k in a)
 
 
-def _counted_tiers(prog, ext, want, what: str, tiers=("fused", "lif")
-                   ) -> dict[str, int]:
+SNN_KERNELS = ("fused_run", "fused_step", "lif_update_int")
+
+
+def tier_launches(engine, runs: int, t_steps: int) -> dict[str, int]:
+    """The SNN kernels' launches for ``runs`` runs of ``t_steps`` steps on
+    ``engine``'s tier: the fused tier launches one ``fused_run`` a run
+    where its shape rule says "run" and one ``fused_step`` a step where
+    it says "step"; the lif tier one ``lif_update_int`` a step."""
+    want = dict.fromkeys(SNN_KERNELS, 0)
+    if engine.fused_path == "run":
+        want["fused_run"] = runs
+    elif engine.fused_path == "step":
+        want["fused_step"] = runs * t_steps
+    else:
+        want["lif_update_int"] = runs * t_steps
+    return want
+
+
+def snn_counts() -> dict[str, int]:
+    kernels = counters()
+    return {k: kernels[k].launches for k in SNN_KERNELS}
+
+
+def zero_snn_counts() -> None:
+    kernels = counters()
+    for k in SNN_KERNELS:
+        kernels[k].launches = 0
+
+
+def _counted_tiers(prog, ext, want, what: str, path: str,
+                   tiers=("fused", "lif")) -> dict[str, int]:
     """Run ``prog`` on each kernel tier with the counts set to 0 just
-    before and read just after: exactly T launches of the tier's kernel
-    and none of the other, bit-exact with ``want``. Returns the
-    launches by kernel."""
+    before and read just after: the fused engine's shape rule must give
+    ``path`` ("run" for an SHD-shaped plane, "step" for one that does not
+    fit a cluster), and each tier exactly the launches ``tier_launches``
+    gives for one run (one ``fused_run``, or T ``fused_step`` on the
+    step path; T ``lif_update_int``) and none of the others, bit-exact
+    with ``want``. Returns the launches by kernel."""
     from repro_torch.core import ExecutionSpec
-    from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.lif_update import lif_update_int
-    launches = {"fused_step": 0, "lif_update_int": 0}
+    launches = dict.fromkeys(SNN_KERNELS, 0)
     steps = ext.shape[-2]
     for tier in tiers:
-        kernel, other = {"fused": (fused_step, lif_update_int),
-                         "lif": (lif_update_int, fused_step)}[tier]
-        kernel.launches = other.launches = 0
-        got = prog.run(ext, ExecutionSpec(kernel=tier))
-        n_k, n_o = kernel.launches, other.launches
-        expect(n_k == steps and n_o == 0,
-               f"{what} {tier}: {n_k} launches (and {n_o} of the other "
-               f"kernel), want {steps}")
-        launches[kernel.__name__] += n_k
+        spec = ExecutionSpec(kernel=tier)
+        engine = prog.engine(spec)
+        if tier == "fused":
+            expect(engine.fused_path == path, f"{what}: fused path "
+                   f"{engine.fused_path!r}, want {path!r}")
+        expected = tier_launches(engine, 1, steps)
+        zero_snn_counts()
+        got = prog.run(ext, spec)
+        n = snn_counts()
+        expect(n == expected, f"{what} {tier}: launches {n}, want "
+                              f"{expected}")
+        for k, c in n.items():
+            launches[k] += c
         expect(same_run(got, want), f"{what} {tier}: differs from the "
                                     f"reference tier")
     return launches
@@ -4567,7 +4802,7 @@ def phase_compile(smi: str) -> dict[str, int]:
                                   compile, packet_stats, random_graph)
     from repro_torch.launch import serve_snn
 
-    launches = {"fused_step": 0, "lif_update_int": 0}
+    launches = dict.fromkeys(SNN_KERNELS, 0)
 
     def add(counts):
         for k, n in counts.items():
@@ -4598,13 +4833,13 @@ def phase_compile(smi: str) -> dict[str, int]:
         ref = shd.run(ext, ExecutionSpec(kernel="reference"))
         expect(same_run(ref, want), "compiled SHD: the reference tier "
                                     "differs from the recorded io")
-        add(_counted_tiers(shd, ext, want, "compiled SHD"))
+        add(_counted_tiers(shd, ext, want, "compiled SHD", "run"))
         print(f"compile shd (host of the card's machine): {shd_s!r} s, "
               f"phases {shd.report.phase_seconds}; arrays and header (but "
               f"for wall times) equal the golden's, content_hash "
               f"{SHD_HASH}; B={SERVE_BATCH} T={TIMESTEPS} on the fused and "
-              f"lif tiers bit-exact with the recorded io, {TIMESTEPS} "
-              f"launches a run [{smi}]")
+              f"lif tiers bit-exact with the recorded io, fused path "
+              f"{shd.engine().fused_path!r} [{smi}]")
 
         # (b) the portfolio, inline and over a spawn pool with CUDA live
         expect(torch.cuda.is_initialized(), "CUDA not live before the pool")
@@ -4641,7 +4876,7 @@ def phase_compile(smi: str) -> dict[str, int]:
         pool_s = time.perf_counter() - t0
         expect(not any(cuda_up), "a spawned compile worker brought up CUDA")
         ref = one.run(ext, ExecutionSpec(kernel="reference"))
-        add(_counted_tiers(one, ext, ref, "portfolio winner"))
+        add(_counted_tiers(one, ext, ref, "portfolio winner", "run"))
         sel = one.report.search.selected
         print(f"compile portfolio (host): workers=1 {timed['inline']!r} "
               f"s, workers={PORTFOLIO_WORKERS} (spawn, CUDA live in this "
@@ -4679,7 +4914,9 @@ def phase_compile(smi: str) -> dict[str, int]:
         ext_big = (rng.random((SERVE_BATCH, TIMESTEPS, big.n_inputs))
                    < 0.1).astype(np.int32)
         ref = big.run(ext_big, ExecutionSpec(kernel="reference"))
-        add(_counted_tiers(big, ext_big, ref, "scale", tiers=("fused",)))
+        add(_counted_tiers(big, ext_big, ref, "scale", "step",
+                           tiers=("fused",)))
+        big_path = big.engine(ExecutionSpec(kernel="fused")).fused_path
         ic = big.inter_chip_counts(ext_big, ref[0])
         prof = big.profile(ref[2], inter_chip_counts=ic)
         print(f"compile scale (10^5 synapses, multilevel, 4 chips, host, "
@@ -4690,8 +4927,10 @@ def phase_compile(smi: str) -> dict[str, int]:
               f"{big.report.phase_seconds}; feasible, OT depth "
               f"{big.ot_depth}, content_hash {SCALE_HASH}, verify clean; "
               f"B={SERVE_BATCH} T={TIMESTEPS} on the fused tier (2000 x "
-              f"1500 int8) bit-exact with the reference tier, {TIMESTEPS} "
-              f"launches; CycleModel on 4 chips (modeled FPGA figures, not "
+              f"1500 int8, fused path {big_path!r}: "
+              f"{tier_launches(big.engine(), 1, TIMESTEPS)}) bit-exact with "
+              f"the reference tier; CycleModel on 4 chips (modeled FPGA "
+              f"figures, not "
               f"card times): latency {prof.latency_us!r} us, energy "
               f"{prof.energy_mj!r} mJ a request, {int(ic.sum())} "
               f"inter-chip hops [{smi}]")
@@ -4721,8 +4960,6 @@ def phase_serve() -> dict[str, int]:
     """Serve the SHD-scale artifact on the fused and lif tiers; return
     each kernel's launches in the run of its tier."""
     from repro_torch.core import ExecutionSpec
-    from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.lif_update import lif_update_int
     from repro_torch.serve import BatchPolicy, MicroBatcher, ProgramRegistry
 
     policy = BatchPolicy(max_batch=SERVE_BATCH)
@@ -4736,27 +4973,28 @@ def phase_serve() -> dict[str, int]:
     arrivals = np.cumsum(rng.exponential(1000.0, N_REQUESTS))
     s_ref, v_ref, st_ref = program.run(requests,
                                        ExecutionSpec(kernel="reference"))
-    launches = {}
+    launches = dict.fromkeys(SNN_KERNELS, 0)
     for tier, runner in (("fused", registry.runner("shd")),
                          ("lif", registry.runner(
                              "shd", ExecutionSpec(kernel="lif")))):
         if tier == "lif":                  # warm before the counted run
             runner.precompile(policy.buckets, TIMESTEPS)
         batcher = MicroBatcher(policy, runner=runner, service_model=None)
-        fused_step.launches = lif_update_int.launches = 0
+        engine = program.engine(ExecutionSpec(kernel=tier))
+        expect(tier == "lif" or engine.fused_path == "run",
+               f"serve: the SHD artifact's fused path is "
+               f"{engine.fused_path!r}, want 'run'")
+        zero_snn_counts()
         t0 = time.perf_counter()
         res = batcher.drain(arrivals, requests)
         wall = time.perf_counter() - t0
-        counts = {"fused_step": fused_step.launches,
-                  "lif_update_int": lif_update_int.launches}
-        kernel = "fused_step" if tier == "fused" else "lif_update_int"
-        other = "lif_update_int" if tier == "fused" else "fused_step"
-        steps = len(res.batches) * TIMESTEPS
+        counts = snn_counts()
+        want = tier_launches(engine, len(res.batches), TIMESTEPS)
+        kernel = "fused_run" if tier == "fused" else "lif_update_int"
         expect(res.n_served == N_REQUESTS, f"{tier}: {res.n_shed} shed")
-        expect(counts[kernel] == steps,
-               f"{tier}: {kernel} launched {counts[kernel]} times, want "
-               f"{len(res.batches)} batches x {TIMESTEPS} = {steps}")
-        expect(counts[other] == 0, f"{tier}: {other} launched too")
+        expect(counts == want,
+               f"{tier}: launches {counts}, want {want} for "
+               f"{len(res.batches)} batches of T = {TIMESTEPS}")
         s, v, pk = res.outputs
         expect(np.array_equal(s, s_ref) and np.array_equal(v, v_ref)
                and np.array_equal(pk, st_ref["packet_counts"]),
@@ -4770,7 +5008,8 @@ def phase_serve() -> dict[str, int]:
               f"throughput {m['throughput_rps']:.1f} req/s "
               f"(simulated arrivals, measured service); wall {wall:.3f} s; "
               f"outputs match the reference tier")
-        launches[kernel] = counts[kernel]
+        for k, n in counts.items():
+            launches[k] += n
         # the engine's time per timestep at the serving batch, warm: a
         # run ends in the copy of its outputs to the host
         runner(requests[:SERVE_BATCH])
@@ -4818,18 +5057,16 @@ def phase_sharded() -> None:
     the SHD-scale artifact at B in SHARD_BATCHES, T = TIMESTEPS, on the
     fused and lif tiers: bit-exact with ``program.run`` on one engine
     and the reference tier; ``precompile`` captures each per-shard size
-    once; a two-shard run launches the tier's kernel T times per shard
-    (the counts set to 0 just before each run and read just after)."""
+    once; a two-shard run launches one ``fused_run`` (fused) or T
+    ``lif_update_int`` (lif) per shard (the counts set to 0 just before
+    each run and read just after)."""
     from repro_torch.core import ExecutionSpec, Program
-    from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.lif_update import lif_update_int
     from repro_torch.serve import ShardedRunner
     program = Program.load(GOLDEN / "shd_program_v1.npz")
     rng = np.random.default_rng(6)
     reference = ExecutionSpec(kernel="reference")
     cards = tuple(f"cuda:{i}" for i in range(torch.cuda.device_count()))
-    for tier, kernel, other in (("fused", fused_step, lif_update_int),
-                                ("lif", lif_update_int, fused_step)):
+    for tier in ("fused", "lif"):
         one = ExecutionSpec(kernel=tier)
         auto = ExecutionSpec(kernel=tier, mesh="auto")
         two = ShardedRunner(program, spec=ExecutionSpec(
@@ -4851,12 +5088,12 @@ def phase_sharded() -> None:
             ext = (rng.random((b, TIMESTEPS, program.n_inputs))
                    < 0.1).astype(np.int32)
             want = program.run(ext, reference)
-            kernel.launches = other.launches = 0
+            expected = tier_launches(engine, 2, TIMESTEPS)
+            zero_snn_counts()
             got = two.run(ext)
-            counts = (kernel.launches, other.launches)
-            expect(counts == (2 * TIMESTEPS, 0),
-                   f"sharded {tier} B={b}: launches {counts}, want "
-                   f"({2 * TIMESTEPS}, 0)")
+            counts = snn_counts()
+            expect(counts == expected, f"sharded {tier} B={b}: launches "
+                                       f"{counts}, want {expected}")
             for what, res in (("two shards", got),
                               ("mesh=auto", program.run(ext, auto)),
                               ("one engine", program.run(ext, one))):
@@ -4875,8 +5112,9 @@ def phase_sharded() -> None:
 
         print(f"sharded {tier}: two shards on cuda:0 (min_shard=0) and "
               f"mesh=auto {cards} equal one engine and the reference tier at "
-              f"B={SHARD_BATCHES}, T={TIMESTEPS}, {2 * TIMESTEPS} launches "
-              f"per two-shard run; run at B={SERVE_BATCH}, graphed (warm, 5 runs, "
+              f"B={SHARD_BATCHES}, T={TIMESTEPS}, launches per two-shard "
+              f"run {tier_launches(engine, 2, TIMESTEPS)}; run at "
+              f"B={SERVE_BATCH}, graphed (warm, 5 runs, "
               f"host clock): two shards {run_ms(two.run)!r} ms, one engine "
               f"{run_ms(engine.run)!r} ms")
 
@@ -4885,12 +5123,11 @@ def phase_async_server() -> None:
     """``AsyncServer`` in engine mode on the registry's precompiled fused
     engine: N_REQUESTS seeded SHD requests submitted concurrently, every
     output bit-exact with ``program.run`` on the same request, every
-    stage sum equal to the latency, the kernel launched T times per
-    batch (the count set to 0 just before and read just after). Two
+    stage sum equal to the latency, one ``fused_run`` launched per batch
+    (the counts set to 0 just before and read just after). Two
     rounds, each a new server: the first batch of a round runs in a new
     executor thread."""
     import asyncio
-    from repro_torch.kernels.fused_step import fused_step
     from repro_torch.serve import (AsyncServer, BatchPolicy, ProgramRegistry,
                                    Request)
     policy = BatchPolicy(max_batch=SERVE_BATCH, max_wait_us=2000.0)
@@ -4913,12 +5150,14 @@ def phase_async_server() -> None:
 
     want = [program.run(r) for r in reqs]
     for round_ in (1, 2):
-        fused_step.launches = 0
+        zero_snn_counts()
         done, m, wall = asyncio.run(serve())
-        launches = fused_step.launches
+        launches = snn_counts()
         batches = m["models"]["shd"]["batches"]
-        expect(launches == batches * TIMESTEPS,
-               f"async: {launches} fused_step launches for {batches} batches")
+        want_n = tier_launches(program.engine(), batches, TIMESTEPS)
+        expect(launches == want_n and program.engine().fused_path == "run",
+               f"async: launches {launches} for {batches} batches, want "
+               f"{want_n}")
         expect(sorted(c.stream for c in done) == list(range(N_REQUESTS)),
                "async: a request was lost")
         for c in done:
@@ -4935,7 +5174,7 @@ def phase_async_server() -> None:
         t, st = m["total"], m["total"]["stages_us"]
         print(f"async server round {round_} (engine mode, fused tier, "
               f"graphed buckets): {N_REQUESTS} concurrent SHD requests in "
-              f"{batches} batches, {launches} fused_step launches; p50 "
+              f"{batches} batches, launches {launches}; p50 "
               f"{t['p50_ms']!r} ms p99 {t['p99_ms']!r} ms "
               f"{t['throughput_rps']!r} req/s (real clock, wall {wall:.3f} s);"
               f" stages (us) queue {st['queue_wait']:.1f} fill "
@@ -5057,22 +5296,24 @@ def phase_graphs(smi: str) -> None:
     """Each kernel tier's CUDA-graphed loop (``precompile``) against its
     eager loop and the reference tier on the SHD-scale artifact, at
     every bucket of the serving policy and at T in {TIMESTEPS, ODD_T}:
-    bit-exact, T launches counted per replay, re-``precompile`` a no-op,
-    an uncaptured shape run eagerly; then the warm time per timestep at
-    B = SERVE_BATCH, graphed and eager interleaved."""
+    bit-exact, one ``fused_run`` (fused; the SHD plane fits) or T
+    ``lif_update_int`` (lif) launches counted per replay and per eager
+    run, re-``precompile`` a no-op, an uncaptured shape run eagerly; then
+    the warm time per timestep at B = SERVE_BATCH, graphed and eager
+    interleaved."""
     from repro_torch.core import ExecutionSpec, Program, TorchMappedEngine
-    from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.lif_update import lif_update_int
     from repro_torch.serve import BatchPolicy
     buckets = BatchPolicy(max_batch=SERVE_BATCH).buckets
     program = Program.load(GOLDEN / "shd_program_v1.npz")
     rng = np.random.default_rng(5)
     reference = ExecutionSpec(kernel="reference")
-    for tier, kernel, other in (("fused", fused_step, lif_update_int),
-                                ("lif", lif_update_int, fused_step)):
+    for tier in ("fused", "lif"):
         spec = ExecutionSpec(kernel=tier)
         graphed = program.engine(spec)
         eager = TorchMappedEngine(program.graph, program.lowered, spec)
+        expect(tier == "lif" or graphed.fused_path == eager.fused_path
+               == "run", f"graphs: fused path {graphed.fused_path!r}, want "
+                         f"'run'")
         for t_steps in (TIMESTEPS, ODD_T):
             t0 = time.perf_counter()
             new = graphed.precompile(buckets, t_steps)
@@ -5085,15 +5326,21 @@ def phase_graphs(smi: str) -> None:
                 ext = (rng.random((b, t_steps, program.n_inputs))
                        < 0.1).astype(np.int32)
                 want = program.run(ext, reference)
-                kernel.launches = other.launches = 0
+                expected = tier_launches(graphed, 1, t_steps)
+                zero_snn_counts()
                 got = graphed.run(ext)
-                expect(kernel.launches == t_steps and other.launches == 0,
-                       f"{tier} B={b} T={t_steps}: {kernel.launches} "
-                       f"launches, want {t_steps}")
+                counts = snn_counts()
+                expect(counts == expected, f"{tier} B={b} T={t_steps}: "
+                       f"graphed launches {counts}, want {expected}")
                 expect(((b, t_steps) in graphed._graphs) == (b != 3),
                        f"{tier}: B={b} T={t_steps} graphed state")
+                zero_snn_counts()
+                eager_got = eager.run(ext)
+                expect(snn_counts() == expected, f"{tier} B={b} "
+                       f"T={t_steps}: eager launches {snn_counts()}, want "
+                       f"{expected}")
                 for what, a, e, r in zip(("spikes", "v_final"), got,
-                                         eager.run(ext), want):
+                                         eager_got, want):
                     expect(np.array_equal(a, e) and np.array_equal(a, r),
                            f"{tier} B={b} T={t_steps}: graphed {what} "
                            f"differs from eager or the reference tier")
@@ -5102,8 +5349,9 @@ def phase_graphs(smi: str) -> None:
                        f"{tier} B={b} T={t_steps}: packet counts differ")
             print(f"graphs {tier} T={t_steps}: captured buckets {buckets} "
                   f"in {cap_s:.3f} s; graphed runs equal eager and the "
-                  f"reference tier at every bucket, {t_steps} launches per "
-                  f"replay; B=3 (not captured) ran eagerly")
+                  f"reference tier at every bucket, launches per replay "
+                  f"and per eager run {tier_launches(graphed, 1, t_steps)}; "
+                  f"B=3 (not captured) ran eagerly")
         # warm time per timestep at the serving batch, graphed and eager
         # in turns; a run ends in the copy of its outputs to the host
         ext = (rng.random((SERVE_BATCH, TIMESTEPS, program.n_inputs))
@@ -5137,7 +5385,6 @@ def check_failed_capture() -> None:
     """A capture that fails raises, and leaves no graph behind: a loop
     that copies to the host inside the capture is not capturable."""
     from repro_torch.core import ExecutionSpec, Program
-    from repro_torch.kernels.fused_step import fused_step
     program = Program.load(GOLDEN / "tiny_program_v1.npz")
     eng = program.engine(ExecutionSpec(kernel="fused"))
     run_card = eng._run_card
@@ -5147,7 +5394,7 @@ def check_failed_capture() -> None:
         buf.v.cpu()                        # a host copy: not capturable
 
     eng._run_card = syncing
-    before = fused_step.launches
+    zero_snn_counts()
     try:
         eng.precompile((2,), 5)
     except RuntimeError as e:
@@ -5155,8 +5402,10 @@ def check_failed_capture() -> None:
     else:
         err = None
     expect(err is not None, "a failed capture did not raise")
-    expect(not eng._graphs and fused_step.launches == before + 5,
-           "a failed capture left a graph or counted its launches")
+    # the warm run before the capture counts; the capture's do not
+    expect(not eng._graphs and snn_counts() == tier_launches(eng, 1, 5),
+           f"a failed capture left a graph or counted its launches: "
+           f"{snn_counts()}")
     eng._run_card = run_card
     torch.cuda.synchronize()
     print(f"failed capture raised {type(err).__name__}: "
@@ -5165,13 +5414,12 @@ def check_failed_capture() -> None:
 
 def check_no_internal_neurons() -> None:
     """A program with no internal neuron (4 inputs, no synapse) on the
-    card: the fused and lif tiers and the public ``fused_step`` give each
-    step's non-zero external spikes as its packet count, and launch no
-    kernel (there is no neuron work)."""
+    card: the fused and lif tiers and the public ``fused_step`` and
+    ``fused_run`` give each step's non-zero external spikes as its packet
+    count, and launch no kernel (there is no neuron work)."""
     from repro_torch.core import ExecutionSpec, SNNGraph, TorchMappedEngine
     from repro_torch.core.scheduling import LoweredProgram
-    from repro_torch.kernels.fused_step import fused_step
-    from repro_torch.kernels.lif_update import lif_update_int
+    from repro_torch.kernels.fused_step import fused_run, fused_step
     from repro_torch.snn.lif import LIFIntParams
     none = np.zeros(0, np.int32)
     g = SNNGraph(n_inputs=4, n_neurons=4, pre=none, post=none, weight=none,
@@ -5183,7 +5431,7 @@ def check_no_internal_neurons() -> None:
                         op_post_end=np.zeros(0, bool),
                         routing=np.zeros((4, 1), bool))
     ext = np.random.default_rng(3).integers(-2, 3, (3, 7, 4)).astype(np.int32)
-    before = (fused_step.launches, lif_update_int.launches)
+    before = snn_counts()
     for tier in ("fused", "lif"):
         eng = TorchMappedEngine(g, lw, ExecutionSpec(kernel=tier))
         for e in (np.ones((2, 3, 4), np.int32), ext):
@@ -5202,11 +5450,16 @@ def check_no_internal_neurons() -> None:
                g.lif, pkt_out=pkt)
     expect(pkt.tolist() == (ext[:, 0] != 0).sum(-1).tolist(),
            f"no internal neurons, fused_step: packets {pkt.tolist()}")
-    expect((fused_step.launches, lif_update_int.launches) == before,
+    ext_run = torch.from_numpy(ext.transpose(1, 0, 2).copy()).to(dev)
+    _, _, pkts = fused_run(ext_run, torch.zeros((4, 0), dtype=torch.int16,
+                                                device=dev), g.lif)
+    expect(pkts.tolist() == (ext != 0).sum(-1).T.tolist(),
+           f"no internal neurons, fused_run: packets {pkts.tolist()}")
+    expect(snn_counts() == before,
            "no internal neurons: a kernel was launched")
     print("no internal neurons (4 inputs, no synapse): the fused and lif "
-          "tiers and fused_step count each step's non-zero external "
-          "spikes, e.g. [[4, 4, 4], [4, 4, 4]] for all-one spikes")
+          "tiers, fused_step and fused_run count each step's non-zero "
+          "external spikes, e.g. [[4, 4, 4], [4, 4, 4]] for all-one spikes")
 
 
 # the paper's two experiments end to end (phase 12): BPTT steps of each
@@ -5271,10 +5524,13 @@ def paper_net(name: str, cfg, hw, qcfg, max_iters: int, train_args: dict,
     dep, got, t_deploy = counted(deploy, params, cfg, hw, qcfg, ext,
                                  labels=labels, spec=fused,
                                  max_iters=max_iters)
-    want = launches_of(fused_step=t_steps)
-    expect(got == want, f"{name} deploy launched {got}, want {want} (T "
-           f"fused_step launches for one batch run)")
     program, card = dep["program"], dep["outputs"]
+    engine = program.engine(fused)
+    expect(engine.fused_path == "run", f"{name}: fused path "
+           f"{engine.fused_path!r}, want 'run'")
+    want = launches_of(**tier_launches(engine, 1, t_steps))
+    expect(got == want, f"{name} deploy launched {got}, want {want} (one "
+           f"fused_run for one batch run)")
     sec = {"train": t_train, **dep["seconds"]}
     t0 = time.perf_counter()
     oracle = program.run(ext, ExecutionSpec(engine="oracle", device="cpu"))
@@ -5295,9 +5551,9 @@ def paper_net(name: str, cfg, hw, qcfg, max_iters: int, train_args: dict,
                  program.run(ext, fused)))
     expect(same_run(graphed, card), f"{name}: the graphed run at B = "
            f"{len(ext)} differs from the eager one")
-    expect(got["fused_step"] == 2 * t_steps and got["lif_update_int"] == 0,
-           f"{name}: precompile + one replay launched {got}, want "
-           f"{2 * t_steps} fused_step (the warm run, the replay)")
+    want = launches_of(**tier_launches(engine, 2, t_steps))
+    expect(got == want, f"{name}: precompile + one replay launched {got}, "
+           f"want {want} (the warm run, the replay)")
 
     n_py = PAPER_PYTHON_SAMPLES
     t0 = time.perf_counter()
@@ -5337,18 +5593,19 @@ def paper_net(name: str, cfg, hw, qcfg, max_iters: int, train_args: dict,
         f"{k} {v:.3f}" for k, v in sec.items()) + f" (run with its "
           f"copies; deploy {t_deploy:.3f}) on {smi}")
     counts = train_counts(steps, cfg, per_fwd, 1)
-    counts["fused_step"] = 3 * t_steps
+    counts.update(tier_launches(engine, 3, t_steps))
     return counts
 
 
 def paper_quickstart() -> dict:
     """``launch.quickstart.main`` on the card: its asserts hold, and the
-    fused tier launches T at each of its eager run, precompile's warm run
-    and the replay, the lif tier T at its run."""
+    fused tier launches one ``fused_run`` at each of its eager run,
+    precompile's warm run and the replay (the toy plane fits), the lif
+    tier T at its run."""
     from repro_torch.launch import quickstart
     out, got, sec = counted(quickstart.main, [])
     t_steps = 20
-    want = launches_of(fused_step=3 * t_steps, lif_update_int=t_steps)
+    want = launches_of(fused_run=3, lif_update_int=t_steps)
     expect(got == want, f"quickstart launched {got}, want {want}")
     expect(out["device"].startswith("cuda"), f"quickstart ran on "
            f"{out['device']}")
@@ -5454,6 +5711,8 @@ def main() -> int:
     meta = {
         "fused_step": ("src/repro_torch/kernels/csrc/fused_step.cu",
                        "src/repro/kernels/fused_step.py:122"),
+        "fused_run": ("src/repro_torch/kernels/csrc/fused_run.cu",
+                      "src/repro/kernels/fused_step.py:122"),
         "lif_update_int": ("src/repro_torch/kernels/csrc/lif_update.cu",
                            "src/repro/kernels/lif_update.py:76"),
         "spike_accum": ("src/repro_torch/kernels/csrc/spike_accum.cu",

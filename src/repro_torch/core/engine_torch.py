@@ -6,8 +6,10 @@ T timesteps with a leading batch dimension. Each timestep is one of
 three **kernel tiers**, selected by
 :class:`~repro_torch.core.execution.ExecutionSpec`:
 
-* ``"fused"`` (default) — the whole timestep in ONE kernel launch over
-  the packed dense weight plane (:mod:`repro_torch.kernels.fused_step`);
+* ``"fused"`` (default) — the whole run in ONE kernel launch over the
+  packed dense weight plane where the plane fits a cluster's shared
+  memory, else the whole timestep in one launch
+  (:mod:`repro_torch.kernels.fused_step`);
 * ``"lif"`` — ``index_select`` gather + int32 ``index_add_``
   segment-sum over the op stream, then the LIF kernel, the Neuron Unit
   (:func:`repro_torch.kernels.lif_update.lif_update_int`);
@@ -25,9 +27,15 @@ writes the plane it reads, the recurrent race the reference avoids by
 concatenating), ``v`` is updated in place, and the results are copied
 back once at the end. On the card each kernel tier has a step loop of
 its own that launches with no per-step checks or stream lookups, each
-step's pointers offsets into the contiguous ``[T, B, ·]`` buffers: the
-fused tier packs the plane for its kernel once, at build, and launches
-through ``fused_launcher``, one launch per timestep; the ``"lif"`` tier
+step's pointers offsets into the contiguous ``[T, B, ·]`` buffers. The
+fused tier packs the plane for its kernel once, at build, where the
+shape rule (``fused_path``, shown as :attr:`TorchMappedEngine.fused_path`)
+is decided too: ``"run"`` where the packed plane and the staging fit a
+thread-block cluster's shared memory (the SHD and MNIST planes), one
+launch of ``fused_run_launcher`` for all T steps; ``"step"`` where they
+do not (the 10^5-synapse plane), one launch of ``fused_launcher`` per
+timestep. A CPU engine decides and shows the same rule but steps with
+``fused_step``'s plain version on either path. The ``"lif"`` tier
 merges each step into one current plane kept for the whole run, which
 its Neuron Unit (``lif_int_launcher``) drains as it reads it. A program
 with no internal neurons does no neuron work: there a step's packets
@@ -55,7 +63,8 @@ from repro_torch.core.execution import (_NU_KERNEL_TIER, ExecutionSpec,
 from repro_torch.core.graph import SNNGraph
 from repro_torch.core.scheduling import LoweredProgram, OpTables, lower_tables
 from repro_torch.kernels import _build
-from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
+from repro_torch.kernels.fused_step import (fused_launcher, fused_path,
+                                            fused_run_launcher, fused_step,
                                             pack_dense, pack_plane)
 from repro_torch.kernels.launches import count_launch, recording
 from repro_torch.kernels.lif_update import lif_int_launcher, lif_update_int
@@ -142,7 +151,10 @@ class TorchMappedEngine:
 
     Construction lowers the tables and moves the tier's operands (the
     packed weight plane, or the op stream) to ``spec.device``; ``run``
-    then serves any batch of spike trains.
+    then serves any batch of spike trains. ``fused_path`` is the fused
+    tier's shape rule, decided here: ``"run"`` (one ``fused_run`` per
+    run) or ``"step"`` (one ``fused_step`` per timestep); ``None`` on
+    the other tiers.
     """
 
     def __init__(self, g: SNNGraph, tables: OpTables | LoweredProgram,
@@ -154,10 +166,17 @@ class TorchMappedEngine:
         self.lif: LIFIntParams = g.lif
         lw, dev = self.lowered, self.device
         self._launch = self._run_card = None
+        self.fused_path: str | None = None
         if self.spec.kernel == "fused":
             self._weight = torch.from_numpy(pack_dense(lw).weight).to(dev)
             if dev.type == "cuda":      # packed and checked once, here
                 self._weight = pack_plane(self._weight)
+            self.fused_path = fused_path(self._weight, lw.n_inputs)
+            if dev.type == "cuda" and self.fused_path == "run":
+                self._launch = fused_run_launcher(self._weight, self.lif,
+                                                  lw.n_inputs)
+                self._run_card = self._run_whole
+            elif dev.type == "cuda":
                 self._launch = fused_launcher(self._weight, self.lif,
                                               lw.n_inputs)
                 self._run_card = self._run_fused
@@ -196,11 +215,22 @@ class TorchMappedEngine:
             v.copy_(v_next)
             s_out.copy_(s)
 
+    def _run_whole(self, buf: _Buffers) -> None:
+        """The fused tier's ``"run"`` path on the card: one launch runs
+        all T steps from zero state over the buffers of :meth:`_buffers`
+        (contiguous int32 on the device, which is their check)."""
+        t_steps, b, _ = buf.ext_d.shape
+        with _build.on_device(self.device):
+            self._launch(buf.ext_d.data_ptr(), buf.v.data_ptr(),
+                         buf.spikes.data_ptr(), buf.pkts.data_ptr(), b,
+                         t_steps, _build.stream_handle(self.device))
+
     def _run_fused(self, buf: _Buffers) -> None:
-        """The fused tier's step loop on the card. The buffers were made
-        by :meth:`_buffers` (contiguous int32 on the device), which is
-        their check; step ``t`` reads ``ext_d[t]`` and ``spikes[t-1]``
-        and writes ``spikes[t]`` and ``pkts[t]`` at pointer offsets."""
+        """The fused tier's step loop on the card (its ``"step"`` path).
+        The buffers were made by :meth:`_buffers` (contiguous int32 on
+        the device), which is their check; step ``t`` reads ``ext_d[t]``
+        and ``spikes[t-1]`` and writes ``spikes[t]`` and ``pkts[t]`` at
+        pointer offsets."""
         t_steps, b, n_in = buf.ext_d.shape
         n_int = buf.v.shape[1]
         launch, dev = self._launch, self.device
@@ -264,7 +294,11 @@ class TorchMappedEngine:
 
     def _loop(self, buf: _Buffers) -> None:
         """One whole run over ``buf``: the state zeroed, T steps, the
-        packets counted; what a captured graph replays."""
+        packets counted; what a captured graph replays. The card's
+        ``"run"`` path does all three in its one launch."""
+        if self._run_card == self._run_whole and buf.v.numel():
+            self._run_card(buf)
+            return
         buf.v.zero_()
         buf.s_prev.zero_()
         if buf.current is not None:
@@ -306,7 +340,8 @@ class TorchMappedEngine:
         """Prepare each ``(batch, timesteps)`` shape for serving.
 
         On the card the ``"fused"`` and ``"lif"`` tiers capture the
-        shape's whole loop as one CUDA graph, which :meth:`run` replays
+        shape's whole loop as one CUDA graph (on the fused ``"run"``
+        path, its one launch), which :meth:`run` replays
         for a request of that shape; elsewhere the shape is run once on
         zeros (builds the kernels' library, warms the allocator).
         Returns the shapes prepared by THIS call.

@@ -25,7 +25,9 @@ arrays held in memory) and owns its engines:
   over the spec's mesh (:mod:`repro_torch.serve.sharded`), which
   ``program.run(ext, ExecutionSpec(mesh=...))`` goes through;
 * ``program.precompile(buckets, T)`` — on the card, one CUDA graph of
-  the T-step loop per bucket (see
+  the T-step loop per bucket (on the fused tier one ``fused_run``
+  launch where the plane fits a cluster's shared memory, else T
+  ``fused_step`` launches; see
   :meth:`~repro_torch.core.engine_torch.TorchMappedEngine.precompile`).
 
 * ``program.verify()`` — the static verifier's
@@ -247,7 +249,8 @@ class Program:
         ``batch_sizes`` is a :class:`~repro_torch.serve.batcher
         .BatchPolicy` or an iterable of batch sizes; ``timesteps`` fixes
         the T axis. On the card the ``"fused"`` and ``"lif"`` tiers
-        capture one CUDA graph of the T-step loop per shape; elsewhere
+        capture one CUDA graph of the T-step loop per shape (the fused
+        tier's run path: one ``fused_run`` launch); elsewhere
         each shape is run once on zeros. A ``mesh`` spec prepares the
         owned sharded runner's shapes. Returns the shapes prepared by
         this call; idempotent per engine. Also resolves the directory

@@ -1,6 +1,8 @@
 """Port of :mod:`repro.kernels`: hand-written CUDA kernels for Hopper.
 
-* ``fused_step``   — one whole timestep (``csrc/fused_step.cu``);
+* ``fused_step``   — one whole timestep (``csrc/fused_step.cu``), and
+  ``fused_step.fused_run``, all T timesteps of a run in one launch
+  (``csrc/fused_run.cu``);
 * ``lif_update``   — the LIF Neuron Unit, float32 (``lif_update``) and
   int32 (``lif_update_int``) (``csrc/lif_update.cu``);
 * ``spike_accum``  — ``I = S @ W`` with the spike-tile skip

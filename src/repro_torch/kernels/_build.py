@@ -35,6 +35,9 @@ _F = ctypes.c_float
 # C entry point -> argtypes; every pointer and the stream are c_void_p
 SIGNATURES = {
     "suprasnn_fused_step": (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 7 + (_P,),
+    "suprasnn_fused_run": (_P,) * 3 + (_I,) + (_P,) * 3 + (_I,) * 9 + (_P,),
+    "suprasnn_fused_run_plan": (_I,) * 4 + (_P,),
+    "suprasnn_cluster_barriers": (_I, _I, _P),
     "suprasnn_lif_update_int": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _P),
     "suprasnn_lif_update": (_P,) * 5 + (_L, _F, _F, _F, _P),
     "suprasnn_lif_update_bwd": (_P,) * 7 + (_L, _F, _F, _I, _P),

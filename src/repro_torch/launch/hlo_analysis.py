@@ -211,14 +211,14 @@ class CostMode(TorchDispatchMode):
 
 def _kernel_counters() -> dict:
     """Every kernel wrapper's launch counter, by name."""
-    from repro_torch.kernels.fused_step import fused_step
+    from repro_torch.kernels.fused_step import fused_run, fused_step
     from repro_torch.kernels.lif_update import (lif_update, lif_update_bwd,
                                                 lif_update_int)
     from repro_torch.kernels.spike_accum import spike_accum
     from repro_torch.kernels.ssd import ssd
     from repro_torch.kernels.wkv6 import wkv6
-    fns = (fused_step, lif_update, lif_update_bwd, lif_update_int,
-           spike_accum, ssd, wkv6)
+    fns = (fused_run, fused_step, lif_update, lif_update_bwd,
+           lif_update_int, spike_accum, ssd, wkv6)
     return {f.__name__: f for f in fns}
 
 

@@ -67,9 +67,9 @@ def main(argv=None) -> dict:
           f"  ({prof.energy_per_synapse_nj:.3f} nJ/synapse)"
           f"  BRAMs={prof.resources.brams}")
 
-    # 6. the batched torch engine: 8 spike trains in one call, each
-    #    timestep ONE fused kernel launch (the default tier); the "lif"
-    #    tier gives the same bits
+    # 6. the batched torch engine: 8 spike trains in one call, the whole
+    #    run ONE fused kernel launch (the default tier; the toy plane fits
+    #    a cluster's shared memory); the "lif" tier gives the same bits
     ext_b = (np.random.default_rng(1).random((8, 20, 16)) < 0.3
              ).astype(np.int32)
     s_b, _, stats_b = program.run(ext_b, fused)

@@ -8,6 +8,11 @@ JAX package, so it also runs on a machine that has only torch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
+``fused_run`` (all T steps of a run in one launch) is held to
+``fused_run_ref``, to T ``fused_step`` launches and to its emulation,
+its plan to the Python mirror of its layout, and the fused engine on the
+goldens takes it: one launch a run, eager and graphed.
+
 Every comparison is bit-exact (tolerance 0) but the float LIF step's
 gradient kernel, within rtol 1e-5 / atol 1e-6 of its plain version (the
 sigmoid surrogate's ``exp`` may differ from torch's in the last bits);
@@ -47,9 +52,14 @@ import pytest
 import torch
 
 from repro_torch.core import ExecutionSpec, Program, packet_stats
-from repro_torch.kernels.fused_step import (fused_launcher, fused_step,
+from repro_torch.kernels.fused_step import (fused_launcher, fused_path,
+                                            fused_run, fused_run_emulated,
+                                            fused_run_launcher,
+                                            fused_run_plan, fused_run_ref,
+                                            fused_step,
                                             fused_step_emulated,
-                                            fused_step_ref, pack_plane)
+                                            fused_step_ref, pack_plane,
+                                            run_smem_bytes)
 from repro_torch.kernels.lif_update import (LIFUpdateFn, launch_lif_update,
                                             lif_update, lif_update_bwd,
                                             lif_update_bwd_ref,
@@ -146,6 +156,138 @@ def test_fused_step_kernel_matches_emulation(cuda_device, plane, b):
             assert torch.equal(g.cpu(), wnt)
 
 
+def _snn_counts():
+    return (fused_run.launches, fused_step.launches, lif_update_int.launches)
+
+
+# -- the whole run in one launch (csrc/fused_run.cu) ---------------------------
+
+RUN_T = {1: 7, 3: 2, 8: 100, 9: 13, 17: 5, 64: 37}
+
+
+def _run_case(plane, b, nonbinary, seed=None):
+    n_ext, n_int, dtype, wmax = plane
+    rng = np.random.default_rng(b + 7 if seed is None else seed)
+    w = rng.integers(-wmax - 1, wmax + 1, (n_ext + n_int, n_int)).astype(dtype)
+    ext = (rng.random((RUN_T[b], b, n_ext)) < 0.15).astype(np.int32)
+    if nonbinary:
+        odd = rng.random(ext.shape) < 0.05
+        ext = np.where(odd, rng.choice(ODD_SPIKES, ext.shape), ext)
+    return ext, w
+
+
+@pytest.mark.parametrize("nonbinary", [False, True])
+@pytest.mark.parametrize("plane", PLANES)
+@pytest.mark.parametrize("b", sorted(PARAMS))
+def test_fused_run_kernel(cuda_device, plane, b, nonbinary):
+    """One launch runs all T steps bit for bit as ``fused_run_ref`` and as
+    T ``fused_step`` launches on the same plane, twice; a plane that
+    does not fit a cluster's shared memory is refused."""
+    ext, w = _run_case(plane, b, nonbinary)
+    p = LIFIntParams(*PARAMS[b])
+    dev = cuda_device
+    packed = pack_plane(torch.from_numpy(w).to(dev))
+    ext_d = to_torch(ext, dev)
+    if fused_path(packed, ext.shape[2]) == "step":
+        assert fused_run_plan(packed).clusters == 0
+        with pytest.raises(ValueError, match="does not fit"):
+            fused_run(ext_d, packed, p)
+        return
+    want = fused_run_ref(to_torch(ext), torch.from_numpy(w), p)
+    before = fused_run.launches
+    runs = [fused_run(ext_d, packed, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fused_run.launches == before + 2
+    v = torch.zeros((b, w.shape[1]), dtype=torch.int32, device=dev)
+    s, spikes, pkts = torch.zeros_like(v), [], []
+    for t in range(len(ext)):
+        _, s, pkt = fused_step(ext_d[t], s, v, packed, p)
+        spikes.append(s)
+        pkts.append(pkt)
+    stepped = (torch.stack(spikes), v, torch.stack(pkts))
+    for got in runs + [stepped]:
+        for g, wnt in zip(got, want):
+            assert torch.equal(g.cpu(), wnt)
+
+
+@pytest.mark.parametrize("plane", PLANES[:3])
+@pytest.mark.parametrize("b", [1, 9, 17])
+def test_fused_run_kernel_matches_emulation(cuda_device, plane, b):
+    """The engine's unchecked launch is bit-exact with the CPU emulation
+    of the kernel's decomposition."""
+    ext, w = _run_case(plane, b, nonbinary=True, seed=b + 200)
+    p = LIFIntParams(*PARAMS[b])
+    want = fused_run_emulated(to_torch(ext), pack_plane(torch.from_numpy(w)),
+                              p)
+    dev = cuda_device
+    packed = pack_plane(torch.from_numpy(w).to(dev))
+    ext_d = to_torch(ext, dev)
+    t_steps, _, n_int = want[0].shape
+    spikes = torch.empty((t_steps, b, n_int), dtype=torch.int32, device=dev)
+    v = torch.empty((b, n_int), dtype=torch.int32, device=dev)
+    pkt = torch.empty((t_steps, b), dtype=torch.int32, device=dev)
+    fused_run_launcher(packed, p, ext.shape[2])(
+        ext_d.data_ptr(), v.data_ptr(), spikes.data_ptr(), pkt.data_ptr(), b,
+        t_steps, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    for g, wnt in zip((spikes, v, pkt), want):
+        assert torch.equal(g.cpu(), wnt)
+
+
+@pytest.mark.parametrize("plane", PLANES)
+def test_fused_run_plan_matches_the_mirror(cuda_device, plane):
+    """The kernel's plan and the Python mirror of its layout agree, and
+    the shape rule on the card is the mirror's for these planes."""
+    n_ext, n_int, dtype, _ = plane
+    w = torch.zeros((n_ext + n_int, n_int), dtype=getattr(torch, dtype.__name__))
+    packed = pack_plane(w.to(cuda_device))
+    plan = fused_run_plan(packed)
+    mirror = run_smem_bytes(w.element_size(), n_ext, n_int)
+    assert plan.smem_bytes == mirror
+    assert (plan.clusters >= 1) == (mirror <= 232448)
+    assert fused_path(packed, n_ext) == fused_path(w, n_ext)
+
+
+@pytest.mark.parametrize("name", ["tiny", "shd"])
+def test_fused_run_engine_graphed_equals_eager(cuda_device, name):
+    """The fused engine takes the run path on both goldens: one
+    ``fused_run`` and no ``fused_step`` per run, eager and graphed, and
+    the two agree with the reference tier bit for bit."""
+    prog = Program.load(GOLDEN / f"{name}_program_v1.npz")
+    spec = ExecutionSpec(kernel="fused", device=str(cuda_device))
+    graphed = prog.engine(spec)
+    eager = TorchMappedEngine(prog.graph, prog.lowered, spec)
+    assert graphed.fused_path == eager.fused_path == "run"
+    ext = (np.random.default_rng(14).random((4, 30, prog.n_inputs))
+           < 0.2).astype(np.int32)
+    graphed.precompile((4,), 30)
+    for eng in (graphed, eager):
+        before = _snn_counts()
+        got = eng.run(ext)
+        assert tuple(a - b for a, b in zip(_snn_counts(), before)) \
+            == (1, 0, 0)
+        assert_same_run(got, prog.run(ext, ExecutionSpec(
+            kernel="reference", device=str(cuda_device))), name)
+
+
+def test_fused_run_engine_on_an_empty_batch(cuda_device):
+    """A batch of no trains on the run path launches no kernel and gives
+    the reference tier's empty outputs."""
+    prog = Program.load(GOLDEN / "shd_program_v1.npz")
+    ext = np.zeros((0, 5, prog.n_inputs), np.int32)
+    spec = ExecutionSpec(kernel="fused", device=str(cuda_device))
+    assert prog.engine(spec).fused_path == "run"
+    before = _snn_counts()
+    spikes, v, st = prog.run(ext, spec)
+    assert _snn_counts() == before
+    want = prog.run(ext, ExecutionSpec(kernel="reference",
+                                       device=str(cuda_device)))
+    for got, ref in ((spikes, want[0]), (v, want[1]),
+                     (st["packet_counts"], want[2]["packet_counts"])):
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert spikes.shape == (0, 5, 320) and v.shape == (0, 320)
+
+
 @pytest.mark.parametrize("shape", [(320,), (8, 320), (17, 126)])
 @pytest.mark.parametrize("leak_shift", [1, 2, 4])
 def test_lif_update_int_kernel(cuda_device, shape, leak_shift):
@@ -172,13 +314,14 @@ def test_engine_on_card_reproduces_golden(cuda_device, name, tier):
         want = (io["spikes"], io["v_final"],
                 {"packet_counts": io["packet_counts"],
                  "mean_packets_per_step": float(io["packet_counts"].mean())})
-    counts = (fused_step.launches, lif_update_int.launches)
+    counts = _snn_counts()
     got = prog.run(ext, ExecutionSpec(kernel=tier))
     assert_same_run(got, want, f"{name}/{tier}")
     steps = ext.shape[-2]
-    grew = (fused_step.launches - counts[0], lif_update_int.launches - counts[1])
-    assert grew == {"fused": (steps, 0), "lif": (0, steps),
-                    "reference": (0, 0)}[tier]
+    grew = tuple(a - b for a, b in zip(_snn_counts(), counts))
+    # both goldens' planes fit a cluster: one fused_run a run
+    assert grew == {"fused": (1, 0, 0), "lif": (0, 0, steps),
+                    "reference": (0, 0, 0)}[tier]
 
 
 @pytest.mark.parametrize("shape", [(1, 7, 5), (8, 513, 257), (32, 700, 300),
@@ -421,7 +564,8 @@ def test_port_compiled_program_on_both_kernel_tiers(cuda_device, method):
     """A Program the port compiled itself (a recurrent 1200-synapse graph
     on 8 SPUs, on 4 chips for ``hypergraph``) runs on the ``"fused"`` and
     ``"lif"`` tiers on the card bit for bit as the ``"reference"`` tier
-    and the oracle, with exactly T launches of each tier's kernel."""
+    and the oracle, with exactly one ``fused_run`` (its plane fits a
+    cluster) and T ``lif_update_int`` launches."""
     from repro_torch.core import HardwareConfig, compile, random_graph
     g = random_graph(16, 32, 1200, seed=4)
     hw = HardwareConfig(n_spus=8, unified_mem_depth=48, concentration=3,
@@ -435,10 +579,11 @@ def test_port_compiled_program_on_both_kernel_tiers(cuda_device, method):
     want = prog.run(ext, ExecutionSpec(kernel="reference"))
     assert_same_run(prog.run(ext, ExecutionSpec(engine="oracle")), want,
                     "oracle")
-    for tier, kernel in (("fused", fused_step), ("lif", lif_update_int)):
+    for tier, kernel, n in (("fused", fused_run, 1),
+                            ("lif", lif_update_int, 30)):
         before = kernel.launches
         got = prog.run(ext, ExecutionSpec(kernel=tier))
-        assert kernel.launches == before + 30, tier
+        assert kernel.launches == before + n, tier
         assert_same_run(got, want, f"port-compiled {method} on {tier}")
 
 
@@ -622,11 +767,12 @@ def test_lm_prefill_launches_one_kernel_per_layer(cuda_device, name):
 @pytest.mark.parametrize("tier", ["fused", "lif"])
 def test_graphed_loop_matches_eager_and_reference(cuda_device, tier):
     """Every captured bucket, at T = 100 and an odd T, replays the same
-    bits as the eager loop and the reference tier, counts T launches per
-    replay, and a shape not captured still runs eagerly."""
+    bits as the eager loop and the reference tier, counts one
+    ``fused_run`` (the SHD plane fits) or T ``lif_update_int`` launches
+    per replay, and a shape not captured still runs eagerly."""
     prog = Program.load(GOLDEN / "shd_program_v1.npz")
     spec = ExecutionSpec(kernel=tier, device=str(cuda_device))
-    kernel = fused_step if tier == "fused" else lif_update_int
+    kernel = fused_run if tier == "fused" else lif_update_int
     graphed = prog.engine(spec)
     eager = TorchMappedEngine(prog.graph, prog.lowered, spec)
     rng = np.random.default_rng(11)
@@ -638,7 +784,8 @@ def test_graphed_loop_matches_eager_and_reference(cuda_device, tier):
                    ).astype(np.int32)
             before = kernel.launches
             got = graphed.run(ext)
-            assert kernel.launches - before == t_steps
+            assert kernel.launches - before == (1 if tier == "fused"
+                                                else t_steps)
             assert ((b, t_steps) in graphed._graphs) == (b != 3)
             assert_same_run(got, eager.run(ext), f"{tier} B={b} eager")
             assert_same_run(got, prog.run(ext, ExecutionSpec(
@@ -650,7 +797,8 @@ def test_graphed_loop_matches_eager_and_reference(cuda_device, tier):
 def test_precompile_is_idempotent_and_counts_replays(cuda_device, tier):
     prog = Program.load(GOLDEN / "shd_program_v1.npz")
     spec = ExecutionSpec(kernel=tier, device=str(cuda_device))
-    kernel = fused_step if tier == "fused" else lif_update_int
+    kernel = fused_run if tier == "fused" else lif_update_int
+    per_run = 1 if tier == "fused" else 9
     assert prog.precompile((2, 4), 9, spec) == [(2, 9), (4, 9)]
     graphs = dict(prog.engine(spec)._graphs)
     before = kernel.launches
@@ -661,7 +809,7 @@ def test_precompile_is_idempotent_and_counts_replays(cuda_device, tier):
     for _ in range(3):
         shape.replay()
     torch.cuda.synchronize()
-    assert kernel.launches - before == 3 * 9
+    assert kernel.launches - before == 3 * per_run
 
 
 def test_failed_capture_raises(cuda_device):
@@ -676,10 +824,11 @@ def test_failed_capture_raises(cuda_device):
         buf.v.cpu()
 
     eng._run_card = syncing
-    before = fused_step.launches
+    before = fused_run.launches
     with pytest.raises(RuntimeError):
         eng.precompile((2,), 5)
-    assert not eng._graphs and fused_step.launches == before + 5
+    # the warm run before the capture counts; the capture's launch not
+    assert not eng._graphs and fused_run.launches == before + 1
 
 
 @pytest.mark.parametrize("name", ["tiny", "shd"])
@@ -703,7 +852,8 @@ def test_sharded_two_shards_on_one_card(cuda_device, tier):
     prog = Program.load(GOLDEN / "shd_program_v1.npz")
     dev = str(cuda_device)
     spec = ExecutionSpec(kernel=tier, device=dev)
-    kernel = fused_step if tier == "fused" else lif_update_int
+    kernel = fused_run if tier == "fused" else lif_update_int
+    per_run = 1 if tier == "fused" else 20
     runner = ShardedRunner(prog, spec=ExecutionSpec(kernel=tier,
                                                     mesh=(dev, dev)),
                            min_shard=0)
@@ -713,7 +863,7 @@ def test_sharded_two_shards_on_one_card(cuda_device, tier):
         ext = (rng.random((b, 20, prog.n_inputs)) < 0.1).astype(np.int32)
         before = kernel.launches
         got = runner.run(ext)
-        assert kernel.launches - before == 2 * 20
+        assert kernel.launches - before == 2 * per_run
         assert_same_run(got, prog.run(ext, spec), f"{tier} B={b}")
 
 
@@ -974,17 +1124,19 @@ def _port_scheduled(method):
 @pytest.mark.parametrize("tier", ["fused", "lif"])
 def test_port_scheduled_programs_run_bit_exact(cuda_device, method, tier):
     """Each strategy's program verifies clean and runs B = 8, T = 100 on
-    the kernel tier with T launches, bit-exact with the reference tier
-    and the golden's recorded io (the schedule moves slots, not math)."""
+    the kernel tier (one ``fused_run``, the plane fitting; T
+    ``lif_update_int``), bit-exact with the reference tier and the
+    golden's recorded io (the schedule moves slots, not math)."""
     prog = _port_scheduled(method)
     assert prog.verify().ok
     with np.load(GOLDEN / "shd_program_v1_io.npz") as io:
         io = {k: np.concatenate([io[k], io[k]]) for k in io.files}
-    kernel = fused_step if tier == "fused" else lif_update_int
+    kernel = fused_run if tier == "fused" else lif_update_int
     spec = ExecutionSpec(kernel=tier, device=str(cuda_device))
     before = kernel.launches
     got = prog.run(io["ext"], spec)
-    assert kernel.launches - before == io["ext"].shape[1]
+    assert kernel.launches - before == (1 if tier == "fused"
+                                        else io["ext"].shape[1])
     assert_same_run(got, prog.run(io["ext"], ExecutionSpec(
         kernel="reference", device=str(cuda_device))), f"{method} {tier}")
     assert_same_run(got, (io["spikes"], io["v_final"],
@@ -1006,13 +1158,13 @@ def test_verify_gate_refuses_before_any_capture(cuda_device):
     bad.report.scores[0] += 1
     t = bad.tables
     t.send_slot[max(t.send_slot, key=t.send_slot.__getitem__)] = 0
-    before = fused_step.launches
+    before = _snn_counts()
     with pytest.raises(ValueError, match="MEM002") as info:
         reg.register("bad", bad, verify=True, precompile=(8,),
                      timesteps=100, spec=spec)
     assert "SCHED006" in str(info.value)
     assert "bad" not in reg and not bad._engines
-    assert fused_step.launches == before
+    assert _snn_counts() == before
 
 
 # -- LM training on the card --------------------------------------------------

@@ -30,7 +30,10 @@ imports first) imports the dry run, its counter and the public kernel
 wrappers, calls the wrappers and runs a reduced model's dry-run cell
 (``train_4k`` on the 256-rank fake group) through the CLI; another (one
 per module it imports first) imports the paper's examples and runs the
-quickstart and a narrow SHD SRNN's ``deploy``.
+quickstart and a narrow SHD SRNN's ``deploy``; another (one per module
+it imports first) imports the whole-run kernel's module and runs
+``fused_run``'s plain version, its emulation, the shape rule and the
+fused engine's run path.
 ``chip_smoke.py`` must fail, and print no result, without a CUDA card
 and outside the repo.
 """
@@ -712,6 +715,57 @@ def test_paper_examples_run_without_jax(first):
     hidden layer) on the fused tier's plain version and the oracle, with
     the paper's examples imported without jax, each module first."""
     out = subprocess.run([sys.executable, "-c", PAPER_WITHOUT_JAX, first],
+                         env=_env(PYTHONPATH=str(ROOT / "src")),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
+FUSED_RUN_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+sys.modules["repro"] = None
+import numpy as np, torch
+first = sys.argv[1]
+__import__(first)
+from repro_torch.core import ExecutionSpec, Program
+from repro_torch.kernels.fused_step import (fused_path, fused_run,
+    fused_run_emulated, fused_run_ref, pack_dense, pack_plane,
+    run_smem_bytes)
+prog = Program.load(sys.argv[2])
+w = torch.from_numpy(pack_dense(prog.lowered).weight)
+assert fused_path(w, prog.n_inputs) == "run"
+assert run_smem_bytes(4, 700, 320) > 232448
+rng = np.random.default_rng(0)
+ext = torch.from_numpy((rng.random((6, 3, prog.n_inputs)) < 0.3)
+                       .astype(np.int32))
+p = prog.graph.lif
+want = fused_run_ref(ext, w, p)
+for got in (fused_run(ext, w, p), fused_run_emulated(ext, pack_plane(w), p)):
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+eng = prog.engine(ExecutionSpec(device="cpu"))
+assert eng.fused_path == "run"
+s, v, st = eng.run(ext.numpy().transpose(1, 0, 2))
+assert np.array_equal(s, want[0].numpy().transpose(1, 0, 2))
+assert np.array_equal(v, want[1].numpy())
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")
+       and sys.modules[m] is not None]
+assert not bad, bad
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("first", ["repro_torch.kernels.fused_step",
+                                   "repro_torch.core.engine_torch"])
+def test_fused_run_runs_without_jax(first):
+    """The whole-run kernel's module imported without jax, each module
+    first: ``fused_run``'s plain version and its emulation agree, the
+    shape rule's mirror answers, and the fused engine takes the run
+    path on the tiny golden on the CPU."""
+    tiny = ROOT / "tests" / "golden" / "tiny_program_v1.npz"
+    out = subprocess.run([sys.executable, "-c", FUSED_RUN_WITHOUT_JAX, first,
+                          str(tiny)],
                          env=_env(PYTHONPATH=str(ROOT / "src")),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
