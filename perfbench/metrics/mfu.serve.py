@@ -1,0 +1,11 @@
+"""The whole request path's share of the card's int8 peak: 2 x
+synapses x T operations a request, over the requests completed in the
+window."""
+
+
+def read(ctx):
+    if ctx.window.unit != "requests":
+        return None
+    ops = 2 * ctx.net["synapses"] * ctx.net["timesteps"] * \
+        ctx.window.completed
+    return 100.0 * ops / ctx.window.seconds / ctx.peaks.INT8_OPS_PER_S
